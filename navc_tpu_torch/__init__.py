@@ -1,0 +1,22 @@
+"""navc_tpu_torch — the PyTorch / NVIDIA H100 port of ``navc_tpu``.
+
+A package of its own beside the JAX one: it imports ``torch`` and numpy and
+nothing of JAX or ``navc_tpu``. The JAX package stays the reference, and the
+tests hold every module here against its counterpart there.
+
+This slice covers the NACF serving path (mask-predict decoding with the
+coarse-template pass and AR-teacher rescoring). The four Pallas kernels that
+path reaches in ``navc_tpu`` are hand-written CUDA kernels here
+(``csrc/``), built with ``nvcc`` for ``sm_90a`` at first use.
+
+Package layout (mirrors ``navc_tpu``):
+    constants   token ids (copy of navc_tpu.constants)
+    config      config tree + method registry (copy of navc_tpu.config)
+    convert     flax ``variables`` tree (numpy leaves) -> port modules
+    models      nn.Module model stack
+    ops         masks, selection, kernel gates, the kernel wrappers
+    decoding    length beam + mask-predict refinement
+    runtime     StreamingCaptioner serving entry
+"""
+
+__version__ = "0.1.0"

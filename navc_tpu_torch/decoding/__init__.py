@@ -1,0 +1,4 @@
+"""Decoding: length beam + mask-predict refinement (navc_tpu.decoding)."""
+
+from .length_beam import build_canvas, predict_length_beam  # noqa: F401
+from .mask_predict import make_nar_generator  # noqa: F401

@@ -1,0 +1,66 @@
+"""Single source of truth for the kernel gates.
+
+Port of navc_tpu/ops/eligibility.py with the same predicates, so the gates
+of the two packages cannot drift apart. The JAX package's ``NAVC_*``
+environment kill-switches are not carried over: the port's gates read the
+configuration only. ``cfg.use_pallas`` keeps its name and means "use the
+hand-written CUDA kernels".
+"""
+
+from __future__ import annotations
+
+from ..config import Config
+
+
+def fused_layer_eligible(cfg: Config, causal: bool) -> bool:
+    """Can the fused decoder-layer kernel replace ``BertDecoder``?
+
+    The kernel covers 1 decoder layer, no pos-attention, no attention
+    LayerNorm, softmax attention and gelu_new; ``causal`` forwards need
+    ``watch == 0`` (Decoder.py:23-39), NAR forwards enhance_input 0 or 2
+    (the resampling gather, Decoder.py:41-54, is not in the kernel).
+    """
+    ok = (cfg.use_pallas
+          and cfg.num_hidden_layers_decoder == 1
+          and not cfg.pos_attention
+          and not cfg.with_layernorm
+          and not cfg.use_sigmoid_to_get_attprob
+          and cfg.hidden_act == "gelu_new")
+    if causal:
+        return ok and cfg.watch == 0
+    return ok and cfg.enhance_input in (0, 2)
+
+
+def fused_vocab_eligible(cfg: Config) -> bool:
+    """Can the fused projection (+argmax / gather) kernels be used? Both the
+    untied and the tied (table + bias) projections are covered."""
+    return cfg.use_pallas
+
+
+def fused_teacher_eligible(cfg: Config, teacher_cfg: Config) -> bool:
+    """Can the AR teacher rescoring use the causal layer kernel + the
+    gather-prob kernel? (the student cfg carries the switch)"""
+    t = teacher_cfg.replace(use_pallas=True)
+    return (cfg.use_pallas
+            and fused_layer_eligible(t, causal=True)
+            and fused_vocab_eligible(t))
+
+
+def fused_decode_eligible(cfg: Config, teacher_cfg: Config = None) -> bool:
+    """Does the ENTIRE NAR decode run through the kernels (student forward,
+    and teacher rescoring when a teacher takes part)? Only then does the
+    generator run on an 8-aligned canvas — the plain paths index the position
+    table at canvas width."""
+    ok = fused_layer_eligible(cfg, causal=False) and fused_vocab_eligible(cfg)
+    if teacher_cfg is not None:
+        ok = ok and fused_teacher_eligible(cfg, teacher_cfg)
+    return ok
+
+
+def fused_sparse_eligible(cfg: Config) -> bool:
+    """Can mask-predict use the sparse-query refinement steps? Needs the
+    fused NAR layer + projection and the 'mp' paradigm, whose mask counts
+    shrink per iteration (algorithms.py:255-257)."""
+    return (fused_layer_eligible(cfg, causal=False)
+            and fused_vocab_eligible(cfg)
+            and cfg.paradigm == "mp")

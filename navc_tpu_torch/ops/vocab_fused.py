@@ -1,0 +1,159 @@
+"""Vocab projection fused with an online softmax: argmax / gather-prob.
+
+Port of navc_tpu/ops/vocab_fused.py. The NAR refinement loop needs three
+scalars per token position from the (N, V) projection (reference
+algorithms.py:7-15): the argmax id, its softmax probability, and, for the
+teacher rescoring (algorithms.py:196-200), the probability of a given id.
+The kernels (csrc/vocab_fused.cu) compute them without writing the logits.
+
+Each wrapper launches its CUDA kernel for CUDA tensors and raises if the
+build or the launch fails; only for CPU tensors does it run the plain
+version beside it. The plain versions are float32 PyTorch with the kernels'
+bf16 rounding points (bf16 operands, float32 products and softmax).
+
+W is taken in ``nn.Linear``'s own (V, D) layout — the projection weight, or
+the word-embedding table for a tied projection — as bf16, converted once
+(``projection_weights``), never per call.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from . import _build
+
+MAX_D = 768  # shared-memory bound of the kernel's staged tiles
+_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_SIGNATURES = {"navc_project_argmax": _ARGS, "navc_project_gather_prob": _ARGS}
+
+
+def _bf(x: torch.Tensor) -> torch.Tensor:
+    """Round to bf16 and come back to float32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _scores_plain(h, w, bias):
+    scores = _bf(h) @ _bf(w).t()
+    if bias is not None:
+        scores = scores + bias.to(torch.float32)
+    return scores
+
+
+def project_argmax_plain(h: torch.Tensor, w: torch.Tensor,
+                         bias: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(ids (R,) int32 — the first maximum, max prob (R,) f32) of
+    softmax(h @ w^T + bias); the plain version of ``project_argmax``."""
+    scores = _scores_plain(h, w, bias)
+    m = scores.max(dim=-1, keepdim=True).values
+    s = torch.exp(scores - m).sum(-1)
+    return scores.argmax(dim=-1).to(torch.int32), 1.0 / s
+
+
+def project_gather_prob_plain(h: torch.Tensor, w: torch.Tensor,
+                              targets: torch.Tensor,
+                              bias: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """softmax(h @ w^T + bias)[i, targets[i]] (R,) f32; the plain version of
+    ``project_gather_prob``."""
+    scores = _scores_plain(h, w, bias)
+    m = scores.max(dim=-1, keepdim=True).values
+    s = torch.exp(scores - m).sum(-1)
+    g = scores.gather(1, targets.to(torch.int64)[:, None])
+    return torch.exp(g - m)[:, 0] / s
+
+
+def _check(h, w, bias, targets=None):
+    if h.device.type != "cuda":
+        raise ValueError("the kernel takes CUDA tensors, got %s" % h.device)
+    if h.dim() != 2 or w.dim() != 2 or h.shape[1] != w.shape[1]:
+        raise ValueError("h (R, D) and w (V, D) expected, got %s and %s"
+                         % (tuple(h.shape), tuple(w.shape)))
+    if h.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        raise TypeError("h and w must be bfloat16, got %s and %s"
+                        % (h.dtype, w.dtype))
+    d = h.shape[1]
+    if d % 16 or d > MAX_D:
+        raise ValueError("D must be a multiple of 16 and at most %d, got %d"
+                         % (MAX_D, d))
+    tensors = [h, w] + [t for t in (bias, targets) if t is not None]
+    for t in tensors:
+        if t.device != h.device:
+            raise ValueError("all operands must be on %s" % h.device)
+        if not t.is_contiguous():
+            raise ValueError("operands must be contiguous")
+    if bias is not None and (bias.dtype != torch.float32
+                             or tuple(bias.shape) != (w.shape[0],)):
+        raise ValueError("bias must be float32 (V,)")
+    if targets is not None and (targets.dtype != torch.int32
+                                or tuple(targets.shape) != (h.shape[0],)):
+        raise ValueError("targets must be int32 (R,)")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def _stream(t: torch.Tensor):
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def project_argmax(h: torch.Tensor, w: torch.Tensor,
+                   bias: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """argmax id (int32) and max softmax prob (f32) of each row of
+    ``h @ w^T + bias``, lowest id on ties. h (R, D) bf16; w (V, D) bf16;
+    bias (V,) f32 or None."""
+    if h.device.type == "cpu":
+        return project_argmax_plain(h, w, bias)
+    _check(h, w, bias)
+    rows, d = h.shape
+    ids = torch.empty(rows, dtype=torch.int32, device=h.device)
+    maxp = torch.empty(rows, dtype=torch.float32, device=h.device)
+    if rows == 0:
+        return ids, maxp
+    lib = _build.load("vocab_fused", _SIGNATURES)
+    code = lib.navc_project_argmax(_ptr(h), _ptr(w), _ptr(bias), _ptr(ids),
+                                   _ptr(maxp), rows, d, w.shape[0], _stream(h))
+    _build.check(lib, code, "project_argmax")
+    _build.LAUNCHES["project_argmax"] += 1
+    return ids, maxp
+
+
+def project_gather_prob(h: torch.Tensor, w: torch.Tensor,
+                        targets: torch.Tensor,
+                        bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """softmax(h @ w^T + bias)[i, targets[i]] (R,) f32 without the logits.
+    h (R, D) bf16; w (V, D) bf16; targets (R,) int32; bias (V,) f32 or
+    None."""
+    if h.device.type == "cpu":
+        return project_gather_prob_plain(h, w, targets, bias)
+    _check(h, w, bias, targets)
+    rows, d = h.shape
+    prob = torch.empty(rows, dtype=torch.float32, device=h.device)
+    if rows == 0:
+        return prob
+    lib = _build.load("vocab_fused", _SIGNATURES)
+    code = lib.navc_project_gather_prob(_ptr(h), _ptr(w), _ptr(bias),
+                                        _ptr(targets), _ptr(prob), rows, d,
+                                        w.shape[0], _stream(h))
+    _build.check(lib, code, "project_gather_prob")
+    _build.LAUNCHES["project_gather_prob"] += 1
+    return prob
+
+
+def projection_weights(model) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(w (V, D) bf16, bias (V,) f32 or None) for the vocab projection.
+
+    Untied: the bias-free ``tgt_word_prj`` weight. Tied (reference
+    seq2seq.py:27-33): the word-embedding table plus the standalone bias.
+    Both are already (V, D); the bf16 copy is made here, once per caller.
+    """
+    w = model.projection_weight().detach().to(torch.bfloat16).contiguous()
+    bias = None
+    if model.tgt_word_prj is None:
+        bias = model.tgt_word_prj_bias.detach().to(torch.float32).contiguous()
+    return w, bias

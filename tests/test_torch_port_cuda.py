@@ -1,0 +1,194 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: each test asks for the ``cuda`` fixture, which skips when
+no NVIDIA card is present. chip_smoke.py checks the kernels at the NACF
+main path's shapes; these tests cover the other shapes the kernels accept —
+ragged row tiles, a vocab edge inside a tile, canvases and encoder lengths
+below 32, one query tile, H = 128 and 256 — plus the wrappers' refusals and
+launch counts. Run them on a machine with a card:
+
+    python3 -m pytest tests/test_torch_port_cuda.py -q --noconftest
+
+(``--noconftest``: the shared conftest imports JAX, which this file does
+not need.) Tolerances are chip_smoke.py's: hidden states 5e-2 absolute (a
+float32 sum-order flip of one bf16 rounding propagates through the layer),
+probabilities 1e-4 relative, ids equal where the top-2 logit margin is
+above 1e-3.
+"""
+
+import math
+
+import pytest
+import torch
+
+from navc_tpu_torch.ops import _build
+from navc_tpu_torch.ops.fused_layer import (LayerWeights, fused_layer,
+                                            fused_layer_plain, fused_layer_qsub,
+                                            fused_layer_qsub_plain)
+from navc_tpu_torch.ops.vocab_fused import (project_argmax,
+                                            project_argmax_plain,
+                                            project_gather_prob,
+                                            project_gather_prob_plain)
+
+HID_TOL = 5e-2
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: torch.cuda.is_available() is false")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _gen(seed):
+    return torch.Generator().manual_seed(seed)
+
+
+def _weights(h, inter, g, dev):
+    def mat(o, i):
+        return (torch.rand(o, i, generator=g) * 2 - 1).div(math.sqrt(i)).to(
+            dev, torch.bfloat16)
+
+    def vec(o):
+        return (torch.rand(o, generator=g) * 0.2 - 0.1).to(dev)
+
+    fields = {}
+    for name in ("q", "k", "v", "o"):
+        for sfx in ("s", "c"):
+            fields["w%s_%s" % (name, sfx)] = mat(h, h)
+            fields["b%s_%s" % (name, sfx)] = vec(h)
+    fields.update(wi=mat(inter, h), bi=vec(inter), wo2=mat(h, inter), bo2=vec(h))
+    return LayerWeights(**fields)
+
+
+def _layer_inputs(n, l, le, h, g, dev):
+    raw = torch.randn(n, l, h, generator=g).to(dev, torch.bfloat16)
+    static = torch.randn(n, l, h, generator=g).to(dev, torch.bfloat16)
+    lengths = torch.randint(1, l + 1, (n,), generator=g)
+    lengths[0] = l
+    kp = (torch.arange(l)[None] >= lengths[:, None]).to(dev)
+    ke = torch.randn(n, le, h, generator=g).to(dev, torch.bfloat16)
+    ve = torch.randn(n, le, h, generator=g).to(dev, torch.bfloat16)
+    lns = (1 + 0.1 * torch.randn(h, generator=g)).to(dev)
+    lnb = (0.1 * torch.randn(h, generator=g)).to(dev)
+    return raw, static, kp, ke, ve, lns, lnb
+
+
+LAYER_SHAPES = [  # n, L, Le, H, heads, FFN
+    (3, 32, 16, 512, 8, 2048),
+    (5, 10, 8, 128, 2, 256),
+    (4, 17, 20, 256, 16, 272),
+    (70, 16, 32, 128, 8, 128),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", LAYER_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("causal", [False, True], ids=["nar", "causal"])
+def test_fused_layer_matches_plain(cuda, shape, causal):
+    n, l, le, h, heads, inter = shape
+    g = _gen(sum(shape))
+    w = _weights(h, inter, g, cuda)
+    raw, static, kp, ke, ve, lns, lnb = _layer_inputs(n, l, le, h, g, cuda)
+    args = (raw, static, kp, ke, ve, w, lns, lnb)
+    before = _build.LAUNCHES["fused_layer"]
+    out = fused_layer(*args, n_head=heads, causal=causal)
+    assert _build.LAUNCHES["fused_layer"] == before + 1
+    ref = fused_layer_plain(*args, n_head=heads, causal=causal)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= HID_TOL
+    assert torch.all(out[kp] == 0)
+    out16 = fused_layer(*args, n_head=heads, causal=causal, out_dtype=torch.bfloat16)
+    assert out16.dtype == torch.bfloat16
+    assert torch.equal(out16, out.to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", LAYER_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("k", [5, 16, 24])
+def test_fused_layer_qsub_matches_plain_and_dense_rows(cuda, shape, k):
+    n, l, le, h, heads, inter = shape
+    k = min(k, l)
+    g = _gen(sum(shape) + k)
+    w = _weights(h, inter, g, cuda)
+    raw, static, kp, ke, ve, lns, lnb = _layer_inputs(n, l, le, h, g, cuda)
+    mask_row = torch.randn(h, generator=g).to(cuda, torch.bfloat16)
+    qidx = torch.full((n, k), -1, dtype=torch.int32)
+    for i in range(n):
+        real = int((~kp[i]).sum())
+        pos = torch.randperm(real, generator=g)[:min(k, real)].sort().values
+        qidx[i, :len(pos)] = pos.to(torch.int32)
+    qidx = qidx.to(cuda)
+    used = qidx >= 0
+    sel = torch.zeros(n, l, dtype=torch.bool, device=cuda)
+    rows_of = torch.arange(n, device=cuda)[:, None].expand(n, k)
+    sel[rows_of[used], qidx[used].long()] = True
+    raw = torch.where(sel[..., None], mask_row, raw)
+    args = (raw, static, kp, ke, ve, w, lns, lnb)
+    before = _build.LAUNCHES["fused_layer_qsub"]
+    out = fused_layer_qsub(qidx, mask_row, *args, n_head=heads)
+    assert _build.LAUNCHES["fused_layer_qsub"] == before + 1
+    ref = fused_layer_qsub_plain(qidx, mask_row, *args, n_head=heads)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= HID_TOL
+    assert torch.all(out[~used] == 0)
+    dense = fused_layer(*args, n_head=heads)
+    rows = torch.gather(dense, 1, qidx.clamp(min=0).long()[..., None].expand(-1, -1, h))
+    assert (out - rows)[used].abs().max().item() <= HID_TOL
+
+
+VOCAB_SHAPES = [  # rows, d, V
+    (1, 512, 10048), (70, 64, 50), (200, 16, 1001), (129, 512, 4099)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", VOCAB_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("with_bias", [False, True], ids=["nobias", "bias"])
+def test_vocab_kernels_match_plain(cuda, shape, with_bias):
+    r, d, v = shape
+    g = _gen(r * d + v + with_bias)
+    hid = torch.randn(r, d, generator=g).to(cuda, torch.bfloat16)
+    w = (torch.randn(v, d, generator=g) / math.sqrt(d)).to(cuda, torch.bfloat16)
+    bias = (torch.randn(v, generator=g) * 0.5).to(cuda) if with_bias else None
+    before = dict(_build.LAUNCHES)
+    ids, maxp = project_argmax(hid, w, bias)
+    ids_p, maxp_p = project_argmax_plain(hid, w, bias)
+    scores = hid.float() @ w.float().t() + (0 if bias is None else bias)
+    top2 = scores.topk(min(2, v), dim=-1).values
+    clear = (top2[:, 0] - top2[:, -1]) > 1e-3
+    assert torch.equal(ids[clear], ids_p[clear])
+    assert ((maxp - maxp_p).abs() / maxp_p).max().item() <= 1e-4
+    targets = torch.randint(0, v, (r,), generator=g).to(cuda, torch.int32)
+    prob = project_gather_prob(hid, w, targets, bias)
+    prob_p = project_gather_prob_plain(hid, w, targets, bias)
+    assert ((prob - prob_p).abs() / prob_p).max().item() <= 1e-4
+    assert _build.LAUNCHES["project_argmax"] == before["project_argmax"] + 1
+    assert _build.LAUNCHES["project_gather_prob"] == before["project_gather_prob"] + 1
+
+
+@pytest.mark.cuda
+def test_vocab_argmax_ties_go_to_the_lowest_id(cuda):
+    hid = torch.ones(3, 16, dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros(200, 16, dtype=torch.bfloat16, device=cuda)
+    w[[70, 9, 130]] = 1.0  # ties across tiles and threads
+    ids, maxp = project_argmax(hid, w)
+    assert ids.tolist() == [9, 9, 9]
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    g = _gen(0)
+    hid = torch.randn(4, 32, generator=g).to(cuda)
+    w = torch.randn(10, 32, generator=g).to(cuda, torch.bfloat16)
+    with pytest.raises(TypeError):
+        project_argmax(hid, w)                       # float32 h
+    with pytest.raises(ValueError):
+        project_argmax(hid.to(torch.bfloat16)[:, :24].contiguous(), w[:, :24].contiguous())
+    weights = _weights(128, 128, g, cuda)
+    raw, static, kp, ke, ve, lns, lnb = _layer_inputs(2, 40, 8, 128, g, cuda)
+    with pytest.raises(ValueError):                  # canvas longer than 32
+        fused_layer(raw, static, kp, ke, ve, weights, lns, lnb, n_head=2)
+    with pytest.raises(ValueError):                  # non-contiguous operand
+        fused_layer(raw[:, :16], static[:, :16].contiguous(),
+                    kp[:, :16].contiguous(), ke, ve, weights, lns, lnb, n_head=2)
