@@ -5,15 +5,20 @@ Run from the root of a checkout on a machine with one NVIDIA card:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from navc_tpu_torch/csrc with nvcc, holds
-each kernel against its plain PyTorch version on the card at the NACF main
-path's shapes and times both, then serves four 64-video requests through
-StreamingCaptioner with a full-width NACF student and ARB teacher (random
-weights from a seed), checks the launch counts and the outputs, profiles
-one more request with torch.profiler (device time by kernel, idle share),
-and decodes part of the first request again on the CPU through the plain
-versions. It exits non-zero on any failure, without a CUDA device, and
-outside a checkout. Imports nothing of JAX or navc_tpu.
+It builds the port's CUDA kernels from navc_tpu_torch/csrc with nvcc and
+drives the two ported serving paths at full width (random weights from a
+seed). NACF: each of K1-K4 held against its plain PyTorch version at the
+NACF main path's shapes and timed; four 64-video requests through
+StreamingCaptioner with an NACF student and ARB teacher, with the launch
+counts and outputs checked; one more request profiled with torch.profiler
+(device time by kernel, idle share); part of the first request decoded
+again on the CPU through the plain versions. ARB beam search: each of K5-K8
+held against its plain version at the ARB main path's shapes and timed;
+four 64-video requests (K5, K6, K7 once per beam step) and one 60-video
+request (K8 instead of K6) through StreamingCaptioner; one decode at
+B=1024 under bench.py's protocol; one request profiled; 16 videos decoded
+again on the CPU. It exits non-zero on any failure, without a CUDA device,
+and outside a checkout. Imports nothing of JAX or navc_tpu.
 
 Standard output ends with two JSON lines: {"kernels": [...]} and
 {"ok": true, "device": {...}}.
@@ -31,6 +36,10 @@ PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bytes/s
 N_VIDEOS, N_REQUESTS, CPU_VIDEOS = 64, 4, 8
 PER_DECODE = {"fused_layer": 3, "fused_layer_qsub": 4, "project_argmax": 6,
               "project_gather_prob": 1}
+PEAK_F32_FLOPS = 67e12     # H100 SXM float32 rate outside the tensor cores
+ARB_VIDEOS, ARB_RAGGED, ARB_BENCH, ARB_CPU = 64, 60, 1024, 16
+ARB_KERNELS = ("project_topk", "beam_attend_step", "cross_attend",
+               "permute_beam_caches")
 
 
 def log(msg):
@@ -58,8 +67,34 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def device_ms(fn, iters=20, warmup=3):
+    """Mean device milliseconds per call of a kernel too short to outrun its
+    host wrapper: a device-side sleep holds the card while the host queues
+    every call, so the events time the calls back to back and not the
+    host's launch rate. Doubles the sleep until the queue was full in time."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    cycles = 20_000_000
+    for _ in range(6):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued_in_time = not start.query()
+        torch.cuda.synchronize()
+        if queued_in_time:
+            return start.elapsed_time(end) / iters
+        cycles *= 2
+    die("device_ms: the host could not queue %d calls within the sleep" % iters)
+
+
+def bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -111,6 +146,286 @@ def device_breakdown(run):
         acc[0] += e.time_range.elapsed_us() / 1e3
         acc[1] += 1
     return window / 1e3, busy / 1e3, by_name
+
+
+def host_ops(run):
+    """Counter of the top-level PyTorch operators ``run`` issues on the host
+    (those not called from another operator), from torch.profiler."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run()
+        torch.cuda.synchronize()
+    ops = collections.Counter()
+    for e in prof.events():
+        parent = e.cpu_parent
+        if e.name.startswith("aten::") and (
+                parent is None or not parent.name.startswith("aten::")):
+            ops[e.name] += 1
+    return ops
+
+
+def print_profile(prof):
+    if prof is None:
+        log("profiler: no device activity recorded (breakdown not measured)")
+        return
+    window, busy, by_name = prof
+    log("profile of one request: window %.3f ms, device busy %.3f ms, "
+        "idle share %.3f" % (window, busy, 1.0 - busy / window))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    for name, (ms, count) in top[:14]:
+        log("  %8.3f ms %4d x  %s" % (ms, count, name[:90]))
+    rest = sum(ms for _, (ms, _) in top[14:])
+    log("  %8.3f ms        (%d other kernels)" % (rest, max(0, len(top) - 14)))
+
+
+def check_captions(hyp, b, max_len, v, eos, pad):
+    """(b, max_len - 1) int32 ids in [0, v); nothing but PAD after an EOS."""
+    import numpy as np
+
+    if hyp.shape != (b, max_len - 1) or hyp.dtype != np.int32:
+        die("ARB hypotheses of shape %s %s" % (hyp.shape, hyp.dtype))
+    if hyp.min() < 0 or hyp.max() >= v:
+        die("ARB token ids out of range")
+    after_eos = np.cumsum(hyp == eos, axis=1) - (hyp == eos) > 0
+    if np.any(hyp[after_eos] != pad):
+        die("ARB: a non-PAD token follows an EOS")
+
+
+def arb_phases(cfg, model, cpu_model, record):
+    """K5-K8 against their plain versions at the ARB main path's shapes, then
+    ARB serving through StreamingCaptioner. Returns ({kernel: record},
+    {kernel: launches on the ARB main path})."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from navc_tpu_torch import constants as C
+    from navc_tpu_torch.ops import _build
+    from navc_tpu_torch.ops.beam_attend import (beam_attend_step,
+                                                beam_attend_step_plain,
+                                                cross_attend,
+                                                cross_attend_plain)
+    from navc_tpu_torch.ops.beam_permute import (permute_beam_caches,
+                                                 permute_beam_caches_plain)
+    from navc_tpu_torch.ops.vocab_fused import (project_topk,
+                                                project_topk_plain,
+                                                projection_weights)
+    from navc_tpu_torch.runtime.serving import StreamingCaptioner
+
+    # the card's bf16 GEMMs accumulate in float32 throughout, as the CPU's
+    # do: the cached step's dense layers then round once, where the port
+    # (and flax Dense(dtype=bf16)) round
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    dev = torch.device("cuda")
+    h, nh, v, k, l = (cfg.dim_hidden, cfg.num_attention_heads, cfg.vocab_size,
+                      cfg.beam_size, cfg.max_len)
+    b = ARB_VIDEOS
+    n, te = b * k, len(cfg.modality) * cfg.n_frames
+    log("ARB d=%d heads=%d ffn=%d vocab=%d max_len=%d beam=%d alpha=%.2f "
+        "Te=%d: %d videos = %d beam rows" % (h, nh, cfg.intermediate_size, v, l,
+                                             k, cfg.beam_alpha, te, b, n))
+    g = torch.Generator(device="cpu").manual_seed(321)
+    recs = {}
+
+    # K5: projection + top-k, with and without a bias
+    w16, _ = projection_weights(model)
+    hid = (torch.randn(n, h, generator=g) * 2).to(dev, torch.bfloat16)
+    bias = (torch.randn(v, generator=g) * 0.1).to(dev)
+    scores = hid.float() @ w16.float().t()
+    err = 0.0
+    for bb in (None, bias):
+        lp, ids = project_topk(hid, w16, k, bb)
+        lp_p, ids_p = project_topk_plain(hid, w16, k, bb)
+        sc = scores if bb is None else scores + bb
+        srt = sc.sort(dim=-1, descending=True).values[:, :k + 1]
+        clear = (srt[:, :-1] - srt[:, 1:]) > 1e-3
+        bad = int(((ids != ids_p) & clear).sum())
+        log("project_topk%s ids: %d of %d differ where the gap to the next "
+            "candidate > 1e-3 (%d within 1e-3)" % (
+                "" if bb is None else "[bias]", bad, n * k, int((~clear).sum())))
+        if bad:
+            die("project_topk ids disagree with the plain version")
+        err = max(err, float((lp - lp_p).abs().max()))
+    recs["project_topk"] = record(
+        "project_topk", err, 1e-4,
+        device_ms(lambda: project_topk(hid, w16, k)),
+        device_ms(lambda: project_topk_plain(hid, w16, k), iters=5),
+        2 * n * h * v, n * h * 2 + v * h * 2 + n * k * 8,
+        lib_ms=device_ms(lambda: torch.matmul(hid, w16.t())),
+        note="  (max_err: log-prob, absolute)")
+
+    # K6: single steps at tpos 0, 14, 29, then every step of a decode
+    def step_inputs(tpos):
+        q, kt, vt = (torch.randn(n, h, generator=g).to(dev) for _ in range(3))
+        prev_k = torch.randint(0, k, (b, k), generator=g).to(dev, torch.int32)
+        mask = torch.arange(l)[None, :] > tpos
+        mask = mask | ((torch.rand(n, l, generator=g) < 0.1) & (torch.arange(l) > 0))
+        mask[:, tpos] = False
+        return q, kt, vt, prev_k, torch.where(mask, -1e7, 0.0).to(dev)
+
+    def caches():
+        return tuple(torch.randn(n, l * h, generator=g).to(dev, torch.bfloat16)
+                     for _ in range(2))
+
+    def step_err(kc, vc, args, tpos):
+        rk, rv = kc.clone(), vc.clone()
+        ok, ov, att = beam_attend_step(kc, vc, *args, tpos, nh)
+        rk, rv, ratt = beam_attend_step_plain(rk, rv, *args, tpos, nh)
+        lim = (tpos + 1) * h
+        if not (torch.equal(ok[:, :lim], rk[:, :lim])
+                and torch.equal(ov[:, :lim], rv[:, :lim])):
+            die("beam_attend_step caches differ from the plain version at "
+                "tpos %d" % tpos)
+        return float((att - ratt).abs().max())
+
+    err = 0.0
+    for tpos in (0, 14, 29):
+        err = max(err, step_err(*caches(), step_inputs(tpos), tpos))
+    kc = torch.zeros(n, l * h, dtype=torch.bfloat16, device=dev)
+    vc = torch.zeros_like(kc)
+    for tpos in range(l - 1):
+        args = step_inputs(tpos)
+        if tpos == 0:
+            args[3].zero_()
+        err = max(err, step_err(kc, vc, args, tpos))
+    log("beam_attend_step: single steps at tpos 0, 14, 29 and a chained "
+        "%d-step decode agree with the plain version" % (l - 1))
+    tpos = 14
+    kc, vc = caches()
+    args = step_inputs(tpos)
+    pk, pv = kc.clone(), vc.clone()
+    att_bytes = (2 * n * tpos * h * 2 + 3 * n * h * 4 + n * 4 + n * (tpos + 1) * 4
+                 + 2 * n * (tpos + 1) * h * 2 + n * h * 4)
+    recs["beam_attend_step"] = record(
+        "beam_attend_step", err, 1e-4,
+        device_ms(lambda: beam_attend_step(kc, vc, *args, tpos, nh)),
+        device_ms(lambda: beam_attend_step_plain(pk, pv, *args, tpos, nh), iters=5),
+        4 * n * (tpos + 1) * h, att_bytes, peak=PEAK_F32_FLOPS,
+        note="  (tpos %d; max_err: attention, absolute; library_ms null: no "
+             "one PyTorch call permutes, appends and attends)" % tpos)
+
+    # K7: cross-attention over the Te encoder positions
+    q = torch.randn(n, h, generator=g).to(dev)
+    ke = torch.randn(b, te, h, generator=g).to(dev, torch.bfloat16)
+    ve = torch.randn(b, te, h, generator=g).to(dev, torch.bfloat16)
+    err = float((cross_attend(q, ke, ve, nh) - cross_attend_plain(q, ke, ve, nh)
+                 ).abs().max())
+    dh = h // nh
+    q4 = q.to(torch.bfloat16).view(b, k, nh, dh).transpose(1, 2)
+    k4 = ke.view(b, te, nh, dh).transpose(1, 2)
+    v4 = ve.view(b, te, nh, dh).transpose(1, 2)
+    recs["cross_attend"] = record(
+        "cross_attend", err, 1e-4, device_ms(lambda: cross_attend(q, ke, ve, nh)),
+        device_ms(lambda: cross_attend_plain(q, ke, ve, nh), iters=5),
+        4 * n * te * h, n * h * 4 + 2 * b * te * h * 2 + n * h * 4,
+        lib_ms=device_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4)),
+        peak=PEAK_F32_FLOPS, note="  (max_err: absolute; library: bf16 SDPA)")
+
+    # K8: the cache permute
+    kc, vc = caches()
+    prev_k = torch.randint(0, k, (b, k), generator=g).to(dev, torch.int32)
+    ok, ov = permute_beam_caches(kc, vc, prev_k)
+    rk, rv = permute_beam_caches_plain(kc, vc, prev_k)
+    if not (torch.equal(ok, rk) and torch.equal(ov, rv)):
+        die("permute_beam_caches differs from the plain version")
+    src = (torch.arange(b, device=dev)[:, None] * k + prev_k.long()).reshape(n)
+    recs["permute_beam_caches"] = record(
+        "permute_beam_caches", 0.0, 0.0,
+        device_ms(lambda: permute_beam_caches(kc, vc, prev_k)),
+        device_ms(lambda: permute_beam_caches_plain(kc, vc, prev_k), iters=5),
+        0, 4 * n * l * h * 2 + n * 4,
+        lib_ms=device_ms(lambda: (kc.index_select(0, src), vc.index_select(0, src))),
+        note="  (exact; library: index_select of both caches)")
+    torch.cuda.synchronize()
+
+    # ARB serving: 4 requests of 64 videos, then one of 60
+    rng = np.random.RandomState(17)
+
+    def request(videos):
+        feats = [rng.randn(videos, cfg.n_frames, d).astype(np.float32)
+                 for d in cfg.modality_dims]
+        return feats, rng.randint(0, cfg.num_category, (videos, 1)).astype(np.int64)
+
+    cap = StreamingCaptioner(cfg, model, depth=2)
+    list(cap.map_stream([request(b), request(ARB_RAGGED)]))  # first use
+    torch.cuda.synchronize()
+    reqs = [request(b) for _ in range(N_REQUESTS)]
+    steps0 = cap.generate.steps_run
+    _build.reset_launches()
+    outs, per_request = cap.timed_stream(reqs)
+    launches = {name: _build.LAUNCHES[name] for name in ARB_KERNELS}
+    steps = cap.generate.steps_run - steps0
+    log("ARB main path: %d requests x %d videos, %.2f ms per request (%.1f "
+        "captions/s, host clock, depth 2); %d beam steps (%.2f per decode); "
+        "launches %s" % (N_REQUESTS, b, per_request * 1e3, b / per_request,
+                         steps, steps / N_REQUESTS, launches))
+    for name, want in (("project_topk", steps), ("beam_attend_step", steps),
+                       ("cross_attend", steps), ("permute_beam_caches", 0)):
+        if launches[name] != want:
+            die("ARB: %s launched %d times, expected %d" % (name, launches[name], want))
+    for hyp in outs:
+        check_captions(hyp, b, l, v, C.EOS, C.PAD)
+
+    ragged = request(ARB_RAGGED)
+    steps0 = cap.generate.steps_run
+    _build.reset_launches()
+    (hyp60,) = cap.map_stream([ragged])
+    ragged_launches = {name: _build.LAUNCHES[name] for name in ARB_KERNELS}
+    steps = cap.generate.steps_run - steps0
+    log("ARB %d-video request: %d beam steps; launches %s"
+        % (ARB_RAGGED, steps, ragged_launches))
+    for name, want in (("project_topk", steps), ("beam_attend_step", 0),
+                       ("cross_attend", 0), ("permute_beam_caches", steps)):
+        if ragged_launches[name] != want:
+            die("ARB %d videos: %s launched %d times, expected %d"
+                % (ARB_RAGGED, name, ragged_launches[name], want))
+    check_captions(hyp60, ARB_RAGGED, l, v, C.EOS, C.PAD)
+    launches["permute_beam_caches"] = ragged_launches["permute_beam_caches"]
+
+    # bench.py's protocol (bench.py:296-318): encode outside the timed region
+    big = request(ARB_BENCH)
+    with torch.no_grad():
+        enc = model.encode([torch.as_tensor(f).to(dev) for f in big[0]])
+    cat = torch.as_tensor(big[1]).to(dev)
+    cap.generate(enc, cat)[0].cpu()
+    iters = 3
+    steps0 = cap.generate.steps_run
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        hyp = cap.generate(enc, cat)[0].cpu()
+    dt = time.perf_counter() - t0
+    log("ARB decode at B=%d (bench.py protocol, %d decodes, %.1f beam steps "
+        "each): %.2f ms per decode, %.1f captions/s, peak memory %.2f GB" % (
+            ARB_BENCH, iters, (cap.generate.steps_run - steps0) / iters,
+            dt / iters * 1e3, ARB_BENCH * iters / dt,
+            torch.cuda.max_memory_allocated() / 1e9))
+    check_captions(hyp.numpy(), ARB_BENCH, l, v, C.EOS, C.PAD)
+
+    print_profile(device_breakdown(lambda: list(cap.map_stream([request(b)]))))
+    steps0 = cap.generate.steps_run
+    ops = host_ops(lambda: list(cap.map_stream([request(b)])))
+    steps = cap.generate.steps_run - steps0
+    log("host: %.1f top-level PyTorch ops per beam step (%d steps); most "
+        "frequent: %s" % (sum(ops.values()) / steps, steps, ", ".join(
+            "%s %.1f" % (name, count / steps) for name, count in ops.most_common(8))))
+
+    # the first request's first videos again, on the CPU, plain versions; 16
+    # videos take the card's route (K6 + K7: a multiple of 16), whose softmax
+    # weights stay float32
+    feats, cats = reqs[0]
+    cpu_cap = StreamingCaptioner(cfg, cpu_model, depth=0, device="cpu")
+    t0 = time.perf_counter()
+    (cpu_hyp,) = cpu_cap.map_stream([([f[:ARB_CPU] for f in feats], cats[:ARB_CPU])])
+    agree = float((cpu_hyp == outs[0][:ARB_CPU]).mean())
+    log("ARB CPU plain decode of %d videos (%.1f s): token agreement %.4f"
+        % (ARB_CPU, time.perf_counter() - t0, agree))
+    if agree < 0.99:
+        die("ARB token agreement with the CPU plain path %.4f < 0.99" % agree)
+    return recs, launches
 
 
 def main():
@@ -192,8 +507,9 @@ def main():
     raw = ops.word16[tokens.long()]
     lw = (ops.layer, ops.ln_scale, ops.ln_bias)
 
-    def record(name, err, tol, ms, plain_ms, flops, nbytes, lib_ms=None, note=""):
-        b_ms, b_by = bound(flops, nbytes)
+    def record(name, err, tol, ms, plain_ms, flops, nbytes, lib_ms=None, note="",
+               peak=PEAK_BF16_FLOPS):
+        b_ms, b_by = bound(flops, nbytes, peak)
         log("%-20s max_err %.3e (tol %.1e)  kernel_ms %.4f  plain_ms %.4f  "
             "library_ms %s  bound_ms %.4f (%s)%s" % (
                 name, err, tol, ms, plain_ms,
@@ -372,18 +688,7 @@ def main():
 
     # where one request's time goes on the card (not counted above)
     extra = request()
-    prof = device_breakdown(lambda: list(cap.map_stream([extra])))
-    if prof is None:
-        log("profiler: no device activity recorded (breakdown not measured)")
-    else:
-        window, busy, by_name = prof
-        log("profile of one request: window %.3f ms, device busy %.3f ms, "
-            "idle share %.3f" % (window, busy, 1.0 - busy / window))
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-        for name, (ms, count) in top[:14]:
-            log("  %8.3f ms %4d x  %s" % (ms, count, name[:90]))
-        rest = sum(ms for _, (ms, _) in top[14:])
-        log("  %8.3f ms        (%d other kernels)" % (rest, max(0, len(top) - 14)))
+    print_profile(device_breakdown(lambda: list(cap.map_stream([extra]))))
 
     # the first request's first videos again, on the CPU, plain versions
     cpu_model = build_model(cfg, device="cpu", generator=seeded(0))
@@ -400,10 +705,13 @@ def main():
     if agree < 0.99:
         die("token agreement with the CPU plain path %.4f < 0.99" % agree)
 
-    # -- 5. results -----------------------------------------------------------
-    def entry(name, source, replaces, rec):
+    # -- 5. ARB beam search ----------------------------------------------------
+    arb_recs, arb_launches = arb_phases(tcfg, teacher, cpu_teacher, record)
+
+    # -- 6. results -----------------------------------------------------------
+    def entry(name, source, replaces, rec, counts=launches):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
-                    launches=launches[name], **rec)
+                    launches=counts[name], **rec)
 
     kernels = [
         entry("fused_layer", "navc_tpu_torch/csrc/fused_layer.cu",
@@ -414,6 +722,18 @@ def main():
               "navc_tpu/ops/vocab_fused.py:128", rec_k3),
         entry("project_gather_prob", "navc_tpu_torch/csrc/vocab_fused.cu",
               "navc_tpu/ops/vocab_fused.py:229", rec_k4),
+        entry("project_topk", "navc_tpu_torch/csrc/vocab_fused.cu",
+              "navc_tpu/ops/vocab_fused.py:350", arb_recs["project_topk"],
+              arb_launches),
+        entry("beam_attend_step", "navc_tpu_torch/csrc/beam_attend.cu",
+              "navc_tpu/ops/beam_attend.py:371", arb_recs["beam_attend_step"],
+              arb_launches),
+        entry("cross_attend", "navc_tpu_torch/csrc/beam_attend.cu",
+              "navc_tpu/ops/beam_attend.py:301", arb_recs["cross_attend"],
+              arb_launches),
+        entry("permute_beam_caches", "navc_tpu_torch/csrc/beam_permute.cu",
+              "navc_tpu/ops/beam_permute.py:101",
+              arb_recs["permute_beam_caches"], arb_launches),
     ]
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -4,10 +4,11 @@ A package of its own beside the JAX one: it imports ``torch`` and numpy and
 nothing of JAX or ``navc_tpu``. The JAX package stays the reference, and the
 tests hold every module here against its counterpart there.
 
-This slice covers the NACF serving path (mask-predict decoding with the
-coarse-template pass and AR-teacher rescoring). The four Pallas kernels that
-path reaches in ``navc_tpu`` are hand-written CUDA kernels here
-(``csrc/``), built with ``nvcc`` for ``sm_90a`` at first use.
+It covers two serving paths: NACF (mask-predict decoding with the
+coarse-template pass and AR-teacher rescoring) and ARB/ARB2 (KV-cached beam
+search). The eight Pallas kernels those paths reach in ``navc_tpu`` are
+hand-written CUDA kernels here (``csrc/``), built with ``nvcc`` for
+``sm_90a`` at first use.
 
 Package layout (mirrors ``navc_tpu``):
     constants   token ids (copy of navc_tpu.constants)
@@ -15,8 +16,8 @@ Package layout (mirrors ``navc_tpu``):
     convert     flax ``variables`` tree (numpy leaves) -> port modules
     models      nn.Module model stack
     ops         masks, selection, kernel gates, the kernel wrappers
-    decoding    length beam + mask-predict refinement
-    runtime     StreamingCaptioner serving entry
+    decoding    length beam + mask-predict refinement, AR beam search
+    runtime     StreamingCaptioner serving entry, .ckpt loading
 """
 
 __version__ = "0.1.0"

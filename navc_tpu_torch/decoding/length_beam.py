@@ -13,6 +13,7 @@ from typing import Tuple
 import torch
 
 from .. import constants as C
+from ..ops.select import top_k_stable
 
 
 def predict_length_beam(pred_length: torch.Tensor, length_beam_size: int,
@@ -31,8 +32,7 @@ def predict_length_beam(pred_length: torch.Tensor, length_beam_size: int,
         beam = starts[:, None] + torch.arange(
             length_beam_size, dtype=torch.int32, device=pred_length.device)[None]
     else:
-        idx = torch.sort(pred_length, dim=-1, descending=True,
-                         stable=True).indices[:, :length_beam_size]
+        _, idx = top_k_stable(pred_length, length_beam_size)
         beam = idx.to(torch.int32) + length_bias
     return beam.clamp(4, max_len - 1)
 

@@ -1,0 +1,184 @@
+"""The AR beam step's attention kernels: the fused cached self-attention step
+(K6) and the beam cross-attention (K7).
+
+Port of navc_tpu/ops/beam_attend.py. ``beam_attend_step`` does in one
+launch what the beam step otherwise does in three passes over the K/V
+caches: the ancestry permute by the PREVIOUS step's selection, the write of
+the new position, and the causal cached attention (float32 softmax,
+additive key mask). ``cross_attend`` is the mask-free attention of each beam
+row over its instance's encoder positions.
+
+Each wrapper launches its CUDA kernel (csrc/beam_attend.cu) for CUDA
+tensors and raises if the build or the launch fails; only for CPU tensors
+does it run the plain version beside it: float32 PyTorch on the stored cache
+values, with no bf16 rounding of the softmax weights (the JAX kernels keep
+them in float32, unlike the XLA ``attend`` of decoding/beam.py).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Tuple
+
+import torch
+
+from . import _build
+from .beam_permute import ancestor_rows
+
+MAX_BEAM = 32      # rows of one instance a K6 block owns
+MAX_HEAD_DIM = 128  # head width the kernels' lanes cover
+_SIGNATURES = {
+    "navc_beam_attend_step": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    "navc_cross_attend": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+}
+
+
+def beam_attend_eligible(b: int, h: int) -> bool:
+    """The structural terms of navc_tpu's ``beam_attend_eligible``
+    (beam_attend.py:116-122; its VMEM term is a TPU limit and is dropped),
+    kept so that both packages choose the same attention route."""
+    return b % 16 == 0 and h % 128 == 0
+
+
+def kernel_shape_ok(k: int, h: int, n_head: int, itemsize: int) -> bool:
+    """Shapes the K6/K7 kernels take: k <= MAX_BEAM rows per instance, head
+    width <= MAX_HEAD_DIM, 16-byte cache positions."""
+    return (1 <= k <= MAX_BEAM and h % n_head == 0
+            and h // n_head <= MAX_HEAD_DIM and (h * itemsize) % 16 == 0)
+
+
+def _softmax_attend(q, keys, values, n_head, mask=None):
+    """softmax(q . K * (1/sqrt(dh)) + mask) V per head in float32.
+    q (N, H); keys, values (N, P, H); mask (N, P) additive or None."""
+    n, p, h = keys.shape
+    dh = h // n_head
+    scores = torch.einsum("nhd,nphd->nhp", q.view(n, n_head, dh),
+                          keys.view(n, p, n_head, dh)) * (1.0 / math.sqrt(dh))
+    if mask is not None:
+        scores = scores + mask[:, None, :]
+    e = torch.exp(scores - scores.amax(-1, keepdim=True))
+    probs = e / e.sum(-1, keepdim=True)
+    return torch.einsum("nhp,nphd->nhd", probs,
+                        values.view(n, p, n_head, dh)).reshape(n, h)
+
+
+def beam_attend_step_plain(kc, vc, q, kt, vt, prev_k, amask, tpos: int,
+                           n_head: int):
+    """Plain version of ``beam_attend_step`` (in place, as the kernel)."""
+    n = kc.shape[0]
+    h = q.shape[1]
+    src = ancestor_rows(prev_k)
+    kc.copy_(kc.index_select(0, src))
+    vc.copy_(vc.index_select(0, src))
+    k3, v3 = kc.view(n, -1, h), vc.view(n, -1, h)
+    k3[:, tpos] = kt.to(kc.dtype)
+    v3[:, tpos] = vt.to(vc.dtype)
+    att = _softmax_attend(q.float(), k3[:, :tpos + 1].float(),
+                          v3[:, :tpos + 1].float(), n_head,
+                          amask[:, :tpos + 1].float())
+    return kc, vc, att
+
+
+def cross_attend_plain(q, ke, ve, n_head: int):
+    """Plain version of ``cross_attend``."""
+    k = q.shape[0] // ke.shape[0]
+    return _softmax_attend(q.float(),
+                           torch.repeat_interleave(ke.float(), k, dim=0),
+                           torch.repeat_interleave(ve.float(), k, dim=0),
+                           n_head)
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(t):
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _check(tensors, f32_names, what):
+    dev = tensors[0][1].device
+    if dev.type != "cuda":
+        raise ValueError("the kernel takes CUDA tensors, got %s" % dev)
+    for name, t in tensors:
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError("%s: %s must be contiguous and on %s"
+                             % (what, name, dev))
+        if name in f32_names and t.dtype != torch.float32:
+            raise TypeError("%s: %s must be float32, got %s"
+                            % (what, name, t.dtype))
+
+
+def beam_attend_step(kc: torch.Tensor, vc: torch.Tensor, q: torch.Tensor,
+                     kt: torch.Tensor, vt: torch.Tensor, prev_k: torch.Tensor,
+                     amask: torch.Tensor, tpos: int, n_head: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K6: one fused cached-attention beam step.
+
+    kc, vc: (N, L*H) caches, N = b*k, bf16 or float32, updated IN PLACE and
+    returned; q, kt, vt: (N, H) float32 values for position ``tpos``;
+    prev_k: (b, k) int32 ancestor slots of the previous selection; amask:
+    (N, L) float32 additive key mask. Returns (kc, vc, att (N, H) float32).
+    Cache positions past ``tpos`` are unspecified afterwards.
+    """
+    if kc.device.type == "cpu":
+        return beam_attend_step_plain(kc, vc, q, kt, vt, prev_k, amask, tpos,
+                                      n_head)
+    _check([("kc", kc), ("vc", vc), ("q", q), ("kt", kt), ("vt", vt),
+            ("prev_k", prev_k), ("amask", amask)],
+           ("q", "kt", "vt", "amask"), "beam_attend_step")
+    n, h = q.shape
+    b, k = prev_k.shape
+    l = amask.shape[1]
+    if (kc.dtype not in (torch.bfloat16, torch.float32) or vc.dtype != kc.dtype
+            or prev_k.dtype != torch.int32 or b * k != n
+            or tuple(kc.shape) != (n, l * h) or vc.shape != kc.shape
+            or tuple(kt.shape) != (n, h) or tuple(vt.shape) != (n, h)
+            or tuple(amask.shape) != (n, l) or not 0 <= tpos < l
+            or not kernel_shape_ok(k, h, n_head, kc.element_size())):
+        raise ValueError("beam_attend_step: shapes or types the kernel does "
+                         "not take")
+    att = torch.empty((n, h), dtype=torch.float32, device=q.device)
+    if n == 0:
+        return kc, vc, att
+    lib = _build.load("beam_attend", _SIGNATURES)
+    code = lib.navc_beam_attend_step(
+        _ptr(kc), _ptr(vc), _ptr(q), _ptr(kt), _ptr(vt), _ptr(prev_k),
+        _ptr(amask), _ptr(att), n, k, l, h, n_head, int(tpos),
+        1.0 / math.sqrt(h // n_head), int(kc.dtype == torch.float32),
+        _stream(q))
+    _build.check(lib, code, "beam_attend_step")
+    _build.LAUNCHES["beam_attend_step"] += 1
+    return kc, vc, att
+
+
+def cross_attend(q: torch.Tensor, ke: torch.Tensor, ve: torch.Tensor,
+                 n_head: int) -> torch.Tensor:
+    """K7: softmax(q K^T / sqrt(dh)) V per head, without a mask.
+
+    q: (N, H) float32, N = b*k beam rows; ke, ve: (b, Te, H) per-instance
+    encoder keys and values, bf16 or float32 (row r reads instance r // k).
+    Returns (N, H) float32.
+    """
+    if q.device.type == "cpu":
+        return cross_attend_plain(q, ke, ve, n_head)
+    _check([("q", q), ("ke", ke), ("ve", ve)], ("q",), "cross_attend")
+    n, h = q.shape
+    b, te = ke.shape[:2]
+    if (ke.dtype not in (torch.bfloat16, torch.float32) or ve.dtype != ke.dtype
+            or ke.dim() != 3 or ke.shape != ve.shape or ke.shape[2] != h
+            or b == 0 or n % b or te == 0
+            or not kernel_shape_ok(n // b, h, n_head, ke.element_size())):
+        raise ValueError("cross_attend: shapes or types the kernel does not take")
+    att = torch.empty((n, h), dtype=torch.float32, device=q.device)
+    lib = _build.load("beam_attend", _SIGNATURES)
+    code = lib.navc_cross_attend(
+        _ptr(q), _ptr(ke), _ptr(ve), _ptr(att), n, n // b, te, h, n_head,
+        1.0 / math.sqrt(h // n_head), int(ke.dtype == torch.float32),
+        _stream(q))
+    _build.check(lib, code, "cross_attend")
+    _build.LAUNCHES["cross_attend"] += 1
+    return att

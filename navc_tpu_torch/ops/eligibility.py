@@ -31,6 +31,19 @@ def fused_layer_eligible(cfg: Config, causal: bool) -> bool:
     return ok and cfg.enhance_input in (0, 2)
 
 
+def kv_cached_beam_eligible(cfg: Config) -> bool:
+    """Can AR beam search use the incremental KV-cached decode step? The
+    configuration the fused causal layer covers (1 decoder layer, no
+    pos-attention, no attention LayerNorm, gelu_new, no sigmoid attention,
+    watch == 0), with or without the kernels."""
+    return (cfg.num_hidden_layers_decoder == 1
+            and not cfg.pos_attention
+            and not cfg.with_layernorm
+            and not cfg.use_sigmoid_to_get_attprob
+            and cfg.hidden_act == "gelu_new"
+            and cfg.watch == 0)
+
+
 def fused_vocab_eligible(cfg: Config) -> bool:
     """Can the fused projection (+argmax / gather) kernels be used? Both the
     untied and the tied (table + bias) projections are covered."""

@@ -68,10 +68,11 @@ MATS = ("wq_s", "wk_s", "wv_s", "wo_s", "wq_c", "wk_c", "wv_c", "wo_c")
 BIASES = ("bq_s", "bk_s", "bv_s", "bo_s", "bq_c", "bk_c", "bv_c", "bo_c")
 
 
-def layer_weights(layer) -> LayerWeights:
-    """``LayerWeights`` of a ``models.layers.BertLayer`` (converted once)."""
+def layer_weights(layer, dtype=torch.bfloat16) -> LayerWeights:
+    """``LayerWeights`` of a ``models.layers.BertLayer`` (converted once),
+    the matrices in ``dtype``."""
     def mat(lin):
-        return lin.weight.detach().to(torch.bfloat16).contiguous()
+        return lin.weight.detach().to(dtype).contiguous()
 
     def vec(lin):
         return lin.bias.detach().to(torch.float32).contiguous()

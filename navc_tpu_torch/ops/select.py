@@ -32,3 +32,12 @@ def rank_mask_smallest(values: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 def rank_mask_largest(values: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """True at the k[i] largest entries of each row (ties broken stably)."""
     return _ordinal_ranks(values, descending=True) < k[:, None]
+
+
+def top_k_stable(values: torch.Tensor, k: int):
+    """(values, int64 indices) of the k largest entries of each row of the
+    last axis, descending, lower index first among equal values — the order
+    of ``lax.top_k``, from a stable sort (``torch.topk`` does not promise
+    it)."""
+    top, idx = torch.sort(values, dim=-1, descending=True, stable=True)
+    return top[..., :k], idx[..., :k]

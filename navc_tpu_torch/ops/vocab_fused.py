@@ -1,10 +1,12 @@
-"""Vocab projection fused with an online softmax: argmax / gather-prob.
+"""Vocab projection fused with an online softmax: argmax / gather-prob / top-k.
 
 Port of navc_tpu/ops/vocab_fused.py. The NAR refinement loop needs three
 scalars per token position from the (N, V) projection (reference
 algorithms.py:7-15): the argmax id, its softmax probability, and, for the
 teacher rescoring (algorithms.py:196-200), the probability of a given id.
-The kernels (csrc/vocab_fused.cu) compute them without writing the logits.
+The AR beam step needs the k best log-probs of each beam row with their ids
+(reference models/Beam.py:68-79). The kernels (csrc/vocab_fused.cu) compute
+them without writing the logits.
 
 Each wrapper launches its CUDA kernel for CUDA tensors and raises if the
 build or the launch fails; only for CPU tensors does it run the plain
@@ -24,10 +26,15 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from .select import top_k_stable
 
 MAX_D = 768  # shared-memory bound of the kernel's staged tiles
+MAX_K = 8    # register lists of the top-k kernel (beam sizes 1..8)
 _ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-_SIGNATURES = {"navc_project_argmax": _ARGS, "navc_project_gather_prob": _ARGS}
+_SIGNATURES = {"navc_project_argmax": _ARGS, "navc_project_gather_prob": _ARGS,
+               "navc_project_topk": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+               + [ctypes.c_void_p]}
+_TILE_ROWS, _TILE_V = 64, 64  # the kernels' row and vocab tiles
 
 
 def _bf(x: torch.Tensor) -> torch.Tensor:
@@ -64,6 +71,19 @@ def project_gather_prob_plain(h: torch.Tensor, w: torch.Tensor,
     s = torch.exp(scores - m).sum(-1)
     g = scores.gather(1, targets.to(torch.int64)[:, None])
     return torch.exp(g - m)[:, 0] / s
+
+
+def project_topk_plain(h: torch.Tensor, w: torch.Tensor, k: int,
+                       bias: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(log-probs (R, k) f32 descending, ids (R, k) int32) of the k best
+    entries of log_softmax(h @ w^T + bias), lowest id first among equal
+    values; the plain version of ``project_topk``."""
+    scores = _scores_plain(h, w, bias)
+    m = scores.max(dim=-1, keepdim=True).values
+    s = torch.exp(scores - m).sum(-1, keepdim=True)
+    top, ids = top_k_stable(scores, k)
+    return (top - m) - torch.log(s), ids.to(torch.int32)
 
 
 def _check(h, w, bias, targets=None):
@@ -143,6 +163,50 @@ def project_gather_prob(h: torch.Tensor, w: torch.Tensor,
     _build.check(lib, code, "project_gather_prob")
     _build.LAUNCHES["project_gather_prob"] += 1
     return prob
+
+
+def _topk_splits(rows: int, v: int, device: torch.device) -> Tuple[int, int]:
+    """(splits, tiles per split) of the vocab for ``project_topk``: about
+    two blocks per SM in all (a block's shared memory takes an SM, so two
+    waves), with no split left empty."""
+    tiles = -(-v // _TILE_V)
+    row_tiles = -(-rows // _TILE_ROWS)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    want = max(1, min(tiles, -(-2 * sms // row_tiles)))
+    per = -(-tiles // want)
+    return -(-tiles // per), per
+
+
+def project_topk(h: torch.Tensor, w: torch.Tensor, k: int,
+                 bias: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k best log-probs of each row of log_softmax(h @ w^T + bias),
+    descending, and their ids, lowest id first among equal values; the
+    logits are never written. h (R, D) bf16; w (V, D) bf16; bias (V,) f32 or
+    None; 1 <= k <= min(MAX_K, V). Returns ((R, k) f32, (R, k) int32)."""
+    if h.device.type == "cpu":
+        return project_topk_plain(h, w, k, bias)
+    _check(h, w, bias)
+    if not 1 <= k <= min(MAX_K, w.shape[0]):
+        raise ValueError("k must be in [1, min(%d, V)], got %d" % (MAX_K, k))
+    rows, d = h.shape
+    lp = torch.empty((rows, k), dtype=torch.float32, device=h.device)
+    ids = torch.empty((rows, k), dtype=torch.int32, device=h.device)
+    if rows == 0:
+        return lp, ids
+    splits, per = _topk_splits(rows, w.shape[0], h.device)
+    pm = torch.empty((rows, splits), dtype=torch.float32, device=h.device)
+    ps = torch.empty_like(pm)
+    pv = torch.empty((rows, splits, MAX_K), dtype=torch.float32, device=h.device)
+    pi = torch.empty((rows, splits, MAX_K), dtype=torch.int32, device=h.device)
+    lib = _build.load("vocab_fused", _SIGNATURES)
+    code = lib.navc_project_topk(_ptr(h), _ptr(w), _ptr(bias), _ptr(lp),
+                                 _ptr(ids), _ptr(pm), _ptr(ps), _ptr(pv),
+                                 _ptr(pi), rows, d, w.shape[0], k, splits,
+                                 per, _stream(h))
+    _build.check(lib, code, "project_topk")
+    _build.LAUNCHES["project_topk"] += 1
+    return lp, ids
 
 
 def projection_weights(model) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:

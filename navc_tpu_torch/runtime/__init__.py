@@ -1,1 +1,2 @@
-"""Runtime: the serving entry (navc_tpu.runtime.serving)."""
+"""Runtime: the serving entry (navc_tpu.runtime.serving) and checkpoint
+loading (navc_tpu.runtime.checkpoint)."""

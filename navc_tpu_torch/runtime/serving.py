@@ -8,8 +8,9 @@ request overlaps the card's on the next. Results still come back strictly
 in submission order. ``depth=0`` is the reference's sequential protocol
 (translate.py:149-151).
 
-This slice serves NAR models (mask-predict, optionally with an AR teacher);
-AR beam search is not ported yet.
+NAR models decode by mask-predict (optionally with an AR teacher's
+rescoring), AR models (ARB, ARB2) by beam search; a request's result is the
+(B, max_len) or (B, max_len - 1) token ids of one caption per video.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..decoding import make_nar_generator
+from ..decoding import make_ar_generator, make_nar_generator
 from ..device import resolve_device
 
 
@@ -39,9 +40,9 @@ def make_encode_fn(cfg: Config, model):
 class StreamingCaptioner:
     """Bounded-depth pipelined captioning over a stream of requests.
 
-    cfg, model: the student (a NARFormer method), weights in the model.
+    cfg, model: the model (any ported method), weights in the model.
     teacher: optional (teacher_cfg, teacher_model) for NAR teacher
-        rescoring (reference algorithms.py:136-204).
+        rescoring (reference algorithms.py:136-204); AR models take none.
     dict_mapping: optional student->teacher vocab id map.
     depth: max requests in flight before ``submit`` waits on the oldest.
     device: where the models live and the requests run; "cuda" unless the
@@ -52,8 +53,9 @@ class StreamingCaptioner:
                  dict_mapping: Optional[np.ndarray] = None, depth: int = 2,
                  device="cuda"):
         self.device = resolve_device(device)
-        if cfg.decoding_type != "NARFormer":
-            raise NotImplementedError("AR beam serving is not ported yet")
+        self.ar = cfg.decoding_type != "NARFormer"
+        if self.ar:
+            teacher = None
         for m in (model,) + (() if teacher is None else (teacher[1],)):
             dev = next(m.parameters()).device
             if dev.type != self.device.type:
@@ -66,8 +68,10 @@ class StreamingCaptioner:
                                 else make_encode_fn(teacher[0], teacher[1]))
         self._dict_mapping = (None if dict_mapping is None else
                               torch.as_tensor(dict_mapping, device=self.device))
-        self._generate = make_nar_generator(
-            cfg, model, None if teacher is None else teacher[1])
+        # the decode; its ``steps_run`` counts an AR decode's beam steps
+        self.generate = (make_ar_generator(cfg, model) if self.ar else
+                         make_nar_generator(
+                             cfg, model, None if teacher is None else teacher[1]))
         self._inflight = collections.deque()  # (ticket, device hyp)
         self._next_ticket = 0
 
@@ -79,9 +83,12 @@ class StreamingCaptioner:
         cat = (torch.as_tensor(category).to(self.device)
                if self.cfg.with_category and category is not None else None)
         enc = self._encode(feats)
+        # device tensors, not synced: they stay in flight
+        if self.ar:
+            hyp, _ = self.generate(enc, cat)
+            return hyp
         tenc = None if self._teacher_encode is None else self._teacher_encode(feats)
-        # a device tensor, not synced: it stays in flight
-        return self._generate(enc, cat, tenc, self._dict_mapping)
+        return self.generate(enc, cat, tenc, self._dict_mapping)
 
     @staticmethod
     def _sync(hyp: torch.Tensor) -> np.ndarray:

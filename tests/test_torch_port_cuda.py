@@ -1,11 +1,12 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
 Marked ``cuda``: each test asks for the ``cuda`` fixture, which skips when
-no NVIDIA card is present. chip_smoke.py checks the kernels at the NACF
-main path's shapes; these tests cover the other shapes the kernels accept —
-ragged row tiles, a vocab edge inside a tile, canvases and encoder lengths
-below 32, one query tile, H = 128 and 256 — plus the wrappers' refusals and
-launch counts. Run them on a machine with a card:
+no NVIDIA card is present. chip_smoke.py checks the kernels at the NACF and
+ARB main paths' shapes; these tests cover the other shapes the kernels
+accept — ragged row tiles, a vocab edge inside a tile, canvases and encoder
+lengths below 32, one query tile, H = 128 and 256, beam sizes 1 to 8,
+batches that are no multiple of 16 — plus the wrappers' refusals and launch
+counts. Run them on a machine with a card:
 
     python3 -m pytest tests/test_torch_port_cuda.py -q --noconftest
 
@@ -13,7 +14,9 @@ launch counts. Run them on a machine with a card:
 not need.) Tolerances are chip_smoke.py's: hidden states 5e-2 absolute (a
 float32 sum-order flip of one bf16 rounding propagates through the layer),
 probabilities 1e-4 relative, ids equal where the top-2 logit margin is
-above 1e-3.
+above 1e-3; top-k log-probs and attention outputs 1e-4 absolute (float32
+sums in another order, an online softmax against a one-pass one); the cache
+permute and cache writes exactly.
 """
 
 import math
@@ -22,15 +25,22 @@ import pytest
 import torch
 
 from navc_tpu_torch.ops import _build
+from navc_tpu_torch.ops.beam_attend import (beam_attend_step,
+                                            beam_attend_step_plain,
+                                            cross_attend, cross_attend_plain)
+from navc_tpu_torch.ops.beam_permute import (permute_beam_caches,
+                                             permute_beam_caches_plain)
 from navc_tpu_torch.ops.fused_layer import (LayerWeights, fused_layer,
                                             fused_layer_plain, fused_layer_qsub,
                                             fused_layer_qsub_plain)
 from navc_tpu_torch.ops.vocab_fused import (project_argmax,
                                             project_argmax_plain,
                                             project_gather_prob,
-                                            project_gather_prob_plain)
+                                            project_gather_prob_plain,
+                                            project_topk, project_topk_plain)
 
 HID_TOL = 5e-2
+ATT_TOL = 1e-4
 
 
 @pytest.fixture
@@ -192,3 +202,153 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):                  # non-contiguous operand
         fused_layer(raw[:, :16], static[:, :16].contiguous(),
                     kp[:, :16].contiguous(), ke, ve, weights, lns, lnb, n_head=2)
+
+
+TOPK_SHAPES = [  # rows, d, V, k
+    (320, 512, 10048, 5), (7, 64, 1001, 1), (130, 256, 4099, 8),
+    (64, 512, 50, 3), (5120, 512, 10048, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", TOPK_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("with_bias", [False, True], ids=["nobias", "bias"])
+def test_project_topk_matches_plain(cuda, shape, with_bias):
+    r, d, v, k = shape
+    g = _gen(r + d + v + k + with_bias)
+    hid = torch.randn(r, d, generator=g).to(cuda, torch.bfloat16)
+    w = (torch.randn(v, d, generator=g) / math.sqrt(d)).to(cuda, torch.bfloat16)
+    bias = (torch.randn(v, generator=g) * 0.5).to(cuda) if with_bias else None
+    before = _build.LAUNCHES["project_topk"]
+    lp, ids = project_topk(hid, w, k, bias)
+    assert _build.LAUNCHES["project_topk"] == before + 1
+    lp_p, ids_p = project_topk_plain(hid, w, k, bias)
+    torch.cuda.synchronize()
+    scores = hid.float() @ w.float().t() + (0 if bias is None else bias)
+    srt = scores.sort(dim=-1, descending=True).values[:, :k + 1]
+    clear = (srt[:, :-1] - srt[:, 1:]) > 1e-3
+    assert torch.equal(ids[clear], ids_p[clear])
+    assert (lp - lp_p).abs().max().item() <= ATT_TOL
+
+
+@pytest.mark.cuda
+def test_project_topk_ties_go_to_the_lowest_id(cuda):
+    g = _gen(5)
+    hid = torch.randint(-1, 2, (40, 32), generator=g).float()
+    w = torch.randint(-1, 2, (3000, 32), generator=g).float()
+    w[1500:2900] = w[:1400]  # exact duplicates across tiles and splits
+    lp, ids = project_topk(hid.to(cuda, torch.bfloat16), w.to(cuda, torch.bfloat16), 8)
+    order = torch.sort(hid @ w.t(), dim=-1, descending=True, stable=True).indices[:, :8]
+    assert torch.equal(ids.cpu(), order.to(torch.int32))
+
+
+def _caches(n, l, h, dtype, g, dev):
+    return tuple(torch.randn(n, l * h, generator=g).to(dev, dtype) for _ in range(2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k", [(64, 5), (7, 1), (12, 3), (16, 8)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_permute_matches_plain(cuda, b, k, dtype):
+    g = _gen(b * k)
+    kc, vc = _caches(b * k, 30, 512, dtype, g, cuda)
+    prev_k = torch.randint(0, k, (b, k), generator=g).to(cuda, torch.int32)
+    before = _build.LAUNCHES["permute_beam_caches"]
+    ok, ov = permute_beam_caches(kc, vc, prev_k)
+    assert _build.LAUNCHES["permute_beam_caches"] == before + 1
+    rk, rv = permute_beam_caches_plain(kc, vc, prev_k)
+    torch.cuda.synchronize()
+    assert torch.equal(ok, rk) and torch.equal(ov, rv)
+
+
+def _step_inputs(b, k, l, h, tpos, g, dev):
+    n = b * k
+    q, kt, vt = (torch.randn(n, h, generator=g).to(dev) for _ in range(3))
+    mask = torch.rand(n, l, generator=g) < 0.2
+    mask[:, 0] = False
+    mask[:, tpos] = False
+    mask |= torch.arange(l)[None, :] > tpos
+    amask = torch.where(mask, -1e7, 0.0).to(dev)
+    prev_k = torch.randint(0, k, (b, k), generator=g).to(dev, torch.int32)
+    return q, kt, vt, prev_k, amask
+
+
+ATTEND_SHAPES = [  # b, k, L, H, heads
+    (64, 5, 30, 512, 8), (16, 1, 20, 256, 4), (3, 3, 30, 512, 8),
+    (16, 8, 20, 256, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ATTEND_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("where", ["first", "middle", "last"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_beam_attend_step_matches_plain(cuda, shape, where, dtype):
+    b, k, l, h, heads = shape
+    tpos = {"first": 0, "middle": l // 2, "last": l - 1}[where]
+    g = _gen(sum(shape) + tpos)
+    kc, vc = _caches(b * k, l, h, dtype, g, cuda)
+    q, kt, vt, prev_k, amask = _step_inputs(b, k, l, h, tpos, g, cuda)
+    rk, rv = kc.clone(), vc.clone()
+    before = _build.LAUNCHES["beam_attend_step"]
+    ok, ov, att = beam_attend_step(kc, vc, q, kt, vt, prev_k, amask, tpos, heads)
+    assert _build.LAUNCHES["beam_attend_step"] == before + 1
+    assert ok.data_ptr() == kc.data_ptr()  # in place
+    rk, rv, ratt = beam_attend_step_plain(rk, rv, q, kt, vt, prev_k, amask, tpos, heads)
+    torch.cuda.synchronize()
+    lim = (tpos + 1) * h
+    assert torch.equal(ok[:, :lim], rk[:, :lim]) and torch.equal(ov[:, :lim], rv[:, :lim])
+    assert (att - ratt).abs().max().item() <= ATT_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_beam_attend_step_chained_matches_plain(cuda, dtype):
+    """Every step of a 30-position decode through the in-place caches."""
+    b, k, l, h, heads = 16, 5, 30, 512, 8
+    g = _gen(11)
+    kc = torch.zeros(b * k, l * h, dtype=dtype, device=cuda)
+    vc = torch.zeros_like(kc)
+    rk, rv = kc.clone(), vc.clone()
+    for t in range(l - 1):
+        q, kt, vt, prev_k, amask = _step_inputs(b, k, l, h, t, g, cuda)
+        if t == 0:
+            prev_k.zero_()
+        kc, vc, att = beam_attend_step(kc, vc, q, kt, vt, prev_k, amask, t, heads)
+        rk, rv, ratt = beam_attend_step_plain(rk, rv, q, kt, vt, prev_k, amask, t, heads)
+        torch.cuda.synchronize()
+        lim = (t + 1) * h
+        assert torch.equal(kc[:, :lim], rk[:, :lim]) and torch.equal(vc[:, :lim], rv[:, :lim])
+        assert (att - ratt).abs().max().item() <= ATT_TOL, t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k,te,h,heads", [
+    (64, 5, 16, 512, 8), (7, 1, 8, 256, 4), (12, 3, 16, 256, 2), (16, 8, 16, 512, 16)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cross_attend_matches_plain(cuda, b, k, te, h, heads, dtype):
+    g = _gen(b + k + te + h)
+    q = torch.randn(b * k, h, generator=g).to(cuda)
+    ke = torch.randn(b, te, h, generator=g).to(cuda, dtype)
+    ve = torch.randn(b, te, h, generator=g).to(cuda, dtype)
+    before = _build.LAUNCHES["cross_attend"]
+    att = cross_attend(q, ke, ve, heads)
+    assert _build.LAUNCHES["cross_attend"] == before + 1
+    ratt = cross_attend_plain(q, ke, ve, heads)
+    torch.cuda.synchronize()
+    assert (att - ratt).abs().max().item() <= ATT_TOL
+
+
+@pytest.mark.cuda
+def test_beam_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    g = _gen(1)
+    hid = torch.randn(4, 64, generator=g).to(cuda, torch.bfloat16)
+    w = torch.randn(100, 64, generator=g).to(cuda, torch.bfloat16)
+    with pytest.raises(ValueError):
+        project_topk(hid, w, 9)                      # k above MAX_K
+    kc, vc = _caches(10, 4, 128, torch.bfloat16, g, cuda)
+    q, kt, vt, prev_k, amask = _step_inputs(5, 2, 4, 128, 1, g, cuda)
+    with pytest.raises(ValueError):                  # tpos outside the cache
+        beam_attend_step(kc, vc, q, kt, vt, prev_k, amask, 4, 2)
+    with pytest.raises(ValueError):                  # int64 ancestry
+        beam_attend_step(kc, vc, q, kt, vt, prev_k.long(), amask, 1, 2)
+    with pytest.raises(ValueError):                  # non-contiguous cache
+        permute_beam_caches(kc[:, :256], vc[:, :256], prev_k)
