@@ -1,4 +1,5 @@
-"""Weight bridge: a flax ``variables`` tree (numpy leaves) -> the port's model.
+"""Weight bridge between a flax ``variables`` tree (numpy leaves) and the
+port's model, both ways.
 
 ``navc_tpu`` keeps its weights as a flax tree ``{"params": ...,
 "batch_stats": ...}``; its checkpoints pickle exactly that tree with numpy
@@ -15,6 +16,9 @@ leaves (navc_tpu/runtime/checkpoint.py). ``load_flax_variables`` fills a
 
 Every parameter and running statistic of the model must be filled, and
 every leaf of the tree must land somewhere, or the call raises.
+``export_flax_variables`` is the inverse: the model's parameters and running
+statistics as such a tree, so that a port model (after training steps, say)
+can be held against navc_tpu's ``TrainState``.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch
 from torch import nn
 
 from .models.decoder import BertDecoder
+from .models.layers import LayerNorm
 
 
 def _child(module: nn.Module, name: str) -> nn.Module:
@@ -94,3 +99,50 @@ def load_flax_variables(model: nn.Module, variables: Dict[str, Any]) -> nn.Modul
     if missing:
         raise KeyError("flax tree leaves no value for: %s" % ", ".join(missing))
     return model
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy().copy()
+
+
+def _export(module: nn.Module, params: Dict[str, Any],
+            stats: Dict[str, Any]) -> None:
+    if isinstance(module, nn.Linear):
+        params["kernel"] = _numpy(module.weight).T.copy()
+        if module.bias is not None:
+            params["bias"] = _numpy(module.bias)
+        return
+    if isinstance(module, nn.Embedding):
+        params["embedding"] = _numpy(module.weight)
+        return
+    if isinstance(module, (LayerNorm, nn.BatchNorm1d)):
+        params["scale"], params["bias"] = _numpy(module.weight), _numpy(module.bias)
+        if isinstance(module, nn.BatchNorm1d):
+            stats["mean"] = _numpy(module.running_mean)
+            stats["var"] = _numpy(module.running_var)
+        return
+    if getattr(module, "tgt_word_prj_bias", None) is not None:
+        params["tgt_word_prj_bias"] = _numpy(module.tgt_word_prj_bias)
+    for name, child in module.named_children():
+        if isinstance(child, nn.ModuleDict):      # streams, norms, predictors
+            items = list(child.items())
+        elif isinstance(child, nn.ModuleList):    # the decoder's layers
+            items = [("layer_%d" % i, c) for i, c in enumerate(child)]
+        else:
+            items = [(name, child)]
+        for key, sub in items:
+            p_sub, s_sub = {}, {}
+            _export(sub, p_sub, s_sub)
+            if p_sub:
+                params[key] = p_sub
+            if s_sub:
+                stats[key] = s_sub
+
+
+def export_flax_variables(model: nn.Module) -> Dict[str, Any]:
+    """The model's weights as a flax ``{"params", "batch_stats"}`` tree of
+    float32 numpy arrays in navc_tpu's layout (Dense kernels (in, out))."""
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    _export(model, params, stats)
+    return {"params": params, "batch_stats": stats}

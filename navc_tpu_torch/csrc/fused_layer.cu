@@ -32,26 +32,12 @@
 // gelu_new, bf16, then its share of the down-projection accumulates into
 // register fragments, so the 32x2048 float intermediate never exists.
 // Shared memory: 32x512 f32 residual + 4 bf16 32x520 tiles + staging, ~202 KB.
+// The layout, the row GEMM, the per-head softmax and the FFN live in
+// layer_common.cuh, shared with the training layer (fused_layer_train.cu).
 // Not yet done (later work): several sequences per block to reuse weight
 // fragments, cp.async/TMA staging of weight tiles, wgmma.
 
-#include "common.cuh"
-
-#include <mma.h>
-
-using namespace nvcuda;
-
-namespace {
-
-constexpr int NT = 256;          // threads per block
-constexpr int NW = NT / 32;      // warps per block
-constexpr int MR = 32;           // rows held per block (queries and keys)
-constexpr int FFN_CH = 256;      // FFN intermediate columns per chunk
-constexpr int SREG = MR * 32 * 4;  // per-warp score slice, bytes
-constexpr float MASK_FILL = -10e6f;
-constexpr float SQRT_2_OVER_PI = 0.7978845608028654f;
-
-}  // namespace
+#include "layer_common.cuh"
 
 // Mirrored field by field by navc_tpu_torch/ops/fused_layer.py (_LayerArgs).
 struct LayerArgs {
@@ -78,70 +64,6 @@ struct LayerArgs {
 
 namespace {
 
-struct Smem {
-  float* xf;   // [MR][H] residual stream, f32
-  bf16* xb;    // [MR][ldb] bf16 A operand; per-warp score slices alias it
-  bf16* qb;    // [MR][ldb] queries, then attention context
-  bf16* kb;    // [MR][ldb] keys; FFN chunk activations alias it
-  bf16* vb;    // [MR][ldb] values
-  float* stg;  // [NW][256] per-warp accumulator staging
-  int ldb;
-};
-
-__host__ __device__ inline size_t tile_bytes(int H) {
-  const size_t a = (size_t)MR * (H + 8) * sizeof(bf16);
-  const size_t b = (size_t)NW * SREG;
-  const size_t c = (size_t)MR * (FFN_CH + 8) * sizeof(bf16);
-  size_t m = a > b ? a : b;
-  m = m > c ? m : c;
-  return (m + 127) / 128 * 128;
-}
-
-inline size_t smem_bytes(int H) {
-  return (size_t)MR * H * sizeof(float) + 4 * tile_bytes(H) + (size_t)NW * 256 * sizeof(float);
-}
-
-__device__ __forceinline__ float gelu_new(float x) {
-  return 0.5f * x * (1.f + tanhf(SQRT_2_OVER_PI * (x + 0.044715f * x * x * x)));
-}
-
-// C[rows 0 .. mt*16, cols 0 .. n_out) = A @ W^T, A bf16 row-major in shared
-// memory (lda), W (n_out, k_in) bf16 row-major in global memory (ldw), i.e.
-// the col-major B operand. Each warp takes output column tiles warp,
-// warp + NW, ...; epi(row, col, value) consumes every accumulated element.
-template <typename Epi>
-__device__ void gemm_rows(const bf16* A, int lda, int mt, const bf16* W, int ldw, int n_out,
-                          int k_in, float* stg, Epi epi) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int ct = warp; ct < n_out / 16; ct += NW) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-    wmma::fill_fragment(acc[0], 0.f);
-    wmma::fill_fragment(acc[1], 0.f);
-    const bf16* wp = W + (size_t)ct * 16 * ldw;
-    for (int k = 0; k < k_in; k += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-      wmma::load_matrix_sync(b, wp + k, ldw);
-#pragma unroll
-      for (int rt = 0; rt < 2; ++rt) {
-        if (rt < mt) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::load_matrix_sync(a, A + rt * 16 * lda + k, lda);
-          wmma::mma_sync(acc[rt], a, b, acc[rt]);
-        }
-      }
-    }
-#pragma unroll
-    for (int rt = 0; rt < 2; ++rt) {
-      if (rt < mt) {
-        wmma::store_matrix_sync(stg, acc[rt], 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32) epi(rt * 16 + e / 16, ct * 16 + e % 16, stg[e]);
-        __syncwarp();
-      }
-    }
-  }
-}
-
 // LayerNorm of one H-wide f32 row held 16 values per lane (c = lane + 32 j),
 // as _kernel_fold: mean, mean of squared deviations, rsqrt(var + eps).
 __device__ __forceinline__ void ln_row(float (&x)[16], int H, const float* lns, const float* lnb,
@@ -166,84 +88,6 @@ __device__ __forceinline__ void ln_row(float (&x)[16], int H, const float* lns, 
     }
 }
 
-// Per-head attention over the block's rows. Queries: qb rows 0 .. mtq*16;
-// keys/values: kb/vb rows 0 .. mtk*16. key_masked(i, j) adds MASK_FILL. The
-// context (bf16) replaces each head's query columns in qb.
-template <typename Masked>
-__device__ void attend(const Smem& s, int H, int n_head, int mtq, int mtk, float scale,
-                       Masked key_masked) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int d = H / n_head;
-  const int ldb = s.ldb;
-  float* sreg = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(s.xb) + warp * SREG);
-  bf16* preg = reinterpret_cast<bf16*>(sreg);
-  float* stg = s.stg + warp * 256;
-  const int nk = mtk * 16;
-
-  for (int hd = warp; hd < n_head; hd += NW) {
-    const int c0 = hd * d;
-    for (int rt = 0; rt < mtq; ++rt)
-      for (int kt = 0; kt < mtk; ++kt) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-        wmma::fill_fragment(acc, 0.f);
-        for (int k = 0; k < d; k += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-          wmma::load_matrix_sync(a, s.qb + rt * 16 * ldb + c0 + k, ldb);
-          wmma::load_matrix_sync(b, s.kb + kt * 16 * ldb + c0 + k, ldb);
-          wmma::mma_sync(acc, a, b, acc);
-        }
-        wmma::store_matrix_sync(sreg + rt * 16 * 32 + kt * 16, acc, 32, wmma::mem_row_major);
-      }
-    __syncwarp();
-
-    // softmax: lane i owns query row i
-    const int i = lane;
-    float p[32];
-    const bool live = i < mtq * 16;
-    float mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      p[j] = 0.f;
-      if (live && j < nk) {
-        p[j] = sreg[i * 32 + j] * scale + (key_masked(i, j) ? MASK_FILL : 0.f);
-        mx = fmaxf(mx, p[j]);
-      }
-    }
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < 32; ++j)
-      if (live && j < nk) {
-        p[j] = expf(p[j] - mx);
-        sum += p[j];
-      }
-    __syncwarp();  // every lane has read its scores before P overwrites them
-#pragma unroll
-    for (int j = 0; j < 32; ++j)
-      if (live && j < nk) preg[i * 32 + j] = __float2bfloat16(p[j] / sum);
-    __syncwarp();
-
-    for (int rt = 0; rt < mtq; ++rt)
-      for (int dt = 0; dt < d / 16; ++dt) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-        wmma::fill_fragment(acc, 0.f);
-        for (int kt = 0; kt < mtk; ++kt) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-          wmma::load_matrix_sync(a, preg + rt * 16 * 32 + kt * 16, 32);
-          wmma::load_matrix_sync(b, s.vb + kt * 16 * ldb + c0 + dt * 16, ldb);
-          wmma::mma_sync(acc, a, b, acc);
-        }
-        wmma::store_matrix_sync(stg, acc, 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32)
-          s.qb[(rt * 16 + e / 16) * ldb + c0 + dt * 16 + e % 16] = __float2bfloat16(stg[e]);
-        __syncwarp();
-      }
-    __syncwarp();
-  }
-}
-
 __global__ void __launch_bounds__(NT, 1) fused_layer_kernel(const LayerArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int H = a.H, L = a.L, n = blockIdx.x;
@@ -253,16 +97,7 @@ __global__ void __launch_bounds__(NT, 1) fused_layer_kernel(const LayerArgs a) {
   const int mtq = (nq + 15) / 16, mtk = (L + 15) / 16, mte = (a.Le + 15) / 16;
   const int per = H / 32;
 
-  Smem s;
-  s.ldb = H + 8;
-  const size_t tb = tile_bytes(H);
-  s.xf = reinterpret_cast<float*>(smem);
-  unsigned char* p = smem + (size_t)MR * H * sizeof(float);
-  s.xb = reinterpret_cast<bf16*>(p);
-  s.qb = reinterpret_cast<bf16*>(p + tb);
-  s.kb = reinterpret_cast<bf16*>(p + 2 * tb);
-  s.vb = reinterpret_cast<bf16*>(p + 3 * tb);
-  s.stg = reinterpret_cast<float*>(p + 4 * tb);
+  const LayerSmem s = layer_layout(smem, H);
   float* stg = s.stg + warp * 256;
   const int ldb = s.ldb;
 
@@ -388,77 +223,27 @@ __global__ void __launch_bounds__(NT, 1) fused_layer_kernel(const LayerArgs a) {
   gemm_rows(s.qb, ldb, mtq, a.w[7], H, H, H, stg, residual(a.b[7]));
   __syncthreads();
 
-  // 7. FFN: per 256-column chunk, up-projection + gelu_new into bf16, then
-  //    its share of the down-projection accumulates in registers. Warp w
-  //    owns output column tiles w, w + NW, ... (at most 4: H <= 512).
-  const int ctw = H / 16 / NW;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> down[2][4];
-#pragma unroll
-  for (int rt = 0; rt < 2; ++rt)
-#pragma unroll
-    for (int t = 0; t < 4; ++t) wmma::fill_fragment(down[rt][t], 0.f);
-  bf16* ib = s.kb;
-  const int ldi = FFN_CH + 8;
-  for (int c0 = 0; c0 < a.I; c0 += FFN_CH) {
-    const int cw = min(FFN_CH, a.I - c0);
-    const float* bi = a.bi + c0;
-    gemm_rows(s.xb, ldb, mtq, a.wi + (size_t)c0 * H, H, cw, H, stg,
-              [=](int i, int j, float v) { ib[i * ldi + j] = __float2bfloat16(gelu_new(v + bi[j])); });
-    __syncthreads();
-    for (int k = 0; k < cw; k += 16) {
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        if (t < ctw) {
-          const int ct = warp + NW * t;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-          wmma::load_matrix_sync(b, a.wo2 + (size_t)ct * 16 * a.I + c0 + k, a.I);
-#pragma unroll
-          for (int rt = 0; rt < 2; ++rt) {
-            if (rt < mtq) {
-              wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-              wmma::load_matrix_sync(fa, ib + rt * 16 * ldi + k, ldi);
-              wmma::mma_sync(down[rt][t], fa, b, down[rt][t]);
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // out = (down + bo2 + att) * npm, rows of real queries only
+  // 7. FFN; out = (down + bo2 + att) * npm, rows of real queries only
   const int rows_out = dense ? L : a.K;
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    if (t < ctw) {
-      const int ct = warp + NW * t;
-#pragma unroll
-      for (int rt = 0; rt < 2; ++rt) {
-        if (rt < mtq) {
-          wmma::store_matrix_sync(stg, down[rt][t], 16, wmma::mem_row_major);
-          __syncwarp();
-          for (int e = lane; e < 256; e += 32) {
-            const int i = rt * 16 + e / 16, j = ct * 16 + e % 16;
-            if (i < rows_out) {
-              const float y = (stg[e] + a.bo2[j] + s.xf[i * H + j]) * npm[i];
-              const size_t o = ((size_t)n * rows_out + i) * H + j;
-              if (a.out_bf16)
-                static_cast<bf16*>(a.out)[o] = __float2bfloat16(y);
-              else
-                static_cast<float*>(a.out)[o] = y;
-            }
-          }
-          __syncwarp();
-        }
-      }
+  const float* bo2 = a.bo2;
+  void* out = a.out;
+  const bool out_bf16 = a.out_bf16 != 0;
+  ffn_rows(s, H, a.I, mtq, a.wi, a.bi, a.wo2, [=](int i, int j, float v) {
+    if (i < rows_out) {
+      const float y = (v + bo2[j] + s.xf[i * H + j]) * npm_p[i];
+      const size_t o = ((size_t)n * rows_out + i) * H + j;
+      if (out_bf16)
+        static_cast<bf16*>(out)[o] = __float2bfloat16(y);
+      else
+        static_cast<float*>(out)[o] = y;
     }
-  }
+  });
 }
 
 }  // namespace
 
 NAVC_EXPORT int navc_fused_layer(const LayerArgs* args, void* stream) {
-  const size_t smem = smem_bytes(args->H);
+  const size_t smem = layer_smem_bytes(args->H);
   cudaError_t e = cudaFuncSetAttribute(fused_layer_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;

@@ -1,4 +1,4 @@
-"""Model stack: nn.Modules mirroring navc_tpu.models, eval mode.
+"""Model stack: nn.Modules mirroring navc_tpu.models (eval and train mode).
 
     navc_tpu.models.layers    -> navc_tpu_torch.models.layers
     navc_tpu.models.encoder   -> navc_tpu_torch.models.encoder

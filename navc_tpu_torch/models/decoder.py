@@ -1,4 +1,4 @@
-"""BERT-style caption decoder (AR and NAR modes), eval mode.
+"""BERT-style caption decoder (AR and NAR modes).
 
 Port of navc_tpu/models/decoder.py (reference models/Decoder.py):
   * mask by decoding type — NARFormer: key-pad only; ARFormer: key-pad +
@@ -8,7 +8,8 @@ Port of navc_tpu/models/decoder.py (reference models/Decoder.py):
     added to the token embeddings (Decoder.py:130-139),
   * N stacked BertLayers (Decoder.py:150-178).
 NACF's disentangled two-pass decoder shares these weights across passes, so
-one class serves every method.
+one class serves every method. A forward given a ``torch.Generator`` runs
+in train mode (dropout at navc_tpu's sites).
 """
 
 from __future__ import annotations
@@ -31,7 +32,9 @@ class BertDecoder(nn.Module):
                  pos_attention: bool = False, enhance_input: int = 2,
                  watch: int = 0, decoding_type: str = "ARFormer",
                  use_sigmoid_to_get_attprob: bool = False,
-                 parallel_mlm: bool = False, dtype=torch.float32):
+                 parallel_mlm: bool = False, dtype=torch.float32,
+                 hidden_dropout_prob: float = 0.5,
+                 attention_probs_dropout_prob: float = 0.0):
         super().__init__()
         self.enhance_input = enhance_input
         self.watch = watch
@@ -39,16 +42,17 @@ class BertDecoder(nn.Module):
         self.pos_attention = pos_attention
         self.embedding = BertEmbeddings(
             vocab_size, dim_hidden, max_len, num_category, with_category,
-            layer_norm_eps, return_pos=pos_attention)
+            layer_norm_eps, return_pos=pos_attention,
+            hidden_dropout_prob=hidden_dropout_prob)
         self.layers = nn.ModuleList([
             BertLayer(dim_hidden, num_attention_heads, intermediate_size,
                       hidden_act, with_layernorm, layer_norm_eps,
                       pos_attention, use_sigmoid_to_get_attprob, parallel_mlm,
-                      dtype)
+                      dtype, hidden_dropout_prob, attention_probs_dropout_prob)
             for _ in range(num_hidden_layers)])
 
     def forward(self, tgt_seq, enc_output, category=None,
-                decoding_type: Optional[str] = None):
+                decoding_type: Optional[str] = None, generator=None):
         """Returns (last hidden states (B, L, H) f32, embs (B, H))."""
         decoding_type = decoding_type or self.decoding_type
         b, l = tgt_seq.shape
@@ -73,12 +77,14 @@ class BertDecoder(nn.Module):
 
         position_embeddings = None
         if self.pos_attention:
-            hidden, position_embeddings = self.embedding(tgt_seq, category)
+            hidden, position_embeddings = self.embedding(
+                tgt_seq, category, generator=generator)
         else:
-            hidden = self.embedding(tgt_seq, category, additional_feats)
+            hidden = self.embedding(tgt_seq, category, additional_feats,
+                                    generator)
 
         embs = None
         for layer in self.layers:
             hidden, embs = layer(hidden, npm, slf_attn_mask, enc_output,
-                                 position_embeddings)
+                                 position_embeddings, generator)
         return hidden, embs

@@ -1,7 +1,11 @@
-"""Transformer primitives (BERT-style) for the caption decoder, eval mode.
+"""Transformer primitives (BERT-style) for the caption decoder.
 
-Port of navc_tpu/models/layers.py (reference models/bert.py). The port is an
-inference path, so dropout is the identity and is left out. Semantics kept:
+Port of navc_tpu/models/layers.py (reference models/bert.py). Dropout runs
+only when a forward is given a ``torch.Generator`` (train mode), at
+navc_tpu's sites: the embedding LayerNorm output (and the pos-attention
+stream), attention probabilities, the self/cross output projections, and
+twice in BertOutput (bert.py:240-247); without one it is the identity.
+Semantics kept:
   * additive masking with the reference's fill value -10e6 (bert.py:161),
   * gelu_new (bert.py:12-13),
   * BertSelfOutput: dense -> +residual, LayerNorm only when
@@ -47,6 +51,18 @@ def swish(x: torch.Tensor) -> torch.Tensor:
 
 ACT2FN = {"gelu": gelu_exact, "relu": F.relu, "swish": swish,
           "gelu_new": gelu_new}
+
+
+def dropout(x: torch.Tensor, p: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability 1 - p and scale by
+    1 / (1 - p), the mask drawn from ``generator`` (on x's device); the
+    identity when ``generator`` is None or p is 0."""
+    if generator is None or p <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
+                                                          device=x.device))
 
 
 def normalize(x, mean, var, eps, scale=None, bias=None):
@@ -103,8 +119,10 @@ class BertEmbeddings(nn.Module):
 
     def __init__(self, vocab_size: int, dim_hidden: int, max_len: int,
                  num_category: int = 20, with_category: bool = False,
-                 layer_norm_eps: float = 1e-5, return_pos: bool = False):
+                 layer_norm_eps: float = 1e-5, return_pos: bool = False,
+                 hidden_dropout_prob: float = 0.5):
         super().__init__()
+        self.p = hidden_dropout_prob
         self.with_category = with_category
         self.return_pos = return_pos
         self.word_embeddings = nn.Embedding(vocab_size, dim_hidden)
@@ -115,7 +133,8 @@ class BertEmbeddings(nn.Module):
         if return_pos:
             self.pos_LN = LayerNorm(dim_hidden, layer_norm_eps)
 
-    def forward(self, input_ids, category=None, additional_feats=None):
+    def forward(self, input_ids, category=None, additional_feats=None,
+                generator=None):
         b, seq_len = input_ids.shape
         words = self.word_embeddings(input_ids)
         pos = self.position_embeddings.weight[:seq_len][None].expand(
@@ -128,13 +147,14 @@ class BertEmbeddings(nn.Module):
             emb = emb + cat
         if additional_feats is not None:
             emb = emb + additional_feats
-        emb = self.LayerNorm(emb)
+        emb = dropout(self.LayerNorm(emb), self.p, generator)
         if self.return_pos:
-            return emb, self.pos_LN(pos)
+            return emb, dropout(self.pos_LN(pos), self.p, generator)
         return emb
 
 
-def attention_core(q, k, v, mask, dtype=torch.float32, use_sigmoid=False):
+def attention_core(q, k, v, mask, dtype=torch.float32, use_sigmoid=False,
+                   dropout_fn=None):
     """Scaled-dot attention with the reference's additive -10e6 masking.
 
     q, k, v: (B, L, n_head, d); mask: (B, Lq, Lk) bool, True = masked out.
@@ -152,6 +172,8 @@ def attention_core(q, k, v, mask, dtype=torch.float32, use_sigmoid=False):
         probs = probs / (probs.sum(-1, keepdim=True) + 1e-12)
     else:
         probs = torch.softmax(scores, dim=-1)
+    if dropout_fn is not None:
+        probs = dropout_fn(probs)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(dtype).float(),
                        v.to(dtype).float())
     return out, probs
@@ -161,8 +183,9 @@ class BertSelfAttention(nn.Module):
     """Multi-head attention (reference models/bert.py:115-179)."""
 
     def __init__(self, dim_hidden, num_attention_heads, use_sigmoid=False,
-                 dtype=torch.float32):
+                 dtype=torch.float32, attention_probs_dropout_prob=0.0):
         super().__init__()
+        self.p = attention_probs_dropout_prob
         if dim_hidden % num_attention_heads != 0:
             raise ValueError("dim_hidden %d not divisible by heads %d"
                              % (dim_hidden, num_attention_heads))
@@ -173,7 +196,7 @@ class BertSelfAttention(nn.Module):
         self.key = Dense(dim_hidden, dim_hidden, compute_dtype=dtype)
         self.value = Dense(dim_hidden, dim_hidden, compute_dtype=dtype)
 
-    def forward(self, q_in, k_in, v_in, attention_mask=None):
+    def forward(self, q_in, k_in, v_in, attention_mask=None, generator=None):
         def heads(x):
             b, l, h = x.shape
             return x.reshape(b, l, self.n_head, h // self.n_head)
@@ -181,7 +204,9 @@ class BertSelfAttention(nn.Module):
         out, probs = attention_core(
             heads(self.query(q_in)), heads(self.key(k_in)),
             heads(self.value(v_in)), attention_mask, dtype=self.dtype,
-            use_sigmoid=self.use_sigmoid)
+            use_sigmoid=self.use_sigmoid,
+            dropout_fn=(lambda t: dropout(t, self.p, generator))
+            if self.p > 0.0 and generator is not None else None)
         return out.reshape(out.shape[0], out.shape[1], -1), probs
 
 
@@ -189,14 +214,16 @@ class BertSelfOutput(nn.Module):
     """Post-attention projection (reference models/bert.py:182-200)."""
 
     def __init__(self, dim_hidden, with_layernorm=False, layer_norm_eps=1e-5,
-                 dtype=torch.float32):
+                 dtype=torch.float32, hidden_dropout_prob=0.5):
         super().__init__()
+        self.p = hidden_dropout_prob
         self.dense = Dense(dim_hidden, dim_hidden, compute_dtype=dtype)
         self.LayerNorm = (LayerNorm(dim_hidden, layer_norm_eps)
                           if with_layernorm else None)
 
-    def forward(self, hidden_states, input_tensor=None):
-        hidden_states = self.dense(hidden_states).to(torch.float32)
+    def forward(self, hidden_states, input_tensor=None, generator=None):
+        hidden_states = dropout(self.dense(hidden_states).to(torch.float32),
+                                self.p, generator)
         if input_tensor is not None:
             hidden_states = hidden_states + input_tensor
         if self.LayerNorm is not None:
@@ -209,17 +236,20 @@ class BertAttention(nn.Module):
 
     def __init__(self, dim_hidden, num_attention_heads, with_layernorm=False,
                  layer_norm_eps=1e-5, with_residual=True, use_sigmoid=False,
-                 dtype=torch.float32):
+                 dtype=torch.float32, hidden_dropout_prob=0.5,
+                 attention_probs_dropout_prob=0.0):
         super().__init__()
         self.with_residual = with_residual
         self.self = BertSelfAttention(dim_hidden, num_attention_heads,
-                                      use_sigmoid, dtype)
+                                      use_sigmoid, dtype,
+                                      attention_probs_dropout_prob)
         self.output = BertSelfOutput(dim_hidden, with_layernorm,
-                                     layer_norm_eps, dtype)
+                                     layer_norm_eps, dtype, hidden_dropout_prob)
 
-    def forward(self, q, k, v, attention_mask=None):
-        out, probs = self.self(q, k, v, attention_mask)
-        return self.output(out, q if self.with_residual else None), probs
+    def forward(self, q, k, v, attention_mask=None, generator=None):
+        out, probs = self.self(q, k, v, attention_mask, generator)
+        return self.output(out, q if self.with_residual else None,
+                           generator), probs
 
 
 class BertIntermediate(nn.Module):
@@ -239,31 +269,37 @@ class BertOutput(nn.Module):
     """FFN down-projection + residual (reference models/bert.py:233-247)."""
 
     def __init__(self, intermediate_size, dim_hidden, with_layernorm=False,
-                 layer_norm_eps=1e-5, dtype=torch.float32):
+                 layer_norm_eps=1e-5, dtype=torch.float32,
+                 hidden_dropout_prob=0.5):
         super().__init__()
+        self.p = hidden_dropout_prob
         self.dense = Dense(intermediate_size, dim_hidden, compute_dtype=dtype)
         self.LayerNorm = (LayerNorm(dim_hidden, layer_norm_eps)
                           if with_layernorm else None)
 
-    def forward(self, hidden_states, input_tensor):
-        hidden_states = self.dense(hidden_states).to(torch.float32) + input_tensor
+    def forward(self, hidden_states, input_tensor, generator=None):
+        hidden_states = dropout(self.dense(hidden_states).to(torch.float32),
+                                self.p, generator) + input_tensor
         if self.LayerNorm is not None:
             hidden_states = self.LayerNorm(hidden_states)
-        return hidden_states
+        return dropout(hidden_states, self.p, generator)
 
 
 class BertLayer(nn.Module):
     """One decoder block: self-attn -> (pos-attn) -> cross-attn -> FFN
-    (reference models/bert.py:250-303), eval mode."""
+    (reference models/bert.py:250-303)."""
 
     def __init__(self, dim_hidden, num_attention_heads, intermediate_size,
                  hidden_act="gelu_new", with_layernorm=False,
                  layer_norm_eps=1e-5, pos_attention=False,
                  use_sigmoid_to_get_attprob=False, parallel_mlm=False,
-                 dtype=torch.float32):
+                 dtype=torch.float32, hidden_dropout_prob=0.5,
+                 attention_probs_dropout_prob=0.0):
         super().__init__()
         kw = dict(with_layernorm=with_layernorm, layer_norm_eps=layer_norm_eps,
-                  use_sigmoid=use_sigmoid_to_get_attprob, dtype=dtype)
+                  use_sigmoid=use_sigmoid_to_get_attprob, dtype=dtype,
+                  hidden_dropout_prob=hidden_dropout_prob,
+                  attention_probs_dropout_prob=attention_probs_dropout_prob)
         self.attention = BertAttention(dim_hidden, num_attention_heads,
                                        with_residual=not parallel_mlm, **kw)
         self.pos_attention = (BertAttention(dim_hidden, num_attention_heads, **kw)
@@ -273,23 +309,25 @@ class BertLayer(nn.Module):
         self.intermediate = BertIntermediate(dim_hidden, intermediate_size,
                                              hidden_act, dtype)
         self.output = BertOutput(intermediate_size, dim_hidden, with_layernorm,
-                                 layer_norm_eps, dtype)
+                                 layer_norm_eps, dtype, hidden_dropout_prob)
 
     def forward(self, hidden_states, non_pad_mask, attention_mask, enc_output,
-                position_embeddings=None
+                position_embeddings=None, generator=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         att, _ = self.attention(hidden_states, hidden_states, hidden_states,
-                                attention_mask)
+                                attention_mask, generator)
         att = att * non_pad_mask
         if self.pos_attention is not None:
             att, _ = self.pos_attention(position_embeddings,
                                         position_embeddings, att,
-                                        attention_mask)
+                                        attention_mask, generator)
             att = att * non_pad_mask
         # the encoder output is never masked (reference Decoder.py:127-128)
-        att, _ = self.attend_to_enc_output(att, enc_output, enc_output, None)
+        att, _ = self.attend_to_enc_output(att, enc_output, enc_output, None,
+                                           generator)
         att = att * non_pad_mask
-        layer_output = self.output(self.intermediate(att), att) * non_pad_mask
+        layer_output = self.output(self.intermediate(att), att,
+                                   generator) * non_pad_mask
         embs = layer_output.sum(1) / non_pad_mask.sum(1)
         return layer_output, embs
 

@@ -32,14 +32,17 @@ from typing import Dict, Iterable, Optional
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("vocab_fused", "fused_layer", "beam_attend", "beam_permute")
+SOURCES = ("vocab_fused", "fused_layer", "beam_attend", "beam_permute",
+           "fused_layer_train")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: Dict[str, int] = {"fused_layer": 0, "fused_layer_qsub": 0,
                             "project_argmax": 0, "project_gather_prob": 0,
                             "project_topk": 0, "beam_attend_step": 0,
-                            "cross_attend": 0, "permute_beam_caches": 0}
+                            "cross_attend": 0, "permute_beam_caches": 0,
+                            "train_fwd": 0, "train_ffn_bwd": 0,
+                            "train_attn_bwd": 0, "train_wgrad": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

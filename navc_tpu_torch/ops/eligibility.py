@@ -77,3 +77,30 @@ def fused_sparse_eligible(cfg: Config) -> bool:
     return (fused_layer_eligible(cfg, causal=False)
             and fused_vocab_eligible(cfg)
             and cfg.paradigm == "mp")
+
+
+def fused_train_eligible(cfg: Config) -> bool:
+    """Can the training step run the fused training layer
+    (ops/fused_layer_train: K11, K12a, K12b) instead of the module
+    BertLayer? The structure the decode kernel covers, plus attention-probs
+    dropout 0 (the kernels implement the four hidden-dropout sites and the
+    input site only) and a NARFormer or ARFormer (watch == 0) decoder. The
+    embedding stage stays in modules, so enhance_input is free."""
+    ok = (cfg.use_pallas
+          and cfg.num_hidden_layers_decoder == 1
+          and not cfg.pos_attention
+          and not cfg.with_layernorm
+          and not cfg.use_sigmoid_to_get_attprob
+          and cfg.hidden_act == "gelu_new"
+          and cfg.attention_probs_dropout_prob == 0.0)
+    if cfg.decoding_type == "ARFormer":
+        return ok and cfg.watch == 0
+    return ok and cfg.decoding_type == "NARFormer"
+
+
+def fused_vocab_ce_eligible(cfg: Config) -> bool:
+    """Can the train step fuse the vocab projection with the cross-entropy
+    (navc_tpu's ops/vocab_ce, K9/K10)? Not until those kernels are ported
+    (ROADMAP.md, Queue B): the step takes the logits route, a plain
+    projection and ``runtime.crit`` on raw logits."""
+    return False

@@ -352,3 +352,206 @@ def test_beam_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         beam_attend_step(kc, vc, q, kt, vt, prev_k.long(), amask, 1, 2)
     with pytest.raises(ValueError):                  # non-contiguous cache
         permute_beam_caches(kc[:, :256], vc[:, :256], prev_k)
+
+
+# --- the training layer: K11, K12a, K12b and the weight-gradient reduction --
+# Tolerances, as chip_smoke.py's. The largest error is held to 2e-2 of the
+# tensor's largest magnitude for the layer output, r2, dr2, dx, denc and the
+# operand rows (the kernels and the plain version round the same values to
+# bf16, but a float32 sum in another order moves a rounding by one bf16 ulp,
+# 2^-8, which the next products spread), and to 1e-3 for the reduction
+# against torch.matmul of the same bf16 operands (float32 sums in another
+# order only). The root mean square of the error is held to 4e-3 and 1e-4 of
+# the tensor's: a flipped rounding is rare, while a missing bias or a scale
+# off by 1% moves every element. The largest rms ratio seen on the H100 is
+# 1.6e-3, in the self-attention dK operand rows, where dS = (dP -
+# rowsum(dP * P)) * P cancels and a flipped rounding upstream moves many
+# roundings downstream; the reduction's is 1.7e-6.
+
+TRAIN_TOL, WGRAD_TOL = 2e-2, 1e-3
+TRAIN_RMS_TOL, WGRAD_RMS_TOL = 4e-3, 1e-4
+TRAIN_CASES = [  # H, FFN, N, L, Le, causal, p
+    (512, 2048, 64, 30, 16, False, 0.5),
+    (512, 2048, 64, 29, 16, True, 0.5),
+    (512, 2048, 7, 20, 16, True, 0.0),
+    (256, 1024, 1, 8, 8, False, 0.0),
+    (256, 1024, 7, 30, 32, True, 0.5),
+    (256, 1024, 64, 20, 5, False, 0.5),
+]
+
+
+def _train_inputs(h, inter, n, l, le, g, dev, bias_scale=1.0):
+    from navc_tpu_torch.ops import fused_layer_train as FT
+
+    w = {k: v.to(torch.float32) * (bias_scale if k.startswith("b") else 1.0)
+         for k, v in vars(_weights(h, inter, g, dev)).items()}
+    lengths = torch.randint(1, l + 1, (n,), generator=g)
+    lengths[0] = l
+    kp = (torch.arange(l)[None] >= lengths[:, None]).to(dev)
+    x = torch.randn(n, l, h, generator=g).to(dev)
+    enc = torch.randn(n, le, h, generator=g).to(dev)
+    return x, enc, kp, FT.kernel_weights(w, torch.bfloat16)
+
+
+def _rms(t):
+    return t.float().square().mean().sqrt().item()
+
+
+def _close(got, want, tol, what, like=None, rms_tol=None):
+    """max |got - want| <= tol * max |like| and, given rms_tol, rms(got -
+    want) <= rms_tol * rms(like) (``like`` defaults to want)."""
+    ref = want if like is None else like
+    err = (got.float() - want.float()).abs().max().item()
+    scale = max(ref.abs().max().item(), 1e-6)
+    assert err <= tol * scale, "%s: max err %.3e, scale %.3e" % (what, err, scale)
+    if rms_tol is not None:
+        err, scale = _rms(got.float() - want.float()), max(_rms(ref), 1e-6)
+        assert err <= rms_tol * scale, "%s: rms err %.3e, rms %.3e" % (what, err, scale)
+
+
+def _check_train_kernels(cuda, case, bias_scale=1.0):
+    from navc_tpu_torch.ops import fused_layer_train as FT
+
+    h, inter, n, l, le, causal, p = case
+    g = _gen(sum(case[:5]))
+    x, enc, kp, w = _train_inputs(h, inter, n, l, le, g, cuda, bias_scale)
+    kw = dict(n_head=8, causal=causal, p=p, p_input=p)
+    seed = 2 ** 31 - 17
+    counts = {k: _build.LAUNCHES[k] for k in ("train_fwd", "train_ffn_bwd",
+                                               "train_attn_bwd", "train_wgrad")}
+    tol = dict(tol=TRAIN_TOL, rms_tol=TRAIN_RMS_TOL)
+    out, r2 = FT.train_fwd(x, enc, kp, w, seed, out_dtype=torch.bfloat16, **kw)
+    out_p, r2_p = FT.train_fwd_plain(x, enc, kp, w, seed, out_dtype=torch.bfloat16, **kw)
+    torch.cuda.synchronize()
+    _close(out, out_p, what="out", **tol)
+    _close(r2, r2_p, what="r2", **tol)
+    assert torch.all(out[kp] == 0) and torch.all(r2[:, l:] == 0)
+
+    dy = torch.randn(n, l, h, generator=g).to(cuda)
+    dr2, prods = FT.ffn_bwd_operands(r2, dy, kp, w, seed, p=p)
+    dr2_p, prods_p = FT.ffn_bwd_operands_plain(r2, dy, kp, w, seed, p=p)
+    _close(dr2, dr2_p, what="dr2", **tol)
+    dx, denc, aprods = FT.attn_bwd_operands(x, enc, dr2, kp, w, seed, **kw)
+    dx_p, denc_p, aprods_p = FT.attn_bwd_operands_plain(x, enc, dr2, kp, w, seed, **kw)
+    _close(dx, dx_p, what="dx", **tol)
+    _close(denc, denc_p, what="denc", **tol)
+    parts = {pr.b: pr.part for pr in prods_p + aprods_p}
+    for a, b in zip(prods + aprods, prods_p + aprods_p):
+        _close(a.P, b.P, what=a.w + " P", **tol)
+        _close(a.Q, b.Q, what=a.w + " Q", **tol)
+        if a.b in ("bk_s", "bk_c"):
+            # a key bias's gradient is zero in exact arithmetic (it shifts a
+            # query's scores alike), so both sides are rounding noise: its
+            # largest error is held to the query bias's scale
+            _close(a.part, b.part, TRAIN_TOL, a.b + " partial sums",
+                   like=parts[a.b.replace("bk_", "bq_")])
+        else:
+            _close(a.part, b.part, what=a.b + " partial sums", **tol)
+
+    grads = FT.weight_grads(prods + aprods[:6])
+    grads.update(FT.weight_grads(aprods[6:]))
+    want = FT.weight_grads_plain(prods + aprods)
+    torch.cuda.synchronize()
+    for k in FT.WEIGHT_KEYS:
+        _close(grads[k], want[k], WGRAD_TOL, k, rms_tol=WGRAD_RMS_TOL)
+    assert {k: _build.LAUNCHES[k] - v for k, v in counts.items()} == {
+        "train_fwd": 1, "train_ffn_bwd": 1, "train_attn_bwd": 1, "train_wgrad": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TRAIN_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_train_kernels_match_plain(cuda, case):
+    _check_train_kernels(cuda, case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [TRAIN_CASES[1], TRAIN_CASES[5]],
+                         ids=lambda c: "x".join(map(str, c)))
+def test_train_kernels_match_plain_with_large_biases(cuda, case):
+    """Every bias U(-1, 1), ten times the others' scale: a bias that a
+    kernel left out, or added at the wrong site, moves every element of
+    the tensors downstream of it well past the rms tolerance."""
+    _check_train_kernels(cuda, case, bias_scale=10.0)
+
+
+@pytest.mark.cuda
+def test_train_layer_autograd_on_the_card(cuda):
+    """The autograd Function on CUDA tensors: gradients of x, enc and the
+    float32 parameters against the plain versions on the same inputs."""
+    from navc_tpu_torch.ops import fused_layer_train as FT
+
+    g = _gen(11)
+    x, enc, kp, w16 = _train_inputs(256, 1024, 9, 17, 16, g, cuda)
+    params = {k: v.float().clone().requires_grad_() for k, v in w16.items()}
+    xs = x.clone().requires_grad_()
+    es = enc.clone().requires_grad_()
+    out = FT.fused_bert_layer_train(xs, es, kp, params, 99, n_head=8, p_hidden=0.5,
+                                    p_input=0.5, out_dtype=torch.bfloat16)
+    dy = torch.randn(out.shape, generator=g).to(cuda, torch.bfloat16)
+    got = torch.autograd.grad(out, [xs, es] + [params[k] for k in FT.WEIGHT_KEYS], dy)
+    w = FT.kernel_weights(params, torch.bfloat16)
+    _, r2 = FT.train_fwd_plain(x, enc, kp, w, 99, n_head=8, p=0.5, p_input=0.5)
+    dr2, gf = FT.train_ffn_bwd_plain(r2, dy.float(), kp, w, 99, p=0.5)
+    dx, denc, ga = FT.train_attn_bwd_plain(x, enc, dr2, kp, w, 99, n_head=8, p=0.5,
+                                           p_input=0.5)
+    gf.update(ga)
+    _close(got[0], dx, TRAIN_TOL, "dx", rms_tol=TRAIN_RMS_TOL)
+    _close(got[1], denc, TRAIN_TOL, "denc", rms_tol=TRAIN_RMS_TOL)
+    for k, v in zip(FT.WEIGHT_KEYS, got[2:]):
+        if k in ("bk_s", "bk_c"):  # key biases: see _check_train_kernels
+            _close(v, gf[k], TRAIN_TOL, k, like=gf[k.replace("bk_", "bq_")])
+        else:
+            _close(v, gf[k], TRAIN_TOL, k, rms_tol=TRAIN_RMS_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 123, 2 ** 31 - 1, -5])
+def test_train_dropout_bits_on_the_card_equal_the_plain_bits(cuda, seed):
+    """With zero matrices the layer exposes its masks: x = 1 and bo2 = 1
+    give out = 2 * m_final * (2 * m_down + 1); bo_s = 1 and bo_c = 4 give
+    r2 = 2 * m_self + 8 * m_cross; p = 0 and p_input = 0.5 give out = 2 *
+    m_input. Each mask must be the lattice's."""
+    from navc_tpu_torch.ops import fused_layer_train as FT
+
+    n, l, le, h, inter = 19, 13, 8, 128, 256
+    th = 1 << 23
+
+    def weights(**bias):
+        w = {k: torch.zeros((h, h) if k in FT.MATS else (h,), device=cuda)
+             for k in FT.WEIGHT_KEYS}
+        w.update(wi=torch.zeros(inter, h, device=cuda), bi=torch.zeros(inter, device=cuda),
+                 wo2=torch.zeros(h, inter, device=cuda))
+        for k, v in bias.items():
+            w[k] = torch.full((h,), float(v), device=cuda)
+        return FT.kernel_weights(w, torch.bfloat16)
+
+    def mask(site):
+        return (FT.lattice_bits(seed, site, n, l, h) >= th).float().to(cuda)
+
+    x1, kp = torch.ones(n, l, h, device=cuda), torch.zeros(n, l, dtype=torch.bool,
+                                                            device=cuda)
+    enc = torch.zeros(n, le, h, device=cuda)
+    out, _ = FT.train_fwd(x1, enc, kp, weights(bo2=1), seed, n_head=2, p=0.5)
+    want = 2 * mask(FT.SITE_FFN_FINAL) * (2 * mask(FT.SITE_FFN_DOWN) + 1)
+    assert torch.equal(out, want)
+    _, r2 = FT.train_fwd(torch.zeros_like(x1), enc, kp, weights(bo_s=1, bo_c=4), seed,
+                         n_head=2, p=0.5)
+    want = 2 * mask(FT.SITE_SELF_OUT) + 8 * mask(FT.SITE_CROSS_OUT)
+    assert torch.equal(r2[:, :l].float(), want)
+    out, _ = FT.train_fwd(x1, enc, kp, weights(), seed, n_head=2, p=0.0, p_input=0.5)
+    assert torch.equal(out, 2 * mask(FT.SITE_INPUT))
+
+
+@pytest.mark.cuda
+def test_train_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from navc_tpu_torch.ops import fused_layer_train as FT
+
+    g = _gen(3)
+    x, enc, kp, w = _train_inputs(256, 1024, 2, 10, 8, g, cuda)
+    with pytest.raises(ValueError, match="bfloat16 only"):
+        FT.train_fwd(x, enc, kp, w, 0, n_head=8, compute_dtype=torch.float32)
+    with pytest.raises(ValueError, match="float32"):
+        FT.train_fwd(x.to(torch.bfloat16), enc, kp, w, 0, n_head=8)
+    with pytest.raises(ValueError, match="lengths|length"):
+        FT.train_fwd(torch.zeros(2, 33, 256, device=cuda), enc,
+                     torch.zeros(2, 33, dtype=torch.bool, device=cuda), w, 0, n_head=8)

@@ -215,6 +215,10 @@ def test_port_imports_no_jax():
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in"
         " ('jax', 'jaxlib', 'flax', 'optax', 'navc_tpu'))\n"
         "assert not bad, bad\n"
+        "train = ('ops.fused_layer_train', 'runtime.train_step', 'runtime.loop',"
+        " 'runtime.crit', 'runtime.optim', 'runtime.logger')\n"
+        "missing = [m for m in train if 'navc_tpu_torch.' + m not in sys.modules]\n"
+        "assert not missing, missing\n"
         "print('OK', len([n for n in sys.modules if n.startswith('navc_tpu_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

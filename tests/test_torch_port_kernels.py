@@ -16,6 +16,9 @@ seeded numpy inputs and the same weights. Tolerances:
     row-independent).
 """
 
+import glob
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -228,8 +231,9 @@ def test_build_hash_follows_sources(tmp_path, monkeypatch):
     assert a.startswith(_build.BUILD_DIR) and a.endswith(".so")
     csrc = tmp_path / "csrc"
     csrc.mkdir()
-    for name in ("vocab_fused.cu", "common.cuh"):
-        (csrc / name).write_text(open("%s/%s" % (_build.CSRC, name)).read())
+    headers = [os.path.basename(h) for h in glob.glob(os.path.join(_build.CSRC, "*.cuh"))]
+    for name in ["vocab_fused.cu"] + headers:  # the hash covers every header
+        (csrc / name).write_text(open(os.path.join(_build.CSRC, name)).read())
     monkeypatch.setattr(_build, "CSRC", str(csrc))
     assert _build.library_path("vocab_fused") == a
     (csrc / "common.cuh").write_text("// changed\n")
