@@ -19,12 +19,19 @@ request (K8 instead of K6) through StreamingCaptioner; one decode at
 B=1024 under bench.py's protocol; one request profiled; 16 videos decoded
 again on the CPU. Training: K11, K12a, K12b and the weight-gradient
 reduction held against their plain versions at full width (B=64, dropout
-0.5) and timed; 5 NACF steps of 64 videos through run_train_epoch (launch
-counts, ms per step, peak memory, one step profiled); bench.py's train
-protocol at B=2048; one bf16 step of 16 videos against the CPU plain path;
-20 steps on one batch at dropout 0.1 must lower the loss. It exits non-zero
-on any failure, without a CUDA device, and outside a checkout. Imports
-nothing of JAX or navc_tpu.
+0.5) and timed; the fused projection + cross-entropy K9 and K10 (both
+launches) held against their plain versions at the B=64 NACF pass, untied,
+tied and with a large bias, timed there and at B=2048 beside the logits
+route on the same operands; 5 NACF steps of 64 videos through
+run_train_epoch (launch counts, ms per step, peak memory, one step
+profiled); bench.py's train protocol at B=2048 (profiled); one bf16 step of
+16 videos against the CPU plain path; 20 steps on one batch at dropout 0.1
+must lower the loss. K1u (the unfolded eval layer, which no path calls) is
+held against its plain version at K1's shape. The entry point:
+train_network_all at full width on a synthetic 320-video corpus, ARB for
+one epoch, then NACF for two with that teacher (validation decodes through
+K1-K7, steps through K9-K12). It exits non-zero on any failure, without a
+CUDA device, and outside a checkout. Imports nothing of JAX or navc_tpu.
 
 Standard output ends with two JSON lines: {"kernels": [...]} and
 {"ok": true, "device": {...}}.
@@ -453,7 +460,10 @@ def arb_phases(cfg, model, cpu_model, record):
 
 
 TRAIN_B, TRAIN_STEPS, TRAIN_BENCH, TRAIN_BENCH_ITERS, TRAIN_CPU = 64, 5, 2048, 5, 16
-TRAIN_KERNELS = ("train_fwd", "train_ffn_bwd", "train_attn_bwd", "train_wgrad")
+LAYER_KERNELS = ("train_fwd", "train_ffn_bwd", "train_attn_bwd", "train_wgrad")
+CE_KERNELS = ("ce_fwd", "ce_bwd_dh", "ce_bwd_dw")
+TRAIN_KERNELS = LAYER_KERNELS + CE_KERNELS
+CE_TOL, CE_RMS_TOL = 1e-4, 2e-5  # g, z: float32 sums in another order, online lse
 # the error's largest |value| against the reference's, and the error's root
 # mean square against the reference's (tests/test_torch_port_cuda.py says why)
 TRAIN_TOL, WGRAD_TOL = 2e-2, 1e-3
@@ -501,6 +511,150 @@ def scaled_err(got, want, like=None):
             float(d.square().mean().sqrt()), max(float(ref.square().mean().sqrt()), 1e-6))
 
 
+def ce_checks(cfg, model, g, record):
+    """K9 and K10 against their plain versions at the B=64 NACF pass (N = B
+    x 30 rows), untied, tied and tied with a bias ten times the scores'
+    scale; timed at N = 1920 and N = 61440 (B=2048) beside the logits route
+    on the same operands (torch.matmul + runtime.crit's loss)."""
+    import torch
+
+    from navc_tpu_torch.ops import vocab_ce as VC
+    from navc_tpu_torch.runtime.crit import _label_logprob
+
+    dev = torch.device("cuda")
+    h, v = cfg.dim_hidden, cfg.vocab_size
+    w_master = model.projection_weight().detach()        # (V, D) float32
+    w16 = w_master.to(torch.bfloat16).contiguous()
+
+    def operands(rows):
+        hh = torch.randn(rows, h, generator=g).to(dev, torch.bfloat16)
+        lab = torch.randint(0, v, (rows,), generator=g, dtype=torch.int32).to(dev)
+        keep = (torch.rand(rows, generator=g) > 0.4).float()   # PAD / dropped rows
+        return hh, lab, (torch.randn(rows, generator=g) * keep).to(dev)
+
+    n = TRAIN_B * cfg.max_len
+    hh, lab, dg = operands(n)
+    scale = float((hh[:256].float() @ w16.float().t()).std())
+    cases = {"untied": None,
+             "tied": (torch.randn(v, generator=g) * 0.1).to(dev),
+             "large bias": (torch.randn(v, generator=g) * 10 * scale).to(dev)}
+    errs = {k: 0.0 for k in CE_KERNELS}
+    worst_rms = {k: 0.0 for k in CE_KERNELS}
+    for case, bias in cases.items():
+        g_k, pred_k, z_k = VC.vocab_ce_fwd(hh, w16, bias, lab)
+        g_p, pred_p, z_p = VC.vocab_ce_fwd_plain(hh, w16, bias, lab)
+        dh_k, dw_k, db_k = VC.vocab_ce_bwd(hh, w16, bias, lab, z_k, dg,
+                                           dh_dtype=torch.bfloat16)
+        dh_p, dw_p, db_p = VC.vocab_ce_bwd_plain(hh, w16, bias, lab, z_p, dg)
+        torch.cuda.synchronize()
+        s_p = hh.float() @ w16.float().t() + (0 if bias is None else bias)
+        top2 = s_p.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 1e-3
+        if int(((pred_k != pred_p) & clear).sum()):
+            die("ce_fwd (%s) argmax differs from the plain version where the "
+                "top-2 margin > 1e-3" % case)
+        if not torch.all(dh_k[dg == 0] == 0):
+            die("ce_bwd_dh (%s): a row with dg = 0 has a non-zero gradient" % case)
+        checks = [("ce_fwd", "g", g_k, g_p, CE_TOL, CE_RMS_TOL),
+                  ("ce_fwd", "z", z_k, z_p, CE_TOL, CE_RMS_TOL),
+                  ("ce_bwd_dh", "dh", dh_k, dh_p, TRAIN_TOL, TRAIN_RMS_TOL),
+                  ("ce_bwd_dw", "dW", dw_k, dw_p, TRAIN_TOL, TRAIN_RMS_TOL)]
+        if bias is not None:
+            checks.append(("ce_bwd_dw", "db", db_k, db_p, TRAIN_TOL, TRAIN_RMS_TOL))
+        for name, what, a, b, tol, rms_tol in checks:
+            err, sc, rms_err, rms = scaled_err(a, b)
+            if not (err <= tol * sc and rms_err <= rms_tol * rms):
+                die("%s %s (%s) disagrees with its plain version: max err %.3e "
+                    "(scale %.3e), rms err %.3e (rms %.3e)"
+                    % (name, what, case, err, sc, rms_err, rms))
+            errs[name] = max(errs[name], err)
+            worst_rms[name] = max(worst_rms[name], rms_err / rms)
+    log("vocab CE kernels agree with their plain versions at N=%d, D=%d, V=%d "
+        "(untied, tied, large bias; ids equal where the top-2 margin > 1e-3; "
+        "g, z within %.0e of the largest |value| and %.0e of the rms; dh, dW, "
+        "db within %.0e and %.0e; worst rms ratios %s)" % (
+            n, h, v, CE_TOL, CE_RMS_TOL, TRAIN_TOL, TRAIN_RMS_TOL,
+            {k: "%.3g" % r for k, r in worst_rms.items()}))
+
+    b_main = None if model.tgt_word_prj is not None else cases["tied"]
+    w_route = w_master.clone().requires_grad_()
+
+    def logits_route(hh, lab, dg, backward):
+        """The logits route on the same operands: the bf16 projection, then
+        runtime.crit's label log-prob, forward (and backward)."""
+        with torch.set_grad_enabled(backward):
+            hr = hh.detach().requires_grad_(backward)
+            logits = hr @ w_route.to(torch.bfloat16).t()
+            if b_main is not None:
+                logits = logits + b_main.to(torch.bfloat16)
+            gathered, _ = _label_logprob(logits, lab)
+            if backward:
+                (-(gathered * dg).sum()).backward()
+
+    def launch_ms(fn, name, calls=5):
+        prof = device_breakdown(lambda: [fn() for _ in range(calls)])
+        hits = [] if prof is None else [v for k, v in prof[2].items() if name in k]
+        if not hits:
+            die("the profiler recorded no device time for %s" % name)
+        return sum(v[0] for v in hits) / calls
+
+    times = {}
+    for rows in (n, TRAIN_BENCH * cfg.max_len):
+        hr, lr, dr = (hh, lab, dg) if rows == n else operands(rows)
+        z = VC.vocab_ce_fwd(hr, w16, b_main, lr)[2]
+        bwd = lambda: VC.vocab_ce_bwd(hr, w16, b_main, lr, z, dr,  # noqa: E731
+                                      dh_dtype=torch.bfloat16)
+        times[rows] = dict(
+            fwd=cuda_ms(lambda: VC.vocab_ce_fwd(hr, w16, b_main, lr), iters=5),
+            bwd=cuda_ms(bwd, iters=5),
+            dh=launch_ms(bwd, "ce_bwd_dh"), dw=launch_ms(bwd, "ce_bwd_dw"),
+            route_fwd=cuda_ms(lambda: logits_route(hr, lr, dr, False), iters=5),
+            route_both=cuda_ms(lambda: logits_route(hr, lr, dr, True), iters=5))
+        log("vocab CE at N=%d (B=%d): K9 %.4f ms, K10 %.4f ms (dh %.4f, dW %.4f); "
+            "bounds by the function's own operations: K9 %.4f ms, K10 %.4f ms; "
+            "logits route on the same operands: forward %.4f ms, forward + "
+            "backward %.4f ms (K9 + K10 %.4f ms)" % (
+                rows, rows // cfg.max_len, times[rows]["fwd"], times[rows]["bwd"],
+                times[rows]["dh"], times[rows]["dw"],
+                bound(2 * rows * h * v, 0)[0], bound(6 * rows * h * v, 0)[0],
+                times[rows]["route_fwd"], times[rows]["route_both"],
+                times[rows]["fwd"] + times[rows]["bwd"]))
+        del hr, lr, dr, z
+    torch.cuda.empty_cache()
+
+    t = times[n]
+    plain_fwd = cuda_ms(lambda: VC.vocab_ce_fwd_plain(hh, w16, b_main, lab), iters=3)
+    z = VC.vocab_ce_fwd(hh, w16, b_main, lab)[2]
+    plain_bwd = cuda_ms(lambda: VC.vocab_ce_bwd_plain(hh, w16, b_main, lab, z, dg), iters=3)
+    nd_v = n * h * v
+    in_bytes = n * h * 2 + v * h * 2 + (0 if b_main is None else v * 4) + n * 4
+    big = times[TRAIN_BENCH * cfg.max_len]
+    note = ("  (max_err: absolute, over the untied, tied and large-bias cases; "
+            "B=2048 (N=%d): %.4f ms; logits route on the same operands: B=64 "
+            "forward %.4f, forward+backward %.4f ms, B=2048 %.4f, %.4f ms; "
+            "library_ms null: no one PyTorch call)")
+    return {
+        "ce_fwd": record(
+            "ce_fwd", errs["ce_fwd"], None, t["fwd"], plain_fwd, 2 * nd_v,
+            in_bytes + 3 * n * 4,
+            note=note % (TRAIN_BENCH * cfg.max_len, big["fwd"], t["route_fwd"],
+                         t["route_both"], big["route_fwd"], big["route_both"])),
+        "ce_bwd_dh": record(
+            "ce_bwd_dh", errs["ce_bwd_dh"], None, t["dh"], plain_bwd, 4 * nd_v,
+            in_bytes + 2 * n * 4 + n * h * 2,
+            note=note % (TRAIN_BENCH * cfg.max_len, big["dh"], t["route_fwd"],
+                         t["route_both"], big["route_fwd"], big["route_both"])
+            + " [K10's score recompute and dh = ds W; plain_ms: the whole plain backward]"),
+        "ce_bwd_dw": record(
+            "ce_bwd_dw", errs["ce_bwd_dw"], None, t["dw"], plain_bwd, 2 * nd_v,
+            v * h * 4 + (0 if b_main is None else v * 4),
+            note=note % (TRAIN_BENCH * cfg.max_len, big["dw"], t["route_fwd"],
+                         t["route_both"], big["route_fwd"], big["route_both"])
+            + " [dW = ds^T h and db; its own score recompute is the port's cost, "
+            "not in the bound; plain_ms: the whole plain backward]"),
+    }
+
+
 def train_phases(record, seeded):
     """K11, K12a, K12b and the weight-gradient reduction against their plain
     versions at full width, then NACF training through run_train_epoch.
@@ -530,8 +684,8 @@ def train_phases(record, seeded):
     w = FT.kernel_weights(FT.layer_train_weights(model.decoder.layers[0]),
                           torch.bfloat16)
     w = {k: v.detach() for k, v in w.items()}
-    recs, errs = {}, {k: 0.0 for k in TRAIN_KERNELS}
-    rms_ratio = {k: (0.0, "") for k in TRAIN_KERNELS}
+    recs, errs = {}, {k: 0.0 for k in LAYER_KERNELS}
+    rms_ratio = {k: (0.0, "") for k in LAYER_KERNELS}
     seed = 1234567
     for causal in (False, True):
         l = cfg.max_len - 1 if causal else cfg.max_len
@@ -648,6 +802,8 @@ def train_phases(record, seeded):
     del out, r2, dr2, dx, denc, prods, fprods, aprods, grads, want
     del out_p, r2_p, dr2_p, dx_p, denc_p, fprods_p, aprods_p
 
+    recs.update(ce_checks(cfg, model, g, record))
+
     # -- (b) the main path: 5 NACF steps through run_train_epoch -----------
     rng = np.random.RandomState(5)
     state = create_train_state(cfg, model)
@@ -670,7 +826,7 @@ def train_phases(record, seeded):
             torch.cuda.max_memory_allocated() / 1e9, launches,
             {k: round(v, 4) for k, v in info.items()}))
     want_launches = {"train_fwd": 2, "train_ffn_bwd": 2, "train_attn_bwd": 2,
-                     "train_wgrad": 4}
+                     "train_wgrad": 4, "ce_fwd": 2, "ce_bwd_dh": 2, "ce_bwd_dw": 2}
     for name, per in want_launches.items():
         if launches[name] != per * TRAIN_STEPS:
             die("training: %s launched %d times, expected %d per step"
@@ -752,6 +908,94 @@ def train_phases(record, seeded):
     return recs, launches
 
 
+ENTRY_VIDEOS, ENTRY_CAPS, ENTRY_FRAMES = 320, 5, 16
+
+
+def entry_point_phase():
+    """train_network_all at full width: make_synthetic_corpus with the
+    MSRVTT vocab (10048) and in-memory 2048-d features, modality mi, 320
+    videos (192 / 64 / 64), 5 captions each, batch 64. ARB for 1 epoch, then
+    NACF for 2 with that best.ckpt as teacher. Validation decodes go through
+    K1-K4 (NACF, with the ARB teacher's rescoring) and K5-K7 (ARB), every
+    step through K9-K12."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from navc_tpu_torch.config import default_config
+    from navc_tpu_torch.data.synthetic import make_synthetic_corpus, make_synthetic_feats
+    from navc_tpu_torch.ops import _build
+    from navc_tpu_torch.runtime import loop
+
+    over = dict(dataset="MSRVTT", vocab_size=10048, use_pallas=True, batch_size=64)
+    base = default_config("ARB", epochs=1, no_test=True, **over)
+    corpus, refs = make_synthetic_corpus(base, n_videos=ENTRY_VIDEOS, n_caps=ENTRY_CAPS,
+                                         vocab_size=10048)
+    feats = make_synthetic_feats(base, n_videos=ENTRY_VIDEOS, n_total_frames=ENTRY_FRAMES)
+    data = dict(info_corpus=corpus, references=refs, in_memory_feats=feats)
+    split = {k: len(v) for k, v in corpus["info"]["split"].items()}
+
+    times = {"epoch": [], "eval": []}
+    train_epoch, run_eval = loop.run_train_epoch, loop.run_eval
+
+    def timed(fn, key):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            times[key].append(time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    loop.run_train_epoch, loop.run_eval = timed(train_epoch, "epoch"), timed(run_eval, "eval")
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            _build.reset_launches()
+            arb = loop.train_network_all(base, workdir=os.path.join(root, "ARB"),
+                                         verbose=False, **data)
+            arb_launches = dict(_build.LAUNCHES)
+            teacher = os.path.join(root, "ARB", "best.ckpt")
+            ncfg = default_config("NACF", epochs=2, **over).replace(teacher_path=teacher)
+            _build.reset_launches()
+            nacf = loop.train_network_all(ncfg, workdir=os.path.join(root, "NACF"),
+                                          verbose=False, **data)
+            nacf_launches = dict(_build.LAUNCHES)
+            for run in ("ARB", "NACF"):
+                for name in ("best.ckpt", "checkpoint.ckpt", "trainning_record.csv"):
+                    if not os.path.exists(os.path.join(root, run, name)):
+                        die("entry point: %s wrote no %s" % (run, name))
+    finally:
+        loop.run_train_epoch, loop.run_eval = train_epoch, run_eval
+    losses = [r["train_loss"] for r in nacf["history"]]
+    log("entry point: train_network_all, %d videos (%s), %d captions each, batch 64, "
+        "d=512, vocab 10048: ARB 1 epoch then NACF 2 epochs with that teacher; "
+        "seconds per epoch %s, per validation %s, test evaluation %.3f; ARB "
+        "validation %s; NACF validation %s, train loss %s; NACF test %s" % (
+            ENTRY_VIDEOS, split, ENTRY_CAPS, ["%.3f" % t for t in times["epoch"]],
+            ["%.3f" % t for t in times["eval"][:-1]], times["eval"][-1],
+            {k: round(arb["history"][0][k], 4) for k in ("Bleu_4", "METEOR", "CIDEr")},
+            [{k: round(r[k], 4) for k in ("Bleu_4", "METEOR", "CIDEr")}
+             for r in nacf["history"]], ["%.4f" % x for x in losses],
+            {k: round(nacf["test_res"][k], 4) for k in ("Bleu_4", "METEOR", "CIDEr")}))
+    log("entry point launches: ARB run %s; NACF run %s" % (
+        {k: c for k, c in arb_launches.items() if c},
+        {k: c for k, c in nacf_launches.items() if c}))
+    if not (len(losses) == 2 and np.isfinite(losses).all() and losses[1] < losses[0]
+            and np.isfinite(arb["history"][0]["train_loss"])):
+        die("entry point: NACF train losses %s are not finite and falling" % losses)
+    for name in ("project_topk", "beam_attend_step", "cross_attend", "train_fwd",
+                 "train_ffn_bwd", "train_attn_bwd", "train_wgrad", "ce_fwd",
+                 "ce_bwd_dh", "ce_bwd_dw"):
+        if not arb_launches[name]:
+            die("entry point: the ARB run never launched %s" % name)
+    for name in ("fused_layer", "fused_layer_qsub", "project_argmax",
+                 "project_gather_prob", "train_fwd", "train_ffn_bwd", "train_attn_bwd",
+                 "train_wgrad", "ce_fwd", "ce_bwd_dh", "ce_bwd_dw"):
+        if not nacf_launches[name]:
+            die("entry point: the NACF run never launched %s" % name)
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "navc_tpu_torch", "csrc")):
         die("navc_tpu_torch/csrc not found next to chip_smoke.py: run it "
@@ -781,7 +1025,9 @@ def main():
     from navc_tpu_torch.ops import _build
     from navc_tpu_torch.ops.fused_layer import (fused_layer, fused_layer_plain,
                                                 fused_layer_qsub,
-                                                fused_layer_qsub_plain)
+                                                fused_layer_qsub_plain,
+                                                fused_layer_unfolded,
+                                                fused_layer_unfolded_plain)
     from navc_tpu_torch.ops.vocab_fused import (project_argmax,
                                                 project_argmax_plain,
                                                 project_gather_prob,
@@ -924,6 +1170,37 @@ def main():
     if not k2_vs_k1 <= HID_TOL:
         die("K2 rows differ from K1 rows at the same positions: %.3e" % k2_vs_k1)
 
+    # K1u, the unfolded form (float32 embedded rows, cross K/V projected in
+    # the kernel) at K1's shape; no path of navc_tpu or of the port calls it
+    x_u = torch.randn(n, l, h, generator=g).to(dev)
+    enc_u = torch.repeat_interleave(enc, cfg.length_beam_size, 0)
+    err_u = 0.0
+    for causal in (False, True):
+        out_u = fused_layer_unfolded(x_u, enc_u, kp, ops.layer, ops.n_head, causal,
+                                     torch.bfloat16)
+        want_u = fused_layer_unfolded_plain(x_u, enc_u, kp, ops.layer, ops.n_head,
+                                            causal, torch.bfloat16)
+        torch.cuda.synchronize()
+        e, sc, re, rs = scaled_err(out_u, want_u)
+        if not (e <= TRAIN_TOL * sc and re <= TRAIN_RMS_TOL * rs):
+            die("fused_layer_unfolded (%s) disagrees with its plain version: max err "
+                "%.3e (scale %.3e), rms err %.3e (rms %.3e)"
+                % ("causal" if causal else "nar", e, sc, re, rs))
+        err_u = max(err_u, e)
+    weights_b = (8 * h * h + 2 * h * inter) * 2 + (8 * h + inter + h) * 4
+    rec_k1u = record(
+        "fused_layer_unfolded", err_u, None,
+        cuda_ms(lambda: fused_layer_unfolded(x_u, enc_u, kp, ops.layer, ops.n_head,
+                                             False, torch.bfloat16)),
+        cuda_ms(lambda: fused_layer_unfolded_plain(x_u, enc_u, kp, ops.layer,
+                                                   ops.n_head, False, torch.bfloat16),
+                iters=5),
+        layer_flops(real, real, n, le, h, inter) + 2 * 2 * n * le * h * h,
+        n * l * h * 4 + n * le * h * 4 + n * l + weights_b + n * l * h * 2,
+        note="  (max_err: absolute, NAR and causal; tolerance %.0e of the largest "
+        "|value| and %.0e of the rms; no path of navc_tpu reaches it: launches 0)"
+        % (TRAIN_TOL, TRAIN_RMS_TOL))
+
     # K3 / K4 on the dense layer output (R = N * L rows)
     hid = out_k1.view(n * l, h)
     w16, wb = ops.proj_w, ops.proj_b
@@ -1038,7 +1315,12 @@ def main():
     train_recs, train_launches = train_phases(record, seeded)
     log("training phases: %.1f s" % (time.perf_counter() - t0))
 
-    # -- 7. results -----------------------------------------------------------
+    # -- 7. the entry point: train_network_all at full width -------------------
+    t0 = time.perf_counter()
+    entry_point_phase()
+    log("entry point phase: %.1f s" % (time.perf_counter() - t0))
+
+    # -- 8. results -----------------------------------------------------------
     def entry(name, source, replaces, rec, counts=launches):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=counts[name], **rec)
@@ -1076,6 +1358,16 @@ def main():
         entry("train_wgrad", "navc_tpu_torch/csrc/fused_layer_train.cu",
               "navc_tpu/ops/fused_layer_train.py:447,:499 (their weight-gradient "
               "accumulation)", train_recs["train_wgrad"], train_launches),
+        entry("ce_fwd", "navc_tpu_torch/csrc/vocab_ce.cu",
+              "navc_tpu/ops/vocab_ce.py:118", train_recs["ce_fwd"], train_launches),
+        entry("ce_bwd_dh", "navc_tpu_torch/csrc/vocab_ce.cu",
+              "navc_tpu/ops/vocab_ce.py:152", train_recs["ce_bwd_dh"], train_launches),
+        entry("ce_bwd_dw", "navc_tpu_torch/csrc/vocab_ce.cu",
+              "navc_tpu/ops/vocab_ce.py:152", train_recs["ce_bwd_dw"], train_launches),
+        dict(entry("fused_layer_unfolded", "navc_tpu_torch/csrc/fused_layer.cu",
+                   "navc_tpu/ops/fused_layer.py:303", rec_k1u),
+             note="no path of navc_tpu reaches the unfolded form (its decodes pass "
+             "static=, which selects :289); held against its plain version only"),
     ]
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)

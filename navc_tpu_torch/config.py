@@ -316,3 +316,20 @@ def default_config(method: str, dataset: str = "MSRVTT", scope: str = "run",
     cfg = Config(method=method, dataset=dataset, default=True, scope=scope)
     cfg = cfg.replace(**overrides)
     return resolve(cfg, require_teacher_ckpt=require_teacher_ckpt)
+
+
+def resolve_data_paths(cfg: Config) -> Config:
+    """Resolve feature/corpus paths (reference train.py:15-26, 67-70)."""
+    root = os.path.join(cfg.base_data_path, cfg.dataset)
+    updates: Dict[str, Any] = {}
+    for ch in "amiot":
+        names = getattr(cfg, "feats_%s_name" % ch)
+        updates["feats_%s" % ch] = [os.path.join(root, "feats", n) for n in names if n]
+    updates["info_corpus"] = os.path.join(root, cfg.info_corpus_name)
+    updates["reference"] = os.path.join(root, cfg.reference_name)
+    return cfg.replace(**updates)
+
+
+def where_to_save_model(cfg: Config) -> str:
+    """Checkpoint directory layout (reference train.py:29-35)."""
+    return os.path.join(cfg.base_checkpoint_path, cfg.dataset, cfg.method, cfg.scope)

@@ -8,8 +8,11 @@
 //
 // Replaces: navc_tpu/ops/fused_layer.py fused_nar_decoder_layer in its fold +
 // pre_kv form (pallas_call at :289, body _kernel_fold :143 -> _layer_body
-// :108 -> _attend_2d :50) and fused_nar_decoder_layer_qsub (pallas_call at
-// :461, body _kernel_fold_qsub :337). The bf16 rounding points are those of
+// :108 -> _attend_2d :50), fused_nar_decoder_layer_qsub (pallas_call at
+// :461, body _kernel_fold_qsub :337) and, as K1u, fused_nar_decoder_layer
+// in its unfolded form (pallas_call at :303, body _kernel :133: the layer on
+// embedded rows, cross K/V projected in the kernel). K1u is K11's forward
+// (layer_common.cuh layer_fwd) with both dropout probabilities 0. The bf16 rounding points are those of
 // _attend_2d / _layer_body: bf16 matmul operands with float32 accumulation,
 // float32 bias, LayerNorm and softmax, the result in the output dtype.
 //
@@ -240,7 +243,20 @@ __global__ void __launch_bounds__(NT, 1) fused_layer_kernel(const LayerArgs a) {
   });
 }
 
+// K1u
+__global__ void __launch_bounds__(NT, 1) unfolded_layer_kernel(const TrainArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float kmask[MR], npm[MR];
+  layer_fwd(a, smem, kmask, npm);
+}
+
 }  // namespace
+
+// K1u: x (N, L, H) f32 embedded rows, enc (N, Le, H) f32, no dropout, no r2.
+NAVC_EXPORT int navc_fused_layer_unfolded(const TrainArgs* args, void* stream) {
+  if (args->on_hidden || args->on_input || args->r2) return (int)cudaErrorInvalidValue;
+  return launch_rows(unfolded_layer_kernel, args, layer_smem_bytes(args->H), stream);
+}
 
 NAVC_EXPORT int navc_fused_layer(const LayerArgs* args, void* stream) {
   const size_t smem = layer_smem_bytes(args->H);

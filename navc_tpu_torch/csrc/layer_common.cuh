@@ -1,6 +1,6 @@
 // Device code shared by the whole-layer kernels: fused_layer.cu (K1/K2, the
-// eval layer of the NAR decode) and fused_layer_train.cu (K11 and K12b's
-// recompute of it). Both run one block of NT threads per sequence of at most
+// eval layer of the NAR decode, and K1u) and fused_layer_train.cu (K11 and
+// K12b's recompute of it). Both run one block of NT threads per sequence of at most
 // MR rows, keep the layer in shared memory in the layout below, multiply with
 // bf16 wmma 16x16x16 fragments accumulating in float32, and share the
 // per-head softmax and the chunked FFN, so the forward of the two sources
@@ -261,6 +261,233 @@ __device__ __forceinline__ void ffn_rows(const LayerSmem& s, int H, int I, int m
       }
     }
   }
+}
+
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// The layer forward with the cross K/V projected in the kernel and the
+// training layer's hash dropout: K11 and K12b's recompute of it
+// (fused_layer_train.cu), and K1u at p = 0 (fused_layer.cu).
+// ---------------------------------------------------------------------------
+
+namespace {
+
+// navc_tpu's int32 constants, as uint32 (its comments' hex differs for MC3, MM2)
+constexpr unsigned MC1 = 0x9E3779B9u, MC2 = 0x85EBCA6Bu, MC3 = 0xC2B2AE3Du;
+constexpr unsigned MM1 = 0x7FEB352Du, MM2 = 0x849E368Bu;
+enum { SITE_SELF_OUT = 0, SITE_CROSS_OUT, SITE_FFN_DOWN, SITE_FFN_FINAL, SITE_INPUT };
+enum { WS_X, WS_C1, WS_R1, WS_C2, WS_DO1, WS_DQ1, WS_DK1, WS_DV1, WS_DO2, WS_DQ2,
+       WS_ENC, WS_DK2, WS_DV2, WS_G, WS_DA, WS_DD };
+enum { P_BQS, P_BKS, P_BVS, P_BOS, P_BQC, P_BKC, P_BVC, P_BOC, P_BI, P_BO2 };
+enum { S_Q1, S_K1, S_V1, S_Q2, S_K2, S_V2 };
+
+}  // namespace
+
+// Mirrored field by field by navc_tpu_torch/ops/fused_layer_train.py
+// (TrainArgs). Matrices are nn.Linear's (out, in), row-major.
+struct TrainArgs {
+  const float* x;           // (N, L, H) post-embedding rows
+  const float* enc;         // (N, Le, H) encoder output
+  const unsigned char* kp;  // (N, L) 1 at PAD
+  const bf16* w[8];         // wq_s wk_s wv_s wo_s wq_c wk_c wv_c wo_c: (H, H)
+  const float* b[8];
+  const bf16* wi;           // (I, H)
+  const float* bi;
+  const bf16* wo2;          // (H, I)
+  const float* bo2;
+  void* out;                // K11: (N, L, H) bf16 or f32
+  bf16* r2;                 // K11 out / K12a in: (N, Lp, H)
+  const float* dy;          // K12a: (N, L, H)
+  float* dr2;               // K12a out / K12b in: (N, L, H)
+  float* dx;                // K12b: (N, L, H)
+  float* denc;              // K12b: (N, Le, H)
+  bf16* ws[16];             // operand rows (N * Lp or N * Lep, H or I), WS_*
+  float* part[10];          // per-sequence bias column sums (N, H or I), P_*
+  bf16* scr[6];             // K12b scratch: Q/K/V of both attentions, S_*
+  int out_bf16, n, L, Le, H, I, n_head, causal, Lp, Lep, on_hidden, on_input;
+  unsigned seed, th_hidden, th_input;
+  float keep_hidden, keep_input, scale;
+};
+
+namespace {
+
+__device__ __forceinline__ unsigned hash24(unsigned seed, unsigned tile, unsigned site,
+                                           unsigned r, unsigned c) {
+  const unsigned key = seed + (tile * 11u + site) * MC3;
+  unsigned x = r * MC1 + c * MC2 + key;
+  x ^= x >> 16;
+  x *= MM1;
+  x ^= x >> 13;
+  x *= MM2;
+  x ^= x >> 16;
+  return x & 0x00FFFFFFu;
+}
+
+// Dropout of one sequence's elements: v * (bits >= th ? 1 / (1 - p) : 0).
+struct Drop {
+  unsigned seed, tile, rbase, th_h, th_i;
+  float keep_h, keep_i;
+  bool on_h, on_i;
+
+  __device__ float hidden(float v, int site, int i, int j) const {
+    if (!on_h) return v;
+    return v * (hash24(seed, tile, site, rbase + i, j) >= th_h ? keep_h : 0.f);
+  }
+  __device__ float input(float v, int i, int j) const {
+    if (!on_i) return v;
+    return v * (hash24(seed, tile, SITE_INPUT, rbase + i, j) >= th_i ? keep_i : 0.f);
+  }
+};
+
+__device__ Drop make_drop(const TrainArgs& a, int n) {
+  Drop d;
+  d.seed = a.seed;
+  d.tile = (unsigned)(n / 8);
+  d.rbase = (unsigned)((n % 8) * ((a.L + 7) / 8 * 8));
+  d.th_h = a.th_hidden;
+  d.th_i = a.th_input;
+  d.keep_h = a.keep_hidden;
+  d.keep_i = a.keep_input;
+  d.on_h = a.on_hidden != 0;
+  d.on_i = a.on_input != 0;
+  return d;
+}
+
+// rows x H bf16 from src (ld lds) to dst (ld H), zero from row `valid` on.
+__device__ void copy_rows(const bf16* src, int lds, bf16* dst, int valid, int rows, int H) {
+  for (int idx = threadIdx.x; idx < rows * H; idx += NT) {
+    const int r = idx / H, c = idx % H;
+    dst[(size_t)r * H + c] = r < valid ? src[r * lds + c] : __float2bfloat16(0.f);
+  }
+}
+
+// x' = input dropout of x; self-attention; cross-attention over enc. Leaves
+// r2 in xf (f32) and xb (bf16). With `save`, writes the backward's operand
+// rows (x', c1, r1, c2, enc) and the Q/K/V scratch of both attentions.
+__device__ void self_cross_fwd(const TrainArgs& a, const LayerSmem& s, int n, const Drop& dr,
+                               const float* kmask, const float* npm, bool save) {
+  const int H = a.H, L = a.L, Le = a.Le, ldb = s.ldb;
+  const int warp = threadIdx.x >> 5;
+  const int mt = (L + 15) / 16, mte = (Le + 15) / 16;
+  float* stg = s.stg + warp * 256;
+  const size_t drow = (size_t)n * a.Lp, erow = (size_t)n * a.Lep;
+
+  for (int idx = threadIdx.x; idx < MR * H; idx += NT) {
+    const int r = idx / H, c = idx % H;
+    const float v = r < L ? dr.input(a.x[((size_t)n * L + r) * H + c], r, c) : 0.f;
+    s.xf[r * H + c] = v;
+    s.xb[r * ldb + c] = __float2bfloat16(v);
+    if (save && r < a.Lp) a.ws[WS_X][(drow + r) * H + c] = __float2bfloat16(v);
+  }
+  __syncthreads();
+
+  auto to_bf16 = [&](bf16* dst, const float* bias) {
+    return [=](int i, int j, float v) { dst[i * ldb + j] = __float2bfloat16(v + bias[j]); };
+  };
+  gemm_rows<false>(s.xb, ldb, mt, a.w[1], H, H, H, stg, to_bf16(s.kb, a.b[1]));
+  gemm_rows<false>(s.xb, ldb, mt, a.w[2], H, H, H, stg, to_bf16(s.vb, a.b[2]));
+  gemm_rows<false>(s.xb, ldb, mt, a.w[0], H, H, H, stg, to_bf16(s.qb, a.b[0]));
+  __syncthreads();
+  if (save) {
+    copy_rows(s.qb, ldb, a.scr[S_Q1] + drow * H, a.Lp, a.Lp, H);
+    copy_rows(s.kb, ldb, a.scr[S_K1] + drow * H, a.Lp, a.Lp, H);
+    copy_rows(s.vb, ldb, a.scr[S_V1] + drow * H, a.Lp, a.Lp, H);
+    __syncthreads();  // the attention overwrites qb
+  }
+
+  const bool causal = a.causal != 0;
+  attend(s, H, a.n_head, mt, mt, a.scale,
+             [=](int i, int j) { return kmask[j] > 0.5f || (causal && j > i); });
+  __syncthreads();
+  if (save) copy_rows(s.qb, ldb, a.ws[WS_C1] + drow * H, L, a.Lp, H);
+
+  auto residual = [&](const float* bias, int site) {
+    return [=](int i, int j, float v) {
+      const float o = dr.hidden(v + bias[j], site, i, j);
+      const float y = (o + s.xf[i * H + j]) * npm[i];
+      s.xf[i * H + j] = y;
+      s.xb[i * ldb + j] = __float2bfloat16(y);
+    };
+  };
+  gemm_rows<false>(s.qb, ldb, mt, a.w[3], H, H, H, stg, residual(a.b[3], SITE_SELF_OUT));
+  __syncthreads();
+  if (save) copy_rows(s.xb, ldb, a.ws[WS_R1] + drow * H, L, a.Lp, H);
+
+  // cross K/V from the encoder rows (bf16 in qb)
+  for (int idx = threadIdx.x; idx < MR * H; idx += NT) {
+    const int r = idx / H, c = idx % H;
+    const bf16 v = __float2bfloat16(r < Le ? a.enc[((size_t)n * Le + r) * H + c] : 0.f);
+    s.qb[r * ldb + c] = v;
+    if (save && r < a.Lep) a.ws[WS_ENC][(erow + r) * H + c] = v;
+  }
+  __syncthreads();
+  gemm_rows<false>(s.qb, ldb, mte, a.w[5], H, H, H, stg, to_bf16(s.kb, a.b[5]));
+  gemm_rows<false>(s.qb, ldb, mte, a.w[6], H, H, H, stg, to_bf16(s.vb, a.b[6]));
+  __syncthreads();
+  gemm_rows<false>(s.xb, ldb, mt, a.w[4], H, H, H, stg, to_bf16(s.qb, a.b[4]));
+  __syncthreads();
+  if (save) {
+    copy_rows(s.qb, ldb, a.scr[S_Q2] + drow * H, a.Lp, a.Lp, H);
+    copy_rows(s.kb, ldb, a.scr[S_K2] + erow * H, a.Lep, a.Lep, H);
+    copy_rows(s.vb, ldb, a.scr[S_V2] + erow * H, a.Lep, a.Lep, H);
+    __syncthreads();
+  }
+  attend(s, H, a.n_head, mt, mte, a.scale, [=](int, int j) { return j >= Le; });
+  __syncthreads();
+  if (save) copy_rows(s.qb, ldb, a.ws[WS_C2] + drow * H, L, a.Lp, H);
+  gemm_rows<false>(s.qb, ldb, mt, a.w[7], H, H, H, stg, residual(a.b[7], SITE_CROSS_OUT));
+  __syncthreads();
+}
+
+__device__ void init_masks(const TrainArgs& a, int n, float* kmask, float* npm) {
+  if (threadIdx.x < MR) {
+    const int j = threadIdx.x;
+    kmask[j] = (j < a.L) ? (a.kp[(size_t)n * a.L + j] ? 1.f : 0.f) : 1.f;
+    npm[j] = (j < a.L) ? 1.f - kmask[j] : 0.f;
+  }
+  __syncthreads();
+}
+
+// The layer forward of sequence blockIdx.x with the cross K/V projected in
+// the kernel: K11 (fused_layer_train.cu), and K1u (fused_layer.cu) with both
+// dropout probabilities 0 and no r2. r2 is written when a.r2 is not null.
+// FFN as K1; out = drop_final(drop_down(down + bo2) + r2) * npm.
+__device__ __forceinline__ void layer_fwd(const TrainArgs& a, unsigned char* smem, float* kmask,
+                                          float* npm) {
+  const int n = blockIdx.x, H = a.H, L = a.L;
+  init_masks(a, n, kmask, npm);
+  const LayerSmem s = layer_layout(smem, H);
+  const Drop dr = make_drop(a, n);
+  self_cross_fwd(a, s, n, dr, kmask, npm, false);
+  if (a.r2 != nullptr) copy_rows(s.xb, s.ldb, a.r2 + (size_t)n * a.Lp * H, L, a.Lp, H);
+
+  const float* bo2 = a.bo2;
+  const float* npm_p = npm;
+  void* out = a.out;
+  const bool out_bf16 = a.out_bf16 != 0;
+  ffn_rows(s, H, a.I, (L + 15) / 16, a.wi, a.bi, a.wo2, [=](int i, int j, float v) {
+    if (i < L) {
+      const float dd = dr.hidden(v + bo2[j], SITE_FFN_DOWN, i, j);
+      const float t2 = dr.hidden(dd + s.xf[i * H + j], SITE_FFN_FINAL, i, j);
+      const float y = t2 * npm_p[i];
+      const size_t o = ((size_t)n * L + i) * H + j;
+      if (out_bf16)
+        static_cast<bf16*>(out)[o] = __float2bfloat16(y);
+      else
+        static_cast<float*>(out)[o] = y;
+    }
+  });
+}
+
+// One block of NT threads per sequence.
+template <typename Kernel>
+int launch_rows(Kernel kernel, const TrainArgs* args, size_t smem, void* stream) {
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<args->n, NT, smem, static_cast<cudaStream_t>(stream)>>>(*args);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace

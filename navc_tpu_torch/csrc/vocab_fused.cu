@@ -38,71 +38,9 @@
 // Not yet done (later work): cp.async/TMA double-buffering of the W tiles and
 // wgmma; the staging and the products do not overlap here.
 
-#include "common.cuh"
-
-#include <mma.h>
-
-using namespace nvcuda;
+#include "vocab_tile.cuh"
 
 namespace {
-
-constexpr int TM = 64;          // rows of h per block
-constexpr int TV = 64;          // vocab columns per tile
-constexpr int NTHREADS = 256;   // 8 warps
-constexpr int PAD = 8;          // bf16 row padding of the staged tiles
-constexpr int SC_LD = TV + 4;   // float row stride of the score tile
-
-size_t smem_bytes(int d) {
-  return (size_t)(TM + TV) * (d + PAD) * sizeof(bf16) + (size_t)TM * SC_LD * sizeof(float);
-}
-
-// Shared-memory layout of every kernel here: the h tile (TM x d), one W tile
-// (TV x d), the float score tile (TM x SC_LD).
-__device__ __forceinline__ void stage_h(bf16* hs, const bf16* __restrict__ h, int row0, int rows,
-                                        int d) {
-  const int ld = d + PAD, vecs = d / 8;
-  for (int i = threadIdx.x; i < TM * vecs; i += NTHREADS) {
-    const int r = i / vecs, c = (i % vecs) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < rows) val = *reinterpret_cast<const uint4*>(h + (size_t)(row0 + r) * d + c);
-    *reinterpret_cast<uint4*>(hs + r * ld + c) = val;
-  }
-}
-
-// Stages the W tile of vocab columns [v0, v0 + TV) and leaves the (TM x TV)
-// float scores h_tile @ W_tile^T in sc, visible to the whole block. Columns
-// at or past v are zero.
-__device__ __forceinline__ void score_tile(const bf16* hs, bf16* ws, float* sc,
-                                           const bf16* __restrict__ w, int v0, int v, int d) {
-  const int ld = d + PAD, vecs = d / 8;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int tr = warp >> 1;        // output tile row of this warp
-  const int tc = (warp & 1) * 2;   // first of its two output tile columns
-  __syncthreads();  // the previous tile's scores are consumed
-  for (int i = tid; i < TV * vecs; i += NTHREADS) {
-    const int vr = i / vecs, c = (i % vecs) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (v0 + vr < v) val = *reinterpret_cast<const uint4*>(w + (size_t)(v0 + vr) * d + c);
-    *reinterpret_cast<uint4*>(ws + vr * ld + c) = val;
-  }
-  __syncthreads();
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc0, acc1;
-  wmma::fill_fragment(acc0, 0.f);
-  wmma::fill_fragment(acc1, 0.f);
-  for (int k = 0; k < d; k += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b0, b1;
-    wmma::load_matrix_sync(a, hs + tr * 16 * ld + k, ld);
-    wmma::load_matrix_sync(b0, ws + tc * 16 * ld + k, ld);
-    wmma::load_matrix_sync(b1, ws + (tc + 1) * 16 * ld + k, ld);
-    wmma::mma_sync(acc0, a, b0, acc0);
-    wmma::mma_sync(acc1, a, b1, acc1);
-  }
-  wmma::store_matrix_sync(sc + tr * 16 * SC_LD + tc * 16, acc0, SC_LD, wmma::mem_row_major);
-  wmma::store_matrix_sync(sc + tr * 16 * SC_LD + (tc + 1) * 16, acc1, SC_LD, wmma::mem_row_major);
-  __syncthreads();
-}
 
 template <bool GATHER>
 __global__ void __launch_bounds__(NTHREADS)
@@ -176,7 +114,7 @@ vocab_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
 template <bool GATHER>
 int launch(const void* h, const void* w, const void* bias, const void* targets, void* ids,
            void* out, int rows, int d, int v, void* stream) {
-  const size_t smem = smem_bytes(d);
+  const size_t smem = tile_smem_bytes(d);
   cudaError_t e = cudaFuncSetAttribute(vocab_kernel<GATHER>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -380,7 +318,7 @@ NAVC_EXPORT int navc_project_topk(const void* h, const void* w, const void* bias
                                   int d, int v, int k, int splits, int tiles_per_split,
                                   void* stream) {
   if (k < 1 || k > MAX_K) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(d);
+  const size_t smem = tile_smem_bytes(d);
   cudaError_t e = cudaFuncSetAttribute(topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;

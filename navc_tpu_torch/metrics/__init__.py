@@ -1,0 +1,13 @@
+"""Caption metrics: PTB-style tokenizer, BLEU, ROUGE-L, CIDEr, METEOR.
+
+Copies of navc_tpu/metrics (the port imports nothing of navc_tpu) on their
+Python paths: BLEU/ROUGE/CIDEr are ports of the published algorithms, METEOR
+the METEOR 1.5 model with the vendored tables in ``metrics/data``.
+"""
+
+from .tokenizer import ptb_tokenize, tokenize_corpus  # noqa: F401
+from .bleu import corpus_bleu  # noqa: F401
+from .rouge import corpus_rouge_l  # noqa: F401
+from .cider import corpus_cider  # noqa: F401
+from .meteor import corpus_meteor  # noqa: F401
+from .scorer import COCOScorer  # noqa: F401

@@ -33,16 +33,18 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 SOURCES = ("vocab_fused", "fused_layer", "beam_attend", "beam_permute",
-           "fused_layer_train")
+           "fused_layer_train", "vocab_ce")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: Dict[str, int] = {"fused_layer": 0, "fused_layer_qsub": 0,
+                            "fused_layer_unfolded": 0,
                             "project_argmax": 0, "project_gather_prob": 0,
                             "project_topk": 0, "beam_attend_step": 0,
                             "cross_attend": 0, "permute_beam_caches": 0,
                             "train_fwd": 0, "train_ffn_bwd": 0,
-                            "train_attn_bwd": 0, "train_wgrad": 0}
+                            "train_attn_bwd": 0, "train_wgrad": 0,
+                            "ce_fwd": 0, "ce_bwd_dh": 0, "ce_bwd_dw": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -106,8 +108,9 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Optional[str]]:
 
 def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed.
-    ``signatures`` maps each C entry to its argument types; every entry
-    returns an int (a cudaError_t)."""
+    ``signatures`` maps each C entry the caller uses to its argument types
+    (set on every call: callers of one library may name different entries);
+    every entry returns an int (a cudaError_t)."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
@@ -115,10 +118,10 @@ def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
             lib = ctypes.CDLL(library_path(name))
             lib.navc_error_string.argtypes = [ctypes.c_int]
             lib.navc_error_string.restype = ctypes.c_char_p
-            for fn, argtypes in signatures.items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
             _libs[name] = lib
+        for fn, argtypes in signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
         return lib
 
 

@@ -100,7 +100,7 @@ def fused_train_eligible(cfg: Config) -> bool:
 
 def fused_vocab_ce_eligible(cfg: Config) -> bool:
     """Can the train step fuse the vocab projection with the cross-entropy
-    (navc_tpu's ops/vocab_ce, K9/K10)? Not until those kernels are ported
-    (ROADMAP.md, Queue B): the step takes the logits route, a plain
-    projection and ``runtime.crit`` on raw logits."""
-    return False
+    (ops/vocab_ce, K9/K10) instead of writing (B, L, V) logits for
+    ``runtime.crit``? navc_tpu's rule without its VMEM residency gate (a TPU
+    fact: the CUDA kernels stream W in tiles) and without its env switch."""
+    return cfg.use_pallas

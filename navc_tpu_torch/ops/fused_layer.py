@@ -11,7 +11,13 @@ raw embedding is the constant ``<mask>`` row, keys and values span the
 full canvas, and unused slots give zero rows. Its rows equal K1's rows at
 those positions.
 
-Both are one CUDA source (csrc/fused_layer.cu). Each wrapper launches it for
+``fused_layer_unfolded`` (K1u) is the eval layer on already-embedded rows
+with the cross K/V projected in the kernel from ``enc``: the training
+layer's forward (K11) with both dropout probabilities 0, so it shares K11's
+device code and plain version. No decode path of navc_tpu calls this form
+(its decodes pass ``static=``, which selects K1).
+
+All three are one CUDA source (csrc/fused_layer.cu). Each wrapper launches it for
 CUDA tensors and raises if the build or the launch fails; only for CPU
 tensors does it run the plain version beside it — float32 PyTorch with the
 kernel's bf16 rounding points (bf16 matmul operands with float32
@@ -33,6 +39,8 @@ import torch
 
 from . import _build
 from ..models.layers import MASK_FILL
+from .fused_layer_train import (TrainArgs, check_operands, kernel_args,
+                                train_fwd_plain)
 
 SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 MAX_ROWS = 32  # canvas length, query slots and encoder positions per block
@@ -315,4 +323,45 @@ def fused_layer_qsub(qidx, mask_row, raw, static, kp, ke, ve, w: LayerWeights,
         _launch(raw, static, kp, ke, ve, w, ln_scale, ln_bias, n_head, False,
                 ln_eps, out, qidx=qidx, mask_row=mask_row)
         _build.LAUNCHES["fused_layer_qsub"] += 1
+    return out
+
+
+def _train_dict(w: LayerWeights):
+    return {k: getattr(w, k) for k in LayerWeights.__dataclass_fields__}
+
+
+def fused_layer_unfolded_plain(x, enc, kp, w: LayerWeights, n_head: int,
+                               causal: bool = False, out_dtype=torch.float32):
+    """Plain version of ``fused_layer_unfolded``: ``train_fwd_plain`` at
+    p = p_input = 0 with bf16 rounding points."""
+    return train_fwd_plain(x, enc, kp, _train_dict(w), 0, n_head=n_head,
+                           causal=causal, p=0.0, p_input=0.0,
+                           compute_dtype=torch.bfloat16, out_dtype=out_dtype)[0]
+
+
+def fused_layer_unfolded(x, enc, kp, w: LayerWeights, n_head: int,
+                         causal: bool = False, out_dtype=torch.float32) -> torch.Tensor:
+    """K1u: the eval BertLayer on embedded rows.
+
+    x: (N, L, H) post-embedding states; enc: (N, Le, H) encoder output (its
+    cross K/V are projected in the kernel); kp: (N, L) bool, True at PAD;
+    w: ``layer_weights``. On CUDA x and enc must be float32 (navc_tpu's
+    kernel reads x as float32). Returns (N, L, H) in ``out_dtype``."""
+    if x.device.type == "cpu":
+        return fused_layer_unfolded_plain(x, enc, kp, w, n_head, causal, out_dtype)
+    wd = _train_dict(w)
+    check_operands(x, enc, kp, wd, n_head, torch.bfloat16)
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError("out_dtype must be bfloat16 or float32")
+    out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    if x.shape[0]:
+        a = kernel_args(x, enc, kp, wd, 0, n_head, causal, 0.0, 0.0,
+                        out=out.data_ptr(), out_bf16=int(out_dtype == torch.bfloat16))
+        lib = _build.load("fused_layer", {
+            "navc_fused_layer_unfolded": [ctypes.POINTER(TrainArgs), ctypes.c_void_p]})
+        _build.check(lib, lib.navc_fused_layer_unfolded(
+            ctypes.byref(a),
+            ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)),
+            "fused_layer_unfolded")
+        _build.LAUNCHES["fused_layer_unfolded"] += 1
     return out

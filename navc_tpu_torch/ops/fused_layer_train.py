@@ -351,8 +351,8 @@ WS_X, WS_C1, WS_R1, WS_C2, WS_DO1, WS_DQ1, WS_DK1, WS_DV1, WS_DO2, WS_DQ2, \
 MAX_PRODUCTS = 8
 
 
-class _TrainArgs(ctypes.Structure):
-    """Mirror of ``struct TrainArgs`` in csrc/fused_layer_train.cu."""
+class TrainArgs(ctypes.Structure):
+    """Mirror of ``struct TrainArgs`` in csrc/layer_common.cuh."""
     _fields_ = ([("x", ctypes.c_void_p), ("enc", ctypes.c_void_p),
                  ("kp", ctypes.c_void_p),
                  ("w", ctypes.c_void_p * 8), ("b", ctypes.c_void_p * 8)]
@@ -381,7 +381,7 @@ class _WgradArgs(ctypes.Structure):
 
 def _lib():
     return _build.load("fused_layer_train", {
-        name: [ctypes.POINTER(_TrainArgs), ctypes.c_void_p]
+        name: [ctypes.POINTER(TrainArgs), ctypes.c_void_p]
         for name in ("navc_train_fwd", "navc_train_ffn_bwd", "navc_train_attn_bwd")
     } | {"navc_train_wgrad": [ctypes.POINTER(_WgradArgs), ctypes.c_void_p]})
 
@@ -409,7 +409,7 @@ def kernel_weights(weights: Dict[str, torch.Tensor], compute_dtype
             for k, v in weights.items()}
 
 
-def _check(x, enc, kp, w, n_head, compute_dtype):
+def check_operands(x, enc, kp, w, n_head, compute_dtype):
     """Raise on what the kernels do not take; ``enc`` None for K12a."""
     if x.device.type != "cuda":
         raise ValueError("the kernel takes CUDA tensors, got %s" % x.device)
@@ -449,12 +449,12 @@ def _check(x, enc, kp, w, n_head, compute_dtype):
             raise ValueError("operands must be contiguous and on %s" % x.device)
 
 
-def _args(x, enc, kp, w, seed, n_head, causal, p, p_input, **ptrs):
+def kernel_args(x, enc, kp, w, seed, n_head, causal, p, p_input, **ptrs):
     n, l, h = x.shape
     le = enc.shape[1]
     on, th, keep = _threshold(p)
     on_in, th_in, keep_in = _threshold(p_input)
-    a = _TrainArgs(
+    a = TrainArgs(
         x=_p(x), enc=_p(enc), kp=_p(kp),
         w=(ctypes.c_void_p * 8)(*[_p(w[k]) for k in MATS]),
         b=(ctypes.c_void_p * 8)(*[_p(w[k]) for k in BIASES]),
@@ -484,7 +484,7 @@ def train_fwd(x, enc, kp, w, seed, *, n_head, causal=False, p=0.5, p_input=0.0,
         return train_fwd_plain(x, enc, kp, w, seed, n_head=n_head, causal=causal,
                                p=p, p_input=p_input, compute_dtype=compute_dtype,
                                out_dtype=out_dtype)
-    _check(x, enc, kp, w, n_head, compute_dtype)
+    check_operands(x, enc, kp, w, n_head, compute_dtype)
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError("out_dtype must be bfloat16 or float32")
     n, l, h = x.shape
@@ -492,7 +492,7 @@ def train_fwd(x, enc, kp, w, seed, *, n_head, causal=False, p=0.5, p_input=0.0,
     r2 = torch.empty((n, _round_up(l, ROW_TILE), h), dtype=torch.bfloat16,
                      device=x.device)
     if n:
-        a = _args(x, enc, kp, w, seed, n_head, causal, p, p_input, out=_p(out),
+        a = kernel_args(x, enc, kp, w, seed, n_head, causal, p, p_input, out=_p(out),
                   r2=_p(r2), out_bf16=int(out_dtype == torch.bfloat16))
         lib = _lib()
         _build.check(lib, lib.navc_train_fwd(ctypes.byref(a), _stream(x)), "train_fwd")
@@ -508,7 +508,7 @@ def ffn_bwd_operands(r2, dy, kp, w, seed, *, p=0.5, compute_dtype=torch.bfloat16
                                       compute_dtype=compute_dtype)
     n, l, h = dy.shape
     lp = _round_up(l, ROW_TILE)
-    _check(dy, None, kp, w, None, compute_dtype)
+    check_operands(dy, None, kp, w, None, compute_dtype)
     if r2.dtype != torch.bfloat16 or tuple(r2.shape) != (n, lp, h) \
             or not r2.is_contiguous():
         raise ValueError("r2 must be train_fwd's contiguous bf16 (N, Lp, H)")
@@ -521,7 +521,7 @@ def ffn_bwd_operands(r2, dy, kp, w, seed, *, p=0.5, compute_dtype=torch.bfloat16
     pbi = torch.empty((n, inter), dtype=torch.float32, device=dev)
     pbd = torch.empty((n, h), dtype=torch.float32, device=dev)
     if n:
-        a = _args(dy, dy.new_empty((n, 0, h)), kp, w, seed, 1, False, p, 0.0,
+        a = kernel_args(dy, dy.new_empty((n, 0, h)), kp, w, seed, 1, False, p, 0.0,
                   r2=_p(r2),
                   dy=_p(dy), dr2=_p(dr2), ws={WS_G: g, WS_DA: da, WS_DD: dd},
                   part={8: pbi, 9: pbd})
@@ -542,7 +542,7 @@ def attn_bwd_operands(x, enc, dr2, kp, w, seed, *, n_head, causal=False, p=0.5,
         return attn_bwd_operands_plain(x, enc, dr2, kp, w, seed, n_head=n_head,
                                        causal=causal, p=p, p_input=p_input,
                                        compute_dtype=compute_dtype)
-    _check(x, enc, kp, w, n_head, compute_dtype)
+    check_operands(x, enc, kp, w, n_head, compute_dtype)
     if dr2.dtype != torch.float32 or dr2.shape != x.shape or not dr2.is_contiguous():
         raise ValueError("dr2 must be contiguous float32 (N, L, H)")
     n, l, h = x.shape
@@ -562,7 +562,7 @@ def attn_bwd_operands(x, enc, dr2, kp, w, seed, *, n_head, causal=False, p=0.5,
     dx = torch.empty((n, l, h), dtype=torch.float32, device=dev)
     denc = torch.empty((n, le, h), dtype=torch.float32, device=dev)
     if n:
-        a = _args(x, enc, kp, w, seed, n_head, causal, p, p_input, dr2=_p(dr2),
+        a = kernel_args(x, enc, kp, w, seed, n_head, causal, p, p_input, dr2=_p(dr2),
                   dx=_p(dx), denc=_p(denc), ws=ws, part=part, scr=scr)
         lib = _lib()
         _build.check(lib, lib.navc_train_attn_bwd(ctypes.byref(a), _stream(x)),

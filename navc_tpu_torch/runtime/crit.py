@@ -10,8 +10,13 @@ Port of navc_tpu/runtime/crit.py:
   * metrics: word accuracy (pass 0 of visual-word generation leaves out MASK
     labels, crit.py:86-98) and the perplexity sums over non-PAD tokens.
 
-The train forward hands over RAW logits (possibly bf16): ``_label_logprob``
-normalises at the label positions only, with float32 reductions. A
+The train forward hands over RAW logits (possibly bf16), where
+``_label_logprob`` normalises at the label positions only with float32
+reductions, or, on the fused CE route (ops/vocab_ce), each pass's per-row
+(label log-prob, argmax) pair under ``tgt_word_rowstats``: the NLL is built
+from those log-probs, so autograd hands K10 its gradient (-w * mask / B,
+zero at PAD labels and dropped rows). The kernel's argmax may differ from
+the logits' on bf16 near-ties (word accuracy only). A
 ``valid_mask`` (B,) drops padded rows of a final partial batch and divides
 by the valid-row count. Every value stays a tensor on its device: nothing
 here waits for the card.
@@ -57,32 +62,39 @@ def compute_losses(cfg: Config, results: Dict,
                    valid_mask: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The aggregate criterion (reference Criterion.get_loss,
-    crit.py:156-181). ``results`` holds ``tgt_word_logits`` (raw) or
-    ``tgt_word_logprobs``, one (B, L, V) per pass, ``tgt_word_labels``, and
+    crit.py:156-181). ``results`` holds ``tgt_word_rowstats`` ((B, L) label
+    log-probs and (B, L) argmax ids), ``tgt_word_logits`` (raw) or
+    ``tgt_word_logprobs``, one per pass, ``tgt_word_labels``, and
     ``pred_length`` / ``tgt_length`` when 'length' is in ``cfg.crit``.
     Returns (total loss, metrics), every metric a 0-d float32 tensor."""
     metrics: Dict[str, torch.Tensor] = {}
     vwg = cfg.visual_word_generation
+    from_rowstats = "tgt_word_rowstats" in results
     from_logits = "tgt_word_logits" in results
-    logprob_sets: Sequence[torch.Tensor] = (
-        results["tgt_word_logits"] if from_logits else results["tgt_word_logprobs"])
+    logprob_sets: Sequence = (
+        results["tgt_word_rowstats"] if from_rowstats
+        else results["tgt_word_logits"] if from_logits
+        else results["tgt_word_logprobs"])
     label_sets = results["tgt_word_labels"]
     if not isinstance(logprob_sets, (list, tuple)):
         logprob_sets = [logprob_sets]
     if not isinstance(label_sets, (list, tuple)):
         label_sets = [label_sets] * len(logprob_sets)
     assert len(logprob_sets) == len(label_sets)
-    dev = logprob_sets[0].device
+    first = logprob_sets[0][0] if from_rowstats else logprob_sets[0]
+    dev = first.device
 
     weights = list(cfg.nv_weights) if vwg else [1.0] * len(logprob_sets)
     if valid_mask is not None:
         batch_denom = valid_mask.sum().clamp(min=1.0)
     else:
-        batch_denom = torch.tensor(float(logprob_sets[0].shape[0]), device=dev)
+        batch_denom = torch.tensor(float(first.shape[0]), device=dev)
 
     lang_loss = torch.zeros((), dtype=torch.float32, device=dev)
     for i, (w, lp, lab) in enumerate(zip(weights, logprob_sets, label_sets)):
-        if from_logits:
+        if from_rowstats:
+            gathered, pred = lp
+        elif from_logits:
             gathered, pred = _label_logprob(lp, lab)
         else:
             gathered = lp.gather(-1, lab.long()[..., None])[..., 0]

@@ -17,9 +17,11 @@ batch. ``make_train_step`` returns ``step(batch, generator) -> metrics``:
     ``decoder.layers[0]``; the embeddings run deterministic, their dropout
     being the kernel's input site (``p_input``); otherwise every module runs
     in train mode;
-  * the vocab projection takes the logits route (raw logits into
-    ``runtime.crit``) until navc_tpu's fused projection + cross-entropy
-    kernels (K9/K10) are ported (``fused_vocab_ce_eligible``);
+  * on that route, with ``fused_vocab_ce_eligible``, the vocab projection
+    is fused with the cross-entropy (ops/vocab_ce: K9 forward, K10
+    backward): the logits are never written, and the results carry each
+    pass's per-row (label log-prob, argmax) as ``tgt_word_rowstats``;
+    otherwise raw logits go to ``runtime.crit`` (``tgt_word_logits``);
   * metrics stay tensors on the device: the step never waits for the card.
 
 ``cfg.remat`` is not read: the backward recomputes what the fused layer
@@ -37,8 +39,9 @@ import torch
 from .. import constants as C
 from ..config import Config
 from ..models.seq2seq import Seq2Seq, compute_dtype
-from ..ops.eligibility import fused_train_eligible
+from ..ops.eligibility import fused_train_eligible, fused_vocab_ce_eligible
 from ..ops.fused_layer_train import fused_bert_layer_train, layer_train_weights
+from ..ops.vocab_ce import vocab_ce_train
 from . import optim
 from .crit import compute_losses
 
@@ -74,17 +77,23 @@ def to_device(batch: Dict[str, Any], dev: torch.device) -> Dict[str, torch.Tenso
     return out
 
 
-def _fused_train_apply(cfg: Config, model: Seq2Seq, feats, token_sets, category,
-                       generator, seeds: List[int]) -> Dict:
+def _fused_train_apply(cfg: Config, model: Seq2Seq, feats, token_sets, label_sets,
+                       category, generator, seeds: List[int]) -> Dict:
     """The train forward with the decoder layer as the fused training layer
-    (navc_tpu ``_fused_train_apply`` on its logits route)."""
+    and, where eligible, the projection fused with the loss (navc_tpu
+    ``_fused_train_apply``)."""
+    assert len(token_sets) == len(label_sets), (len(token_sets), len(label_sets))
     results = model.encode(feats, train=True, generator=generator)
     enc = results["enc_output"]
     causal = cfg.decoding_type == "ARFormer"
     weights = layer_train_weights(model.decoder.layers[0])
     cdt = compute_dtype(cfg)
-    logits = []
-    for tokens, seed in zip(token_sets, seeds):
+    use_ce = fused_vocab_ce_eligible(cfg)
+    if use_ce:  # the live (V, D) parameter (+ the tied bias)
+        w_prj = model.projection_weight()
+        b_prj = model.tgt_word_prj_bias if model.tgt_word_prj is None else None
+    outs = []
+    for tokens, labels, seed in zip(token_sets, label_sets, seeds):
         inp = tokens[:, :-1] if causal else tokens
         emb = (model.ar_embed(inp, category) if causal
                else model.nar_embed(inp, enc, category))
@@ -93,8 +102,9 @@ def _fused_train_apply(cfg: Config, model: Seq2Seq, feats, token_sets, category,
             n_head=cfg.num_attention_heads, causal=causal,
             p_hidden=cfg.hidden_dropout_prob, p_input=cfg.hidden_dropout_prob,
             compute_dtype=cdt, out_dtype=cdt)
-        logits.append(model.project(hidden, raw=True))
-    results["tgt_word_logits"] = logits
+        outs.append(vocab_ce_train(hidden, w_prj, b_prj, labels, cdt) if use_ce
+                    else model.project(hidden, raw=True))
+    results["tgt_word_rowstats" if use_ce else "tgt_word_logits"] = outs
     return results
 
 
@@ -113,8 +123,8 @@ def _forward_results(cfg: Config, model: Seq2Seq, batch: Dict, train: bool,
         label_sets = [batch["labels"][:, start:]]
 
     if train and fused_train_eligible(cfg):
-        results = _fused_train_apply(cfg, model, feats, token_sets, category,
-                                     generator, seeds)
+        results = _fused_train_apply(cfg, model, feats, token_sets, label_sets,
+                                     category, generator, seeds)
     else:
         results = model(feats, token_sets if vwg else token_sets[0], category,
                         train=train, generator=generator if train else None,

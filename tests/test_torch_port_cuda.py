@@ -555,3 +555,156 @@ def test_train_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="lengths|length"):
         FT.train_fwd(torch.zeros(2, 33, 256, device=cuda), enc,
                      torch.zeros(2, 33, dtype=torch.bool, device=cuda), w, 0, n_head=8)
+
+
+CE_TOL, CE_RMS_TOL = 1e-4, 2e-5  # g, z: float32 sums in another order
+CE_CASES = [  # N, D, V, bias
+    (1920, 512, 10048, True),
+    (1920, 512, 10048, False),
+    (37, 64, 157, False),
+    (200, 128, 1000, True),
+    (65, 512, 130, True),
+]
+
+
+def _ce_inputs(n, d, v, with_bias, g, dev, bias_scale=0.1):
+    h = torch.randn(n, d, generator=g).to(dev, torch.bfloat16)
+    w = (torch.randn(v, d, generator=g) / math.sqrt(d)).to(dev, torch.bfloat16)
+    bias = (torch.randn(v, generator=g) * bias_scale).to(dev) if with_bias else None
+    lab = torch.randint(0, v, (n,), generator=g, dtype=torch.int32).to(dev)
+    dg = (torch.randn(n, generator=g) * (torch.rand(n, generator=g) > 0.3)).to(dev)
+    return h, w, bias, lab, dg
+
+
+def _margin_ok_ce(h, w, bias):
+    s = h.float() @ w.float().t() + (0 if bias is None else bias)
+    top2 = s.topk(2, dim=-1).values
+    return (top2[:, 0] - top2[:, 1]) > 1e-3
+
+
+def _check_ce(cuda, case, bias_scale=0.1):
+    from navc_tpu_torch.ops import vocab_ce as VC
+
+    n, d, v, with_bias = case
+    h, w, bias, lab, dg = _ce_inputs(n, d, v, with_bias, _gen(n + d + v), cuda, bias_scale)
+    counts = {k: _build.LAUNCHES[k] for k in ("ce_fwd", "ce_bwd_dh", "ce_bwd_dw")}
+    g, pred, z = VC.vocab_ce_fwd(h, w, bias, lab)
+    g_p, pred_p, z_p = VC.vocab_ce_fwd_plain(h, w, bias, lab)
+    torch.cuda.synchronize()
+    _close(g, g_p, CE_TOL, "g", rms_tol=CE_RMS_TOL)
+    _close(z, z_p, CE_TOL, "z", rms_tol=CE_RMS_TOL)
+    ok = _margin_ok_ce(h, w, bias)
+    assert torch.equal(pred[ok], pred_p[ok])
+    dh, dw, db = VC.vocab_ce_bwd(h, w, bias, lab, z, dg, dh_dtype=torch.bfloat16)
+    dh_p, dw_p, db_p = VC.vocab_ce_bwd_plain(h, w, bias, lab, z_p, dg)
+    torch.cuda.synchronize()
+    assert dh.dtype == torch.bfloat16 and dw.dtype == torch.float32
+    tol = dict(tol=TRAIN_TOL, rms_tol=TRAIN_RMS_TOL)
+    _close(dh, dh_p, what="dh", **tol)
+    _close(dw, dw_p, what="dW", **tol)
+    assert (db is None) == (bias is None)
+    if db is not None:
+        _close(db, db_p, what="db", **tol)
+    assert torch.all(dh[dg == 0] == 0)
+    assert {k: _build.LAUNCHES[k] - c for k, c in counts.items()} == {
+        "ce_fwd": 1, "ce_bwd_dh": 1, "ce_bwd_dw": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CE_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_vocab_ce_kernels_match_plain(cuda, case):
+    _check_ce(cuda, case)
+
+
+@pytest.mark.cuda
+def test_vocab_ce_kernels_match_plain_with_a_large_bias(cuda):
+    """A bias ten times the scores' scale: a kernel that dropped it, in the
+    forward or in either backward recompute, fails every check."""
+    _check_ce(cuda, (300, 256, 1000, True), bias_scale=10.0)
+
+
+@pytest.mark.cuda
+def test_vocab_ce_masked_rows_and_ties(cuda):
+    from navc_tpu_torch.ops import vocab_ce as VC
+
+    h, w, bias, lab, _ = _ce_inputs(100, 128, 300, True, _gen(5), cuda)
+    z = VC.vocab_ce_fwd(h, w, bias, lab)[2]
+    dh, dw, db = VC.vocab_ce_bwd(h, w, bias, lab, z, torch.zeros(100, device=cuda))
+    torch.cuda.synchronize()
+    assert not dh.any() and not dw.any() and not db.any()
+    ht = torch.ones(3, 64, dtype=torch.bfloat16, device=cuda)
+    wt = torch.zeros(200, 64, dtype=torch.bfloat16, device=cuda)
+    wt[[70, 9, 130]] = 1.0
+    _, pred, _ = VC.vocab_ce_fwd(ht, wt, None, torch.zeros(3, dtype=torch.int32, device=cuda))
+    assert pred.tolist() == [9, 9, 9]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tied", [False, True], ids=["untied", "tied"])
+def test_vocab_ce_autograd_on_the_card(cuda, tied):
+    """The autograd Function on CUDA tensors (float32 parameters, bf16
+    hidden states) against autograd of the plain forward on the same
+    inputs; the Function rounds ds to bf16 where autograd does not."""
+    from navc_tpu_torch.ops import vocab_ce as VC
+
+    h, w, bias, lab, dg = _ce_inputs(130, 512, 2000, tied, _gen(8), cuda)
+    hs = h.clone().requires_grad_()
+    ws = w.float().clone().requires_grad_()
+    bs = None if bias is None else bias.clone().requires_grad_()
+    g, _ = VC.vocab_ce_train(hs.view(10, 13, 512), ws, bs, lab.view(10, 13))
+    got = torch.autograd.grad((g.view(-1) * dg).sum(), [hs, ws] + ([bs] if tied else []))
+    hr = h.float().requires_grad_()
+    wr = w.float().requires_grad_()
+    br = None if bias is None else bias.clone().requires_grad_()
+    s = hr @ wr.t() + (0 if br is None else br)
+    gr = torch.log_softmax(s, -1).gather(1, lab.long()[:, None])[:, 0]
+    want = torch.autograd.grad((gr * dg).sum(), [hr, wr] + ([br] if tied else []))
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
+    for name, a, b in zip(("dh", "dW", "db"), got, want):
+        _close(a, b, TRAIN_TOL, name, rms_tol=TRAIN_RMS_TOL)
+
+
+@pytest.mark.cuda
+def test_vocab_ce_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from navc_tpu_torch.ops import vocab_ce as VC
+
+    h, w, bias, lab, dg = _ce_inputs(8, 64, 100, True, _gen(2), cuda)
+    with pytest.raises(ValueError, match="bfloat16 only"):
+        VC.vocab_ce_fwd(h, w, bias, lab, compute_dtype=torch.float32)
+    with pytest.raises(TypeError, match="bfloat16"):
+        VC.vocab_ce_fwd(h.float(), w, bias, lab)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        VC.vocab_ce_fwd(h[:, :48].contiguous(), w[:, :48].contiguous(), bias, lab)
+    with pytest.raises(ValueError, match="int32"):
+        VC.vocab_ce_fwd(h, w, bias, lab.long())
+    with pytest.raises(ValueError, match="float32"):
+        VC.vocab_ce_fwd(h, w, bias.double(), lab)
+    z = VC.vocab_ce_fwd(h, w, bias, lab)[2]
+    with pytest.raises(ValueError, match="z and dg"):
+        VC.vocab_ce_bwd(h, w, bias, lab, z, dg[:4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True], ids=["nar", "causal"])
+@pytest.mark.parametrize("shape", [(384, 32, 16, 512, 2048), (7, 13, 5, 256, 1024)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_fused_layer_unfolded_matches_plain(cuda, shape, causal):
+    from navc_tpu_torch.ops.fused_layer import (fused_layer_unfolded,
+                                                fused_layer_unfolded_plain)
+
+    n, l, le, h, inter = shape
+    g = _gen(sum(shape))
+    w = _weights(h, inter, g, cuda)
+    lengths = torch.randint(1, l + 1, (n,), generator=g)
+    lengths[0] = l
+    kp = (torch.arange(l)[None] >= lengths[:, None]).to(cuda)
+    x = torch.randn(n, l, h, generator=g).to(cuda)
+    enc = torch.randn(n, le, h, generator=g).to(cuda)
+    before = _build.LAUNCHES["fused_layer_unfolded"]
+    out = fused_layer_unfolded(x, enc, kp, w, n_head=8, causal=causal,
+                               out_dtype=torch.bfloat16)
+    want = fused_layer_unfolded_plain(x, enc, kp, w, 8, causal, torch.bfloat16)
+    torch.cuda.synchronize()
+    _close(out, want, TRAIN_TOL, "out", rms_tol=TRAIN_RMS_TOL)
+    assert torch.all(out[kp] == 0)
+    assert _build.LAUNCHES["fused_layer_unfolded"] == before + 1

@@ -216,9 +216,22 @@ def test_port_imports_no_jax():
         " ('jax', 'jaxlib', 'flax', 'optax', 'navc_tpu'))\n"
         "assert not bad, bad\n"
         "train = ('ops.fused_layer_train', 'runtime.train_step', 'runtime.loop',"
-        " 'runtime.crit', 'runtime.optim', 'runtime.logger')\n"
+        " 'runtime.crit', 'runtime.optim', 'runtime.logger', 'ops.vocab_ce',"
+        " 'runtime.evaluate', 'data.loader', 'metrics.scorer', 'cli.train')\n"
         "missing = [m for m in train if 'navc_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
+        "import builtins, os\n"
+        "from navc_tpu_torch.metrics import meteor15\n"
+        "opened, real_open = [], builtins.open\n"
+        "builtins.open = lambda f, *a, **k: (opened.append(os.path.abspath(str(f))),"
+        " real_open(f, *a, **k))[1]\n"
+        "meteor15._DEFAULT = None\n"
+        "meteor15.default_scorer()\n"
+        "builtins.open = real_open\n"
+        "data = os.path.join(os.path.dirname(os.path.abspath(navc_tpu_torch.__file__)),"
+        " 'metrics', 'data')\n"
+        "tables = [f for f in opened if f.endswith(('.tsv', '.txt'))]\n"
+        "assert len(tables) >= 2 and all(os.path.dirname(f) == data for f in tables), opened\n"
         "print('OK', len([n for n in sys.modules if n.startswith('navc_tpu_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -39,7 +39,9 @@ from navc_tpu_torch.convert import load_flax_variables
 from navc_tpu_torch.models import build_model
 from navc_tpu_torch.ops import _build
 from navc_tpu_torch.ops.fused_layer import (fused_layer, fused_layer_qsub,
-                                            hoist_cross_kv, layer_weights)
+                                            fused_layer_unfolded, hoist_cross_kv,
+                                            layer_weights)
+from navc_tpu_torch.ops.vocab_ce import vocab_ce_bwd, vocab_ce_fwd
 from navc_tpu_torch.ops.vocab_fused import (project_argmax,
                                             project_gather_prob)
 
@@ -105,6 +107,24 @@ def test_fused_layer_plain_matches_pallas(layer, causal):
         _t(layer["lnb"]), n_head=2, causal=causal, ln_eps=1e-5)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=HID_ATOL)
     assert np.all(out.numpy()[kp] == 0.0)  # PAD rows: non-pad multiplier
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["nar", "causal"])
+def test_fused_layer_unfolded_plain_matches_pallas(layer, causal):
+    """K1u: the layer on embedded float32 rows with the cross K/V projected
+    in the kernel (navc_tpu's unfolded form, no ``static``, as
+    tests/test_fused_layer.py:47 calls it)."""
+    rng = np.random.RandomState(6)
+    n, l, le = 5, 16, 8
+    _, _, kp, enc = _canvas(rng, n, l, le)
+    x = rng.randn(n, l, 16).astype(np.float32)
+    ref = fused_nar_decoder_layer(
+        jnp.asarray(x), jnp.asarray(enc), jnp.asarray(kp), layer["jw"], n_head=2,
+        tb=8, interpret=True, causal=causal)
+    out = fused_layer_unfolded(_t(x), _t(enc), _t(kp), layer["tw"], n_head=2,
+                               causal=causal)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
+    assert np.all(out.numpy()[kp] == 0.0)
 
 
 def test_hoist_cross_kv_matches_jax(layer):
@@ -219,9 +239,30 @@ def test_wrappers_never_fall_back_off_cpu():
         project_argmax(h, w)
     with pytest.raises(ValueError, match="CUDA"):
         project_gather_prob(h, w, torch.empty(4, dtype=torch.int32, device="meta"))
+    lab = torch.empty(4, dtype=torch.int32, device="meta")
+    vec = torch.empty(4, dtype=torch.float32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        vocab_ce_fwd(h, w, None, lab)
+    with pytest.raises(ValueError, match="CUDA"):
+        vocab_ce_bwd(h, w, None, lab, vec, vec)
+    x = torch.empty(2, 4, 16, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_layer_unfolded(x, x, torch.empty(2, 4, dtype=torch.bool, device="meta"),
+                             layer_weights_meta(), n_head=2)
     project_argmax(torch.ones(2, 16, dtype=torch.bfloat16),
                    torch.ones(5, 16, dtype=torch.bfloat16))
+    vocab_ce_fwd(torch.ones(2, 32), torch.ones(5, 32), None,
+                 torch.zeros(2, dtype=torch.int32))
     assert all(v == 0 for v in _build.LAUNCHES.values())
+
+
+def layer_weights_meta():
+    """LayerWeights of meta tensors (H = 16, FFN 32)."""
+    from navc_tpu_torch.ops.fused_layer import LayerWeights
+    shapes = {"wi": (32, 16), "bi": (32,), "wo2": (16, 32), "bo2": (16,)}
+    return LayerWeights(**{
+        k: torch.empty(shapes.get(k, (16, 16) if k.startswith("w") else (16,)),
+                       device="meta") for k in LayerWeights.__dataclass_fields__})
 
 
 def test_build_hash_follows_sources(tmp_path, monkeypatch):

@@ -5,8 +5,9 @@ one of whose rows the valid_mask drops: navc_tpu's jitted
 ``make_train_step`` and the port's ``make_train_step`` (with
 ``device="cpu"`` the fused layer runs its plain versions). All dropout
 probabilities are 0 and the compute dtype float32, so the two steps do the
-same arithmetic up to summation order. navc_tpu runs its logits route
-(``NAVC_NO_FUSED_CE=1``), the one the port has until K9/K10 are ported.
+same arithmetic up to summation order. With ``use_pallas=True`` both take
+the fused projection + cross-entropy route (K9/K10: navc_tpu's Pallas
+kernels in interpret mode, the port's plain versions), tied and untied.
 Tolerances: metrics atol = rtol = 1e-4; every parameter's gradient (before
 the clip), and every updated parameter and BatchNorm running statistic,
 read back through ``export_flax_variables``, atol = rtol = 1e-5. The
@@ -28,12 +29,14 @@ from navc_tpu import constants as NC
 from navc_tpu.config import default_config as jax_default_config
 from navc_tpu.models import build_model as jax_build_model
 from navc_tpu.models import init_params
+from navc_tpu.ops.eligibility import fused_vocab_ce_eligible as jax_ce_eligible
 from navc_tpu.runtime.train_step import create_train_state as jax_create_state
 from navc_tpu.runtime.train_step import make_train_step as jax_make_step
 from navc_tpu_torch.config import default_config
 from navc_tpu_torch.convert import export_flax_variables, load_flax_variables
 from navc_tpu_torch.models import build_model
-from navc_tpu_torch.runtime import optim
+from navc_tpu_torch.ops.vocab_ce import vocab_ce_train
+from navc_tpu_torch.runtime import optim, train_step
 from navc_tpu_torch.runtime.train_step import create_train_state, make_train_step
 
 TOY = dict(vocab_size=40, dim_hidden=16, num_attention_heads=2,
@@ -148,9 +151,18 @@ def check_step(method, monkeypatch, **kw):
     jcfg, cfg = configs(method, **NO_DROPOUT, **kw)
     batch = make_batch(cfg)
     batch["valid_mask"] = np.array([1, 1, 0, 1], np.float32)
-    monkeypatch.setenv("NAVC_NO_FUSED_CE", "1")
+    # with use_pallas both sides take the fused CE route (navc_tpu by its own
+    # rule, the port through vocab_ce_train once per decoder pass); without
+    # it, both take the logits route
+    monkeypatch.delenv("NAVC_NO_FUSED_CE", raising=False)
+    assert jax_ce_eligible(jcfg) == cfg.use_pallas
+    ce_calls = []
+    monkeypatch.setattr(train_step, "vocab_ce_train",
+                        lambda *a, **k: ce_calls.append(1) or vocab_ce_train(*a, **k))
     want_vars, want_grads, want_metrics = jax_one_step(jcfg, batch)
     got_vars, got_grads, got_metrics = port_one_step(cfg, jcfg, batch, monkeypatch)
+    passes = 2 if cfg.visual_word_generation else 1
+    assert len(ce_calls) == (passes if cfg.use_pallas else 0)
     assert set(got_metrics) == set(want_metrics)
     for k in want_metrics:
         np.testing.assert_allclose(got_metrics[k], want_metrics[k], err_msg=k,
@@ -161,8 +173,11 @@ def check_step(method, monkeypatch, **kw):
                        PARAM_TOL, "batch_stats")
 
 
+@pytest.mark.parametrize("tie", [False, True], ids=["untied", "tied"])
 @pytest.mark.parametrize("method", ["NACF", "ARB", "NAB"])
-def test_fused_train_step_matches_navc_tpu(method, monkeypatch):
-    """use_pallas=True: the fused layer route on both sides."""
-    check_step(method, monkeypatch, use_pallas=True)
+def test_fused_train_step_matches_navc_tpu(method, tie, monkeypatch):
+    """use_pallas=True: the fused layer and the fused CE route on both
+    sides, with the projection untied (tgt_word_prj) and tied (the word
+    table + tgt_word_prj_bias)."""
+    check_step(method, monkeypatch, use_pallas=True, tie_weights=tie)
 

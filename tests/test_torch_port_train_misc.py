@@ -122,7 +122,11 @@ def test_eligibility():
     assert not fused_train_eligible(cfg.replace(num_hidden_layers_decoder=2))
     assert not fused_train_eligible(cfg.replace(attention_probs_dropout_prob=0.1))
     assert not fused_train_eligible(configs("ARB", use_pallas=True, watch=2)[1])
-    assert not fused_vocab_ce_eligible(cfg)
+    # navc_tpu's rule without its TPU VMEM residency gate: the kernels'
+    # switch, whatever the vocab
+    assert fused_vocab_ce_eligible(cfg)
+    assert fused_vocab_ce_eligible(cfg.replace(vocab_size=3_000_000))
+    assert not fused_vocab_ce_eligible(cfg.replace(use_pallas=False))
 
 
 def test_eval_loss_step_matches_navc_tpu():
