@@ -3,12 +3,16 @@
 
 Run from the root of a checkout on a machine with one NVIDIA card:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 It builds the port's CUDA kernels from navc_tpu_torch/csrc with nvcc and
 drives the two ported serving paths at full width (random weights from a
 seed). NACF: each of K1-K4 held against its plain PyTorch version at the
-NACF main path's shapes and timed; four 64-video requests through
+NACF main path's shapes and timed; K3 also at the decode's sparse row
+counts (9216, 6144, 3072), K3/K4 untied, tied and with a bias ten times the
+scores' scale, and timed beside torch.matmul on the same operands and,
+given --parent (a checkout of an earlier commit, e.g. a `git archive` of
+the parent), beside that checkout's K3/K4 in turns; four 64-video requests through
 StreamingCaptioner with an NACF student and ARB teacher, with the launch
 counts and outputs checked; one more request profiled with torch.profiler
 (device time by kernel, idle share); part of the first request decoded
@@ -53,6 +57,54 @@ PEAK_F32_FLOPS = 67e12     # H100 SXM float32 rate outside the tensor cores
 ARB_VIDEOS, ARB_RAGGED, ARB_BENCH, ARB_CPU = 64, 60, 1024, 16
 ARB_KERNELS = ("project_topk", "beam_attend_step", "cross_attend",
                "permute_beam_caches")
+SPARSE_ROWS = (9216, 6144, 3072)  # K3's sparse calls in a decode: k_bound 24, 16, 8 of N = 384
+
+
+def parent_vocab_lib(parent):
+    """The K3 / K4 library of another checkout (--parent), built from its
+    navc_tpu_torch/csrc/vocab_fused.cu with this tree's nvcc flags, entries
+    taking (h, w, bias[, targets], out..., rows, d, v, stream)."""
+    import ctypes
+
+    from navc_tpu_torch.ops import _build
+
+    src = os.path.join(parent, "navc_tpu_torch", "csrc", "vocab_fused.cu")
+    out = os.path.join(parent, "navc_tpu_torch", "build", "parent_vocab_fused.so")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    t0 = time.perf_counter()
+    built = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", out, src],
+                           capture_output=True, text=True, timeout=900)
+    if built.returncode:
+        die("the parent's vocab_fused.cu did not build:\n" + built.stdout + built.stderr)
+    log("parent's vocab_fused.cu (%s) built in %.1f s" % (src, time.perf_counter() - t0))
+    lib = ctypes.CDLL(out)
+    for fn, ptrs in ((lib.navc_project_argmax, 5), (lib.navc_project_gather_prob, 5)):
+        fn.argtypes = [ctypes.c_void_p] * ptrs + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def parent_vocab_call(lib, name, h, w, bias, targets):
+    """A callable that runs the parent's ``name`` kernel on these operands
+    and returns its max prob (K3) or prob (K4)."""
+    import ctypes
+
+    import torch
+
+    rows, d = h.shape
+    out = torch.empty(rows, dtype=torch.float32, device=h.device)
+    ids = torch.empty(rows, dtype=torch.int32, device=h.device)
+    ptrs = [h, w, bias] + ([ids, out] if targets is None else [targets, out])
+    args = [ctypes.c_void_p(None if t is None else t.data_ptr()) for t in ptrs]
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    fn = getattr(lib, "navc_" + name)
+
+    def call():
+        code = fn(*args, rows, d, w.shape[0], stream)
+        if code:
+            die("the parent's %s failed: CUDA error %d" % (name, code))
+        return out
+    return call
 
 
 def log(msg):
@@ -997,6 +1049,12 @@ def entry_point_phase():
 
 
 def main():
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", help="a checkout of an earlier commit: its K3 / K4 kernels "
+                    "are built and timed in turns beside this tree's")
+    args = ap.parse_args()
     if not os.path.isdir(os.path.join(ROOT, "navc_tpu_torch", "csrc")):
         die("navc_tpu_torch/csrc not found next to chip_smoke.py: run it "
             "from a checkout of the repository")
@@ -1041,7 +1099,8 @@ def main():
         "%s %s" % (k, "built" if v is not None else "cached") for k, v in logs.items())))
     for name, text in logs.items():
         for line in (text or "").splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if ("registers" in line or "spill" in line or "smem" in line
+                    or "Compiling entry" in line):
                 log("  ptxas %s: %s" % (name, line.strip()))
 
     # -- 2. models at full width, seeded random weights ---------------------
@@ -1201,52 +1260,99 @@ def main():
         "|value| and %.0e of the rms; no path of navc_tpu reaches it: launches 0)"
         % (TRAIN_TOL, TRAIN_RMS_TOL))
 
-    # K3 / K4 on the dense layer output (R = N * L rows)
+    # K3 / K4 on the dense layer output (R = N * L rows), untied (the
+    # model's projection), tied (a bias at 0.1) and with a bias ten times
+    # the scores' scale. K4 asks for a random id on odd rows and for the
+    # argmax on even ones: under the large bias a random id's probability
+    # falls below float32's range, and those (< 1e-30) are left out.
     hid = out_k1.view(n * l, h)
     w16, wb = ops.proj_w, ops.proj_b
     r = hid.shape[0]
-    ids_k, maxp_k = project_argmax(hid, w16, wb)
-    ids_p, maxp_p = project_argmax_plain(hid, w16, wb)
     scores = hid.float() @ w16.float().t()
-    top2 = scores.topk(2, dim=-1).values
-    clear = (top2[:, 0] - top2[:, 1]) > 1e-3
-    id_mismatch = int(((ids_k != ids_p) & clear).sum())
-    p_err = float(((maxp_k - maxp_p).abs() / maxp_p).max())
-    log("project_argmax ids: %d of %d rows differ where the top-2 margin > 1e-3 "
-        "(%d rows within 1e-3)" % (id_mismatch, r, int((~clear).sum())))
-    if id_mismatch:
-        die("project_argmax ids disagree with the plain version")
-    # the tied-projection form (bias operand) on the same rows
-    bias = torch.randn(v, generator=g).to(dev) * 0.1
-    ids_b, maxp_b = project_argmax(hid, w16, bias)
-    ids_bp, maxp_bp = project_argmax_plain(hid, w16, bias)
-    sb = scores + bias
-    t2 = sb.topk(2, dim=-1).values
-    clear_b = (t2[:, 0] - t2[:, 1]) > 1e-3
-    if int(((ids_b != ids_bp) & clear_b).sum()):
-        die("project_argmax (bias) ids disagree with the plain version")
-    p_err = max(p_err, float(((maxp_b - maxp_bp).abs() / maxp_bp).max()))
-    fl3 = 2 * r * h * v
-    nb3 = r * h * 2 + v * h * 2 + r * 8
-    lib3 = cuda_ms(lambda: torch.matmul(hid, w16.t()))
-    rec_k3 = record("project_argmax", p_err, 1e-4,
-                    cuda_ms(lambda: project_argmax(hid, w16, wb)),
-                    cuda_ms(lambda: project_argmax_plain(hid, w16, wb), iters=5),
-                    fl3, nb3, lib_ms=lib3, note="  (max_err: max prob, relative)")
-
-    t_hid = out_k1c.view(n * l, h)
+    scale = float(scores.std())
     targets = torch.randint(0, v, (r,), generator=g).to(dev, torch.int32)
+    p_err = g_err = 0.0
+    for case, bias in (("untied", wb), ("tied", torch.randn(v, generator=g).to(dev) * 0.1),
+                       ("large bias", torch.randn(v, generator=g).to(dev) * 10 * scale)):
+        for rows in (r,) + SPARSE_ROWS:
+            hh = hid[:rows]
+            ids_k, maxp_k = project_argmax(hh, w16, bias)
+            ids_p, maxp_p = project_argmax_plain(hh, w16, bias)
+            top2 = (scores[:rows] if bias is None else scores[:rows] + bias).topk(2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1]) > 1e-3
+            bad = int(((ids_k != ids_p) & clear).sum())
+            if bad:
+                die("project_argmax (%s, %d rows): %d ids disagree with the plain version "
+                    "where the top-2 margin > 1e-3" % (case, rows, bad))
+            p_err = max(p_err, float(((maxp_k - maxp_p).abs() / maxp_p).max()))
+            if rows == r:
+                near, dense_ids = int((~clear).sum()), ids_p
+        tg = targets.clone()
+        tg[::2] = dense_ids[::2]
+        prob_k = project_gather_prob(hid, w16, tg, bias)
+        prob_p = project_gather_prob_plain(hid, w16, tg, bias)
+        ok = prob_p > 1e-30
+        if int(ok.sum()) <= r // 2:
+            die("project_gather_prob (%s): too few probabilities above 1e-30" % case)
+        g_err = max(g_err, float(((prob_k - prob_p).abs() / prob_p)[ok].max()))
+        log("project_argmax / project_gather_prob (%s): ids equal where the top-2 margin "
+            "> 1e-3 at %s rows (%d of %d dense rows within 1e-3)"
+            % (case, "/".join(map(str, (r,) + SPARSE_ROWS)), near, r))
+
+    # K4 on the teacher's causal layer output, as the rescoring calls it
+    t_hid = out_k1c.view(n * l, h)
     prob_k = project_gather_prob(t_hid, tops.proj_w, targets, tops.proj_b)
     prob_p = project_gather_prob_plain(t_hid, tops.proj_w, targets, tops.proj_b)
-    g_err = float(((prob_k - prob_p).abs() / prob_p).max())
-    rec_k4 = record("project_gather_prob", g_err, 1e-4,
-                    cuda_ms(lambda: project_gather_prob(t_hid, tops.proj_w,
-                                                        targets, tops.proj_b)),
+    g_err = max(g_err, float(((prob_k - prob_p).abs() / prob_p).max()))
+
+    # times at the decode's row counts beside torch.matmul on the same bf16
+    # operands and, given --parent, the parent commit's kernel in turns
+    # (parent, this, this, parent)
+    parent = parent_vocab_lib(args.parent) if args.parent else None
+    by_rows = {}
+    for name, rows in [("project_argmax", rr) for rr in (r,) + SPARSE_ROWS] + [
+            ("project_gather_prob", r)]:
+        if name == "project_argmax":
+            hh, ww, bb, tt = hid[:rows], w16, wb, None
+            run = lambda: project_argmax(hh, ww, bb)  # noqa: E731
+        else:
+            hh, ww, bb, tt = t_hid, tops.proj_w, tops.proj_b, targets
+            run = lambda: project_gather_prob(hh, ww, tt, bb)  # noqa: E731
+        t = dict(library_ms=device_ms(lambda: torch.matmul(hh, ww.t())))
+        if parent is None:
+            t["ms"] = device_ms(run)
+        else:
+            call = parent_vocab_call(parent, name, hh, ww, bb, tt)
+            got, want = call(), run()
+            torch.cuda.synchronize()
+            want = want[1] if name == "project_argmax" else want
+            if float(((got - want).abs() / want).max()) > 1e-4:
+                die("the parent's %s disagrees with this one at %d rows" % (name, rows))
+            p1, k1, k2, p2 = (device_ms(f) for f in (call, run, run, call))
+            t.update(ms=(k1 + k2) / 2, parent_ms=(p1 + p2) / 2)
+        by_rows[name, rows] = t
+        log("%s at %d x %d x %d: kernel %.4f ms, torch.matmul %.4f ms (%.2fx), parent %s, "
+            "bound %.4f ms" % (name, rows, h, v, t["ms"], t["library_ms"],
+                              t["ms"] / t["library_ms"],
+                              "%.4f ms (%.2fx faster)" % (t["parent_ms"], t["parent_ms"] / t["ms"])
+                              if "parent_ms" in t else "not run",
+                              bound(2 * rows * h * v, rows * h * 2 + v * h * 2 + rows * 8)[0]))
+    fl3 = 2 * r * h * v
+    nb3 = r * h * 2 + v * h * 2 + r * 8
+    t3, t4 = by_rows["project_argmax", r], by_rows["project_gather_prob", r]
+    rec_k3 = record("project_argmax", p_err, 1e-4, t3["ms"],
+                    cuda_ms(lambda: project_argmax_plain(hid, w16, wb), iters=5),
+                    fl3, nb3, lib_ms=t3["library_ms"],
+                    note="  (max_err: max prob, relative, untied, tied and large bias)")
+    rec_k3["by_rows"] = {str(rr): by_rows["project_argmax", rr] for rr in (r,) + SPARSE_ROWS}
+    rec_k4 = record("project_gather_prob", g_err, 1e-4, t4["ms"],
                     cuda_ms(lambda: project_gather_prob_plain(
                         t_hid, tops.proj_w, targets, tops.proj_b), iters=5),
-                    fl3, nb3 + r * 4,
-                    lib_ms=cuda_ms(lambda: torch.matmul(t_hid, tops.proj_w.t())),
-                    note="  (max_err: prob, relative)")
+                    fl3, nb3 + r * 4, lib_ms=t4["library_ms"],
+                    note="  (max_err: prob, relative, untied, tied and large bias)")
+    for rec, t in ((rec_k3, t3), (rec_k4, t4)):
+        if "parent_ms" in t:
+            rec["parent_ms"] = t["parent_ms"]
     rec_nar["max_abs_err"] = max(err_nar, err_causal)
     torch.cuda.synchronize()
 

@@ -1,5 +1,6 @@
 // Tile-and-score code shared by the vocab-projection kernels: vocab_fused.cu
-// (K3-K5, decode) and vocab_ce.cu (K9/K10, the training loss). A block of
+// (K5, the beam step's top-k; K3/K4 walk hopper.cuh's TMA + wgmma pipeline
+// instead) and vocab_ce.cu (K9/K10, the training loss). A block of
 // NTHREADS threads holds a TM-row tile of h and one TV-column tile of W (in
 // nn.Linear's own (V, D) layout, the col-major B operand) in shared memory,
 // and forms their (TM x TV) float32 scores with bf16 wmma 16x16x16 products.

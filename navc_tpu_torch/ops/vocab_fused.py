@@ -21,6 +21,7 @@ the word-embedding table for a tied projection — as bf16, converted once
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -28,13 +29,14 @@ import torch
 from . import _build
 from .select import top_k_stable
 
-MAX_D = 768  # shared-memory bound of the kernel's staged tiles
+MAX_D = 768  # shared-memory bound of the kernels' staged tiles
 MAX_K = 8    # register lists of the top-k kernel (beam sizes 1..8)
-_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _SIGNATURES = {"navc_project_argmax": _ARGS, "navc_project_gather_prob": _ARGS,
                "navc_project_topk": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
                + [ctypes.c_void_p]}
-_TILE_ROWS, _TILE_V = 64, 64  # the kernels' row and vocab tiles
+_TILE_ROWS, _TILE_V = 64, 64  # the top-k kernel's row and vocab tiles
+ARGMAX_ROWS, ARGMAX_V = 128, 128  # the argmax / gather kernel's row and vocab tiles
 
 
 def _bf(x: torch.Tensor) -> torch.Tensor:
@@ -113,6 +115,15 @@ def _check(h, w, bias, targets=None):
         raise ValueError("targets must be int32 (R,)")
 
 
+def _check_aligned(*tensors):
+    """TMA reads h, w and the bias from 16-byte aligned addresses."""
+    for t in tensors:
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError("operands must be 16-byte aligned (a TMA "
+                             "requirement), got an address %% 16 = %d"
+                             % (t.data_ptr() % 16))
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
@@ -121,23 +132,68 @@ def _stream(t: torch.Tensor):
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+@functools.lru_cache(maxsize=256)  # ints in, ints out: the decode repeats its shapes
+def argmax_splits(rows: int, v: int, sms: int) -> Tuple[int, int]:
+    """(splits, tiles per split) of the vocab for ``project_argmax`` and
+    ``project_gather_prob`` on a card of ``sms`` SMs: the grid is row tiles
+    x splits, one block per SM at a time, so a call takes ceil(blocks / sms)
+    waves of about (tiles per split + 1) tile times each (the 1: loading
+    the block's h rows). Picks the least such cost, then the fewest splits;
+    no split is empty."""
+    tiles = -(-v // ARGMAX_V)
+    row_tiles = -(-rows // ARGMAX_ROWS)
+    best = None
+    for want in range(1, tiles + 1):
+        per = -(-tiles // want)
+        splits = -(-tiles // per)
+        cost = -(-row_tiles * splits // sms) * (per + 1)
+        if best is None or (cost, splits) < best[0]:
+            best = ((cost, splits), (splits, per))
+    return best[1]
+
+
+def split_ranges(v: int, splits: int, per: int):
+    """The [begin, end) vocab columns of each split."""
+    return [(j * per * ARGMAX_V, min(v, (j + 1) * per * ARGMAX_V))
+            for j in range(splits)]
+
+
+def _launch_argmax(entry, h, w, bias, targets, out):
+    """Launch K3 (``targets`` None) or K4 with partial-state scratch for
+    the planned vocab split."""
+    _check_aligned(h, w, bias)
+    rows, d = h.shape
+    v = w.shape[0]
+    sms = torch.cuda.get_device_properties(h.device).multi_processor_count
+    splits, per = argmax_splits(rows, v, sms)
+    pm = torch.empty((splits, rows), dtype=torch.float32, device=h.device)
+    ps = torch.empty_like(pm)
+    px = torch.empty((splits, rows), device=h.device,
+                     dtype=torch.int32 if targets is None else torch.float32)
+    lib = _build.load("vocab_fused", _SIGNATURES)
+    ptrs = ([h, w, bias] + ([] if targets is None else [targets]) + out
+            + [pm, ps, px])
+    code = getattr(lib, entry)(*[_ptr(t) for t in ptrs], rows, d, v, splits,
+                               per, _stream(h))
+    return lib, code
+
+
 def project_argmax(h: torch.Tensor, w: torch.Tensor,
                    bias: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """argmax id (int32) and max softmax prob (f32) of each row of
     ``h @ w^T + bias``, lowest id on ties. h (R, D) bf16; w (V, D) bf16;
-    bias (V,) f32 or None."""
+    bias (V,) f32 or None; on the card all 16-byte aligned."""
     if h.device.type == "cpu":
         return project_argmax_plain(h, w, bias)
     _check(h, w, bias)
-    rows, d = h.shape
+    rows = h.shape[0]
     ids = torch.empty(rows, dtype=torch.int32, device=h.device)
     maxp = torch.empty(rows, dtype=torch.float32, device=h.device)
     if rows == 0:
         return ids, maxp
-    lib = _build.load("vocab_fused", _SIGNATURES)
-    code = lib.navc_project_argmax(_ptr(h), _ptr(w), _ptr(bias), _ptr(ids),
-                                   _ptr(maxp), rows, d, w.shape[0], _stream(h))
+    lib, code = _launch_argmax("navc_project_argmax", h, w, bias, None,
+                               [ids, maxp])
     _build.check(lib, code, "project_argmax")
     _build.LAUNCHES["project_argmax"] += 1
     return ids, maxp
@@ -146,20 +202,18 @@ def project_argmax(h: torch.Tensor, w: torch.Tensor,
 def project_gather_prob(h: torch.Tensor, w: torch.Tensor,
                         targets: torch.Tensor,
                         bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """softmax(h @ w^T + bias)[i, targets[i]] (R,) f32 without the logits.
-    h (R, D) bf16; w (V, D) bf16; targets (R,) int32; bias (V,) f32 or
-    None."""
+    """softmax(h @ w^T + bias)[i, targets[i]] (R,) f32 without the logits;
+    0 for a target outside [0, V). h (R, D) bf16; w (V, D) bf16; targets
+    (R,) int32; bias (V,) f32 or None; on the card h, w and the bias 16-byte
+    aligned."""
     if h.device.type == "cpu":
         return project_gather_prob_plain(h, w, targets, bias)
     _check(h, w, bias, targets)
-    rows, d = h.shape
-    prob = torch.empty(rows, dtype=torch.float32, device=h.device)
-    if rows == 0:
+    prob = torch.empty(h.shape[0], dtype=torch.float32, device=h.device)
+    if h.shape[0] == 0:
         return prob
-    lib = _build.load("vocab_fused", _SIGNATURES)
-    code = lib.navc_project_gather_prob(_ptr(h), _ptr(w), _ptr(bias),
-                                        _ptr(targets), _ptr(prob), rows, d,
-                                        w.shape[0], _stream(h))
+    lib, code = _launch_argmax("navc_project_gather_prob", h, w, bias, targets,
+                               [prob])
     _build.check(lib, code, "project_gather_prob")
     _build.LAUNCHES["project_gather_prob"] += 1
     return prob

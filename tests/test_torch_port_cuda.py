@@ -149,7 +149,12 @@ def test_fused_layer_qsub_matches_plain_and_dense_rows(cuda, shape, k):
 
 
 VOCAB_SHAPES = [  # rows, d, V
-    (1, 512, 10048), (70, 64, 50), (200, 16, 1001), (129, 512, 4099)]
+    (1, 512, 10048), (70, 64, 50), (200, 16, 1001), (129, 512, 4099),
+    # the decode's sparse row counts (k_bound 8, 16, 24 of 384 rows)
+    (3072, 512, 10048), (6144, 512, 10048), (9216, 512, 10048),
+    # D = 768 (two ring stages) and D = 64 with ragged row tiles and the
+    # vocab edge inside a tile of the last split
+    (300, 768, 4099), (1000, 64, 10001)]
 
 
 @pytest.mark.cuda
@@ -186,6 +191,91 @@ def test_vocab_argmax_ties_go_to_the_lowest_id(cuda):
     assert ids.tolist() == [9, 9, 9]
 
 
+
+@pytest.mark.cuda
+def test_vocab_argmax_ties_inside_one_thread_go_to_the_lowest_id(cuda):
+    """Columns 1, 9, 17 and 121 of a 128-column tile fall to one thread of
+    the kernel's epilogue (columns 8j + 2q + e), 129 to the next tile."""
+    hid = torch.ones(300, 16, dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros(1001, 16, dtype=torch.bfloat16, device=cuda)
+    w[[121, 17, 129, 9, 1]] = 1.0
+    ids, maxp = project_argmax(hid, w)
+    assert ids.tolist() == [1] * 300
+    prob = project_gather_prob(hid, w, ids)
+    assert torch.allclose(prob, maxp, rtol=1e-6)
+
+
+def _vocab_operands(r, d, v, g, dev, bias_scale=None):
+    hid = torch.randn(r, d, generator=g).to(dev, torch.bfloat16)
+    w = (torch.randn(v, d, generator=g) / math.sqrt(d)).to(dev, torch.bfloat16)
+    bias = None
+    if bias_scale is not None:
+        bias = (torch.randn(v, generator=g) * bias_scale).to(dev)
+    return hid, w, bias
+
+
+@pytest.mark.cuda
+def test_vocab_argmax_ties_across_splits_go_to_the_lowest_id(cuda):
+    """Exact ties placed in two different vocab splits (and twice inside
+    one tile): the lowest id wins, and K4's prob at it equals the max prob."""
+    from navc_tpu_torch.ops.vocab_fused import argmax_splits, split_ranges
+
+    r, d, v = 3072, 512, 10048
+    hid, w, _ = _vocab_operands(r, d, v, _gen(8), cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    ranges = split_ranges(v, *argmax_splits(r, v, sms))
+    assert len(ranges) >= 3
+    ties = [ranges[2][0] + 5, ranges[2][0] + 6, ranges[1][1] - 1]
+    w[ties] = (hid[0].float() / hid[0].float().norm() * 40).to(torch.bfloat16)
+    ids, maxp = project_argmax(hid[:1].expand(r, d).contiguous(), w)
+    assert ids.tolist() == [ties[2]] * r
+    prob = project_gather_prob(hid[:1].expand(r, d).contiguous(), w,
+                               ids.contiguous())
+    assert torch.allclose(prob, maxp, rtol=1e-6)
+
+
+@pytest.mark.cuda
+def test_gather_prob_targets_at_the_edge_and_out_of_range(cuda):
+    r, d, v = 200, 64, 1001   # 8 vocab tiles, the last with 105 columns
+    hid, w, bias = _vocab_operands(r, d, v, _gen(9), cuda, bias_scale=0.5)
+    g = _gen(10)
+    targets = torch.randint(896, v, (r,), generator=g).to(torch.int32)
+    targets[:3] = torch.tensor([v, -1, v + 200], dtype=torch.int32)
+    targets = targets.to(cuda)
+    prob = project_gather_prob(hid, w, targets, bias)
+    torch.cuda.synchronize()
+    assert prob[:3].tolist() == [0.0, 0.0, 0.0]
+    prob_p = project_gather_prob_plain(hid[3:], w, targets[3:], bias)
+    assert ((prob[3:] - prob_p).abs() / prob_p).max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1000, 512, 10048), (129, 64, 4099)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_vocab_kernels_match_plain_with_a_large_bias(cuda, shape):
+    """A bias ten times the scores' scale decides the argmax."""
+    r, d, v = shape
+    hid, w, _ = _vocab_operands(r, d, v, _gen(r + v), cuda)
+    scale = float((hid.float() @ w.float().t()).std())
+    bias = (torch.randn(v, generator=_gen(11)) * 10 * scale).to(cuda)
+    ids, maxp = project_argmax(hid, w, bias)
+    ids_p, maxp_p = project_argmax_plain(hid, w, bias)
+    scores = hid.float() @ w.float().t() + bias
+    top2 = scores.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-3
+    assert torch.equal(ids[clear], ids_p[clear])
+    assert ((maxp - maxp_p).abs() / maxp_p).max().item() <= 1e-4
+    # even rows ask for the argmax, odd rows for a random id; probabilities
+    # below 1e-30 (float32's normal range ends at 1.2e-38) are left out
+    targets = torch.randint(0, v, (r,), generator=_gen(12)).to(cuda, torch.int32)
+    targets[::2] = ids_p[::2]
+    prob = project_gather_prob(hid, w, targets, bias)
+    prob_p = project_gather_prob_plain(hid, w, targets, bias)
+    ok = prob_p > 1e-30
+    assert int(ok.sum()) > r // 2
+    assert ((prob - prob_p).abs() / prob_p)[ok].max().item() <= 1e-4
+
+
 @pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     g = _gen(0)
@@ -195,6 +285,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         project_argmax(hid, w)                       # float32 h
     with pytest.raises(ValueError):
         project_argmax(hid.to(torch.bfloat16)[:, :24].contiguous(), w[:, :24].contiguous())
+    flat = torch.randn(4 * 32 + 4, generator=g).to(cuda, torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):   # TMA needs 16-byte alignment
+        project_argmax(flat[4:].view(4, 32), w)
+    with pytest.raises(ValueError, match="16-byte"):
+        project_gather_prob(hid.to(torch.bfloat16), w,
+                            torch.zeros(4, dtype=torch.int32, device=cuda),
+                            torch.zeros(11, device=cuda)[1:])
     weights = _weights(128, 128, g, cuda)
     raw, static, kp, ke, ve, lns, lnb = _layer_inputs(2, 40, 8, 128, g, cuda)
     with pytest.raises(ValueError):                  # canvas longer than 32

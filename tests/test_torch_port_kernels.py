@@ -42,8 +42,12 @@ from navc_tpu_torch.ops.fused_layer import (fused_layer, fused_layer_qsub,
                                             fused_layer_unfolded, hoist_cross_kv,
                                             layer_weights)
 from navc_tpu_torch.ops.vocab_ce import vocab_ce_bwd, vocab_ce_fwd
-from navc_tpu_torch.ops.vocab_fused import (project_argmax,
-                                            project_gather_prob)
+from navc_tpu_torch.ops.vocab_fused import (ARGMAX_V, argmax_splits,
+                                            project_argmax,
+                                            project_argmax_plain,
+                                            project_gather_prob,
+                                            project_gather_prob_plain,
+                                            split_ranges)
 
 TOY = dict(vocab_size=50, dim_hidden=16, num_attention_heads=2,
            intermediate_size=32, n_frames=4, dim_i=12, dim_m=10,
@@ -227,6 +231,99 @@ def test_project_argmax_ties_go_to_the_lowest_id():
     ids_j, _ = fused_project_argmax(jnp.ones((3, 16)), jnp.asarray(w.float().numpy().T),
                                     interpret=True)
     assert np.asarray(ids_j).tolist() == [7, 7, 7]
+
+
+DECODE_ROWS = (12288, 9216, 6144, 3072)  # K3 / K4 calls of one NACF decode
+
+
+@pytest.mark.parametrize("v", [50, 1001, 4099, 10048])
+@pytest.mark.parametrize("rows", DECODE_ROWS)
+def test_argmax_split_plan_covers_the_vocab(rows, v):
+    """The K3 / K4 kernel's vocab split: contiguous runs of whole 128-column
+    tiles that cover [0, V), none empty; at the decode's shapes the grid
+    launches about one block per SM or more."""
+    splits, per = argmax_splits(rows, v, 132)
+    ranges = split_ranges(v, splits, per)
+    assert len(ranges) == splits
+    assert ranges[0][0] == 0 and ranges[-1][1] == v
+    assert all(b < e for b, e in ranges)
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert all(b % ARGMAX_V == 0 for b, _ in ranges)
+    if v == 10048:
+        assert -(-rows // 128) * splits >= 0.9 * 132
+
+
+def _split_and_merge(h, w, bias, targets, ranges):
+    """The kernel's split design in plain float32: per split a row's (max,
+    sum-exp, first argmax, target logit or -1e30), then the splits folded in
+    order (a later split must be strictly greater to take the argmax)."""
+    hb, wb = h.to(torch.float32), w.to(torch.float32)
+    state = None
+    for b, e in ranges:
+        sc = hb @ wb[b:e].t() + (0.0 if bias is None else bias[b:e])
+        m2 = sc.max(-1).values
+        s2 = torch.exp(sc - m2[:, None]).sum(-1)
+        a2 = sc.argmax(-1) + b
+        t = targets.long() - b
+        inside = (t >= 0) & (t < e - b)
+        g2 = torch.where(inside, sc.gather(1, t.clamp(0, e - b - 1)[:, None])[:, 0],
+                         torch.tensor(-1e30))
+        if state is None:
+            state = m2, s2, a2, g2
+            continue
+        m, s, a, g = state
+        mn = torch.maximum(m, m2)
+        state = (mn, s * torch.exp(m - mn) + s2 * torch.exp(m2 - mn),
+                 torch.where(m2 > m, a2, a), torch.maximum(g, g2))
+    m, s, a, g = state
+    return a.to(torch.int32), 1.0 / s, torch.exp(g - m) / s
+
+
+@pytest.mark.parametrize("v,with_bias,tie", [
+    (1001, False, False), (1001, True, False), (4099, True, False), (1001, False, True)],
+    ids=["v1001", "v1001-bias", "v4099-bias", "v1001-tie-across-splits"])
+def test_split_and_merge_matches_plain_and_pallas(v, with_bias, tie):
+    """A plain split-and-merge of the partial states reproduces the plain
+    versions and navc_tpu's kernels run with tv equal to the split width."""
+    rng = np.random.RandomState(v + 2 * with_bias + tie)
+    r, d = 70, 32
+    h = _bf16_np(rng, r, d)
+    w = _bf16_np(rng, v, d, scale=0.3)
+    ranges = split_ranges(v, *argmax_splits(r, v, 8))
+    assert len(ranges) > 1
+    tv = ranges[0][1] - ranges[0][0]
+    if tie:  # equal maxima on both sides of the first split boundary and later
+        h = np.abs(h)
+        w = w.copy()
+        w[[tv - 1, tv, v - 2]] = 1.0
+    bias = (rng.randn(v) * 0.5).astype(np.float32) if with_bias else None
+    targets = rng.randint(0, v, r).astype(np.int32)
+    targets[:2] = [tv - 1, tv]
+    bf = torch.bfloat16
+    th, tw, tt = _t(h).to(bf), _t(w).to(bf), _t(targets)
+    tb = None if bias is None else _t(bias)
+    ids_s, maxp_s, prob_s = _split_and_merge(th, tw, tb, tt, ranges)
+    ids_p, maxp_p = project_argmax_plain(th, tw, tb)
+    prob_p = project_gather_prob_plain(th, tw, tt, tb)
+    jb = None if bias is None else jnp.asarray(bias)
+    ids_j, maxp_j = fused_project_argmax(jnp.asarray(h), jnp.asarray(w.T), jb, tn=32,
+                                         tv=tv, interpret=True)
+    prob_j = fused_project_gather_prob(jnp.asarray(h), jnp.asarray(w.T),
+                                       jnp.asarray(targets), jb, tn=32, tv=tv,
+                                       interpret=True)
+    if tie:
+        assert ids_s.tolist() == [tv - 1] * r
+        assert np.asarray(ids_j).tolist() == [tv - 1] * r
+        assert ids_p.tolist() == [tv - 1] * r
+    else:
+        ok = _margin_ok(h, w, bias)
+        assert ok.mean() > 0.9
+        np.testing.assert_array_equal(ids_s.numpy()[ok], ids_p.numpy()[ok])
+        np.testing.assert_array_equal(ids_s.numpy()[ok], np.asarray(ids_j)[ok])
+    np.testing.assert_allclose(maxp_s.numpy(), maxp_p.numpy(), rtol=1e-5)
+    np.testing.assert_allclose(maxp_s.numpy(), np.asarray(maxp_j), rtol=1e-4)
+    np.testing.assert_allclose(prob_s.numpy(), prob_p.numpy(), rtol=1e-5, atol=1e-30)
+    np.testing.assert_allclose(prob_s.numpy(), np.asarray(prob_j), rtol=1e-4, atol=1e-30)
 
 
 def test_wrappers_never_fall_back_off_cpu():
