@@ -12,18 +12,27 @@ NACF main path's shapes and timed; K3 also at the decode's sparse row
 counts (9216, 6144, 3072), K3/K4 untied, tied and with a bias ten times the
 scores' scale, and timed beside torch.matmul on the same operands and,
 given --parent (a checkout of an earlier commit, e.g. a `git archive` of
-the parent), beside that checkout's K3/K4 in turns; four 64-video requests through
+the parent), beside that checkout's K3/K4 in turns, called through its own
+wrappers in a second process (this script with --worker DIR, which imports
+DIR's navc_tpu_torch); four 64-video requests through
 StreamingCaptioner with an NACF student and ARB teacher, with the launch
 counts and outputs checked; one more request profiled with torch.profiler
 (device time by kernel, idle share); part of the first request decoded
 again on the CPU through the plain versions. ARB beam search: each of K5-K8
-held against its plain version at the ARB main path's shapes and timed;
-four 64-video requests (K5, K6, K7 once per beam step) and one 60-video
-request (K8 instead of K6) through StreamingCaptioner; one decode at
-B=1024 under bench.py's protocol; one request profiled; 16 videos decoded
+held against its plain version at the ARB main path's shapes and timed (K5
+at 320, 300 and 5120 rows, k 1, 5 and 8, untied, tied and with a large
+bias; timed at k 5 beside torch.matmul and the parent's K5, with the host's
+cost of one wrapper call on both sides); four 64-video requests (K5, K6, K7
+once per beam step) and one 60-video request (K8 instead of K6) through
+StreamingCaptioner; decodes at B=1024 under bench.py's protocol (with
+--parent, in turns with the parent's own decode), then one more profiled
+(K5's share of the device time); one request profiled; 16 videos decoded
 again on the CPU. Training: K11, K12a, K12b and the weight-gradient
 reduction held against their plain versions at full width (B=64, dropout
-0.5) and timed; the fused projection + cross-entropy K9 and K10 (both
+0.5) and timed, and again at B=2048 (the reduction checked against its
+plain version there too, both sizes bit for bit the same in two calls, and
+timed beside torch.matmul of the same operands and the parent's
+reduction); the fused projection + cross-entropy K9 and K10 (both
 launches) held against their plain versions at the B=64 NACF pass, untied,
 tied and with a large bias, timed there and at B=2048 beside the logits
 route on the same operands; 5 NACF steps of 64 videos through
@@ -41,6 +50,7 @@ Standard output ends with two JSON lines: {"kernels": [...]} and
 {"ok": true, "device": {...}}.
 """
 
+import atexit
 import json
 import os
 import subprocess
@@ -58,53 +68,158 @@ ARB_VIDEOS, ARB_RAGGED, ARB_BENCH, ARB_CPU = 64, 60, 1024, 16
 ARB_KERNELS = ("project_topk", "beam_attend_step", "cross_attend",
                "permute_beam_caches")
 SPARSE_ROWS = (9216, 6144, 3072)  # K3's sparse calls in a decode: k_bound 24, 16, 8 of N = 384
+TOPK_ROWS = (320, 300, 5120)  # K5's beam rows: 64- and 60-video requests, the B=1024 decode
+OVER = dict(dataset="MSRVTT", vocab_size=10048, use_pallas=True)  # bench.py's models
 
 
-def parent_vocab_lib(parent):
-    """The K3 / K4 library of another checkout (--parent), built from its
-    navc_tpu_torch/csrc/vocab_fused.cu with this tree's nvcc flags, entries
-    taking (h, w, bias[, targets], out..., rows, d, v, stream)."""
-    import ctypes
+class Worker:
+    """A checkout's navc_tpu_torch in a second process: this script again
+    with --worker DIR, which imports DIR's navc_tpu_torch and builds DIR's
+    kernels with DIR's own _build. --parent DIR runs the parent commit's
+    wrappers so; DIR = this checkout gives this tree's in a process as
+    fresh as the parent's. Operands go over as a torch.save file in DIR's
+    build directory; each request is a JSON line on the worker's stdin, each
+    reply a JSON line on its stdout. The worker runs only while this process
+    waits for its reply, so the two time in turns."""
 
-    from navc_tpu_torch.ops import _build
+    def __init__(self, root):
+        self.root = os.path.abspath(root)
+        self.file = worker_file(self.root)
+        os.makedirs(os.path.dirname(self.file), exist_ok=True)
+        self.ready = False
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--worker", self.root],
+            cwd=self.root, stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+        atexit.register(self.close)
 
-    src = os.path.join(parent, "navc_tpu_torch", "csrc", "vocab_fused.cu")
-    out = os.path.join(parent, "navc_tpu_torch", "build", "parent_vocab_fused.so")
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    t0 = time.perf_counter()
-    built = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", out, src],
-                           capture_output=True, text=True, timeout=900)
-    if built.returncode:
-        die("the parent's vocab_fused.cu did not build:\n" + built.stdout + built.stderr)
-    log("parent's vocab_fused.cu (%s) built in %.1f s" % (src, time.perf_counter() - t0))
-    lib = ctypes.CDLL(out)
-    for fn, ptrs in ((lib.navc_project_argmax, 5), (lib.navc_project_gather_prob, 5)):
-        fn.argtypes = [ctypes.c_void_p] * ptrs + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
+    def _reply(self):
+        line = self.proc.stdout.readline()
+        if not line:
+            die("the worker for %s exited with code %s" % (self.root, self.proc.wait()))
+        rep = json.loads(line)
+        if "error" in rep:
+            die("the worker for %s: %s" % (self.root, rep["error"]))
+        return rep
+
+    def ask(self, **req):
+        if not self.ready:  # the worker's first line: its kernels are built
+            log("worker for %s: kernels built by its own _build in %.1f s"
+                % (self.root, self._reply()["build_s"]))
+            self.ready = True
+        self.proc.stdin.write(json.dumps(req) + "\n")
+        self.proc.stdin.flush()
+        return self._reply()
+
+    def load(self, kind, operands, **args):
+        """Hand the worker a case: ``kind`` (see ``worker_case``) on
+        ``operands`` (a dict of tensors); it runs the case once and its
+        outputs (a dict of tensors) come back on the card."""
+        import torch
+
+        torch.save(operands, self.file)
+        self.ask(cmd="load", kind=kind, args=args)
+        out = torch.load(self.file, map_location="cuda")
+        os.remove(self.file)
+        return out
+
+    def time(self, timer):
+        """The loaded case timed in the worker by TIMERS[timer]."""
+        return self.ask(cmd="time", timer=timer)["t"]
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.stdin.close()
+            try:
+                self.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
 
 
-def parent_vocab_call(lib, name, h, w, bias, targets):
-    """A callable that runs the parent's ``name`` kernel on these operands
-    and returns its max prob (K3) or prob (K4)."""
-    import ctypes
+def worker_file(root):
+    return os.path.join(root, "navc_tpu_torch", "build", "chip_smoke_operands.pt")
+
+
+def worker_case(kind, ops, args):
+    """A callable of the worker's (DIR's) wrapper for one case; it returns a
+    dict of tensors."""
+    import torch
+
+    from navc_tpu_torch.ops import vocab_fused as VF
+
+    if kind == "project_argmax":
+        return lambda: dict(zip(("ids", "p"), VF.project_argmax(ops["h"], ops["w"], ops["bias"])))
+    if kind == "project_gather_prob":
+        return lambda: dict(p=VF.project_gather_prob(ops["h"], ops["w"], ops["targets"],
+                                                     ops["bias"]))
+    if kind == "project_topk":
+        return lambda: dict(zip(("lp", "ids"), VF.project_topk(ops["h"], ops["w"], args["k"],
+                                                                ops["bias"])))
+    if kind == "weight_grads":
+        from navc_tpu_torch.ops.fused_layer_train import Product, weight_grads
+
+        calls = [[Product(**pr) for pr in call] for call in ops["calls"]]
+        return lambda: {k: v for call in calls for k, v in weight_grads(call).items()}
+    if kind == "arb_decode":
+        from navc_tpu_torch.config import default_config
+        from navc_tpu_torch.models import build_model
+        from navc_tpu_torch.runtime.serving import StreamingCaptioner
+
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+        cfg = default_config("ARB", **args["over"])
+        model = build_model(cfg, device="cuda",
+                            generator=torch.Generator().manual_seed(args["seed"]))
+        cap = StreamingCaptioner(cfg, model, depth=2)
+        with torch.no_grad():
+            enc = model.encode(ops["feats"])
+        return lambda: dict(hyp=cap.generate(enc, ops["cat"])[0].cpu())
+    raise ValueError("no worker case %r" % kind)
+
+
+def serve_worker(root):
+    """--worker DIR: serve a Worker's requests with DIR's own
+    navc_tpu_torch, until stdin closes."""
+    replies = os.fdopen(os.dup(1), "w")
+    os.dup2(2, 1)  # what DIR's code prints goes to stderr
+    sys.stdout = sys.stderr
+    root = os.path.abspath(root)
+    sys.path[:] = [root] + [p for p in sys.path if os.path.abspath(p or os.curdir) != ROOT]
+
+    def reply(**rep):
+        replies.write(json.dumps(rep) + "\n")
+        replies.flush()
 
     import torch
 
-    rows, d = h.shape
-    out = torch.empty(rows, dtype=torch.float32, device=h.device)
-    ids = torch.empty(rows, dtype=torch.int32, device=h.device)
-    ptrs = [h, w, bias] + ([ids, out] if targets is None else [targets, out])
-    args = [ctypes.c_void_p(None if t is None else t.data_ptr()) for t in ptrs]
-    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    fn = getattr(lib, "navc_" + name)
+    import navc_tpu_torch
+    from navc_tpu_torch.ops import _build
 
-    def call():
-        code = fn(*args, rows, d, w.shape[0], stream)
-        if code:
-            die("the parent's %s failed: CUDA error %d" % (name, code))
-        return out
-    return call
+    if not os.path.abspath(navc_tpu_torch.__file__).startswith(root + os.sep):
+        reply(error="navc_tpu_torch came from %s, not %s" % (navc_tpu_torch.__file__, root))
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    _build.build()
+    reply(build_s=time.perf_counter() - t0)
+    call = None
+    for line in sys.stdin:
+        req = json.loads(line)
+        try:
+            if req["cmd"] == "load":
+                call = None
+                torch.cuda.empty_cache()
+                file = worker_file(root)
+                call = worker_case(req["kind"], torch.load(file, map_location="cuda"),
+                                   req["args"])
+                out = call()
+                torch.cuda.synchronize()
+                torch.save(out, file)
+                reply(ok=True)
+            else:
+                reply(t=TIMERS[req["timer"]](call))
+        except Exception as e:  # the reply carries it to the main process, which fails
+            reply(error="%s: %r" % (req, e))
+    return 0
 
 
 def log(msg):
@@ -167,6 +282,36 @@ def device_ms_cold(fn, iters=20):
     buf = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     both = device_ms(lambda: (buf.fill_(1), fn()), iters)
     return both - device_ms(lambda: buf.fill_(1), iters)
+
+
+def host_ms(fn, iters=3):
+    """Mean host-clock milliseconds per call of ``fn``, which synchronises."""
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def host_us(fn, iters=50):
+    """Host microseconds to issue one call of ``fn`` while a device-side
+    sleep holds the card, so that the calls only queue: the wrapper's own
+    cost on the host, apart from the kernel's time."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / iters * 1e6
+
+
+# the timers both this process and a worker (Worker.time) use
+TIMERS = {"device": device_ms, "cuda5": lambda fn: cuda_ms(fn, iters=5),
+          "host3": host_ms, "host_us": host_us}
 
 
 def bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
@@ -275,10 +420,10 @@ def check_captions(hyp, b, max_len, v, eos, pad):
         die("ARB: a non-PAD token follows an EOS")
 
 
-def arb_phases(cfg, model, cpu_model, record):
+def arb_phases(cfg, model, cpu_model, record, parent):
     """K5-K8 against their plain versions at the ARB main path's shapes, then
-    ARB serving through StreamingCaptioner. Returns ({kernel: record},
-    {kernel: launches on the ARB main path})."""
+    ARB serving through StreamingCaptioner. ``parent``: a Worker or None.
+    Returns ({kernel: record}, {kernel: launches on the ARB main path})."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -311,32 +456,79 @@ def arb_phases(cfg, model, cpu_model, record):
     g = torch.Generator(device="cpu").manual_seed(321)
     recs = {}
 
-    # K5: projection + top-k, with and without a bias
+    # K5: projection + top-k at the beam step's row counts (the 64- and
+    # 60-video requests, the B=1024 decode), k 1, 5 and 8, untied, tied and
+    # with a bias ten times the scores' scale
     w16, _ = projection_weights(model)
-    hid = (torch.randn(n, h, generator=g) * 2).to(dev, torch.bfloat16)
-    bias = (torch.randn(v, generator=g) * 0.1).to(dev)
-    scores = hid.float() @ w16.float().t()
-    err = 0.0
-    for bb in (None, bias):
-        lp, ids = project_topk(hid, w16, k, bb)
-        lp_p, ids_p = project_topk_plain(hid, w16, k, bb)
-        sc = scores if bb is None else scores + bb
-        srt = sc.sort(dim=-1, descending=True).values[:, :k + 1]
-        clear = (srt[:, :-1] - srt[:, 1:]) > 1e-3
-        bad = int(((ids != ids_p) & clear).sum())
-        log("project_topk%s ids: %d of %d differ where the gap to the next "
-            "candidate > 1e-3 (%d within 1e-3)" % (
-                "" if bb is None else "[bias]", bad, n * k, int((~clear).sum())))
-        if bad:
-            die("project_topk ids disagree with the plain version")
-        err = max(err, float((lp - lp_p).abs().max()))
+    hid_all = (torch.randn(max(TOPK_ROWS), h, generator=g) * 2).to(dev, torch.bfloat16)
+    scores = hid_all.float() @ w16.float().t()
+    scale = float(scores[:1024].std())
+    cases = {"untied": None, "tied": (torch.randn(v, generator=g) * 0.1).to(dev),
+             "large bias": (torch.randn(v, generator=g) * 10 * scale).to(dev)}
+    err, near = 0.0, 0
+    for case, bb in cases.items():
+        srt = (scores if bb is None else scores + bb).topk(9, dim=-1).values
+        for rows in TOPK_ROWS:
+            for kk in (1, 5, 8):
+                lp, ids = project_topk(hid_all[:rows], w16, kk, bb)
+                lp_p, ids_p = project_topk_plain(hid_all[:rows], w16, kk, bb)
+                clear = (srt[:rows, :kk] - srt[:rows, 1:kk + 1]) > 1e-3
+                bad = int(((ids != ids_p) & clear).sum())
+                if bad:
+                    die("project_topk (%s, %d rows, k %d): %d ids disagree with the plain "
+                        "version where the gap to the next candidate > 1e-3"
+                        % (case, rows, kk, bad))
+                err = max(err, float((lp - lp_p).abs().max()))
+                near += int((~clear).sum())
+    log("project_topk: ids equal where the gap to the next candidate > 1e-3 at %s rows, "
+        "k 1 / 5 / 8, untied, tied and large bias (%d pairs within 1e-3)"
+        % ("/".join(map(str, TOPK_ROWS)), near))
+    # times at k = 5 beside torch.matmul on the same bf16 operands and,
+    # given --parent, the parent commit's K5 in turns (parent, this, this,
+    # parent); the host's cost of one wrapper call, both sides
+    by_rows = {}
+    for rows in TOPK_ROWS:
+        hh = hid_all[:rows]
+        run = lambda: project_topk(hh, w16, k)  # noqa: E731
+        t = dict(library_ms=device_ms(lambda: torch.matmul(hh, w16.t())))
+        if parent is None:
+            t["ms"] = device_ms(run)
+            t["host_us"] = host_us(run)
+        else:
+            got = parent.load("project_topk", dict(h=hh, w=w16, bias=None), k=k)
+            lp, ids = run()
+            torch.cuda.synchronize()
+            top = scores[:rows].topk(k + 1, dim=-1).values
+            clear = (top[:, :-1] - top[:, 1:]) > 1e-3
+            if (float((got["lp"] - lp).abs().max()) > 1e-4
+                    or bool(((got["ids"] != ids) & clear).any())):
+                die("the parent's project_topk disagrees with this one at %d rows" % rows)
+            p1, k1, k2, p2 = (parent.time("device"), device_ms(run), device_ms(run),
+                              parent.time("device"))
+            u1, ku1, ku2, u2 = (parent.time("host_us"), host_us(run), host_us(run),
+                                parent.time("host_us"))
+            t.update(ms=(k1 + k2) / 2, parent_ms=(p1 + p2) / 2, host_us=(ku1 + ku2) / 2,
+                     parent_host_us=(u1 + u2) / 2)
+        t["bound_ms"] = bound(2 * rows * h * v, rows * h * 2 + v * h * 2 + rows * k * 8)[0]
+        by_rows[str(rows)] = t
+        log("project_topk at %d x %d x %d, k %d: kernel %.4f ms, torch.matmul %.4f ms "
+            "(%.2fx), parent %s, bound %.4f ms; host %.1f us per call (parent %s)" % (
+                rows, h, v, k, t["ms"], t["library_ms"], t["ms"] / t["library_ms"],
+                "%.4f ms (%.2fx faster)" % (t["parent_ms"], t["parent_ms"] / t["ms"])
+                if "parent_ms" in t else "not run", t["bound_ms"], t["host_us"],
+                "%.1f us" % t["parent_host_us"] if "parent_host_us" in t else "not run"))
+    n_main = str(n)
+    hid = hid_all[:n]
     recs["project_topk"] = record(
-        "project_topk", err, 1e-4,
-        device_ms(lambda: project_topk(hid, w16, k)),
+        "project_topk", err, 1e-4, by_rows[n_main]["ms"],
         device_ms(lambda: project_topk_plain(hid, w16, k), iters=5),
         2 * n * h * v, n * h * 2 + v * h * 2 + n * k * 8,
-        lib_ms=device_ms(lambda: torch.matmul(hid, w16.t())),
-        note="  (max_err: log-prob, absolute)")
+        lib_ms=by_rows[n_main]["library_ms"],
+        note="  (max_err: log-prob, absolute, over %s rows, k 1 / 5 / 8, untied, tied, "
+             "large bias)" % "/".join(map(str, TOPK_ROWS)))
+    recs["project_topk"]["by_rows"] = by_rows
+    if "parent_ms" in by_rows[n_main]:
+        recs["project_topk"]["parent_ms"] = by_rows[n_main]["parent_ms"]
 
     # K6: single steps at tpos 0, 14, 29, then every step of a decode
     def step_inputs(tpos):
@@ -487,6 +679,39 @@ def arb_phases(cfg, model, cpu_model, record):
             dt / iters * 1e3, ARB_BENCH * iters / dt,
             torch.cuda.max_memory_allocated() / 1e9))
     check_captions(hyp.numpy(), ARB_BENCH, l, v, C.EOS, C.PAD)
+    if parent is not None:
+        # the parent commit's decode (its own model from the same seed, its
+        # own wrappers), this tree's in a worker as fresh as the parent's,
+        # and this one in turns: parent, fresh, this, this, fresh, parent,
+        # three times, 3 decodes each
+        fresh = Worker(ROOT)
+        case = dict(feats=[torch.as_tensor(f) for f in big[0]], cat=cat.cpu())
+        got = {w: w.load("arb_decode", case, over=OVER, seed=1)["hyp"].cpu()
+               for w in (parent, fresh)}
+        decode = lambda: cap.generate(enc, cat)[0].cpu()  # noqa: E731
+        ms = {"this": [], "this, fresh process": [], "parent": []}
+        for _ in range(3):
+            ms["parent"].append(parent.time("host3"))
+            ms["this, fresh process"].append(fresh.time("host3"))
+            ms["this"] += [host_ms(decode), host_ms(decode)]
+            ms["this, fresh process"].append(fresh.time("host3"))
+            ms["parent"].append(parent.time("host3"))
+        fresh.close()
+        log("ARB decode at B=%d in turns: %s ms per decode; token agreement with this "
+            "process's decode: parent %.4f, fresh process %.4f" % (
+                ARB_BENCH, "; ".join("%s %s (mean %.2f)" % (
+                    who, " ".join("%.2f" % x for x in t), np.mean(t)) for who, t in ms.items()),
+                float((got[parent] == hyp).float().mean()),
+                float((got[fresh] == hyp).float().mean())))
+    prof = device_breakdown(lambda: cap.generate(enc, cat)[0].cpu())
+    print_profile(prof, "B=%d decode" % ARB_BENCH)
+    if prof is not None:
+        k5 = [(ms, count) for name, (ms, count) in prof[2].items()
+              if "argmax_kernel<2," in name or "argmax_merge_kernel<2," in name]
+        log("K5 in the B=%d decode: %.3f ms of %.3f device-busy ms (share %.3f), %d "
+            "launches (walk + merge)" % (ARB_BENCH, sum(ms for ms, _ in k5), prof[1],
+                                         sum(ms for ms, _ in k5) / prof[1],
+                                         sum(c for _, c in k5)))
 
     print_profile(device_breakdown(lambda: list(cap.map_stream([request(b)]))))
     steps0 = cap.generate.steps_run
@@ -707,11 +932,12 @@ def ce_checks(cfg, model, g, record):
     }
 
 
-def train_phases(record, seeded):
+def train_phases(record, seeded, parent):
     """K11, K12a, K12b and the weight-gradient reduction against their plain
-    versions at full width, then NACF training through run_train_epoch.
-    Returns ({kernel: record}, {kernel: launches on the training main
-    path})."""
+    versions at full width and timed at B=64 and B=2048 (the reduction beside
+    torch.matmul and, given ``parent`` (a Worker), the parent's kernel),
+    then NACF training through run_train_epoch. Returns ({kernel: record},
+    {kernel: launches on the training main path})."""
     import numpy as np
     import torch
 
@@ -725,7 +951,7 @@ def train_phases(record, seeded):
                                                    make_train_step)
 
     dev = torch.device("cuda")
-    over = dict(dataset="MSRVTT", vocab_size=10048, use_pallas=True)
+    over = OVER
     cfg = default_config("NACF", batch_size=TRAIN_B, **over)
     h, nh, inter = cfg.dim_hidden, cfg.num_attention_heads, cfg.intermediate_size
     te = len(cfg.modality) * cfg.n_frames
@@ -804,55 +1030,141 @@ def train_phases(record, seeded):
     # the weights it reads; out, r2, dr2, dx, denc); the operand rows and
     # partial sums that K12a/K12b hand to the reduction, and K12b's Q/K/V
     # scratch, are the port's own traffic and count in no bound but the
-    # reduction's, which must read its operands. The weight-gradient
-    # products count in the reduction's operations.
-    n, l = TRAIN_B, x.shape[1]
-    rr = int((~kp).sum())
-    pairs = int(sum(int(m) * (int(m) + 1) // 2 for m in (~kp).sum(1)))
-    act, enc_b = n * l * h * 4, n * te * h * 4          # f32 (N, L, H), (N, Te, H)
-    attn_w = 8 * h * h * 2 + 8 * h * 4
-    ffn_w = 2 * h * inter * 2 + (inter + h) * 4
-    attn_fwd = (2 * rr * h * h * 6 + 2 * 2 * n * te * h * h
-                + 2 * 2 * pairs * h + 2 * 2 * rr * te * h)
-    fl11 = attn_fwd + 2 * 2 * rr * h * inter
-    nb11 = act + enc_b + n * l + attn_w + ffn_w + 2 * (n * l * h * 2)   # out, r2 bf16
-    fl12a = 3 * 2 * rr * h * inter
-    nb12a = n * l * h * 2 + act + n * l + 2 * h * inter * 2 + inter * 4 + act  # r2, dy -> dr2
-    fl12b = (attn_fwd + 2 * rr * h * h * 6 + 2 * 2 * n * te * h * h
-             + 4 * 2 * rr * te * h + 4 * 2 * pairs * h)
-    nb12b = 2 * act + enc_b + n * l + attn_w + act + enc_b             # x, dr2 -> dx, denc
-    real_rows = {"wk_c": n * te, "wv_c": n * te}
-    fl_w = sum(2 * real_rows.get(pr.w, rr) * pr.P.shape[1] * pr.Q.shape[1] for pr in prods)
-    nb_w = sum((pr.P.numel() + pr.Q.numel()) * 2 + pr.part.numel() * 4
-               + (pr.P.shape[1] * pr.Q.shape[1] + pr.P.shape[1]) * 4 for pr in prods)
+    # reduction's, which must read its operands' real rows (PAD rows are
+    # zero: they add nothing to a sum) and partials and write dW and db. The
+    # weight-gradient products count in the reduction's operations, over
+    # the same real rows.
+    def costs(kp, prods):
+        """{kernel: (FLOPs, bytes)} of this batch's data."""
+        n, l = kp.shape
+        rr = int((~kp).sum())
+        pairs = int(sum(int(m) * (int(m) + 1) // 2 for m in (~kp).sum(1)))
+        act, enc_b = n * l * h * 4, n * te * h * 4          # f32 (N, L, H), (N, Te, H)
+        attn_w = 8 * h * h * 2 + 8 * h * 4
+        ffn_w = 2 * h * inter * 2 + (inter + h) * 4
+        attn_fwd = (2 * rr * h * h * 6 + 2 * 2 * n * te * h * h
+                    + 2 * 2 * pairs * h + 2 * 2 * rr * te * h)
+        real_rows = {"wk_c": n * te, "wv_c": n * te}
+        return {
+            "train_fwd": (attn_fwd + 2 * 2 * rr * h * inter,
+                          act + enc_b + n * l + attn_w + ffn_w + 2 * (n * l * h * 2)),
+            "train_ffn_bwd": (3 * 2 * rr * h * inter,   # r2, dy -> dr2
+                              n * l * h * 2 + act + n * l + 2 * h * inter * 2 + inter * 4 + act),
+            "train_attn_bwd": (attn_fwd + 2 * rr * h * h * 6 + 2 * 2 * n * te * h * h
+                               + 4 * 2 * rr * te * h + 4 * 2 * pairs * h,
+                               # x, dr2 -> dx, denc
+                               2 * act + enc_b + n * l + attn_w + act + enc_b),
+            "train_wgrad": (
+                sum(2 * real_rows.get(pr.w, rr) * pr.P.shape[1] * pr.Q.shape[1] for pr in prods),
+                sum(real_rows.get(pr.w, rr) * (pr.P.shape[1] + pr.Q.shape[1]) * 2
+                    + pr.part.numel() * 4
+                    + (pr.P.shape[1] * pr.Q.shape[1] + pr.P.shape[1]) * 4 for pr in prods)),
+        }
+
+    def wgrad_times(fprods, aprods, timer):
+        """The reduction's two launches of one backward: checks that two calls
+        give the same bits, then times them (TIMERS[timer]) beside
+        torch.matmul of the same operands and, given --parent, the parent's
+        kernel in turns (parent, this, this, parent)."""
+        run = lambda: (FT.weight_grads(fprods), FT.weight_grads(aprods))  # noqa: E731
+        (f1, a1), (f2, a2) = run(), run()
+        torch.cuda.synchronize()
+        if not all(torch.equal(x[k], y[k]) for x, y in ((f1, f2), (a1, a2)) for k in x):
+            die("train_wgrad: two calls on the same operands gave different bits")
+        prods = fprods + aprods
+        t = dict(library_ms=TIMERS[timer](
+            lambda: [torch.matmul(pr.P.t(), pr.Q) for pr in prods]))
+        if parent is None:
+            t["ms"] = TIMERS[timer](run)
+            return t
+        got = parent.load("weight_grads", dict(calls=[[pr._asdict() for pr in ps]
+                                                      for ps in (fprods, aprods)]))
+        for k, mine in {**f1, **a1}.items():
+            err, scale, rms_err, rms = scaled_err(mine, got[k])
+            if not (err <= WGRAD_TOL * scale and rms_err <= WGRAD_RMS_TOL * rms):
+                die("train_wgrad %s disagrees with the parent's kernel" % k)
+        del got
+        p1, k1, k2, p2 = (parent.time(timer), TIMERS[timer](run), TIMERS[timer](run),
+                          parent.time(timer))
+        t.update(ms=(k1 + k2) / 2, parent_ms=(p1 + p2) / 2)
+        return t
+
+    cost = costs(kp, prods)
     note = ("  (max_err: absolute; tolerance %.0e of each tensor's largest |value| "
             "and %.0e of its rms for the error's rms")
-    recs["train_fwd"] = record(
-        "train_fwd", errs["train_fwd"], None,
-        device_ms(lambda: FT.train_fwd(x, enc, kp, w, seed, out_dtype=torch.bfloat16, **kw)),
-        cuda_ms(lambda: FT.train_fwd_plain(x, enc, kp, w, seed, out_dtype=torch.bfloat16,
-                                           **kw), iters=3),
-        fl11, nb11, note=note % (TRAIN_TOL, TRAIN_RMS_TOL) + "; library_ms null: no one PyTorch call)")
-    recs["train_ffn_bwd"] = record(
-        "train_ffn_bwd", errs["train_ffn_bwd"], None,
-        device_ms(lambda: FT.ffn_bwd_operands(r2, dy, kp, w, seed, p=0.5)),
-        cuda_ms(lambda: FT.ffn_bwd_operands_plain(r2, dy, kp, w, seed, p=0.5), iters=3),
-        fl12a, nb12a, note=note % (TRAIN_TOL, TRAIN_RMS_TOL) + "; library_ms null: no one PyTorch call)")
-    recs["train_attn_bwd"] = record(
-        "train_attn_bwd", errs["train_attn_bwd"], None,
-        device_ms(lambda: FT.attn_bwd_operands(x, enc, dr2, kp, w, seed, **kw)),
-        cuda_ms(lambda: FT.attn_bwd_operands_plain(x, enc, dr2, kp, w, seed, **kw),
-                iters=3),
-        fl12b, nb12b, note=note % (TRAIN_TOL, TRAIN_RMS_TOL) + "; library_ms null: no one PyTorch call)")
+    for name, run, plain in (
+            ("train_fwd",
+             lambda: FT.train_fwd(x, enc, kp, w, seed, out_dtype=torch.bfloat16, **kw),
+             lambda: FT.train_fwd_plain(x, enc, kp, w, seed, out_dtype=torch.bfloat16, **kw)),
+            ("train_ffn_bwd", lambda: FT.ffn_bwd_operands(r2, dy, kp, w, seed, p=0.5),
+             lambda: FT.ffn_bwd_operands_plain(r2, dy, kp, w, seed, p=0.5)),
+            ("train_attn_bwd", lambda: FT.attn_bwd_operands(x, enc, dr2, kp, w, seed, **kw),
+             lambda: FT.attn_bwd_operands_plain(x, enc, dr2, kp, w, seed, **kw))):
+        recs[name] = record(name, errs[name], None, device_ms(run), cuda_ms(plain, iters=3),
+                            *cost[name], note=note % (TRAIN_TOL, TRAIN_RMS_TOL)
+                            + "; library_ms null: no one PyTorch call)")
+    tw = wgrad_times(fprods, aprods, "device")
     recs["train_wgrad"] = record(
-        "train_wgrad", errs["train_wgrad"], None,
-        device_ms(lambda: (FT.weight_grads(fprods), FT.weight_grads(aprods))),
-        cuda_ms(lambda: FT.weight_grads_plain(prods), iters=3), fl_w, nb_w,
-        lib_ms=device_ms(lambda: [torch.matmul(pr.P.t(), pr.Q) for pr in prods]),
-        note=note % (WGRAD_TOL, WGRAD_RMS_TOL) + "; the two launches of one backward; library: "
-        "torch.matmul of the same bf16 operands)")
+        "train_wgrad", errs["train_wgrad"], None, tw["ms"],
+        cuda_ms(lambda: FT.weight_grads_plain(prods), iters=3), *cost["train_wgrad"],
+        lib_ms=tw["library_ms"],
+        note=note % (WGRAD_TOL, WGRAD_RMS_TOL) + "; the two launches of one backward, bit "
+        "for bit the same in two calls; library: torch.matmul of the same bf16 operands; "
+        "parent %s)" % ("%.4f ms" % tw["parent_ms"] if "parent_ms" in tw else "not run"))
+    if "parent_ms" in tw:
+        recs["train_wgrad"]["parent_ms"] = tw["parent_ms"]
     del out, r2, dr2, dx, denc, prods, fprods, aprods, grads, want
     del out_p, r2_p, dr2_p, dx_p, denc_p, fprods_p, aprods_p
+
+    # -- (a2) the four kernels at B=2048 on the NACF pass's shape (L 30) -----
+    n2 = TRAIN_BENCH
+    l2 = cfg.max_len
+    lengths = torch.randint(5, l2 + 1, (n2,), generator=g)
+    kp2 = (torch.arange(l2)[None] >= lengths[:, None]).to(dev)
+    x2 = torch.randn(n2, l2, h, generator=g).to(dev)
+    enc2 = torch.randn(n2, te, h, generator=g).to(dev)
+    dy2 = torch.randn(n2, l2, h, generator=g).to(dev)
+    kw2 = dict(n_head=nh, causal=False, p=0.5, p_input=0.5)
+    fwd2 = lambda: FT.train_fwd(x2, enc2, kp2, w, seed,  # noqa: E731
+                                out_dtype=torch.bfloat16, **kw2)
+    _, r2b = fwd2()
+    ffn2 = lambda: FT.ffn_bwd_operands(r2b, dy2, kp2, w, seed, p=0.5)  # noqa: E731
+    dr2b, fprods2 = ffn2()
+    attn2 = lambda: FT.attn_bwd_operands(x2, enc2, dr2b, kp2, w, seed, **kw2)  # noqa: E731
+    _, _, aprods2 = attn2()
+    prods2 = fprods2 + aprods2
+    got2 = FT.weight_grads(fprods2)
+    got2.update(FT.weight_grads(aprods2))
+    want2 = FT.weight_grads_plain(prods2)
+    torch.cuda.synchronize()
+    for k in FT.WEIGHT_KEYS:
+        err, scale, rms_err, rms = scaled_err(got2[k], want2[k])
+        if not (err <= WGRAD_TOL * scale and rms_err <= WGRAD_RMS_TOL * rms):
+            die("train_wgrad %s at B=%d disagrees with its plain version: max err %.3e "
+                "(scale %.3e), rms err %.3e (rms %.3e)" % (k, n2, err, scale, rms_err, rms))
+    del got2, want2
+    cost2 = costs(kp2, prods2)
+    t2 = {name: dict(ms=cuda_ms(run, iters=3)) for name, run in (
+        ("train_fwd", fwd2), ("train_ffn_bwd", ffn2), ("train_attn_bwd", attn2))}
+    t2["train_wgrad"] = wgrad_times(fprods2, aprods2, "cuda5")
+    for name, t in t2.items():
+        t["bound_ms"], t["bound_by"] = bound(*cost2[name])
+        recs[name]["by_batch"] = {str(n2): t}
+    log("training kernels at B=%d (L %d NAR, %d real rows, p = 0.5): K11 %.4f ms, K12a %.4f "
+        "ms, K12b %.4f ms (bounds %.4f / %.4f / %.4f, by %s); reduction %.4f ms for both "
+        "launches of one backward (bound %.4f by %s, torch.matmul %.4f, parent %s); the "
+        "reduction agrees with its plain version (%.0e / %.0e) and repeats bit for bit" % (
+            n2, l2, int((~kp2).sum()), t2["train_fwd"]["ms"], t2["train_ffn_bwd"]["ms"],
+            t2["train_attn_bwd"]["ms"], t2["train_fwd"]["bound_ms"],
+            t2["train_ffn_bwd"]["bound_ms"], t2["train_attn_bwd"]["bound_ms"],
+            " / ".join(t2[k]["bound_by"] for k in ("train_fwd", "train_ffn_bwd",
+                                                  "train_attn_bwd")),
+            t2["train_wgrad"]["ms"], t2["train_wgrad"]["bound_ms"],
+            t2["train_wgrad"]["bound_by"], t2["train_wgrad"]["library_ms"],
+            "%.4f ms" % t2["train_wgrad"]["parent_ms"] if "parent_ms" in t2["train_wgrad"]
+            else "not run", WGRAD_TOL, WGRAD_RMS_TOL))
+    del x2, enc2, dy2, r2b, dr2b, fprods2, aprods2, prods2
+    torch.cuda.empty_cache()
 
     recs.update(ce_checks(cfg, model, g, record))
 
@@ -1052,9 +1364,13 @@ def main():
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent", help="a checkout of an earlier commit: its K3 / K4 kernels "
-                    "are built and timed in turns beside this tree's")
+    ap.add_argument("--parent", help="a checkout of an earlier commit: its K3-K5 kernels, "
+                    "weight-gradient reduction and B=1024 ARB decode are run through its "
+                    "own wrappers in a second process and timed in turns with this tree's")
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.worker:
+        sys.exit(serve_worker(args.worker))
     if not os.path.isdir(os.path.join(ROOT, "navc_tpu_torch", "csrc")):
         die("navc_tpu_torch/csrc not found next to chip_smoke.py: run it "
             "from a checkout of the repository")
@@ -1092,7 +1408,8 @@ def main():
                                                 project_gather_prob_plain)
     from navc_tpu_torch.runtime.serving import StreamingCaptioner
 
-    # -- 1. build -----------------------------------------------------------
+    # -- 1. build (the parent's worker builds its own kernels meanwhile) -----
+    parent = Worker(args.parent) if args.parent else None
     t0 = time.perf_counter()
     logs = _build.build()
     log("build: %.1f s (%s)" % (time.perf_counter() - t0, ", ".join(
@@ -1104,7 +1421,7 @@ def main():
                 log("  ptxas %s: %s" % (name, line.strip()))
 
     # -- 2. models at full width, seeded random weights ---------------------
-    over = dict(dataset="MSRVTT", vocab_size=10048, use_pallas=True)
+    over = OVER
     cfg = default_config("NACF", **over)
     tcfg = default_config("ARB", **over)
     def seeded(seed):
@@ -1308,7 +1625,6 @@ def main():
     # times at the decode's row counts beside torch.matmul on the same bf16
     # operands and, given --parent, the parent commit's kernel in turns
     # (parent, this, this, parent)
-    parent = parent_vocab_lib(args.parent) if args.parent else None
     by_rows = {}
     for name, rows in [("project_argmax", rr) for rr in (r,) + SPARSE_ROWS] + [
             ("project_gather_prob", r)]:
@@ -1322,13 +1638,14 @@ def main():
         if parent is None:
             t["ms"] = device_ms(run)
         else:
-            call = parent_vocab_call(parent, name, hh, ww, bb, tt)
-            got, want = call(), run()
+            got = parent.load(name, dict(h=hh, w=ww, bias=bb, targets=tt))["p"]
+            want = run()
             torch.cuda.synchronize()
             want = want[1] if name == "project_argmax" else want
             if float(((got - want).abs() / want).max()) > 1e-4:
                 die("the parent's %s disagrees with this one at %d rows" % (name, rows))
-            p1, k1, k2, p2 = (device_ms(f) for f in (call, run, run, call))
+            p1, k1, k2, p2 = (parent.time("device"), device_ms(run), device_ms(run),
+                              parent.time("device"))
             t.update(ms=(k1 + k2) / 2, parent_ms=(p1 + p2) / 2)
         by_rows[name, rows] = t
         log("%s at %d x %d x %d: kernel %.4f ms, torch.matmul %.4f ms (%.2fx), parent %s, "
@@ -1414,11 +1731,11 @@ def main():
         die("token agreement with the CPU plain path %.4f < 0.99" % agree)
 
     # -- 5. ARB beam search ----------------------------------------------------
-    arb_recs, arb_launches = arb_phases(tcfg, teacher, cpu_teacher, record)
+    arb_recs, arb_launches = arb_phases(tcfg, teacher, cpu_teacher, record, parent)
 
     # -- 6. the training step ----------------------------------------------------
     t0 = time.perf_counter()
-    train_recs, train_launches = train_phases(record, seeded)
+    train_recs, train_launches = train_phases(record, seeded, parent)
     log("training phases: %.1f s" % (time.perf_counter() - t0))
 
     # -- 7. the entry point: train_network_all at full width -------------------

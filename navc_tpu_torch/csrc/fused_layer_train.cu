@@ -14,11 +14,10 @@
 //
 // What bounds them on the H100: per sequence of L = 30 rows at H = 512,
 // FFN 2048, the forward does ~0.3 GFLOP of matmuls against ~8 MB of bf16
-// weights (in L2) and the backward twice that with the recompute; the
-// weight-gradient products are 16 GFLOP per call at B = 64. All are
-// bound by the tensor cores at B = 64 (the bytes are ~40 MB of operands),
-// and these simple kernels reach a few percent of that: the per-sequence
-// kernels stream weight fragments from L2 for 32 rows per block, as K1.
+// weights (in L2) and the backward twice that with the recompute. These
+// per-sequence kernels are bound by the tensor cores at B = 64 and reach a
+// few percent of that: they stream weight fragments from L2 for 32 rows per
+// block, as K1.
 //
 // Design: K11 is K1's one-block-per-sequence layer (csrc/fused_layer.cu;
 // the shared-memory layout, row GEMM, per-head softmax and FFN are
@@ -34,15 +33,36 @@
 // gradients across their sequential grid; CUDA blocks run in parallel, so
 // K12a/K12b write each product's per-row operands (bf16, zero rows past L)
 // and per-sequence float32 column sums of each bias operand, and
-// train_wgrad_kernel forms every dW = P^T Q over all rows (64x64 output
-// tiles, rows in a fixed order) and every bias gradient (sequences in
-// order): deterministic, no atomics.
-// Not yet done (later work): wgmma/TMA, several sequences per block,
-// staging the reduction's operands in shared memory.
+// train_wgrad_kernel (below) forms every dW = P^T Q over all rows and every
+// bias gradient: deterministic, no atomics.
+//
+// The reduction, train_wgrad_kernel: replaces the accumulation of the
+// weight and bias gradients across the grid in
+// navc_tpu/ops/fused_layer_train.py (FFN :267-281, pallas_call :447;
+// attention :348-362, pallas_call :499). What bounds it on the H100: the
+// products, 2 x M x K x R FLOPs over each product's operands (R = B x 32
+// rows, read once). At B = 2048 (R = 65536) a backward pass holds ~515
+// GFLOP against ~1.2 GB of operands: 0.52 ms at the bf16 tensor-core rate,
+// 0.36 ms at the HBM rate. Design: a block takes one 128 x 128 output tile
+// of one product (128 tiles per call at H 512 / FFN 2048: one wave on the
+// 132 SMs, every tile walking the rows in step, so L2 serves the reuse and
+// each operand leaves HBM about once). P (R, M) and Q (R, K) both have the
+// rows outermost, so they are MN-major wgmma operands, read as stored
+// through the transpose bits: a producer warp streams 64-row chunks of
+// both (two 64 x 64 TMA boxes of P, two of Q, 128-byte swizzle; 32 KB a
+// stage, 6 stages) through a full/empty mbarrier ring, and two consumer
+// warpgroups each multiply their 64 rows of M by all 128 columns of K
+// (m64n128k16, float32 accumulators in registers), freeing each stage once
+// its products are done. TMA zero-fills the ragged last chunk of rows and
+// the M and K edges of a tile; the epilogue stores by index. The rows are
+// summed in a fixed order per tile; the bias gradients are further blocks,
+// a thread per column summing the sequences in order.
 
+#include "hopper.cuh"
 #include "layer_common.cuh"
 
-// Mirrored by _ProductArgs / _WgradArgs.
+// Mirrored by _ProductArgs / _WgradArgs; the blocks are planned by
+// ops/fused_layer_train.py wgrad_plan.
 struct ProductArgs {
   const bf16* P;      // (R, M)
   const bf16* Q;      // (R, K)
@@ -50,11 +70,17 @@ struct ProductArgs {
   const float* part;  // (N, M)
   float* db;          // (M,) = sum over N of part
   int R, M, K, N;
+  int tile0;          // first block of its output tiles (row-major over the tile grid)
+  int bias0;          // first block of its bias sums
 };
 constexpr int MAX_PRODUCTS = 8;
 struct WgradArgs {
   ProductArgs prod[MAX_PRODUCTS];
-  int count;
+  int count, blocks;
+};
+// The TMA maps of each product's P and Q, encoded by navc_train_wgrad.
+struct WgradMaps {
+  CUtensorMap p[MAX_PRODUCTS], q[MAX_PRODUCTS];
 };
 
 namespace {
@@ -423,64 +449,99 @@ __global__ void __launch_bounds__(NT, 1) train_attn_bwd_kernel(const TrainArgs a
   }
 }
 
-// Weight gradients: blocks of 4 warps; the first blocks take 64x64 output
-// tiles of the products in turn (each warp a 32x32 quarter, the rows in
-// order, fragments loaded straight from the operand rows), the rest the
-// bias sums, 128 columns each.
-constexpr int WG_NT = 128;
+// The weight-gradient reduction (the design is in the header above).
+constexpr int WT = 128;                    // output tile: WT of M x WT of K
+constexpr int WR = 64;                     // rows of the reduction per stage
+constexpr int W_BOX = WR * 64 * 2;         // one box: 64 rows x 64 bf16, 8 KB
+constexpr int W_STAGE = 4 * W_BOX;         // P's two boxes (M), then Q's two (K)
+constexpr int W_STAGES = 6;
+constexpr int W_THREADS = 288;             // two consumer warpgroups and a producer warp
+constexpr int W_SMEM = 1024 + W_STAGES * W_STAGE + 2 * W_STAGES * 8;
 
-__device__ int wgrad_tiles(const ProductArgs& g) { return ((g.M + 63) / 64) * ((g.K + 63) / 64); }
-
-__global__ void __launch_bounds__(WG_NT) train_wgrad_kernel(const WgradArgs a) {
-  int blk = blockIdx.x;
-  for (int p = 0; p < a.count; ++p) {
-    const ProductArgs& g = a.prod[p];
-    const int tiles = wgrad_tiles(g);
-    if (blk < tiles) {
-      const int tk = (g.K + 63) / 64, warp = threadIdx.x >> 5;
-      const int m0 = (blk / tk) * 64 + (warp >> 1) * 32, k0 = (blk % tk) * 64 + (warp & 1) * 32;
-      if (m0 >= g.M || k0 >= g.K) return;
-      Acc acc[2][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-      for (int r = 0; r < g.R; r += 16) {
-        ACol fa[2];
-        BRow fb[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          wmma::load_matrix_sync(fa[i], g.P + (size_t)r * g.M + m0 + i * 16, g.M);
-          wmma::load_matrix_sync(fb[i], g.Q + (size_t)r * g.K + k0 + i * 16, g.K);
-        }
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::store_matrix_sync(g.C + (size_t)(m0 + i * 16) * g.K + k0 + j * 16, acc[i][j], g.K,
-                                  wmma::mem_row_major);
-      return;
+__global__ void __launch_bounds__(W_THREADS, 1)
+train_wgrad_kernel(const __grid_constant__ WgradArgs a, const __grid_constant__ WgradMaps maps) {
+  const int blk = blockIdx.x;
+  int p = a.count - 1;
+  while (p > 0 && blk < (blk >= a.prod[0].bias0 ? a.prod[p].bias0 : a.prod[p].tile0)) --p;
+  const ProductArgs& g = a.prod[p];
+  if (blk >= a.prod[0].bias0) {  // a bias gradient: a thread per column, sequences in order
+    const int c = (blk - g.bias0) * W_THREADS + threadIdx.x;
+    if (c < g.M) {
+      float sum = 0.f;
+      for (int s = 0; s < g.N; ++s) sum += g.part[(size_t)s * g.M + c];
+      g.db[c] = sum;
     }
-    blk -= tiles;
+    return;
   }
-  for (int p = 0; p < a.count; ++p) {
-    const ProductArgs& g = a.prod[p];
-    const int blocks = (g.M + WG_NT - 1) / WG_NT;
-    if (blk < blocks) {
-      const int c = blk * WG_NT + threadIdx.x;
-      if (c < g.M) {
-        float sum = 0.f;
-        for (int s = 0; s < g.N; ++s) sum += g.part[(size_t)s * g.M + c];
-        g.db[c] = sum;
-      }
-      return;
+  const int t = blk - g.tile0, tk = (g.K + WT - 1) / WT;
+  const int m0 = (t / tk) * WT, k0 = (t % tk) * WT;
+  const int chunks = (g.R + WR - 1) / WR;
+
+  extern __shared__ unsigned char smem_raw[];
+  // 128-byte swizzled TMA boxes need 1024-byte aligned shared addresses
+  unsigned char* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + W_STAGES * W_STAGE);
+  uint64_t* empty = full + W_STAGES;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < W_STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 8);  // one arrival per consumer warp
     }
-    blk -= blocks;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {  // producer: chunk c's boxes into stage c % W_STAGES
+    if (threadIdx.x == 256) {
+      for (int c = 0; c < chunks; ++c) {
+        const int s = c % W_STAGES;
+        unsigned char* dst = ring + s * W_STAGE;
+        mbar_wait(&empty[s], ((c / W_STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[s], W_STAGE);
+        tma_load_2d(dst, &maps.p[p], &full[s], m0, c * WR);
+        tma_load_2d(dst + W_BOX, &maps.p[p], &full[s], m0 + 64, c * WR);
+        tma_load_2d(dst + 2 * W_BOX, &maps.q[p], &full[s], k0, c * WR);
+        tma_load_2d(dst + 3 * W_BOX, &maps.q[p], &full[s], k0 + 64, c * WR);
+      }
+    }
+    return;
+  }
+  // consumer warpgroup wg: output rows m0 + 64 wg .. + 63 (P's box wg), all
+  // WT columns (Q's two boxes, W_BOX apart: the descriptor's N stride)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);
+  const int lane = threadIdx.x & 31;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int c = 0; c < chunks; ++c) {
+    const int s = c % W_STAGES;
+    const unsigned char* st = ring + s * W_STAGE;
+    mbar_wait(&full[s], (c / W_STAGES) & 1);
+    wgmma_fence();
+    fence_acc(acc);
+#pragma unroll
+    for (int k = 0; k < WR / 16; ++k)  // 16 rows of the reduction: 2 KB into each box
+      wgmma_m64n128k16<1>(acc, desc_mn_sw128(st + wg * W_BOX + k * 2048, W_BOX),
+                          desc_mn_sw128(st + 2 * W_BOX + k * 2048, W_BOX), 1);
+    wgmma_commit();
+    if (c > 0) {  // the previous chunk's products are done: free its stage
+      wgmma_wait<1>();
+      if (lane == 0) mbar_arrive(&empty[(c - 1) % W_STAGES]);
+    }
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+  // acc[4j + 2h + e]: row 16 warp + lane / 4 + 8h, column 8j + 2 (lane % 4) + e
+  const int row = m0 + wg * 64 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < WT / 8; ++j) {
+    const int col = k0 + 8 * j + 2 * (lane & 3);
+    if (col >= g.K) continue;  // K is even: a pair is in or out whole
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (row + 8 * h < g.M)
+        *reinterpret_cast<float2*>(g.C + (size_t)(row + 8 * h) * g.K + col) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
   }
 }
 
@@ -499,11 +560,21 @@ NAVC_EXPORT int navc_train_attn_bwd(const TrainArgs* args, void* stream) {
 }
 
 NAVC_EXPORT int navc_train_wgrad(const WgradArgs* args, void* stream) {
-  int blocks = 0;
+  if (args->count < 1 || args->count > MAX_PRODUCTS || args->blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  WgradMaps maps = {};
   for (int p = 0; p < args->count; ++p) {
     const ProductArgs& g = args->prod[p];
-    blocks += ((g.M + 63) / 64) * ((g.K + 63) / 64) + (g.M + WG_NT - 1) / WG_NT;
+    if (g.R > 0 && (!encode_map(&maps.p[p], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, g.P, g.R, g.M,
+                                WR, 64, CU_TENSOR_MAP_SWIZZLE_128B) ||
+                     !encode_map(&maps.q[p], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, g.Q, g.R, g.K,
+                                 WR, 64, CU_TENSOR_MAP_SWIZZLE_128B)))
+      return (int)cudaErrorInvalidValue;
   }
-  train_wgrad_kernel<<<blocks, WG_NT, 0, static_cast<cudaStream_t>(stream)>>>(*args);
+  cudaError_t e =
+      cudaFuncSetAttribute(train_wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, W_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  train_wgrad_kernel<<<args->blocks, W_THREADS, W_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      *args, maps);
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the port's TMA + wgmma kernels:
 // mbarrier waits and arrivals, TMA tile loads into shared memory, the wgmma
-// shared-memory descriptor of a 128-byte-swizzled K-major tile, one
-// m64n128k16 bf16 product with float32 accumulators, and the host-side
+// shared-memory descriptors of 128-byte-swizzled K-major and MN-major
+// tiles, the m64n128k16 bf16 product with float32 accumulators (K-major
+// operands, or both MN-major through the transpose bits), and the host-side
 // tensor-map encoder, reached through cudaGetDriverEntryPoint so that the
 // library needs no -lcuda.
 #pragma once
@@ -82,6 +83,17 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* tile) {
          (1ull << 62);
 }
 
+// wgmma descriptor of an MN-major tile as TMA writes boxes of 64 bf16 of M
+// (or N) per row, rows along K, with 128-byte swizzle: 8-row atoms of 1024
+// bytes along K (SBO), and `mn_stride` bytes from one 64-wide column of
+// atoms to the next along M or N (LBO; cute's canonical MN-major SW128
+// layout ((8,n),(8,k)):((1,LBO),(8,SBO)) in 16-byte units). The tile 1024-byte
+// aligned; 16 of K start 2048 bytes further on.
+__device__ __forceinline__ uint64_t desc_mn_sw128(const void* tile, uint32_t mn_stride) {
+  return (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4) | ((uint64_t)(mn_stride >> 4) << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -102,7 +114,10 @@ __device__ __forceinline__ void fence_acc(float (&d)[64]) {
 
 // d (64 x 128 per warpgroup, float32) = A (64 x 16, descriptor da) x B^T
 // (128 x 16, descriptor db) + (scale_d ? d : 0), bf16 operands, both
-// K-major in shared memory.
+// K-major in shared memory; with MN = 1 both MN-major (A stored as 16 rows
+// of K with its 64 of M contiguous, B as 16 rows of K with its 128 of N),
+// read through the transpose bits.
+template <int MN = 0>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
                                                  int scale_d) {
   asm volatile(
@@ -112,7 +127,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
-      " %64, %65, p, 1, 1, 0, 0;\n}\n"
+      " %64, %65, p, 1, 1, %67, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
@@ -124,7 +139,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(MN));
 }
 
 __device__ __forceinline__ float ex2(float x) {

@@ -372,11 +372,31 @@ class TrainArgs(ctypes.Structure):
 class _ProductArgs(ctypes.Structure):
     """Mirror of ``struct ProductArgs``."""
     _fields_ = ([(f, ctypes.c_void_p) for f in ("P", "Q", "C", "part", "db")]
-                + [(f, ctypes.c_int) for f in ("R", "M", "K", "N")])
+                + [(f, ctypes.c_int) for f in ("R", "M", "K", "N", "tile0", "bias0")])
 
 
 class _WgradArgs(ctypes.Structure):
-    _fields_ = [("prod", _ProductArgs * MAX_PRODUCTS), ("count", ctypes.c_int)]
+    _fields_ = [("prod", _ProductArgs * MAX_PRODUCTS), ("count", ctypes.c_int),
+                ("blocks", ctypes.c_int)]
+
+
+WGRAD_TILE = 128        # the reduction's output tile: 128 of M x 128 of K
+WGRAD_BIAS_COLS = 288   # bias columns per block of the reduction (a thread each)
+
+
+def wgrad_plan(shapes: List[Tuple[int, int]]) -> Tuple[List[int], List[int], int]:
+    """The reduction's grid for products of (M, K) outputs: (first tile
+    block of each product, first bias block of each product, blocks). The
+    tile blocks come first, product by product, each product's tiles
+    row-major over its (M / 128, K / 128) grid; then the bias blocks."""
+    tile0, bias0, b = [], [], 0
+    for m, k in shapes:
+        tile0.append(b)
+        b += -(-m // WGRAD_TILE) * -(-k // WGRAD_TILE)
+    for m, _ in shapes:
+        bias0.append(b)
+        b += -(-m // WGRAD_BIAS_COLS)
+    return tile0, bias0, b
 
 
 def _lib():
@@ -579,29 +599,36 @@ def attn_bwd_operands(x, enc, dr2, kp, w, seed, *, n_head, causal=False, p=0.5,
 def weight_grads(prods: List[Product]) -> Dict[str, torch.Tensor]:
     """The weight-gradient reduction: for every Product, dW = Pᵀ·Q (bf16
     operands, float32 sums over all rows in a fixed order) and db = the
-    column sum of its per-sequence partials, in one launch."""
+    column sum of its per-sequence partials, in one launch. P (R, M) and Q
+    (R, K) contiguous bf16, 16-byte aligned, M and K multiples of 32; part
+    (N, M) float32."""
     if prods[0].P.device.type == "cpu":
         return weight_grads_plain(prods)
     if len(prods) > MAX_PRODUCTS:
         raise ValueError("at most %d products per launch" % MAX_PRODUCTS)
-    args = _WgradArgs(count=len(prods))
+    if any(t.device.type != "cuda" for pr in prods for t in (pr.P, pr.Q, pr.part)):
+        raise ValueError("the kernel takes CUDA tensors, got %s" % prods[0].P.device)
+    tile0, bias0, blocks = wgrad_plan([(pr.P.shape[1], pr.Q.shape[1]) for pr in prods])
+    args = _WgradArgs(count=len(prods), blocks=blocks)
     out = {}
     for i, pr in enumerate(prods):
         (r, m), k = pr.P.shape, pr.Q.shape[1]
         if (pr.P.dtype != torch.bfloat16 or pr.Q.dtype != torch.bfloat16
-                or pr.Q.shape[0] != r or r % 16 or m % 32 or k % 32
+                or pr.Q.shape[0] != r or m % 32 or k % 32
                 or pr.part.dtype != torch.float32 or pr.part.shape[1] != m
                 or not (pr.P.is_contiguous() and pr.Q.is_contiguous()
-                        and pr.part.is_contiguous())
-                or pr.P.device.type != "cuda"):
+                        and pr.part.is_contiguous())):
             raise ValueError("product %s: P (R, M), Q (R, K) contiguous bf16 with "
-                             "R % 16 == 0, M and K multiples of 32, float32 "
-                             "partials (N, M)" % pr.w)
+                             "M and K multiples of 32, float32 partials (N, M)" % pr.w)
+        if pr.P.data_ptr() % 16 or pr.Q.data_ptr() % 16:
+            raise ValueError("product %s: P and Q must be 16-byte aligned (a TMA "
+                             "requirement)" % pr.w)
         out[pr.w] = torch.empty((m, k), dtype=torch.float32, device=pr.P.device)
         out[pr.b] = torch.empty((m,), dtype=torch.float32, device=pr.P.device)
         args.prod[i] = _ProductArgs(P=_p(pr.P), Q=_p(pr.Q), C=_p(out[pr.w]),
                                     part=_p(pr.part), db=_p(out[pr.b]), R=r, M=m,
-                                    K=k, N=pr.part.shape[0])
+                                    K=k, N=pr.part.shape[0], tile0=tile0[i],
+                                    bias0=bias0[i])
     lib = _lib()
     _build.check(lib, lib.navc_train_wgrad(ctypes.byref(args), _stream(prods[0].P)),
                  "train_wgrad")

@@ -35,8 +35,8 @@ _ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _SIGNATURES = {"navc_project_argmax": _ARGS, "navc_project_gather_prob": _ARGS,
                "navc_project_topk": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
                + [ctypes.c_void_p]}
-_TILE_ROWS, _TILE_V = 64, 64  # the top-k kernel's row and vocab tiles
-ARGMAX_ROWS, ARGMAX_V = 128, 128  # the argmax / gather kernel's row and vocab tiles
+ARGMAX_ROWS, ARGMAX_V = 128, 128  # row and vocab tiles of the kernels' walk
+TOPK_MAX_TILES = 0xFFFF // ARGMAX_V  # K5's lists hold 16-bit ids within a split
 
 
 def _bf(x: torch.Tensor) -> torch.Tensor:
@@ -133,18 +133,22 @@ def _stream(t: torch.Tensor):
 
 
 @functools.lru_cache(maxsize=256)  # ints in, ints out: the decode repeats its shapes
-def argmax_splits(rows: int, v: int, sms: int) -> Tuple[int, int]:
-    """(splits, tiles per split) of the vocab for ``project_argmax`` and
-    ``project_gather_prob`` on a card of ``sms`` SMs: the grid is row tiles
-    x splits, one block per SM at a time, so a call takes ceil(blocks / sms)
-    waves of about (tiles per split + 1) tile times each (the 1: loading
-    the block's h rows). Picks the least such cost, then the fewest splits;
-    no split is empty."""
+def argmax_splits(rows: int, v: int, sms: int,
+                  max_per: Optional[int] = None) -> Tuple[int, int]:
+    """(splits, tiles per split) of the vocab for ``project_argmax``,
+    ``project_gather_prob`` and ``project_topk`` on a card of ``sms`` SMs:
+    the grid is row tiles x splits, one block per SM at a time, so a call
+    takes ceil(blocks / sms) waves of about (tiles per split + 1) tile times
+    each (the 1: loading the block's h rows). Picks the least such cost,
+    then the fewest splits, among splits of at most ``max_per`` tiles; no
+    split is empty."""
     tiles = -(-v // ARGMAX_V)
     row_tiles = -(-rows // ARGMAX_ROWS)
     best = None
     for want in range(1, tiles + 1):
         per = -(-tiles // want)
+        if max_per is not None and per > max_per:
+            continue
         splits = -(-tiles // per)
         cost = -(-row_tiles * splits // sms) * (per + 1)
         if best is None or (cost, splits) < best[0]:
@@ -219,45 +223,35 @@ def project_gather_prob(h: torch.Tensor, w: torch.Tensor,
     return prob
 
 
-def _topk_splits(rows: int, v: int, device: torch.device) -> Tuple[int, int]:
-    """(splits, tiles per split) of the vocab for ``project_topk``: about
-    two blocks per SM in all (a block's shared memory takes an SM, so two
-    waves), with no split left empty."""
-    tiles = -(-v // _TILE_V)
-    row_tiles = -(-rows // _TILE_ROWS)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = max(1, min(tiles, -(-2 * sms // row_tiles)))
-    per = -(-tiles // want)
-    return -(-tiles // per), per
-
-
 def project_topk(h: torch.Tensor, w: torch.Tensor, k: int,
                  bias: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The k best log-probs of each row of log_softmax(h @ w^T + bias),
     descending, and their ids, lowest id first among equal values; the
     logits are never written. h (R, D) bf16; w (V, D) bf16; bias (V,) f32 or
-    None; 1 <= k <= min(MAX_K, V). Returns ((R, k) f32, (R, k) int32)."""
+    None; 1 <= k <= min(MAX_K, V); on the card all 16-byte aligned. Returns
+    ((R, k) f32, (R, k) int32)."""
     if h.device.type == "cpu":
         return project_topk_plain(h, w, k, bias)
     _check(h, w, bias)
     if not 1 <= k <= min(MAX_K, w.shape[0]):
         raise ValueError("k must be in [1, min(%d, V)], got %d" % (MAX_K, k))
+    _check_aligned(h, w, bias)
     rows, d = h.shape
+    v = w.shape[0]
     lp = torch.empty((rows, k), dtype=torch.float32, device=h.device)
     ids = torch.empty((rows, k), dtype=torch.int32, device=h.device)
     if rows == 0:
         return lp, ids
-    splits, per = _topk_splits(rows, w.shape[0], h.device)
-    pm = torch.empty((rows, splits), dtype=torch.float32, device=h.device)
+    sms = torch.cuda.get_device_properties(h.device).multi_processor_count
+    splits, per = argmax_splits(rows, v, sms, TOPK_MAX_TILES)
+    pm = torch.empty((splits, rows), dtype=torch.float32, device=h.device)
     ps = torch.empty_like(pm)
-    pv = torch.empty((rows, splits, MAX_K), dtype=torch.float32, device=h.device)
-    pi = torch.empty((rows, splits, MAX_K), dtype=torch.int32, device=h.device)
+    pv = torch.empty((splits, rows, k), dtype=torch.float32, device=h.device)
+    pi = torch.empty((splits, rows, k), dtype=torch.int32, device=h.device)
     lib = _build.load("vocab_fused", _SIGNATURES)
-    code = lib.navc_project_topk(_ptr(h), _ptr(w), _ptr(bias), _ptr(lp),
-                                 _ptr(ids), _ptr(pm), _ptr(ps), _ptr(pv),
-                                 _ptr(pi), rows, d, w.shape[0], k, splits,
-                                 per, _stream(h))
+    code = lib.navc_project_topk(*[_ptr(t) for t in (h, w, bias, lp, ids, pm, ps, pv, pi)],
+                                 rows, d, v, k, splits, per, _stream(h))
     _build.check(lib, code, "project_topk")
     _build.LAUNCHES["project_topk"] += 1
     return lp, ids

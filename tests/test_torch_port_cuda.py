@@ -16,7 +16,9 @@ float32 sum-order flip of one bf16 rounding propagates through the layer),
 probabilities 1e-4 relative, ids equal where the top-2 logit margin is
 above 1e-3; top-k log-probs and attention outputs 1e-4 absolute (float32
 sums in another order, an online softmax against a one-pass one); the cache
-permute and cache writes exactly.
+permute and cache writes exactly; the weight-gradient reduction as the
+training kernels below, exactly on integer operands and bit for bit
+between two calls.
 """
 
 import math
@@ -303,7 +305,25 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 TOPK_SHAPES = [  # rows, d, V, k
     (320, 512, 10048, 5), (7, 64, 1001, 1), (130, 256, 4099, 8),
-    (64, 512, 50, 3), (5120, 512, 10048, 5)]
+    (64, 512, 50, 3), (5120, 512, 10048, 5),
+    # the 60-video request, one row, D = 768 (one ring stage per warpgroup),
+    # V < 128 and ragged last tiles at every k
+    (300, 512, 10048, 5), (1, 512, 10048, 8), (320, 768, 10048, 4),
+    (300, 768, 4099, 7), (5120, 64, 50, 6), (1, 64, 1001, 2), (320, 64, 4099, 8)]
+
+
+def _check_topk(hid, w, k, bias):
+    before = _build.LAUNCHES["project_topk"]
+    lp, ids = project_topk(hid, w, k, bias)
+    assert _build.LAUNCHES["project_topk"] == before + 1
+    lp_p, ids_p = project_topk_plain(hid, w, k, bias)
+    torch.cuda.synchronize()
+    scores = hid.float() @ w.float().t() + (0 if bias is None else bias)
+    srt = scores.sort(dim=-1, descending=True).values[:, :k + 1]
+    clear = (srt[:, :-1] - srt[:, 1:]) > 1e-3
+    assert torch.equal(ids[clear], ids_p[clear])
+    assert (lp - lp_p).abs().max().item() <= ATT_TOL
+    assert bool((lp[:, 1:] <= lp[:, :-1]).all())
 
 
 @pytest.mark.cuda
@@ -315,16 +335,29 @@ def test_project_topk_matches_plain(cuda, shape, with_bias):
     hid = torch.randn(r, d, generator=g).to(cuda, torch.bfloat16)
     w = (torch.randn(v, d, generator=g) / math.sqrt(d)).to(cuda, torch.bfloat16)
     bias = (torch.randn(v, generator=g) * 0.5).to(cuda) if with_bias else None
-    before = _build.LAUNCHES["project_topk"]
-    lp, ids = project_topk(hid, w, k, bias)
-    assert _build.LAUNCHES["project_topk"] == before + 1
-    lp_p, ids_p = project_topk_plain(hid, w, k, bias)
-    torch.cuda.synchronize()
-    scores = hid.float() @ w.float().t() + (0 if bias is None else bias)
-    srt = scores.sort(dim=-1, descending=True).values[:, :k + 1]
-    clear = (srt[:, :-1] - srt[:, 1:]) > 1e-3
-    assert torch.equal(ids[clear], ids_p[clear])
-    assert (lp - lp_p).abs().max().item() <= ATT_TOL
+    _check_topk(hid, w, k, bias)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", range(1, 9))
+def test_project_topk_matches_plain_at_every_k(cuda, k):
+    """Each list length the kernel instantiates, at the beam step's shape."""
+    hid, w, bias = _vocab_operands(320, 512, 10048, _gen(30 + k), cuda, bias_scale=0.1)
+    _check_topk(hid, w, k, bias)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(320, 512, 10048, 5), (300, 64, 4099, 8),
+                                   (5120, 512, 10048, 1)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_project_topk_matches_plain_with_a_large_bias(cuda, shape):
+    """A bias ten times the scores' scale decides the ranking: a kernel that
+    dropped it, or added it to the wrong column, fails."""
+    r, d, v, k = shape
+    hid, w, _ = _vocab_operands(r, d, v, _gen(r + v + k), cuda)
+    scale = float((hid.float() @ w.float().t()).std())
+    bias = (torch.randn(v, generator=_gen(13)) * 10 * scale).to(cuda)
+    _check_topk(hid, w, k, bias)
 
 
 @pytest.mark.cuda
@@ -336,6 +369,85 @@ def test_project_topk_ties_go_to_the_lowest_id(cuda):
     lp, ids = project_topk(hid.to(cuda, torch.bfloat16), w.to(cuda, torch.bfloat16), 8)
     order = torch.sort(hid @ w.t(), dim=-1, descending=True, stable=True).indices[:, :8]
     assert torch.equal(ids.cpu(), order.to(torch.int32))
+
+
+def _tied_topk(cuda, rows, v, cols, k):
+    """Rows of ones against a W that is zero but at ``cols`` (ones): those
+    columns tie at the top and every other column ties at zero below them;
+    the kernel must list ids as a stable descending sort does."""
+    hid = torch.ones(rows, 64, dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros(v, 64, dtype=torch.bfloat16, device=cuda)
+    w[cols] = 1.0
+    lp, ids = project_topk(hid, w, k)
+    want = torch.sort(hid[:1].float() @ w.float().t(), dim=-1, descending=True,
+                      stable=True).indices[0, :k].to(torch.int32)
+    torch.cuda.synchronize()
+    assert ids.tolist() == [want.tolist()] * rows
+    assert (lp - project_topk_plain(hid, w, k)[0]).abs().max().item() <= ATT_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 8])
+def test_project_topk_ties_inside_one_thread_and_across_lanes(cuda, k):
+    """Columns 1, 9, 17 and 121 of the first 128-column tile fall to one
+    thread of the epilogue (columns 8j + 2q + e), 2 and 3 to the next lane
+    of the row, 129 to the next tile; below them the zeros tie too."""
+    _tied_topk(cuda, 300, 1001, [121, 17, 129, 9, 1, 3, 2], k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [4, 8])
+def test_project_topk_ties_across_warpgroups_and_splits(cuda, k):
+    """Ties in tiles that the block's two consumer warpgroups take (tiles 0
+    and 1 of a split), in a later tile of the same warpgroup and in the
+    next vocab split; the plan must give each split several tiles."""
+    from navc_tpu_torch.ops.vocab_fused import (TOPK_MAX_TILES, argmax_splits,
+                                                split_ranges)
+
+    rows, v = 5120, 10048
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    ranges = split_ranges(v, *argmax_splits(rows, v, sms, TOPK_MAX_TILES))
+    assert len(ranges) >= 2 and ranges[0][1] >= 3 * 128
+    cols = [ranges[1][0] + 7, 2 * 128 + 5, 128 + 6, 128 + 4, 6, ranges[1][0] + 2]
+    _tied_topk(cuda, rows, v, cols, k)
+
+
+@pytest.mark.cuda
+def test_project_topk_vocab_past_16_bit_ids(cuda):
+    """70000 words at 33792 rows, where a plan without the split cap would
+    take one split of 547 tiles, past the lists' 16-bit ids: the wrapper
+    runs, and every 61st row, ties placed across the 65536 boundary
+    included, matches the plain version."""
+    r, d, v, k = 33792, 64, 70000, 5
+    hid, w, bias = _vocab_operands(r, d, v, _gen(70), cuda, bias_scale=0.1)
+    tied = [0, 3, 65535, 65536, 69999]  # equal, and far above every other column
+    w[tied] = w[0].clone()
+    bias[tied] = 50.0
+    lp, ids = project_topk(hid, w, k, bias)
+    sel = torch.arange(0, r, 61, device=cuda)
+    lp_p, ids_p = project_topk_plain(hid[sel], w, k, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(ids[sel], ids_p)
+    assert ids_p.tolist() == [tied] * len(sel)
+    assert (lp[sel] - lp_p).abs().max().item() <= ATT_TOL
+
+
+@pytest.mark.cuda
+def test_vocab_argmax_long_split_with_large_logits(cuda):
+    """One split of 469 tiles (60000 words at 33792 rows) and logits near
+    50: the running sum-exp is rescaled once per tile and must not drift
+    while the max holds; K3's max prob within 1e-4 of the plain version's."""
+    r, d, v = 33792, 64, 60000
+    hid, w, bias = _vocab_operands(r, d, v, _gen(71), cuda, bias_scale=0.1)
+    tied = [0, 3, 30000, 50000, 59999]
+    w[tied] = w[0].clone()
+    bias[tied] = 50.0
+    ids, maxp = project_argmax(hid, w, bias)
+    sel = torch.arange(0, r, 61, device=cuda)
+    ids_p, maxp_p = project_argmax_plain(hid[sel], w, bias)
+    torch.cuda.synchronize()
+    assert ids[sel].tolist() == ids_p.tolist() == [0] * len(sel)
+    assert ((maxp[sel] - maxp_p).abs() / maxp_p).max().item() <= 1e-4
 
 
 def _caches(n, l, h, dtype, g, dev):
@@ -652,6 +764,76 @@ def test_train_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="lengths|length"):
         FT.train_fwd(torch.zeros(2, 33, 256, device=cuda), enc,
                      torch.zeros(2, 33, dtype=torch.bool, device=cuda), w, 0, n_head=8)
+
+
+WGRAD_CASES = [  # products of one launch: (R, M, K) each
+    [(16, 32, 32)],
+    [(2048, 2048, 512), (2048, 512, 2048)],          # the FFN call at B = 64
+    [(2048, 512, 512)] * 6 + [(1024, 512, 512)] * 2,  # the attention call
+    [(1000, 96, 160), (1000, 2048, 32), (1000, 32, 2048)],  # rows not a multiple of 64
+    [(777, 224, 1056)],
+]
+
+
+def _wgrad_products(case, g, dev, ints=False):
+    from navc_tpu_torch.ops import fused_layer_train as FT
+
+    def rows(r, c):
+        if ints:  # small integers: every product and sum is exact in float32
+            return torch.randint(-2, 3, (r, c), generator=g).to(dev, torch.bfloat16)
+        return torch.randn(r, c, generator=g).to(dev, torch.bfloat16)
+
+    return [FT.Product("w%d" % i, "b%d" % i, rows(r, m), rows(r, k),
+                       torch.randn(7, m, generator=g).to(dev))
+            for i, (r, m, k) in enumerate(case)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WGRAD_CASES,
+                         ids=lambda c: "+".join("x".join(map(str, p)) for p in c[:2]))
+def test_weight_grads_match_plain_and_repeat_bitwise(cuda, case):
+    from navc_tpu_torch.ops import fused_layer_train as FT
+
+    prods = _wgrad_products(case, _gen(len(case) + case[0][0]), cuda)
+    before = _build.LAUNCHES["train_wgrad"]
+    got = FT.weight_grads(prods)
+    again = FT.weight_grads(prods)
+    assert _build.LAUNCHES["train_wgrad"] == before + 2
+    want = FT.weight_grads_plain(prods)
+    torch.cuda.synchronize()
+    for k, v in want.items():
+        _close(got[k], v, WGRAD_TOL, k, rms_tol=WGRAD_RMS_TOL)
+        assert torch.equal(got[k], again[k]), k  # no atomics: the same bits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [WGRAD_CASES[0], WGRAD_CASES[3], WGRAD_CASES[4]],
+                         ids=["16x32x32", "1000-rows", "777x224x1056"])
+def test_weight_grads_are_exact_on_small_integers(cuda, case):
+    """Integer operands make every sum exact in any order: the kernel's
+    tiles, edges and operand layout must give the plain version's bits."""
+    from navc_tpu_torch.ops import fused_layer_train as FT
+
+    prods = _wgrad_products(case, _gen(3), cuda, ints=True)
+    got = FT.weight_grads(prods)
+    want = FT.weight_grads_plain(prods)
+    torch.cuda.synchronize()
+    for pr in prods:
+        assert torch.equal(got[pr.w], want[pr.w]), pr.w
+
+
+@pytest.mark.cuda
+def test_weight_grads_refuse_what_the_kernel_does_not_take(cuda):
+    from navc_tpu_torch.ops import fused_layer_train as FT
+
+    (pr,) = _wgrad_products([(64, 64, 64)], _gen(4), cuda)
+    flat = torch.zeros(64 * 64 + 4, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        FT.weight_grads([pr._replace(P=flat[4:].view(64, 64))])
+    with pytest.raises(ValueError, match="multiples of 32"):
+        FT.weight_grads([pr._replace(P=pr.P[:, :48].contiguous(), part=pr.part[:, :48])])
+    with pytest.raises(ValueError, match="at most"):
+        FT.weight_grads([pr] * 9)
 
 
 CE_TOL, CE_RMS_TOL = 1e-4, 2e-5  # g, z: float32 sums in another order

@@ -33,7 +33,8 @@ from navc_tpu.ops.fused_layer import (fused_nar_decoder_layer,
                                       hoist_cross_kv as jax_hoist_cross_kv,
                                       layer_weights_from_params)
 from navc_tpu.ops.vocab_fused import (fused_project_argmax,
-                                      fused_project_gather_prob)
+                                      fused_project_gather_prob,
+                                      fused_project_topk)
 from navc_tpu_torch.config import default_config
 from navc_tpu_torch.convert import load_flax_variables
 from navc_tpu_torch.models import build_model
@@ -42,12 +43,15 @@ from navc_tpu_torch.ops.fused_layer import (fused_layer, fused_layer_qsub,
                                             fused_layer_unfolded, hoist_cross_kv,
                                             layer_weights)
 from navc_tpu_torch.ops.vocab_ce import vocab_ce_bwd, vocab_ce_fwd
-from navc_tpu_torch.ops.vocab_fused import (ARGMAX_V, argmax_splits,
-                                            project_argmax,
+from navc_tpu_torch.ops.vocab_fused import (ARGMAX_V, TOPK_MAX_TILES,
+                                            argmax_splits, project_argmax,
                                             project_argmax_plain,
                                             project_gather_prob,
                                             project_gather_prob_plain,
+                                            project_topk, project_topk_plain,
                                             split_ranges)
+from navc_tpu_torch.ops.fused_layer_train import Product, weight_grads
+from navc_tpu_torch.ops.select import top_k_stable
 
 TOY = dict(vocab_size=50, dim_hidden=16, num_attention_heads=2,
            intermediate_size=32, n_frames=4, dim_i=12, dim_m=10,
@@ -253,6 +257,134 @@ def test_argmax_split_plan_covers_the_vocab(rows, v):
         assert -(-rows // 128) * splits >= 0.9 * 132
 
 
+TOPK_ROWS = (1, 300, 320, 5120)  # K5 calls: one row, the 60- and 64-video
+#                                   requests (beam 5), the B=1024 decode
+
+
+@pytest.mark.parametrize("v", [50, 1001, 4099, 10048])
+@pytest.mark.parametrize("rows", TOPK_ROWS)
+def test_topk_split_plan_covers_the_vocab(rows, v):
+    """K5 walks K3's vocab split: the plan at the beam step's row counts
+    covers [0, V) with whole 128-column tiles and no empty split, and at
+    the 10048-word vocab fills the card in whole waves."""
+    splits, per = argmax_splits(rows, v, 132)
+    ranges = split_ranges(v, splits, per)
+    assert ranges[0][0] == 0 and ranges[-1][1] == v
+    assert all(b < e for b, e in ranges)
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert all(b % ARGMAX_V == 0 for b, _ in ranges)
+    if v == 10048 and rows >= 300:
+        assert -(-rows // 128) * splits >= 0.9 * 132
+
+
+@pytest.mark.parametrize("rows,v", [(33792, 65536), (33792, 70000), (65536, 50000),
+                                    (33792, 250000), (5120, 100000)])
+def test_topk_split_plan_keeps_ids_16_bit(rows, v):
+    """K5's lists hold ids as 16-bit offsets from their split's first
+    column, so its plan caps a split at TOPK_MAX_TILES tiles (65535 columns)
+    and still covers [0, V): a vocab above 65535 words at several thousand
+    videos, where the uncapped plan takes one split, runs rather than being
+    refused."""
+    splits, per = argmax_splits(rows, v, 132, TOPK_MAX_TILES)
+    assert per <= TOPK_MAX_TILES and per * ARGMAX_V <= 0xFFFF
+    ranges = split_ranges(v, splits, per)
+    assert ranges[0][0] == 0 and ranges[-1][1] == v
+    assert all(b < e <= b + 0xFFFF for b, e in ranges)
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    if v > 0xFFFF and rows == 33792:  # where the uncapped plan takes one split
+        assert argmax_splits(rows, v, 132)[0] == 1 and splits > 1
+
+
+def _topk_split_and_merge(h, w, bias, k, ranges):
+    """K5's split design in plain float32: per split a row's (max, sum-exp,
+    k best (value, id) pairs), then the splits folded in order, pairs ranked
+    by value and then the lower id."""
+    hb, wb = h.to(torch.float32), w.to(torch.float32)
+    m = s = vals = ids = None
+    for b, e in ranges:
+        sc = hb @ wb[b:e].t() + (0.0 if bias is None else bias[b:e])
+        m2 = sc.max(-1).values
+        s2 = torch.exp(sc - m2[:, None]).sum(-1)
+        v2, i2 = top_k_stable(sc, min(k, e - b))
+        if m is None:
+            m, s, vals, ids = m2, s2, v2, i2 + b
+            continue
+        mn = torch.maximum(m, m2)
+        s = s * torch.exp(m - mn) + s2 * torch.exp(m2 - mn)
+        m = mn
+        # the earlier split's pairs first: a stable sort keeps their lower ids ahead
+        vals, order = top_k_stable(torch.cat([vals, v2], 1), k)
+        ids = torch.gather(torch.cat([ids, i2 + b], 1), 1, order)
+    return (vals - m[:, None]) - torch.log(s)[:, None], ids.to(torch.int32)
+
+
+@pytest.mark.parametrize("v,k,with_bias,tie", [
+    (1001, 5, False, False), (1001, 8, True, False), (4099, 3, True, False),
+    (1001, 8, False, True)],
+    ids=["v1001-k5", "v1001-k8-bias", "v4099-k3-bias", "v1001-k8-tie-across-splits"])
+def test_topk_split_and_merge_matches_plain_and_pallas(v, k, with_bias, tie):
+    """A plain split-and-merge of K5's per-split lists reproduces the plain
+    version and navc_tpu's kernel run with tv equal to the split width,
+    ties included (lowest id first)."""
+    rng = np.random.RandomState(v + k + 2 * with_bias + tie)
+    r, d = 70, 32
+    h = _bf16_np(rng, r, d)
+    w = _bf16_np(rng, v, d, scale=0.3)
+    ranges = split_ranges(v, *argmax_splits(r, v, 8))
+    assert len(ranges) > 1
+    tv = ranges[0][1] - ranges[0][0]
+    if tie:  # equal values on both sides of the first split boundary and later
+        h = np.abs(h)
+        w = w.copy()
+        w[[v - 2, tv, tv - 1, 3]] = 1.0
+    bias = (rng.randn(v) * 0.5).astype(np.float32) if with_bias else None
+    bf = torch.bfloat16
+    th, tw = _t(h).to(bf), _t(w).to(bf)
+    tb = None if bias is None else _t(bias)
+    lp_s, ids_s = _topk_split_and_merge(th, tw, tb, k, ranges)
+    lp_p, ids_p = project_topk_plain(th, tw, k, tb)
+    lp_j, ids_j = fused_project_topk(jnp.asarray(h), jnp.asarray(w.T), k,
+                                     bias=None if bias is None else jnp.asarray(bias),
+                                     tn=32, tv=tv, interpret=True)
+    np.testing.assert_array_equal(ids_s.numpy(), ids_p.numpy())
+    np.testing.assert_array_equal(ids_s.numpy(), np.asarray(ids_j))
+    if tie:
+        assert ids_s[:, :4].tolist() == [[3, tv - 1, tv, v - 2]] * r
+    np.testing.assert_allclose(lp_s.numpy(), lp_p.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(lp_s.numpy(), np.asarray(lp_j), rtol=1e-5, atol=1e-5)
+
+
+WGRAD_CALLS = {  # (M, K) of each product of one launch
+    "ffn": [(2048, 512), (512, 2048)],
+    "attention": [(512, 512)] * 8,
+    "edges": [(32, 32), (96, 2048), (2048, 96), (160, 224)],
+    "one": [(128, 128)],
+}
+
+
+@pytest.mark.parametrize("call", sorted(WGRAD_CALLS))
+def test_wgrad_plan_covers_each_tile_once(call):
+    """The reduction's grid: each product owns a contiguous run of blocks,
+    one per 128 x 128 output tile, and the runs follow one another from
+    block 0, so every tile is one block's, exactly once; then each product's
+    bias blocks, one per WGRAD_BIAS_COLS columns, to the last block. At
+    H 512 / FFN 2048 the tiles fill one wave of 132 SMs."""
+    from navc_tpu_torch.ops import fused_layer_train as FT
+
+    shapes = WGRAD_CALLS[call]
+    tile0, bias0, blocks = FT.wgrad_plan(shapes)
+    tiles = [-(-m // FT.WGRAD_TILE) * -(-k // FT.WGRAD_TILE) for m, k in shapes]
+    bias = [-(-m // FT.WGRAD_BIAS_COLS) for m, _ in shapes]
+    assert len(tile0) == len(bias0) == len(shapes)
+    assert tile0[0] == 0 and bias0[0] == sum(tiles)
+    assert all(tile0[p] + tiles[p] == tile0[p + 1] for p in range(len(shapes) - 1))
+    assert all(bias0[p] + bias[p] == bias0[p + 1] for p in range(len(shapes) - 1))
+    assert bias0[-1] + bias[-1] == blocks
+    assert all(FT.WGRAD_BIAS_COLS * c >= m for c, (m, _) in zip(bias, shapes))
+    if call in ("ffn", "attention"):
+        assert sum(tiles) == 128
+
+
 def _split_and_merge(h, w, bias, targets, ranges):
     """The kernel's split design in plain float32: per split a row's (max,
     sum-exp, first argmax, target logit or -1e30), then the splits folded in
@@ -342,6 +474,11 @@ def test_wrappers_never_fall_back_off_cpu():
         vocab_ce_fwd(h, w, None, lab)
     with pytest.raises(ValueError, match="CUDA"):
         vocab_ce_bwd(h, w, None, lab, vec, vec)
+    with pytest.raises(ValueError, match="CUDA"):
+        project_topk(h, w, 3)
+    rows = torch.empty(4, 32, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        weight_grads([Product("wi", "bi", rows, rows, torch.empty(1, 32, device="meta"))])
     x = torch.empty(2, 4, 16, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         fused_layer_unfolded(x, x, torch.empty(2, 4, dtype=torch.bool, device="meta"),
@@ -350,6 +487,10 @@ def test_wrappers_never_fall_back_off_cpu():
                    torch.ones(5, 16, dtype=torch.bfloat16))
     vocab_ce_fwd(torch.ones(2, 32), torch.ones(5, 32), None,
                  torch.zeros(2, dtype=torch.int32))
+    project_topk(torch.ones(2, 16, dtype=torch.bfloat16),
+                 torch.ones(5, 16, dtype=torch.bfloat16), 3)
+    ones = torch.ones(16, 32, dtype=torch.bfloat16)
+    weight_grads([Product("wi", "bi", ones, ones, torch.ones(1, 32))])
     assert all(v == 0 for v in _build.LAUNCHES.values())
 
 
