@@ -34,10 +34,14 @@ plain version there too, both sizes bit for bit the same in two calls, and
 timed beside torch.matmul of the same operands and the parent's
 reduction); the fused projection + cross-entropy K9 and K10 (both
 launches) held against their plain versions at the B=64 NACF pass, untied,
-tied and with a large bias, timed there and at B=2048 beside the logits
-route on the same operands; 5 NACF steps of 64 videos through
-run_train_epoch (launch counts, ms per step, peak memory, one step
-profiled); bench.py's train protocol at B=2048 (profiled); one bf16 step of
+tied and with a large bias, with K9's ties inside one thread and across
+vocab splits and labels at V - 1, K10 bit for bit the same in two calls at
+B=2048, timed at B=64 and B=2048 (the backward per launch) beside the
+logits route on the same operands and the parent's K9/K10 in turns; 5 NACF
+steps of 64 videos through run_train_epoch (launch counts, ms per step,
+peak memory, one step profiled); bench.py's train protocol at B=2048
+(profiled: K9/K10's share; with --parent, in turns with the parent's own
+step: synchronised ms, idle share, peak memory); one bf16 step of
 16 videos against the CPU plain path; 20 steps on one batch at dropout 0.1
 must lower the loss. K1u (the unfolded eval layer, which no path calls) is
 held against its plain version at K1's shape. The entry point:
@@ -155,6 +159,23 @@ def worker_case(kind, ops, args):
     if kind == "project_topk":
         return lambda: dict(zip(("lp", "ids"), VF.project_topk(ops["h"], ops["w"], args["k"],
                                                                 ops["bias"])))
+    if kind == "vocab_ce_fwd":
+        from navc_tpu_torch.ops import vocab_ce as VC
+
+        return lambda: dict(zip(("g", "pred", "z"), VC.vocab_ce_fwd(
+            ops["h"], ops["w"], ops["bias"], ops["labels"])))
+    if kind == "vocab_ce_bwd":
+        from navc_tpu_torch.ops import vocab_ce as VC
+
+        return lambda: dict(zip(("dh", "dw", "db"), VC.vocab_ce_bwd(
+            ops["h"], ops["w"], ops["bias"], ops["labels"], ops["z"], ops["dg"],
+            dh_dtype=torch.bfloat16)))
+    if kind == "train_step":
+        step, batch, gen = bench_train_step(args["seed"])
+        return lambda: dict(loss=torch.tensor(float(step(batch, gen)["total_loss"])))
+    if kind == "train_epoch":
+        run = nacf_epoch(args["seed"])
+        return lambda: dict(loss=torch.tensor(run()["total_loss"]))
     if kind == "weight_grads":
         from navc_tpu_torch.ops.fused_layer_train import Product, weight_grads
 
@@ -309,9 +330,71 @@ def host_us(fn, iters=50):
     return dt / iters * 1e6
 
 
+def launch_ms(fn, name, calls=5):
+    """Device milliseconds per call of ``fn`` spent in the kernels whose
+    names contain ``name`` (a launch and its second pass), from a profile of
+    ``calls`` calls."""
+    for _ in range(3):  # as device_breakdown, should a profile come back without them
+        prof = device_breakdown(lambda: [fn() for _ in range(calls)])
+        hits = [] if prof is None else [v for k, v in prof[2].items() if name in k]
+        if hits:
+            return sum(v[0] for v in hits) / calls
+    die("the profiler recorded no device time for %s" % name)
+
+
+def host_breakdown(fn, calls=50, top=10):
+    """Where ``fn``'s host time goes: the functions and operators with the
+    most host time of their own, from cProfile over ``calls`` calls queued
+    while a device-side sleep holds the card, as [(name, us per call)]."""
+    import cProfile
+    import pstats
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(calls):
+        fn()
+    prof.disable()
+    torch.cuda.synchronize()
+    rows = sorted(((v[2], "%s:%d(%s)" % (os.path.basename(k[0]), k[1], k[2]))
+                   for k, v in pstats.Stats(prof).stats.items()), reverse=True)
+    return [(name, round(t / calls * 1e6, 1)) for t, name in rows[:top]]
+
+
+def idle_share(fn):
+    """The device's idle share over one profiled call of ``fn``."""
+    prof = device_breakdown(fn)
+    if prof is None:
+        die("the profiler recorded no device activity")
+    return 1.0 - prof[1] / prof[0]
+
+
+def peak_gb(fn):
+    """Peak device memory (GB) one call of ``fn`` allocates above what the
+    process held before it."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - held) / 1e9
+
+
 # the timers both this process and a worker (Worker.time) use
 TIMERS = {"device": device_ms, "cuda5": lambda fn: cuda_ms(fn, iters=5),
-          "host3": host_ms, "host_us": host_us}
+          "host3": host_ms, "host_us": host_us,
+          "ce_bwd_dh": lambda fn: launch_ms(fn, "ce_bwd_dh"),
+          "ce_bwd_dw": lambda fn: launch_ms(fn, "ce_bwd_dw"),
+          "train_sync": lambda fn: host_ms(fn, iters=TRAIN_BENCH_ITERS),
+          "epoch_step": lambda fn: host_ms(fn) / TRAIN_STEPS,
+          "host_ops": lambda fn: sum(host_ops(fn).values()),
+          "idle": idle_share, "peak_gb": peak_gb}
 
 
 def bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
@@ -336,24 +419,28 @@ def layer_bytes(n, l, le, h, inter, rows_out, extra=0):
             + rows_out * h * 2 + 2 * h * 4 + extra)
 
 
-def device_breakdown(run):
+def device_breakdown(run, tries=3):
     """Profile ``run`` with torch.profiler: (window ms, device-busy ms,
     {kernel name: [device ms, launches]}), or None if the profiler saw no
-    device activity."""
+    device activity in ``tries`` profiles of it (one profile beside a
+    worker process's came back empty once)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    events = list(prof.events())
-    # device events, without the spans of user annotations (torch.optim's
-    # "Optimizer.step#Adam.step" marks its kernels on the device timeline)
-    kern = [e for e in events if e.device_type == DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)
-            and not e.name.startswith("Optimizer.")]
-    if not kern:
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        events = list(prof.events())
+        # device events, without the spans of user annotations (torch.optim's
+        # "Optimizer.step#Adam.step" marks its kernels on the device timeline)
+        kern = [e for e in events if e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)
+                and not e.name.startswith("Optimizer.")]
+        if kern:
+            break
+    else:
         return None
     spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
     busy, (lo, hi) = 0.0, spans[0]
@@ -737,6 +824,7 @@ def arb_phases(cfg, model, cpu_model, record, parent):
 
 
 TRAIN_B, TRAIN_STEPS, TRAIN_BENCH, TRAIN_BENCH_ITERS, TRAIN_CPU = 64, 5, 2048, 5, 16
+EPOCH_ROUNDS = 10  # rounds of the B=64 epoch in turns with the parent: its host clock varies
 LAYER_KERNELS = ("train_fwd", "train_ffn_bwd", "train_attn_bwd", "train_wgrad")
 CE_KERNELS = ("ce_fwd", "ce_bwd_dh", "ce_bwd_dw")
 TRAIN_KERNELS = LAYER_KERNELS + CE_KERNELS
@@ -788,18 +876,74 @@ def scaled_err(got, want, like=None):
             float(d.square().mean().sqrt()), max(float(ref.square().mean().sqrt()), 1e-6))
 
 
-def ce_checks(cfg, model, g, record):
-    """K9 and K10 against their plain versions at the B=64 NACF pass (N = B
-    x 30 rows), untied, tied and tied with a bias ten times the scores'
-    scale; timed at N = 1920 and N = 61440 (B=2048) beside the logits route
-    on the same operands (torch.matmul + runtime.crit's loss)."""
+def bench_train_step(seed):
+    """(step, batch, generator) of bench.py's NACF train protocol at B=2048
+    (bench.py:365-436) on this process's navc_tpu_torch, weights from
+    ``seed``: the same model, batch and dropout seed in either checkout."""
+    import numpy as np
     import torch
 
+    from navc_tpu_torch.config import default_config
+    from navc_tpu_torch.models import build_model
+    from navc_tpu_torch.runtime.train_step import create_train_state, make_train_step
+
+    cfg = default_config("NACF", batch_size=TRAIN_BENCH, **OVER)
+    model = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(seed),
+                        train=True)
+    state = create_train_state(cfg, model)
+    step = make_train_step(cfg, model, state.optimizer)
+    return step, train_batch(cfg, TRAIN_BENCH, np.random.RandomState(0)), \
+        torch.Generator().manual_seed(0)
+
+
+def nacf_epoch(seed):
+    """A callable that runs TRAIN_STEPS NACF steps of TRAIN_B videos through
+    run_train_epoch, the entry point's path, on this process's
+    navc_tpu_torch (weights from ``seed``, the same batches in either
+    checkout) and returns its info, read on the host at the end."""
+    import numpy as np
+    import torch
+
+    from navc_tpu_torch.config import default_config
+    from navc_tpu_torch.models import build_model
+    from navc_tpu_torch.runtime.loop import run_train_epoch
+    from navc_tpu_torch.runtime.optim import LrSchedule
+    from navc_tpu_torch.runtime.train_step import create_train_state, make_train_step
+
+    cfg = default_config("NACF", batch_size=TRAIN_B, **OVER)
+    model = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(seed),
+                        train=True)
+    state = create_train_state(cfg, model)
+    step = make_train_step(cfg, model, state.optimizer)
+    sched = LrSchedule.from_config(cfg)
+    gen = torch.Generator().manual_seed(0)
+    rng = np.random.RandomState(5)
+    batches = [train_batch(cfg, TRAIN_B, rng) for _ in range(TRAIN_STEPS)]
+    return lambda: run_train_epoch(cfg, step, state, batches, sched, gen)[1]
+
+
+def ce_checks(cfg, model, g, record, parent):
+    """K9 and K10 against their plain versions at the B=64 NACF pass (N = B
+    x 30 rows), untied, tied and tied with a bias ten times the scores'
+    scale; K9's ties inside one thread and across vocab splits and a label
+    at V - 1; K10 bit for bit the same in two calls at N = 61440; each timed
+    at N = 1920 and N = 61440 (B=2048), the backward per launch (with its
+    second pass), beside the logits route on the same operands (torch.matmul
+    + runtime.crit's loss) and, given ``parent``, the parent's wrappers in
+    turns (parent, this, this, parent); at N = 61440 also against the plain
+    versions (untied and tied: the dW launch's row split and its second
+    pass, dh's scatter over the rows with dg != 0); the dW launch at N =
+    1920 also with other row splits."""
+    import torch
+
+    from navc_tpu_torch.ops import _build
     from navc_tpu_torch.ops import vocab_ce as VC
+    from navc_tpu_torch.ops.vocab_fused import argmax_splits, split_ranges
     from navc_tpu_torch.runtime.crit import _label_logprob
 
     dev = torch.device("cuda")
     h, v = cfg.dim_hidden, cfg.vocab_size
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     w_master = model.projection_weight().detach()        # (V, D) float32
     w16 = w_master.to(torch.bfloat16).contiguous()
 
@@ -808,6 +952,42 @@ def ce_checks(cfg, model, g, record):
         lab = torch.randint(0, v, (rows,), generator=g, dtype=torch.int32).to(dev)
         keep = (torch.rand(rows, generator=g) > 0.4).float()   # PAD / dropped rows
         return hh, lab, (torch.randn(rows, generator=g) * keep).to(dev)
+
+    def agree(name, what, a, b, tol, rms_tol, case):
+        err, sc, rms_err, rms = scaled_err(a, b)
+        if not (err <= tol * sc and rms_err <= rms_tol * rms):
+            die("%s %s (%s) disagrees: max err %.3e (scale %.3e), rms err %.3e (rms %.3e)"
+                % (name, what, case, err, sc, rms_err, rms))
+        return err, rms_err / rms
+
+    def clear_rows(hh, ww, bias):
+        top2 = (hh.float() @ ww.float().t() + (0 if bias is None else bias)).topk(2, dim=-1).values
+        return (top2[:, 0] - top2[:, 1]) > 1e-3
+
+    def check_all(hh, ww, bias, lab, dg, case, errs=None, worst_rms=None):
+        """K9 and K10 against their plain versions on these operands."""
+        g_k, pred_k, z_k = VC.vocab_ce_fwd(hh, ww, bias, lab)
+        g_p, pred_p, z_p = VC.vocab_ce_fwd_plain(hh, ww, bias, lab)
+        dh_k, dw_k, db_k = VC.vocab_ce_bwd(hh, ww, bias, lab, z_k, dg, dh_dtype=torch.bfloat16)
+        dh_p, dw_p, db_p = VC.vocab_ce_bwd_plain(hh, ww, bias, lab, z_p, dg)
+        torch.cuda.synchronize()
+        if int(((pred_k != pred_p) & clear_rows(hh, ww, bias)).sum()):
+            die("ce_fwd (%s) argmax differs from the plain version where the top-2 margin "
+                "> 1e-3" % case)
+        if not torch.all(dh_k[dg == 0] == 0):
+            die("ce_bwd_dh (%s): a row with dg = 0 has a non-zero gradient" % case)
+        checks = [("ce_fwd", "g", g_k, g_p, CE_TOL, CE_RMS_TOL),
+                  ("ce_fwd", "z", z_k, z_p, CE_TOL, CE_RMS_TOL),
+                  ("ce_bwd_dh", "dh", dh_k, dh_p, TRAIN_TOL, TRAIN_RMS_TOL),
+                  ("ce_bwd_dw", "dW", dw_k, dw_p, TRAIN_TOL, TRAIN_RMS_TOL)]
+        if bias is not None:
+            checks.append(("ce_bwd_dw", "db", db_k, db_p, TRAIN_TOL, TRAIN_RMS_TOL))
+        for name, what, a, b, tol, rms_tol in checks:
+            err, ratio = agree(name, what, a, b, tol, rms_tol, case)
+            if errs is not None:
+                errs[name] = max(errs[name], err)
+                worst_rms[name] = max(worst_rms[name], ratio)
+        return pred_k
 
     n = TRAIN_B * cfg.max_len
     hh, lab, dg = operands(n)
@@ -818,40 +998,42 @@ def ce_checks(cfg, model, g, record):
     errs = {k: 0.0 for k in CE_KERNELS}
     worst_rms = {k: 0.0 for k in CE_KERNELS}
     for case, bias in cases.items():
-        g_k, pred_k, z_k = VC.vocab_ce_fwd(hh, w16, bias, lab)
-        g_p, pred_p, z_p = VC.vocab_ce_fwd_plain(hh, w16, bias, lab)
-        dh_k, dw_k, db_k = VC.vocab_ce_bwd(hh, w16, bias, lab, z_k, dg,
-                                           dh_dtype=torch.bfloat16)
-        dh_p, dw_p, db_p = VC.vocab_ce_bwd_plain(hh, w16, bias, lab, z_p, dg)
-        torch.cuda.synchronize()
-        s_p = hh.float() @ w16.float().t() + (0 if bias is None else bias)
-        top2 = s_p.topk(2, dim=-1).values
-        clear = (top2[:, 0] - top2[:, 1]) > 1e-3
-        if int(((pred_k != pred_p) & clear).sum()):
-            die("ce_fwd (%s) argmax differs from the plain version where the "
-                "top-2 margin > 1e-3" % case)
-        if not torch.all(dh_k[dg == 0] == 0):
-            die("ce_bwd_dh (%s): a row with dg = 0 has a non-zero gradient" % case)
-        checks = [("ce_fwd", "g", g_k, g_p, CE_TOL, CE_RMS_TOL),
-                  ("ce_fwd", "z", z_k, z_p, CE_TOL, CE_RMS_TOL),
-                  ("ce_bwd_dh", "dh", dh_k, dh_p, TRAIN_TOL, TRAIN_RMS_TOL),
-                  ("ce_bwd_dw", "dW", dw_k, dw_p, TRAIN_TOL, TRAIN_RMS_TOL)]
-        if bias is not None:
-            checks.append(("ce_bwd_dw", "db", db_k, db_p, TRAIN_TOL, TRAIN_RMS_TOL))
-        for name, what, a, b, tol, rms_tol in checks:
-            err, sc, rms_err, rms = scaled_err(a, b)
-            if not (err <= tol * sc and rms_err <= rms_tol * rms):
-                die("%s %s (%s) disagrees with its plain version: max err %.3e "
-                    "(scale %.3e), rms err %.3e (rms %.3e)"
-                    % (name, what, case, err, sc, rms_err, rms))
-            errs[name] = max(errs[name], err)
-            worst_rms[name] = max(worst_rms[name], rms_err / rms)
+        check_all(hh, w16, bias, lab, dg, case, errs, worst_rms)
     log("vocab CE kernels agree with their plain versions at N=%d, D=%d, V=%d "
         "(untied, tied, large bias; ids equal where the top-2 margin > 1e-3; "
         "g, z within %.0e of the largest |value| and %.0e of the rms; dh, dW, "
         "db within %.0e and %.0e; worst rms ratios %s)" % (
             n, h, v, CE_TOL, CE_RMS_TOL, TRAIN_TOL, TRAIN_RMS_TOL,
             {k: "%.3g" % r for k, r in worst_rms.items()}))
+
+    # ties and edges: columns 1, 9, 17, 121 of a 128-column tile fall to one
+    # thread of K9's epilogue (129 to the next tile); equal maxima in two
+    # vocab splits at 3072 rows; labels at V - 1, the last column of a
+    # ragged last vocab tile in every launch's tiling (10048 = 78 x 128 + 64)
+    ones = torch.ones(300, h, dtype=torch.bfloat16, device=dev)
+    wt = torch.zeros(1001, h, dtype=torch.bfloat16, device=dev)
+    wt[[121, 17, 129, 9, 1]] = 1.0
+    pred = check_all(ones, wt, None, torch.full((300,), 9, dtype=torch.int32, device=dev),
+                     torch.ones(300, device=dev), "ties inside one thread")
+    if pred.tolist() != [1] * 300:
+        die("ce_fwd: a tie inside one thread did not go to the lowest id")
+    rt = 3072
+    ranges = split_ranges(v, *argmax_splits(rt, v, sms))
+    if len(ranges) < 3:
+        die("ce_fwd: the tie case needs three vocab splits, got %d" % len(ranges))
+    ties = [ranges[2][0] + 5, ranges[2][0] + 6, ranges[1][1] - 1]
+    one = hh[:1].expand(rt, h).contiguous()
+    wt = w16.clone()
+    wt[ties] = (one[0].float() / one[0].float().norm() * 40).to(torch.bfloat16)
+    tie_lab = torch.tensor(ties * (rt // 3), dtype=torch.int32, device=dev)
+    pred = check_all(one, wt, None, tie_lab, torch.ones(rt, device=dev), "ties across splits")
+    if pred.tolist() != [ties[2]] * rt:
+        die("ce_fwd: a tie across vocab splits did not go to the lowest id")
+    edge = torch.full((n,), v - 1, dtype=torch.int32, device=dev)
+    edge[::3] = 0
+    check_all(hh, w16, cases["tied"], edge, dg, "labels at V - 1")
+    log("vocab CE ties and edges: ties inside one thread and across %d vocab splits go to "
+        "the lowest id; labels at V - 1 and 0 agree with the plain versions" % len(ranges))
 
     b_main = None if model.tgt_word_prj is not None else cases["tied"]
     w_route = w_master.clone().requires_grad_()
@@ -868,34 +1050,113 @@ def ce_checks(cfg, model, g, record):
             if backward:
                 (-(gathered * dg).sum()).backward()
 
-    def launch_ms(fn, name, calls=5):
-        prof = device_breakdown(lambda: [fn() for _ in range(calls)])
-        hits = [] if prof is None else [v for k, v in prof[2].items() if name in k]
-        if not hits:
-            die("the profiler recorded no device time for %s" % name)
-        return sum(v[0] for v in hits) / calls
+    def turns(timer, mine):
+        """(this tree's mean, the parent's mean) of TIMERS[timer] in turns:
+        parent, this, this, parent; the parent's case is loaded."""
+        p1, k1, k2, p2 = (parent.time(timer), TIMERS[timer](mine), TIMERS[timer](mine),
+                          parent.time(timer))
+        return (k1 + k2) / 2, (p1 + p2) / 2
 
     times = {}
+    lib = _build.load("vocab_ce", VC._BWD)
     for rows in (n, TRAIN_BENCH * cfg.max_len):
         hr, lr, dr = (hh, lab, dg) if rows == n else operands(rows)
         z = VC.vocab_ce_fwd(hr, w16, b_main, lr)[2]
+        fwd = lambda: VC.vocab_ce_fwd(hr, w16, b_main, lr)  # noqa: E731
         bwd = lambda: VC.vocab_ce_bwd(hr, w16, b_main, lr, z, dr,  # noqa: E731
                                       dh_dtype=torch.bfloat16)
-        times[rows] = dict(
-            fwd=cuda_ms(lambda: VC.vocab_ce_fwd(hr, w16, b_main, lr), iters=5),
-            bwd=cuda_ms(bwd, iters=5),
-            dh=launch_ms(bwd, "ce_bwd_dh"), dw=launch_ms(bwd, "ce_bwd_dw"),
-            route_fwd=cuda_ms(lambda: logits_route(hr, lr, dr, False), iters=5),
-            route_both=cuda_ms(lambda: logits_route(hr, lr, dr, True), iters=5))
-        log("vocab CE at N=%d (B=%d): K9 %.4f ms, K10 %.4f ms (dh %.4f, dW %.4f); "
-            "bounds by the function's own operations: K9 %.4f ms, K10 %.4f ms; "
-            "logits route on the same operands: forward %.4f ms, forward + "
-            "backward %.4f ms (K9 + K10 %.4f ms)" % (
-                rows, rows // cfg.max_len, times[rows]["fwd"], times[rows]["bwd"],
-                times[rows]["dh"], times[rows]["dw"],
-                bound(2 * rows * h * v, 0)[0], bound(6 * rows * h * v, 0)[0],
-                times[rows]["route_fwd"], times[rows]["route_both"],
-                times[rows]["fwd"] + times[rows]["bwd"]))
+        t = dict(route_fwd=cuda_ms(lambda: logits_route(hr, lr, dr, False), iters=5),
+                 route_both=cuda_ms(lambda: logits_route(hr, lr, dr, True), iters=5))
+        if rows > n:  # the main path's B=2048 shape against the plain versions
+            big_errs = {k: 0.0 for k in CE_KERNELS}
+            big_rms = {k: 0.0 for k in CE_KERNELS}
+            for case in ("untied", "tied"):
+                check_all(hr, w16, cases[case], lr, dr, "%s, N=%d" % (case, rows), big_errs,
+                          big_rms)
+            torch.cuda.empty_cache()
+            log("vocab CE kernels agree with their plain versions at N=%d (untied, tied; dW "
+                "row splits %d, dh vocab splits %d; %d rows with dg != 0): worst max errors %s, "
+                "worst rms ratios %s" % (
+                    rows, VC.dw_plan(rows, v, h, sms), VC.dh_plan(rows, v, h, sms)[0],
+                    int((dr != 0).sum()), {k: "%.3g" % x for k, x in big_errs.items()},
+                    {k: "%.3g" % x for k, x in big_rms.items()}))
+            # K10 bit for bit the same in two calls
+            one_, two_ = bwd(), bwd()
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(one_, two_) if a is not None):
+                die("ce_bwd: two calls at N=%d gave different bits" % rows)
+            del one_, two_
+        if parent is None:
+            t.update(fwd=device_ms(fwd), bwd=device_ms(bwd),
+                     dh=launch_ms(bwd, "ce_bwd_dh"), dw=launch_ms(bwd, "ce_bwd_dw"))
+        else:
+            ops = dict(h=hr, w=w16, bias=b_main, labels=lr, z=z, dg=dr)
+            got, mine = parent.load("vocab_ce_fwd", ops), fwd()
+            for what, i, tol in (("g", 0, CE_TOL), ("z", 2, CE_TOL)):
+                agree("ce_fwd", what, got[what], mine[i], tol, CE_RMS_TOL, "parent, N=%d" % rows)
+            if int(((got["pred"] != mine[1]) & clear_rows(hr, w16, b_main)).sum()):
+                die("the parent's ce_fwd argmax differs from this one at N=%d" % rows)
+            t["fwd"], t["parent_fwd"] = turns("device", fwd)
+            if rows == n:  # the wrapper's own cost on the host, which bounds the B=64 step
+                t["host_fwd"], t["parent_host_fwd"] = turns("host_us", fwd)
+            got, mine = parent.load("vocab_ce_bwd", ops), bwd()
+            for what, i in (("dh", 0), ("dw", 1), ("db", 2)):
+                if mine[i] is not None:
+                    agree("ce_bwd", what, got[what], mine[i], TRAIN_TOL, TRAIN_RMS_TOL,
+                          "parent, N=%d" % rows)
+            del got, mine
+            t["bwd"], t["parent_bwd"] = turns("device", bwd)
+            if rows == n:
+                t["host_bwd"], t["parent_host_bwd"] = turns("host_us", bwd)
+                log("vocab CE wrappers' host cost at N=%d (us per call, the card held by a "
+                    "sleep, in turns): K9 %.1f (parent %.1f), K10 %.1f (parent %.1f); this "
+                    "tree's K9 by function (us of its own per call): %s; K10: %s" % (
+                        rows, t["host_fwd"], t["parent_host_fwd"], t["host_bwd"],
+                        t["parent_host_bwd"], host_breakdown(fwd), host_breakdown(bwd)))
+            t["dh"], t["parent_dh"] = turns("ce_bwd_dh", bwd)
+            t["dw"], t["parent_dw"] = turns("ce_bwd_dw", bwd)
+        if rows == n:  # the dW launch's row split at N = 1920: the plan against others
+            dw_, db_ = torch.empty_like(w_master), torch.empty(v, device=dev)
+            hl, meta = VC.live_first(hr, lr, z, dr)
+            ops = [VC._ptr(hl), VC._ptr(w16), VC._ptr(b_main), *VC._meta_ptrs(meta)[1:]]
+            t["dw_splits"] = {}
+            for splits in sorted({VC.dw_plan(rows, v, h, sms), 2, 3, 5}):
+                part = torch.empty((splits, v, h), device=dev) if splits > 1 else None
+                dbp = torch.empty((splits, v), device=dev) if splits > 1 else None
+                ptrs = ops + [VC._ptr(x) for x in (dw_, db_, part, dbp)]
+                t["dw_splits"][splits] = device_ms(lambda: _build.check(lib, lib.navc_ce_bwd_dw(
+                    *ptrs, rows, h, v, splits, VC._stream(hr)), "ce_bwd_dw"))
+                del part, dbp
+        nd_v = rows * h * v
+        live = int((dr != 0).sum())  # the rows K10 runs: the others add exactly nothing
+        nd_v_live = live * h * v
+        vt = -(-v // VC.CE_TILE)
+        l2 = {"dh": -(-live // VC.CE_TILE) * vt * VC.CE_TILE * h * 2, "dw": vt * live * h * 2}
+        t["plans"] = dict(dh=VC.dh_plan(rows, v, h, sms), dw=VC.dw_plan(rows, v, h, sms))
+        # K10's bounds count the rows with dg != 0: the others need no work
+        t["live"] = live
+        t["bounds"] = dict(fwd=bound(2 * nd_v, 0), dh=bound(4 * nd_v_live, 0),
+                           dw=bound(2 * nd_v_live, 0))
+        t["bounds_all"] = dict(dh=bound(4 * nd_v, 0)[0], dw=bound(2 * nd_v, 0)[0])
+        times[rows] = t
+        par = lambda k: ("%.4f" % t["parent_" + k]) if "parent_" + k in t else "not run"  # noqa: E731
+        log("vocab CE at N=%d (B=%d): K9 %.4f ms (parent %s; bound %.4f by %s); K10 %.4f ms "
+            "(parent %s), %d of %d rows with dg != 0: dh %.4f (parent %s; plan %s; bound %.4f by %s for its 4NDV over the rows with dg != 0, %.4f over "
+            "all rows, the port's own work the same), dW %.4f (parent %s; plan %s; bound %.4f "
+            "by %s for its 2NDV over the rows with dg != 0, %.4f over all rows, the port's own "
+            "4NDV with the score recompute %.4f); streamed through L2 over the rows with dg "
+            "!= 0: dh %.2f GB (%.2f TB/s), dW %.2f GB (%.2f TB/s); logits route on the same "
+            "operands: forward %.4f ms, forward + backward %.4f ms (K9 + K10 %.4f ms)%s" % (
+                rows, rows // cfg.max_len, t["fwd"], par("fwd"), *t["bounds"]["fwd"], t["bwd"],
+                par("bwd"), live, rows, t["dh"], par("dh"), t["plans"]["dh"],
+                *t["bounds"]["dh"], t["bounds_all"]["dh"], t["dw"], par("dw"),
+                t["plans"]["dw"], *t["bounds"]["dw"], t["bounds_all"]["dw"],
+                bound(4 * nd_v_live, 0)[0], l2["dh"] / 1e9, l2["dh"] / t["dh"] / 1e9,
+                l2["dw"] / 1e9, l2["dw"] / t["dw"] / 1e9, t["route_fwd"], t["route_both"],
+                t["fwd"] + t["bwd"],
+                "; dW at other row splits: %s" % {k: round(x, 4) for k, x in
+                                                  t["dw_splits"].items()}
+                if "dw_splits" in t else ""))
         del hr, lr, dr, z
     torch.cuda.empty_cache()
 
@@ -905,30 +1166,38 @@ def ce_checks(cfg, model, g, record):
     plain_bwd = cuda_ms(lambda: VC.vocab_ce_bwd_plain(hh, w16, b_main, lab, z, dg), iters=3)
     nd_v = n * h * v
     in_bytes = n * h * 2 + v * h * 2 + (0 if b_main is None else v * 4) + n * 4
-    big = times[TRAIN_BENCH * cfg.max_len]
+    big_n = TRAIN_BENCH * cfg.max_len
+    big = times[big_n]
     note = ("  (max_err: absolute, over the untied, tied and large-bias cases; "
-            "B=2048 (N=%d): %.4f ms; logits route on the same operands: B=64 "
+            "N=%d (B=%d): %.4f ms; logits route on the same operands: B=64 "
             "forward %.4f, forward+backward %.4f ms, B=2048 %.4f, %.4f ms; "
             "library_ms null: no one PyTorch call)")
+
+    def rec(name, key, plain_ms, flops, nbytes, extra=""):
+        r = record(name, errs[name], None, t[key], plain_ms, flops, nbytes,
+                   note=note % (big_n, TRAIN_BENCH, big[key], t["route_fwd"], t["route_both"],
+                                big["route_fwd"], big["route_both"]) + extra)
+        r["by_rows"] = {str(rows): {k: tt[k] for k in (key, "parent_" + key) if k in tt}
+                        for rows, tt in times.items()}
+        for rows, tt in times.items():
+            r["by_rows"][str(rows)].update(zip(("bound_ms", "bound_by"),
+                                               tt["bounds"][key]))
+        if "parent_" + key in t:
+            r["parent_ms"] = t["parent_" + key]
+        return r
+
     return {
-        "ce_fwd": record(
-            "ce_fwd", errs["ce_fwd"], None, t["fwd"], plain_fwd, 2 * nd_v,
-            in_bytes + 3 * n * 4,
-            note=note % (TRAIN_BENCH * cfg.max_len, big["fwd"], t["route_fwd"],
-                         t["route_both"], big["route_fwd"], big["route_both"])),
-        "ce_bwd_dh": record(
-            "ce_bwd_dh", errs["ce_bwd_dh"], None, t["dh"], plain_bwd, 4 * nd_v,
-            in_bytes + 2 * n * 4 + n * h * 2,
-            note=note % (TRAIN_BENCH * cfg.max_len, big["dh"], t["route_fwd"],
-                         t["route_both"], big["route_fwd"], big["route_both"])
-            + " [K10's score recompute and dh = ds W; plain_ms: the whole plain backward]"),
-        "ce_bwd_dw": record(
-            "ce_bwd_dw", errs["ce_bwd_dw"], None, t["dw"], plain_bwd, 2 * nd_v,
-            v * h * 4 + (0 if b_main is None else v * 4),
-            note=note % (TRAIN_BENCH * cfg.max_len, big["dw"], t["route_fwd"],
-                         t["route_both"], big["route_fwd"], big["route_both"])
-            + " [dW = ds^T h and db; its own score recompute is the port's cost, "
-            "not in the bound; plain_ms: the whole plain backward]"),
+        "ce_fwd": rec("ce_fwd", "fwd", plain_fwd, 2 * nd_v, in_bytes + 3 * n * 4),
+        "ce_bwd_dh": rec("ce_bwd_dh", "dh", plain_bwd, 4 * t["live"] * h * v,
+                         in_bytes + 2 * n * 4 + n * h * 2,
+                         " [K10's score recompute and dh = ds W over the %d of %d rows with "
+                         "dg != 0, with its second pass; plain_ms: the whole plain backward]"
+                         % (t["live"], n)),
+        "ce_bwd_dw": rec("ce_bwd_dw", "dw", plain_bwd, 2 * t["live"] * h * v,
+                         v * h * 4 + (0 if b_main is None else v * 4),
+                         " [dW = ds^T h and db over the %d of %d rows with dg != 0, with its "
+                         "second pass; its own score recompute is the port's cost, not in the "
+                         "bound; plain_ms: the whole plain backward]" % (t["live"], n)),
     }
 
 
@@ -941,6 +1210,7 @@ def train_phases(record, seeded, parent):
     import numpy as np
     import torch
 
+    from navc_tpu_torch import constants as C
     from navc_tpu_torch.config import default_config
     from navc_tpu_torch.models import build_model
     from navc_tpu_torch.ops import _build
@@ -1166,7 +1436,7 @@ def train_phases(record, seeded, parent):
     del x2, enc2, dy2, r2b, dr2b, fprods2, aprods2, prods2
     torch.cuda.empty_cache()
 
-    recs.update(ce_checks(cfg, model, g, record))
+    recs.update(ce_checks(cfg, model, g, record, parent))
 
     # -- (b) the main path: 5 NACF steps through run_train_epoch -----------
     rng = np.random.RandomState(5)
@@ -1198,23 +1468,43 @@ def train_phases(record, seeded, parent):
     if not all(np.isfinite(v) for v in info.values()):
         die("training metrics not finite: %s" % info)
     print_profile(device_breakdown(lambda: step(batches[0], gen)), "training step")
+    if parent is not None:  # the same epoch on the parent's checkout, in turns
+        parent.load("train_epoch", {}, seed=0)
+        epoch = nacf_epoch(0)
+        epoch()  # first use
+        parent.time("epoch_step"), TIMERS["epoch_step"](epoch)  # warm both sides
+        sides = {"this": [], "parent": []}
+        for _ in range(EPOCH_ROUNDS):
+            p1, k1, k2, p2 = (parent.time("epoch_step"), TIMERS["epoch_step"](epoch),
+                              TIMERS["epoch_step"](epoch), parent.time("epoch_step"))
+            sides["this"] += [k1, k2]
+            sides["parent"] += [p1, p2]
+        wins = sum(k < p for k, p in zip(sides["this"], sides["parent"]))
+        log("B=%d NACF steps through run_train_epoch in turns with the parent (parent, this, "
+            "this, parent; %d rounds of 3 epochs of %d steps; ms per step, host clock): this "
+            "%s (median %.3f, mean %.3f), parent %s (median %.3f, mean %.3f); this faster in %d "
+            "of %d pairs; idle share of one epoch this %.3f, parent %.3f; top-level host "
+            "operators per epoch this %d, parent %d"
+            % (TRAIN_B, EPOCH_ROUNDS, TRAIN_STEPS, [round(x, 3) for x in sides["this"]],
+               np.median(sides["this"]), np.mean(sides["this"]),
+               [round(x, 3) for x in sides["parent"]], np.median(sides["parent"]),
+               np.mean(sides["parent"]), wins, len(sides["this"]), idle_share(epoch),
+               parent.time("idle"), TIMERS["host_ops"](epoch), parent.time("host_ops")))
+        del epoch
 
     # -- (c) bench.py's train protocol at B=2048 ----------------------------
     del state, step, model
     torch.cuda.empty_cache()
-    bcfg = default_config("NACF", batch_size=TRAIN_BENCH, **over)
-    bmodel = build_model(bcfg, device="cuda", generator=seeded(0), train=True)
-    bstate = create_train_state(bcfg, bmodel)
-    bstep = make_train_step(bcfg, bmodel, bstate.optimizer)
-    big = train_batch(bcfg, TRAIN_BENCH, np.random.RandomState(0))
+    bstep, big, bgen = bench_train_step(0)
+    run = lambda: float(bstep(big, bgen)["total_loss"])  # noqa: E731  (host sync each step)
     torch.cuda.reset_peak_memory_stats()
-    float(bstep(big, gen)["total_loss"])
+    run()
     t0 = time.perf_counter()
     for _ in range(TRAIN_BENCH_ITERS):
-        loss = float(bstep(big, gen)["total_loss"])  # host sync each step
+        loss = run()
     dt_sync = (time.perf_counter() - t0) / TRAIN_BENCH_ITERS
     t0 = time.perf_counter()
-    ms = [bstep(big, gen) for _ in range(TRAIN_BENCH_ITERS)]
+    ms = [bstep(big, bgen) for _ in range(TRAIN_BENCH_ITERS)]
     loss = float(ms[-1]["total_loss"])
     dt_pipe = (time.perf_counter() - t0) / TRAIN_BENCH_ITERS
     log("NACF train step at B=%d (bench.py protocol, %d steps each): synchronised "
@@ -1223,11 +1513,36 @@ def train_phases(record, seeded, parent):
             TRAIN_BENCH, TRAIN_BENCH_ITERS, dt_sync * 1e3, TRAIN_BENCH / dt_sync,
             dt_pipe * 1e3, TRAIN_BENCH / dt_pipe, loss,
             torch.cuda.max_memory_allocated() / 1e9))
+    del ms
     if not np.isfinite(loss):
         die("B=%d training loss is not finite" % TRAIN_BENCH)
-    print_profile(device_breakdown(lambda: bstep(big, gen)),
-                  "training step at B=%d" % TRAIN_BENCH)
-    del bstate, bstep, bmodel, ms
+    log("rows with a non-PAD label, the rows K10 runs, in the B=%d batch's two passes "
+        "(labels_1, labels): %.3f, %.3f" % (TRAIN_BENCH, *(
+            float((big[k] != C.PAD).mean()) for k in ("labels_1", "labels"))))
+    prof = device_breakdown(lambda: bstep(big, bgen))
+    print_profile(prof, "training step at B=%d" % TRAIN_BENCH)
+    if prof is not None:
+        ce_ms = sum(x[0] for k, x in prof[2].items()
+                    if "argmax_kernel<3" in k or "argmax_merge_kernel<3" in k or "ce_bwd_" in k)
+        log("K9 + K10 in the profiled B=%d step: %.3f ms of %.3f ms device busy (share %.3f)"
+            % (TRAIN_BENCH, ce_ms, prof[1], ce_ms / prof[1]))
+    if parent is not None:  # the same protocol on the parent's checkout, in turns
+        parent.load("train_step", {}, seed=0)
+        sides = {"this": [], "parent": []}
+        for _ in range(3):
+            p1, k1, k2, p2 = (parent.time("train_sync"), host_ms(run, TRAIN_BENCH_ITERS),
+                              host_ms(run, TRAIN_BENCH_ITERS), parent.time("train_sync"))
+            sides["this"] += [k1, k2]
+            sides["parent"] += [p1, p2]
+        p_idle, p_peak = parent.time("idle"), parent.time("peak_gb")
+        log("B=%d step in turns with the parent (parent, this, this, parent; 3 rounds of %d "
+            "synchronised steps each): this %s ms (mean %.2f), parent %s ms (mean %.2f); idle "
+            "share this %.3f, parent %.3f; memory one step allocates above what its process "
+            "holds: this %.2f GB, parent %.2f GB"
+            % (TRAIN_BENCH, TRAIN_BENCH_ITERS, [round(x, 2) for x in sides["this"]],
+               np.mean(sides["this"]), [round(x, 2) for x in sides["parent"]],
+               np.mean(sides["parent"]), idle_share(run), p_idle, peak_gb(run), p_peak))
+    del bstep, big
     torch.cuda.empty_cache()
 
     # -- (d) one bf16 step at p = 0 on the card against the CPU plain path --
@@ -1364,9 +1679,10 @@ def main():
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent", help="a checkout of an earlier commit: its K3-K5 kernels, "
-                    "weight-gradient reduction and B=1024 ARB decode are run through its "
-                    "own wrappers in a second process and timed in turns with this tree's")
+    ap.add_argument("--parent", help="a checkout of an earlier commit: its K3-K5, K9 and "
+                    "K10 kernels, weight-gradient reduction, B=1024 ARB decode and B=2048 "
+                    "train step are run through its own wrappers in a second process and "
+                    "timed in turns with this tree's")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
@@ -1781,7 +2097,7 @@ def main():
         entry("train_wgrad", "navc_tpu_torch/csrc/fused_layer_train.cu",
               "navc_tpu/ops/fused_layer_train.py:447,:499 (their weight-gradient "
               "accumulation)", train_recs["train_wgrad"], train_launches),
-        entry("ce_fwd", "navc_tpu_torch/csrc/vocab_ce.cu",
+        entry("ce_fwd", "navc_tpu_torch/csrc/vocab_fused.cu",
               "navc_tpu/ops/vocab_ce.py:118", train_recs["ce_fwd"], train_launches),
         entry("ce_bwd_dh", "navc_tpu_torch/csrc/vocab_ce.cu",
               "navc_tpu/ops/vocab_ce.py:152", train_recs["ce_bwd_dh"], train_launches),

@@ -1,21 +1,25 @@
 // Vocab projection fused with an online softmax: argmax id + max probability
-// (K3), the probability of a given target id (K4) and the top-k log-probs
-// with their ids (K5), without writing the (rows, V) logits to device memory.
+// (K3), the probability of a given target id (K4), the top-k log-probs with
+// their ids (K5) and the training loss's per-row label log-prob, argmax id
+// and log-sum-exp (K9), without writing the (rows, V) logits to device
+// memory.
 //
 // Replaces: navc_tpu/ops/vocab_fused.py fused_project_argmax (pallas_call at
 // :128, body _kernel :36), fused_project_gather_prob (pallas_call at :229,
 // body _gather_kernel :152) and fused_project_topk (pallas_call at :350, body
-// _topk_kernel :246).
+// _topk_kernel :246); navc_tpu/ops/vocab_ce.py vocab_ce_train's forward
+// (pallas_call at :118, body _fwd_kernel :55).
 //
 // What bounds it on the H100: the product h @ W^T. At the main path's dense
 // shape (12288 x 512 x 10048) that is 126 GFLOP against ~23 MB of operands,
 // so the bf16 tensor-core rate bounds it: 0.128 ms at 989 TFLOP/s. W (10 MB)
 // stays in the 50 MB L2; a block of 128 rows reads 128 bytes of W from L2
-// for every 256 bf16 FLOPs. K5's beam step (320 x 512 x 10048) is bounded
+// for every 256 bf16 FLOPs. K9 is the same product at the training step's
+// rows (0.64 ms at B = 2048: 61440 x 512 x 10048). K5's beam step (320 x 512 x 10048) is bounded
 // alike by operations and by bytes (~0.0033 ms): at so few rows what costs
 // is filling the card and the top-k bookkeeping, not the product.
 //
-// One walk serves all three (argmax_kernel<MODE, K, HALF> +
+// One walk serves all four (argmax_kernel<MODE, K, HALF> +
 // argmax_merge_kernel<MODE, K>): a block's two consumer warpgroups take
 // 128 rows of h and one vocab split.
 // - Ring: the h rows are loaded once (resident: ceil(D/64) TMA boxes of
@@ -25,7 +29,7 @@
 //   h takes up to 192 KB); the 128 bias values of each vocab tile come by
 //   TMA into that warpgroup's slot, once per tile. TMA zero-fills the ragged
 //   row edge and the D and vocab edges: W and h need no padded copies.
-// - Loads: K3 / K4 have a producer warpgroup whose first thread loads in
+// - Loads: K3 / K4 / K9 have a producer warpgroup whose first thread loads in
 //   tile order (setmaxnreg moves registers from it to the consumers at run
 //   time). K5 has none: its lists need registers that ptxas does not give
 //   a 384-thread block, whose SM register-file quarters hold three warps
@@ -48,8 +52,9 @@
 //   columns of a tile, adds the staged bias, masks columns >= V by index
 //   (zero is not -inf) on the last tile only, takes each row's tile max and
 //   its first column, then rescales the running sum once and adds exp2 of
-//   every score with log2(e) folded in. No score tile goes through shared
-//   memory. K5 (MODE TOPK) also keeps, per row, a sorted register list of
+//   every score with log2(e) folded in; K4 and K9 keep the target's (the
+//   label's) logit, K9 (MODE CE) the argmax too. No score tile goes through
+//   shared memory. K5 (MODE TOPK) also keeps, per row, a sorted register list of
 //   its K best (value, id) pairs (K a template parameter, 1..8, so the
 //   beam's k = 5 pays for 5 pairs): a score enters only if it beats the
 //   list's last value, and then takes its slot in one pass of compares
@@ -61,10 +66,11 @@
 //   (ops/vocab_fused.py `argmax_splits`) so that every call fills the 132
 //   SMs in whole waves (K5's 320-row beam step: 3 row tiles x 40 splits of
 //   2 tiles, a tile per warpgroup); each block writes a partial (max,
-//   sum-exp, and argmax | target logit | K pairs) per row, and a second
-//   small kernel (a thread per row) folds the splits in order and writes
-//   the argmax and max prob, the target's prob, or the K log-probs
-//   (logit - max) - log(sum-exp) with their ids. No atomics: deterministic.
+//   sum-exp, and argmax | target logit | both | K pairs) per row, and a
+//   second small kernel (a thread per row) folds the splits in order and
+//   writes the argmax and max prob, the target's prob, K9's label log-prob
+//   (logit - max) - log(sum-exp) with the argmax and max + log(sum-exp), or
+//   the K log-probs with their ids. No atomics: deterministic.
 // - Ties: the lowest id wins within a thread (strict '>' in rising column
 //   order), across a warpgroup's tiles (a later tile must be strictly
 //   greater), across lanes and warpgroups (lower id on equal values) and
@@ -79,7 +85,11 @@
 namespace {
 
 constexpr int MAX_K = 8;  // beam sizes 1..8; the wrapper refuses more
-constexpr int ARGMAX = 0, GATHER = 1, TOPK = 2;  // the walk's modes: K3, K4, K5
+constexpr int ARGMAX = 0, GATHER = 1, TOPK = 2, CE = 3;  // the walk's modes: K3, K4, K5, K9
+
+// The modes that keep the argmax id, and those that keep the target logit.
+__host__ __device__ constexpr bool keeps_arg(int mode) { return mode == ARGMAX || mode == CE; }
+__host__ __device__ constexpr bool keeps_target(int mode) { return mode == GATHER || mode == CE; }
 
 // (a, ia) ranks before (b, ib): larger value, then lower id (lax.top_k's order)
 __device__ __forceinline__ bool before(float a, int ia, float b, int ib) {
@@ -252,7 +262,7 @@ __device__ __forceinline__ void fold(float (&acc)[64], const float* b, bool has_
       acc[4 * j + 2 + e] = x1;
       if (x0 > t0) { t0 = x0; i0 = col; }
       if (x1 > t1) { t1 = x1; i1 = col; }
-      if (MODE == GATHER) {
+      if (keeps_target(MODE)) {
         if (col == rel0) r0.g = x0;
         if (col == rel1) r1.g = x1;
       }
@@ -269,9 +279,9 @@ __device__ __forceinline__ void fold(float (&acc)[64], const float* b, bool has_
 // Merges another state of the same row into r; the lower id wins a tie.
 template <int MODE>
 __device__ __forceinline__ void merge_state(RowState& r, float m2, float s2, float g2, int a2) {
-  if (MODE == ARGMAX && (m2 > r.m || (m2 == r.m && a2 < r.arg))) r.arg = a2;
+  if (keeps_arg(MODE) && (m2 > r.m || (m2 == r.m && a2 < r.arg))) r.arg = a2;
   lse_merge(r.m, r.s, m2, s2);
-  if (MODE == GATHER) r.g = fmaxf(r.g, g2);
+  if (keeps_target(MODE)) r.g = fmaxf(r.g, g2);
 }
 
 // Merges the states (and K5's lists) of the 4 lanes that share a row; each
@@ -310,8 +320,8 @@ struct RowHandoff {
 // Grid (row tiles of AM, vocab splits): block (i, j) keeps rows [AM i,
 // AM i + AM) of h in shared memory and walks the vocab tiles of split j,
 // writing each row's partial state to pm, ps and, by MODE, pa (argmax), pg
-// (target logit) or pg / pa (K5's K values / ids, (splits, rows, K)), laid
-// out (splits, rows). Consumer warpgroup w multiplies all AM rows by the
+// (target logit), both (K9) or pg / pa (K5's K values / ids, (splits, rows,
+// K)), laid out (splits, rows). Consumer warpgroup w multiplies all AM rows by the
 // split's tiles w, w + 2, ... and folds their scores, on its half of the
 // ring. K3 / K4 (HALF, the ring half, fixed): a producer warpgroup's first
 // thread loads by TMA in tile order, so warpgroup 1's boxes arrive after
@@ -431,7 +441,7 @@ argmax_kernel(const __grid_constant__ CUtensorMap hmap, const __grid_constant__ 
   // this thread's rows: acc0 holds rows r and r + 8, acc1 rows r + 64 and r + 72
   const int r = ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
   int tg[4] = {-1, -1, -1, -1};
-  if (MODE == GATHER) {
+  if (keeps_target(MODE)) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = row_base + r + (i & 1) * 8 + (i >> 1) * 64;
@@ -542,11 +552,9 @@ argmax_kernel(const __grid_constant__ CUtensorMap hmap, const __grid_constant__ 
       if (row < rows) {
         pm[at + row] = st[i].m;
         ps[at + row] = st[i].s;
-        if (MODE == GATHER) {
-          pg[at + row] = st[i].g;
-        } else if (MODE == ARGMAX) {
-          pa[at + row] = st[i].arg;
-        } else {
+        if (keeps_target(MODE)) pg[at + row] = st[i].g;
+        if (keeps_arg(MODE)) pa[at + row] = st[i].arg;
+        if (MODE == TOPK) {
 #pragma unroll
           for (int j = 0; j < K; ++j) {
             const int id = tl[i].i.get(j);
@@ -559,18 +567,20 @@ argmax_kernel(const __grid_constant__ CUtensorMap hmap, const __grid_constant__ 
   }
 }
 
-// Folds the splits' partial states; no atomics. K3 / K4: a thread per row,
-// splits in order, so the earlier split (the lower id) keeps a tie; writes
-// the argmax id and max prob 1 / sum-exp, or prob = exp(target logit - max)
-// / sum-exp. K5: a warp per row (a row has up to ~80 splits), lane j folding
-// splits j, j + 32, ..., then the lanes by shuffles in a fixed order (pairs
-// rank by value, then the lower id, in any order); writes the K best
-// log-probs (logit - max) - log(sum-exp) with their ids, (rows, K) each.
+// Folds the splits' partial states; no atomics. K3 / K4 / K9: a thread per
+// row, splits in order, so the earlier split (the lower id) keeps a tie;
+// writes the argmax id and max prob 1 / sum-exp, prob = exp(target logit -
+// max) / sum-exp, or (K9) the label log-prob (logit - max) - log(sum-exp)
+// with the argmax id and z = max + log(sum-exp) into out2. K5: a warp per
+// row (a row has up to ~80 splits), lane j folding splits j, j + 32, ...,
+// then the lanes by shuffles in a fixed order (pairs rank by value, then the
+// lower id, in any order); writes the K best log-probs (logit - max) -
+// log(sum-exp) with their ids, (rows, K) each.
 template <int MODE, int K>
 __global__ void argmax_merge_kernel(const float* __restrict__ pm, const float* __restrict__ ps,
                                     const int* __restrict__ pa, const float* __restrict__ pg,
-                                    int* __restrict__ ids, float* __restrict__ out, int rows,
-                                    int splits) {
+                                    int* __restrict__ ids, float* __restrict__ out,
+                                    float* __restrict__ out2, int rows, int splits) {
   if constexpr (MODE == TOPK) {
     const int r = (blockIdx.x * blockDim.x + threadIdx.x) >> 5, lane = threadIdx.x & 31;
     if (r >= rows) return;  // the whole warp: the row is the warp's
@@ -606,16 +616,21 @@ __global__ void argmax_merge_kernel(const float* __restrict__ pm, const float* _
   } else {
     const int r = blockIdx.x * blockDim.x + threadIdx.x;
     if (r >= rows) return;
-    float m = pm[r], s = ps[r], g = MODE == GATHER ? pg[r] : 0.f;
-    int arg = MODE == GATHER ? 0 : pa[r];
+    float m = pm[r], s = ps[r], g = keeps_target(MODE) ? pg[r] : 0.f;
+    int arg = keeps_arg(MODE) ? pa[r] : 0;
     for (int j = 1; j < splits; ++j) {
       const size_t at = (size_t)j * rows + r;
       const float m2 = pm[at];
-      if (MODE == GATHER) g = fmaxf(g, pg[at]);
-      else if (m2 > m) arg = pa[at];
+      if (keeps_target(MODE)) g = fmaxf(g, pg[at]);
+      if (keeps_arg(MODE) && m2 > m) arg = pa[at];
       lse_merge(m, s, m2, ps[at]);
     }
-    if (MODE == GATHER) {
+    if (MODE == CE) {
+      const float lse = logf(s);
+      out[r] = (g - m) - lse;
+      ids[r] = arg;
+      out2[r] = m + lse;
+    } else if (MODE == GATHER) {
       out[r] = expf(g - m) / s;
     } else {
       ids[r] = arg;
@@ -626,8 +641,8 @@ __global__ void argmax_merge_kernel(const float* __restrict__ pm, const float* _
 
 template <int MODE, int K>
 int launch_walk(const void* h, const void* w, const void* bias, const void* targets, void* ids,
-                void* out, void* pm, void* ps, void* pa, void* pg, int rows, int d, int v,
-                int splits, int tiles_per_split, void* stream) {
+                void* out, void* out2, void* pm, void* ps, void* pa, void* pg, int rows, int d,
+                int v, int splits, int tiles_per_split, void* stream) {
   const int tiles = (v + AN - 1) / AN;
   if (rows < 1 || v < 1 || d < 16 || d % 16 || d > 768 || splits < 1 || tiles_per_split < 1 ||
       (splits - 1) * tiles_per_split >= tiles || splits * tiles_per_split < tiles)
@@ -663,8 +678,8 @@ int launch_walk(const void* h, const void* w, const void* bias, const void* targ
   const int merge_threads = MODE == TOPK ? rows * 32 : rows;
   argmax_merge_kernel<MODE, K><<<(merge_threads + 127) / 128, 128, 0, st>>>(
       static_cast<const float*>(pm), static_cast<const float*>(ps), static_cast<const int*>(pa),
-      static_cast<const float*>(pg), static_cast<int*>(ids), static_cast<float*>(out), rows,
-      splits);
+      static_cast<const float*>(pg), static_cast<int*>(ids), static_cast<float*>(out),
+      static_cast<float*>(out2), rows, splits);
   return (int)cudaGetLastError();
 }
 
@@ -683,8 +698,8 @@ NAVC_EXPORT int navc_project_topk(const void* h, const void* w, const void* bias
   if (k < 1 || k > MAX_K || k > v) return (int)cudaErrorInvalidValue;
 #define NAVC_TOPK(K)                                                                          \
   case K:                                                                                      \
-    return launch_walk<TOPK, K>(h, w, bias, nullptr, ids, lp, pm, ps, pi, pv, rows, d, v, splits, \
-                                tiles_per_split, stream);
+    return launch_walk<TOPK, K>(h, w, bias, nullptr, ids, lp, nullptr, pm, ps, pi, pv, rows, d, v, \
+                                splits, tiles_per_split, stream);
   switch (k) {
     NAVC_TOPK(1)
     NAVC_TOPK(2)
@@ -706,8 +721,8 @@ NAVC_EXPORT int navc_project_topk(const void* h, const void* w, const void* bias
 NAVC_EXPORT int navc_project_argmax(const void* h, const void* w, const void* bias, void* ids,
                                     void* maxp, void* pm, void* ps, void* pa, int rows, int d,
                                     int v, int splits, int tiles_per_split, void* stream) {
-  return launch_walk<ARGMAX, 1>(h, w, bias, nullptr, ids, maxp, pm, ps, pa, nullptr, rows, d, v,
-                                splits, tiles_per_split, stream);
+  return launch_walk<ARGMAX, 1>(h, w, bias, nullptr, ids, maxp, nullptr, pm, ps, pa, nullptr, rows,
+                                d, v, splits, tiles_per_split, stream);
 }
 
 // As navc_project_argmax, with targets (rows,) i32 -> prob (rows,) f32;
@@ -716,6 +731,18 @@ NAVC_EXPORT int navc_project_gather_prob(const void* h, const void* w, const voi
                                          const void* targets, void* prob, void* pm, void* ps,
                                          void* pg, int rows, int d, int v, int splits,
                                          int tiles_per_split, void* stream) {
-  return launch_walk<GATHER, 1>(h, w, bias, targets, nullptr, prob, pm, ps, nullptr, pg, rows, d,
-                                v, splits, tiles_per_split, stream);
+  return launch_walk<GATHER, 1>(h, w, bias, targets, nullptr, prob, nullptr, pm, ps, nullptr, pg,
+                                rows, d, v, splits, tiles_per_split, stream);
+}
+
+// K9: as navc_project_argmax and navc_project_gather_prob together, with
+// labels (rows,) i32 in [0, V) -> g (rows,) f32 label log-prob, pred (rows,)
+// i32 first argmax, z (rows,) f32 log-sum-exp; scratch pa (splits x rows) i32
+// and pg (splits x rows) f32 both.
+NAVC_EXPORT int navc_ce_fwd(const void* h, const void* w, const void* bias, const void* labels,
+                            void* g, void* pred, void* z, void* pm, void* ps, void* pa, void* pg,
+                            int rows, int d, int v, int splits, int tiles_per_split,
+                            void* stream) {
+  return launch_walk<CE, 1>(h, w, bias, labels, pred, g, z, pm, ps, pa, pg, rows, d, v, splits,
+                            tiles_per_split, stream);
 }

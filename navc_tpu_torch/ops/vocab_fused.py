@@ -136,7 +136,8 @@ def _stream(t: torch.Tensor):
 def argmax_splits(rows: int, v: int, sms: int,
                   max_per: Optional[int] = None) -> Tuple[int, int]:
     """(splits, tiles per split) of the vocab for ``project_argmax``,
-    ``project_gather_prob`` and ``project_topk`` on a card of ``sms`` SMs:
+    ``project_gather_prob``, ``project_topk`` and ops/vocab_ce.py's
+    ``vocab_ce_fwd`` (K9, the walk's fourth mode) on a card of ``sms`` SMs:
     the grid is row tiles x splits, one block per SM at a time, so a call
     takes ceil(blocks / sms) waves of about (tiles per split + 1) tile times
     each (the 1: loading the block's h rows). Picks the least such cost,

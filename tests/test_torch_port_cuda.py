@@ -16,9 +16,9 @@ float32 sum-order flip of one bf16 rounding propagates through the layer),
 probabilities 1e-4 relative, ids equal where the top-2 logit margin is
 above 1e-3; top-k log-probs and attention outputs 1e-4 absolute (float32
 sums in another order, an online softmax against a one-pass one); the cache
-permute and cache writes exactly; the weight-gradient reduction as the
-training kernels below, exactly on integer operands and bit for bit
-between two calls.
+permute and cache writes exactly; the weight-gradient reduction and the
+vocab cross-entropy backward (K10) as the training kernels below, exactly
+on integer operands and bit for bit between two calls.
 """
 
 import math
@@ -843,7 +843,10 @@ CE_CASES = [  # N, D, V, bias
     (37, 64, 157, False),
     (200, 128, 1000, True),
     (65, 512, 130, True),
-]
+    (1, 512, 10048, True),      # one row: the dh launch's widest vocab split
+    (61440, 512, 10048, True),  # the B = 2048 pass: the dW launch's row split
+] + [  # N not a multiple of 64, every D and V the kernels' tiles meet
+    (333, d, v, (d + v) % 2 == 0) for d in (64, 128, 256, 512) for v in (130, 1001, 10048)]
 
 
 def _ce_inputs(n, d, v, with_bias, g, dev, bias_scale=0.1):
@@ -919,6 +922,162 @@ def test_vocab_ce_masked_rows_and_ties(cuda):
 
 
 @pytest.mark.cuda
+def test_vocab_ce_fwd_ties_inside_one_thread_and_across_splits(cuda):
+    """K9 keeps K3's tie rules on its walk: columns 1, 9, 17 and 121 of a
+    128-column tile fall to one thread of the epilogue, 129 to the next
+    tile; at 3072 rows equal maxima in two vocab splits and twice inside a
+    tile. The lowest id wins, and the label log-prob at it is the max's."""
+    from navc_tpu_torch.ops import vocab_ce as VC
+    from navc_tpu_torch.ops.vocab_fused import argmax_splits, split_ranges
+
+    h = torch.ones(300, 64, dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros(1001, 64, dtype=torch.bfloat16, device=cuda)
+    w[[121, 17, 129, 9, 1]] = 1.0
+    lab = torch.full((300,), 9, dtype=torch.int32, device=cuda)
+    g, pred, z = VC.vocab_ce_fwd(h, w, None, lab)
+    assert pred.tolist() == [1] * 300
+    g_p, _, z_p = VC.vocab_ce_fwd_plain(h, w, None, lab)
+    torch.cuda.synchronize()
+    _close(g, g_p, CE_TOL, "g")
+    _close(z, z_p, CE_TOL, "z")
+
+    r, d, v = 3072, 512, 10048
+    g_ = _gen(8)
+    hid = torch.randn(1, d, generator=g_).expand(r, d).contiguous().to(cuda, torch.bfloat16)
+    w = (torch.randn(v, d, generator=g_) / math.sqrt(d)).to(cuda, torch.bfloat16)
+    ranges = split_ranges(v, *argmax_splits(r, v, torch.cuda.get_device_properties(
+        cuda).multi_processor_count))
+    assert len(ranges) >= 3
+    ties = [ranges[2][0] + 5, ranges[2][0] + 6, ranges[1][1] - 1]
+    w[ties] = (hid[0].float() / hid[0].float().norm() * 40).to(torch.bfloat16)
+    lab = torch.tensor(ties * (r // 3), dtype=torch.int32, device=cuda)
+    g, pred, z = VC.vocab_ce_fwd(hid, w, None, lab)
+    assert pred.tolist() == [ties[2]] * r
+    g_p, _, z_p = VC.vocab_ce_fwd_plain(hid, w, None, lab)
+    torch.cuda.synchronize()
+    _close(g, g_p, CE_TOL, "g (ties)", rms_tol=CE_RMS_TOL)
+    _close(z, z_p, CE_TOL, "z (ties)", rms_tol=CE_RMS_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 512])
+def test_vocab_ce_label_at_the_last_column_of_a_ragged_tile(cuda, d):
+    """Labels V - 1 (the last column of a ragged last vocab tile in every
+    launch's tiling) and 0 (PAD) against the plain versions; the columns
+    past V, which TMA fills with zeros, must not enter the sum-exp or ds."""
+    r, v = 150, 1001
+    h, w, bias, _, dg = _ce_inputs(r, d, v, True, _gen(d + 6), cuda, bias_scale=2.0)
+    lab = torch.full((r,), v - 1, dtype=torch.int32, device=cuda)
+    lab[::3] = 0
+    _check_ce_on(cuda, h, w, bias, lab, dg)
+
+
+def _check_ce_on(cuda, h, w, bias, lab, dg):
+    from navc_tpu_torch.ops import vocab_ce as VC
+
+    g, pred, z = VC.vocab_ce_fwd(h, w, bias, lab)
+    g_p, pred_p, z_p = VC.vocab_ce_fwd_plain(h, w, bias, lab)
+    dh, dw, db = VC.vocab_ce_bwd(h, w, bias, lab, z, dg)
+    dh_p, dw_p, db_p = VC.vocab_ce_bwd_plain(h, w, bias, lab, z_p, dg)
+    torch.cuda.synchronize()
+    _close(g, g_p, CE_TOL, "g", rms_tol=CE_RMS_TOL)
+    _close(z, z_p, CE_TOL, "z", rms_tol=CE_RMS_TOL)
+    ok = _margin_ok_ce(h, w, bias)
+    assert torch.equal(pred[ok], pred_p[ok])
+    for name, a, b in (("dh", dh, dh_p), ("dW", dw, dw_p), ("db", db, db_p)):
+        if b is not None:
+            _close(a, b, TRAIN_TOL, name, rms_tol=TRAIN_RMS_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,live", [(1920, 1), (61440, 70), (333, 333), (200, 65), (333, 0)],
+                         ids=lambda x: str(x))
+def test_vocab_ce_bwd_with_few_or_all_rows_live(cuda, n, live):
+    """K10 runs the rows with dg != 0 only: one live row (every other dh
+    block exits), 70 of 61440 (most of the dW launch's row splits empty:
+    they must add zeros), all rows, a live count one past a 64-row chunk,
+    and none (zero gradients), each against the plain versions."""
+    d, v = 256, 1001
+    h, w, bias, lab, _ = _ce_inputs(n, d, v, True, _gen(n + live), cuda)
+    g = _gen(live)
+    dg = torch.zeros(n)
+    dg[torch.randperm(n, generator=g)[:live]] = torch.rand(live, generator=g) + 0.5
+    _check_ce_on(cuda, h, w, bias, lab, dg.to(cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,live", [(1920, 512, 1184), (61440, 512, 37009), (1, 64, 1),
+                                      (1, 64, 0), (333, 96, 333), (1500, 128, 64)],
+                         ids=lambda x: str(x))
+def test_vocab_ce_live_first_matches_plain(cuda, n, d, live):
+    """K10's compaction kernel against its plain version: the order, the
+    gathered labels, z and dg and the live count exactly; hl's rows up to
+    the end of the last 64-row tile that holds a live row (the rows the
+    launches read) bit for bit; the rest of meta[4] is not written."""
+    from navc_tpu_torch.ops import vocab_ce as VC
+
+    g = _gen(n + d + live)
+    h = torch.randn(n, d, generator=g).to(cuda, torch.bfloat16)
+    lab = torch.randint(0, 10048, (n,), generator=g, dtype=torch.int32).to(cuda)
+    z = torch.randn(n, generator=g).to(cuda)
+    dg = torch.zeros(n)
+    dg[torch.randperm(n, generator=g)[:live]] = torch.randn(live, generator=g)
+    dg = dg.to(cuda)
+    hl, meta = VC.live_first(h, lab, z, dg)
+    hl_p, meta_p = VC.live_first_plain(h, lab, z, dg)
+    torch.cuda.synchronize()
+    assert torch.equal(meta[:4], meta_p[:4]) and int(meta[4, 0]) == int(meta_p[4, 0])
+    read = min(n, -(-int(meta_p[4, 0]) // VC.CE_TILE) * VC.CE_TILE)
+    assert torch.equal(hl[:read], hl_p[:read])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(1920, 512, 10048), (61440, 512, 10048), (1, 512, 10048),
+                                  (333, 96, 1001)], ids=lambda c: "x".join(map(str, c)))
+def test_vocab_ce_bwd_repeats_bitwise(cuda, case):
+    """No atomics: two calls on the same operands give the same bits (at
+    N = 1920 the dh vocab split and the dW row split both run)."""
+    from navc_tpu_torch.ops import vocab_ce as VC
+
+    n, d, v = case
+    h, w, bias, lab, dg = _ce_inputs(n, d, v, True, _gen(n + 1), cuda)
+    z = VC.vocab_ce_fwd(h, w, bias, lab)[2]
+    one = VC.vocab_ce_bwd(h, w, bias, lab, z, dg)
+    two = VC.vocab_ce_bwd(h, w, bias, lab, z, dg)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dh", "dW", "db"), one, two):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(1920, 512, 10048), (333, 128, 1001), (70, 64, 130),
+                                  (200, 320, 1001)], ids=lambda c: "x".join(map(str, c)))
+def test_vocab_ce_bwd_is_exact_on_small_integers(cuda, case):
+    """z = +inf makes ds = dg * onehot(label) exactly, and integer h, W and
+    dg make every product and sum exact in float32: dh must be dg times the
+    label's row of W and dW, db the sums over each label's rows, bit for
+    bit. This holds the ds tile's swizzled layout (the label's column must
+    meet its W row in the K-major product), and the MN-major operands of
+    both products (W read as dh's B, ds and h as dW's A and B)."""
+    from navc_tpu_torch.ops import vocab_ce as VC
+
+    n, d, v = case
+    g = _gen(n + d + 64)
+    h = torch.randint(-2, 3, (n, d), generator=g).to(cuda, torch.bfloat16)
+    w = torch.randint(-2, 3, (v, d), generator=g).to(cuda, torch.bfloat16)
+    bias = torch.randn(v, generator=g).to(cuda)
+    lab = torch.randint(0, v, (n,), generator=g, dtype=torch.int32).to(cuda)
+    dg = torch.randint(-2, 3, (n,), generator=g).to(cuda, torch.float32)
+    z = torch.full((n,), math.inf, device=cuda)
+    dh, dw, db = VC.vocab_ce_bwd(h, w, bias, lab, z, dg)
+    dh_p, dw_p, db_p = VC.vocab_ce_bwd_plain(h, w, bias, lab, z, dg)
+    torch.cuda.synchronize()
+    assert torch.equal(dh, dh_p)
+    assert torch.equal(dw, dw_p)
+    assert torch.equal(db, db_p)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("tied", [False, True], ids=["untied", "tied"])
 def test_vocab_ce_autograd_on_the_card(cuda, tied):
     """The autograd Function on CUDA tensors (float32 parameters, bf16
@@ -961,6 +1120,29 @@ def test_vocab_ce_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     z = VC.vocab_ce_fwd(h, w, bias, lab)[2]
     with pytest.raises(ValueError, match="z and dg"):
         VC.vocab_ce_bwd(h, w, bias, lab, z, dg[:4])
+    flat = torch.zeros(8 * 64 + 4, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        VC.vocab_ce_fwd(flat[4:].view(8, 64), w, bias, lab)
+    with pytest.raises(ValueError, match="16-byte"):
+        VC.vocab_ce_bwd(flat[4:].view(8, 64), w, bias, lab, z, dg)
+
+
+@pytest.mark.cuda
+def test_vocab_ce_train_copies_a_misaligned_view(cuda):
+    """The autograd Function hands the kernels aligned operands: a hidden
+    state that is a view 2 elements into its storage is copied, not
+    refused."""
+    from navc_tpu_torch.ops import vocab_ce as VC
+
+    h, w, bias, lab, dg = _ce_inputs(20, 64, 300, True, _gen(12), cuda)
+    store = torch.zeros(20 * 64 + 2, dtype=torch.bfloat16, device=cuda)
+    store[2:] = h.reshape(-1)
+    hv = store[2:].view(20, 64)
+    assert hv.data_ptr() % 16
+    g, _ = VC.vocab_ce_train(hv, w.float(), bias, lab)
+    want, _, _ = VC.vocab_ce_fwd_plain(h, w, bias, lab)
+    torch.cuda.synchronize()
+    _close(g, want, CE_TOL, "g", rms_tol=CE_RMS_TOL)
 
 
 @pytest.mark.cuda

@@ -185,3 +185,104 @@ def test_plain_matches_navc_tpu_bf16(case, jax_bf16_refs):
             scale = float(np.abs(ref).max())
             np.testing.assert_allclose(a, ref, atol=BF16_SCALED * scale, rtol=0,
                                        err_msg=name)
+
+
+# -- K10's split planners (ops/vocab_ce.py), checked on their outputs -------
+
+PLAN_ROWS = (1, 37, 333, 1920, 61440)  # one row, ragged tiles, B=64 and B=2048 passes
+
+
+def _runs(units, splits, per):
+    """The [begin, end) units of each split, as the kernels cut them."""
+    return [(j * per, min(units, (j + 1) * per)) for j in range(splits)]
+
+
+def _check_partition(units, splits, per):
+    runs = _runs(units, splits, per)
+    assert runs[0][0] == 0 and runs[-1][1] == units
+    assert all(b < e for b, e in runs)  # no split is empty
+    assert all(a[1] == b[0] for a, b in zip(runs, runs[1:]))
+
+
+def _fill(blocks, sms=132):
+    """The share of the SM slots of the call's waves that hold a block."""
+    return blocks / (-(-blocks // sms) * sms)
+
+
+@pytest.mark.parametrize("v", [130, 1001, 10048])
+@pytest.mark.parametrize("rows", PLAN_ROWS)
+def test_dh_plan_covers_every_row_and_vocab_pair_once(rows, v):
+    """ce_bwd_dh's grid is row tiles x vocab splits: the splits cut the
+    vocab tiles into contiguous runs, none empty, so that every (row, vocab)
+    pair falls to exactly one block."""
+    from navc_tpu_torch.ops.vocab_ce import CE_TILE, CE_TILE_V, dh_plan
+
+    splits, per = dh_plan(rows, v, 512, 132)
+    tiles = -(-v // CE_TILE_V)
+    _check_partition(tiles, splits, per)
+    if rows * v <= 333 * 10048:
+        hits = np.zeros((rows, v), np.int32)
+        for i in range(-(-rows // CE_TILE)):
+            for b, e in _runs(tiles, splits, per):
+                hits[i * CE_TILE:(i + 1) * CE_TILE, b * CE_TILE_V:e * CE_TILE_V] += 1
+        assert (hits == 1).all()
+
+
+@pytest.mark.parametrize("v", [130, 1001, 10048])
+@pytest.mark.parametrize("rows", PLAN_ROWS)
+def test_dw_plan_covers_every_row_and_vocab_pair_once(rows, v):
+    """ce_bwd_dw's grid is vocab tiles x row splits: the planned number of
+    splits cuts the rows' 64-row chunks into runs of equal length, none
+    empty when every row runs, so that every (row, vocab) pair falls to
+    exactly one block. (The kernel's cut of fewer live rows is held on the
+    card by the cuda cases with few and with all rows live.)"""
+    from navc_tpu_torch.ops.vocab_ce import CE_TILE, dw_plan
+
+    splits = dw_plan(rows, v, 512, 132)
+    chunks = -(-rows // CE_TILE)
+    assert isinstance(splits, int) and 1 <= splits <= chunks
+    _check_partition(chunks, splits, -(-chunks // splits))
+
+
+@pytest.mark.parametrize("rows", [1920, 61440])
+def test_split_plans_fill_whole_waves(rows):
+    """At the training step's shapes (D 512, V 10048) on 132 SMs: the dh
+    launch's 30 row tiles at B=64 take a vocab split (4 x 30 = 120 blocks,
+    one wave), its 960 at B=2048 none; the dW launch's 157 vocab tiles at
+    B=2048 take 5 row splits (785 blocks in 6 waves of 792 slots), where
+    one split would leave a second wave of 25 blocks. At B=64 the dW
+    launch takes one split (157 blocks in 2 waves): a second split's partial
+    dW (20.6 MB written, read and summed) costs more than the half-empty
+    wave (chip_smoke.py times both; PERF.md)."""
+    from navc_tpu_torch.ops.vocab_ce import CE_TILE, dh_plan, dw_plan
+
+    v, d = 10048, 512
+    splits, _ = dh_plan(rows, v, d, 132)
+    assert _fill(-(-rows // CE_TILE) * splits) >= 0.9
+    splits = dw_plan(rows, v, d, 132)
+    if rows == 61440:
+        assert _fill(-(-v // CE_TILE) * splits) >= 0.9
+    else:
+        assert splits == 1
+
+
+def test_live_first_puts_the_rows_with_a_gradient_first_in_order():
+    """K10 runs the rows whose dg is not 0, moved to the front in their
+    order (the others after them, in theirs), with their labels, z and dg;
+    ``meta`` maps each moved row back and holds their count."""
+    from navc_tpu_torch.ops.vocab_ce import live_first
+
+    rng = np.random.RandomState(4)
+    h = torch.from_numpy(rng.randn(9, 4).astype(np.float32))
+    lab = torch.arange(9, dtype=torch.int32) * 3
+    z = torch.from_numpy(rng.randn(9).astype(np.float32))
+    dg = torch.tensor([0.0, 1.5, 0.0, -2.0, 3.0, 0.0, 0.0, 0.5, 0.0])
+    hl, meta = live_first(h, lab, z, dg)
+    order = [1, 3, 4, 7, 0, 2, 5, 6, 8]
+    assert meta.dtype == torch.int32 and tuple(meta.shape) == (5, 9)
+    assert meta[0].tolist() == order and int(meta[4, 0]) == 4
+    assert torch.equal(hl, h[order]) and torch.equal(meta[1], lab[order])
+    assert torch.equal(meta[2].view(torch.float32), z[order])
+    gl = meta[3].view(torch.float32)
+    assert torch.equal(gl, dg[order])
+    assert not gl[4:].any() and gl[:4].all()
