@@ -29,10 +29,11 @@ StreamingCaptioner; decodes at B=1024 under bench.py's protocol (with
 (K5's share of the device time); one request profiled; 16 videos decoded
 again on the CPU. Training: K11, K12a, K12b and the weight-gradient
 reduction held against their plain versions at full width (B=64, dropout
-0.5) and timed, and again at B=2048 (the reduction checked against its
-plain version there too, both sizes bit for bit the same in two calls, and
-timed beside torch.matmul of the same operands and the parent's
-reduction); the fused projection + cross-entropy K9 and K10 (both
+0.5) and timed, and again at B=2048 (K12a, K12b and the reduction
+checked against their plain versions there too and bit for bit the same in
+two calls; K12a/K12b timed beside bf16 torch.matmul of the products they
+compute on the same operands, `matmul_ms`, and the parent's K12a/K12b in
+turns; the reduction beside torch.matmul and the parent's reduction); the fused projection + cross-entropy K9 and K10 (both
 launches) held against their plain versions at the B=64 NACF pass, untied,
 tied and with a large bias, with K9's ties inside one thread and across
 vocab splits and labels at V - 1, K10 bit for bit the same in two calls at
@@ -181,6 +182,14 @@ def worker_case(kind, ops, args):
 
         calls = [[Product(**pr) for pr in call] for call in ops["calls"]]
         return lambda: {k: v for call in calls for k, v in weight_grads(call).items()}
+    if kind in ("ffn_bwd", "attn_bwd"):
+        from navc_tpu_torch.ops import fused_layer_train as FT
+
+        if kind == "ffn_bwd":
+            return lambda: dict(out=FT.ffn_bwd_operands(ops["r2"], ops["dy"], ops["kp"], ops["w"],
+                                                        args["seed"], p=args["kw"]["p"])[0])
+        return lambda: dict(out=FT.attn_bwd_operands(ops["x"], ops["enc"], ops["dr2"], ops["kp"],
+                                                     ops["w"], args["seed"], **args["kw"])[0])
     if kind == "arb_decode":
         from navc_tpu_torch.config import default_config
         from navc_tpu_torch.models import build_model
@@ -1201,6 +1210,69 @@ def ce_checks(cfg, model, g, record, parent):
     }
 
 
+def bwd_checks(got, want):
+    """{kernel: [(tensor, scaled_err stats)]} of K12a and K12b: ``got`` and
+    ``want`` are (dr2, FFN Products, dx, denc, attention Products) of the
+    kernels and of their plain versions."""
+    dr2, fprods, dx, denc, aprods = got
+    dr2_p, fprods_p, dx_p, denc_p, aprods_p = want
+    return {
+        "train_ffn_bwd": [("dr2", scaled_err(dr2, dr2_p))] + [
+            ("%s %s" % (a.w, f), scaled_err(getattr(a, f), getattr(b, f)))
+            for a, b in zip(fprods, fprods_p) for f in ("P", "Q", "part")],
+        "train_attn_bwd": [("dx", scaled_err(dx, dx_p)), ("denc", scaled_err(denc, denc_p))] + [
+            ("%s %s" % (a.w, f), scaled_err(getattr(a, f), getattr(b, f)))
+            for a, b in zip(aprods, aprods_p) for f in ("P", "Q")] + [
+            ("%s part" % a.w, scaled_err(a.part, b.part)) for a, b in zip(aprods, aprods_p)
+            if a.b not in ("bk_s", "bk_c")] + [
+            # a key bias's gradient is zero in exact arithmetic, both sides
+            # rounding noise: its largest error held to the query bias's
+            # scale, its rms not checked
+            ("%s part" % a.w,
+             scaled_err(a.part, b.part, aprods_p[0 if a.b == "bk_s" else 4].part)[:2]
+             + (None, None)) for a, b in zip(aprods, aprods_p) if a.b in ("bk_s", "bk_c")],
+    }
+
+
+def hold(checks, where, errs, rms_ratio):
+    """Fail unless every check of ``checks`` (bwd_checks' form) is within
+    TRAIN_TOL / TRAIN_RMS_TOL (the reduction's: WGRAD_TOL / WGRAD_RMS_TOL);
+    keep each kernel's largest error in errs and worst rms ratio in
+    rms_ratio."""
+    for name, stats in checks.items():
+        tol, rms_tol = ((WGRAD_TOL, WGRAD_RMS_TOL) if name == "train_wgrad"
+                        else (TRAIN_TOL, TRAIN_RMS_TOL))
+        for what, (err, scale, rms_err, rms) in stats:
+            if not err <= tol * scale:
+                die("%s (%s) %s disagrees with its plain version: max err %.3e > "
+                    "%.1e x %.3e" % (name, where, what, err, tol, scale))
+            if rms is not None and not rms_err <= rms_tol * rms:
+                die("%s (%s) %s disagrees with its plain version: rms err %.3e > "
+                    "%.1e x %.3e" % (name, where, what, rms_err, rms_tol, rms))
+            errs[name] = max(errs.get(name, 0.0), err)
+            if rms is not None and rms_err / rms > rms_ratio.get(name, (0.0, ""))[0]:
+                rms_ratio[name] = (rms_err / rms, what)
+
+
+def bwd_matmuls(fprods, aprods, w):
+    """The products K12a and K12b compute, as bf16 torch.matmul calls on the
+    same operand rows and weights: (K12a's, K12b's), each a callable."""
+    import torch
+
+    wi, wo2 = w["wi"], w["wo2"]
+    xs, c1, r1, enc = aprods[0].Q, aprods[3].Q, aprods[4].Q, aprods[5].Q
+    dq1, dk1, dv1, do1, dq2, dk2, dv2, do2 = (pr.P for pr in aprods)
+    m = {k: w[k] for k in ("wq_s", "wk_s", "wv_s", "wo_s", "wq_c", "wk_c", "wv_c", "wo_c")}
+    ffn = [(fprods[0].Q, wi.t()), (fprods[1].P, wo2), (fprods[0].P, wi)]
+    attn = ([(xs, m[k].t()) for k in ("wq_s", "wk_s", "wv_s")]
+            + [(c1, m["wo_s"].t()), (r1, m["wq_c"].t()), (enc, m["wk_c"].t()),
+               (enc, m["wv_c"].t()), (do2, m["wo_c"]), (dq2, m["wq_c"]), (dk2, m["wk_c"]),
+               (dv2, m["wv_c"]), (do1, m["wo_s"]), (dq1, m["wq_s"]), (dk1, m["wk_s"]),
+               (dv1, m["wv_s"])])
+    return (lambda: [torch.matmul(a, b) for a, b in ffn],
+            lambda: [torch.matmul(a, b) for a, b in attn])
+
+
 def train_phases(record, seeded, parent):
     """K11, K12a, K12b and the weight-gradient reduction against their plain
     versions at full width and timed at B=64 and B=2048 (the reduction beside
@@ -1255,38 +1327,13 @@ def train_phases(record, seeded, parent):
         grads.update(FT.weight_grads(aprods))
         want = FT.weight_grads_plain(prods)
         torch.cuda.synchronize()
-        checks = {  # kernel: [(tensor, stats)]
+        checks = bwd_checks((dr2, fprods, dx, denc, aprods),
+                            (dr2_p, fprods_p, dx_p, denc_p, aprods_p))
+        checks.update({  # kernel: [(tensor, stats)]
             "train_fwd": [("out", scaled_err(out, out_p)), ("r2", scaled_err(r2, r2_p))],
-            "train_ffn_bwd": [("dr2", scaled_err(dr2, dr2_p))] + [
-                ("%s %s" % (a.w, f), scaled_err(getattr(a, f), getattr(b, f)))
-                for a, b in zip(fprods, fprods_p) for f in ("P", "Q", "part")],
-            "train_attn_bwd": [("dx", scaled_err(dx, dx_p)), ("denc", scaled_err(denc, denc_p))] + [
-                ("%s %s" % (a.w, f), scaled_err(getattr(a, f), getattr(b, f)))
-                for a, b in zip(aprods, aprods_p) for f in ("P", "Q")] + [
-                ("%s part" % a.w, scaled_err(a.part, b.part)) for a, b in zip(aprods, aprods_p)
-                if a.b not in ("bk_s", "bk_c")] + [
-                # a key bias's gradient is zero in exact arithmetic, both sides
-                # rounding noise: its largest error held to the query bias's
-                # scale, its rms not checked
-                ("%s part" % a.w,
-                 scaled_err(a.part, b.part, aprods_p[0 if a.b == "bk_s" else 4].part)[:2]
-                 + (None, None)) for a, b in zip(aprods, aprods_p) if a.b in ("bk_s", "bk_c")],
             "train_wgrad": [(k, scaled_err(grads[k], want[k])) for k in FT.WEIGHT_KEYS],
-        }
-        for name, stats in checks.items():
-            tol, rms_tol = ((WGRAD_TOL, WGRAD_RMS_TOL) if name == "train_wgrad"
-                            else (TRAIN_TOL, TRAIN_RMS_TOL))
-            where = "%s (%s)" % (name, "causal" if causal else "nar")
-            for what, (err, scale, rms_err, rms) in stats:
-                if not err <= tol * scale:
-                    die("%s %s disagrees with its plain version: max err %.3e > "
-                        "%.1e x %.3e" % (where, what, err, tol, scale))
-                if rms is not None and not rms_err <= rms_tol * rms:
-                    die("%s %s disagrees with its plain version: rms err %.3e > "
-                        "%.1e x %.3e" % (where, what, rms_err, rms_tol, rms))
-                errs[name] = max(errs[name], err)
-                if rms is not None and rms_err / rms > rms_ratio[name][0]:
-                    rms_ratio[name] = (rms_err / rms, what)
+        })
+        hold(checks, "causal" if causal else "nar", errs, rms_ratio)
     log("training kernels agree with their plain versions at B=%d, L 30 NAR / 29 "
         "causal, Te %d, p = p_input = 0.5 (largest error within %.0e, reduction "
         "%.0e, of each tensor's largest |value|; rms error within %.0e, reduction "
@@ -1373,6 +1420,33 @@ def train_phases(record, seeded, parent):
         recs[name] = record(name, errs[name], None, device_ms(run), cuda_ms(plain, iters=3),
                             *cost[name], note=note % (TRAIN_TOL, TRAIN_RMS_TOL)
                             + "; library_ms null: no one PyTorch call)")
+    # K12a / K12b's products as bf16 torch.matmul on the same operands: how far
+    # the row walk is from cuBLAS (not the library column: no one call computes them)
+    for name, mm in zip(("train_ffn_bwd", "train_attn_bwd"), bwd_matmuls(fprods, aprods, w)):
+        recs[name]["matmul_ms"] = device_ms(mm)
+    del mm
+    # the wrappers' host cost, which the host-bound B=64 step pays: us per call
+    # queued while a device-side sleep holds the card, in turns with the parent's
+    for name, kind, ops, run in (
+            ("train_ffn_bwd", "ffn_bwd", dict(r2=r2, dy=dy, kp=kp, w=w),
+             lambda: FT.ffn_bwd_operands(r2, dy, kp, w, seed, p=0.5)),
+            ("train_attn_bwd", "attn_bwd", dict(x=x, enc=enc, dr2=dr2, kp=kp, w=w),
+             lambda: FT.attn_bwd_operands(x, enc, dr2, kp, w, seed, **kw))):
+        if parent is None:
+            recs[name]["host_us"] = host_us(run)
+            continue
+        parent.load(kind, ops, seed=seed, kw=kw)
+        p1, k1, k2, p2 = (parent.time("host_us"), host_us(run), host_us(run),
+                          parent.time("host_us"))
+        recs[name].update(host_us=(k1 + k2) / 2, parent_host_us=(p1 + p2) / 2)
+    del run
+    log("K12a / K12b wrappers' host cost at B=%d (us per call, the card held by a sleep%s): "
+        "%s" % (TRAIN_B, ", in turns with the parent" if parent else "",
+                {k: {f: round(recs[k][f], 1) for f in ("host_us", "parent_host_us")
+                     if f in recs[k]} for k in ("train_ffn_bwd", "train_attn_bwd")}))
+    log("K12a / K12b at B=%d: matmul_ms %.4f / %.4f (bf16 torch.matmul of their products "
+        "on the same operands)" % (TRAIN_B, recs["train_ffn_bwd"]["matmul_ms"],
+                                   recs["train_attn_bwd"]["matmul_ms"]))
     tw = wgrad_times(fprods, aprods, "device")
     recs["train_wgrad"] = record(
         "train_wgrad", errs["train_wgrad"], None, tw["ms"],
@@ -1401,7 +1475,23 @@ def train_phases(record, seeded, parent):
     ffn2 = lambda: FT.ffn_bwd_operands(r2b, dy2, kp2, w, seed, p=0.5)  # noqa: E731
     dr2b, fprods2 = ffn2()
     attn2 = lambda: FT.attn_bwd_operands(x2, enc2, dr2b, kp2, w, seed, **kw2)  # noqa: E731
-    _, _, aprods2 = attn2()
+    dx2, denc2, aprods2 = attn2()
+    # K12a and K12b against their plain versions, and bit for bit in two calls
+    errs2, ratio2 = {}, {}
+    hold(bwd_checks((dr2b, fprods2, dx2, denc2, aprods2),
+                    (*FT.ffn_bwd_operands_plain(r2b, dy2, kp2, w, seed, p=0.5),
+                     *FT.attn_bwd_operands_plain(x2, enc2, dr2b, kp2, w, seed, **kw2))),
+         "B=%d" % n2, errs2, ratio2)
+
+    def outputs(dr2, fp, dx, denc, ap):
+        return [dr2, dx, denc] + [t for pr in fp + ap for t in (pr.P, pr.Q, pr.part)]
+
+    again = outputs(*ffn2(), *attn2())
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(
+            outputs(dr2b, fprods2, dx2, denc2, aprods2), again)):
+        die("K12a/K12b at B=%d: two calls on the same inputs gave different bits" % n2)
+    del again
     prods2 = fprods2 + aprods2
     got2 = FT.weight_grads(fprods2)
     got2.update(FT.weight_grads(aprods2))
@@ -1414,26 +1504,57 @@ def train_phases(record, seeded, parent):
                 "(scale %.3e), rms err %.3e (rms %.3e)" % (k, n2, err, scale, rms_err, rms))
     del got2, want2
     cost2 = costs(kp2, prods2)
-    t2 = {name: dict(ms=cuda_ms(run, iters=3)) for name, run in (
-        ("train_fwd", fwd2), ("train_ffn_bwd", ffn2), ("train_attn_bwd", attn2))}
+    t2 = {"train_fwd": dict(ms=cuda_ms(fwd2, iters=3))}
+    # K12a / K12b: beside bf16 torch.matmul of the products they compute, on
+    # the same operands (no one PyTorch call computes either), and given
+    # --parent, the parent's kernels through its own wrappers, in turns
+    mm_ffn, mm_attn = bwd_matmuls(fprods2, aprods2, w)
+    for name, run, mm, kind, ops, mine in (
+            ("train_ffn_bwd", ffn2, mm_ffn, "ffn_bwd",
+             dict(r2=r2b, dy=dy2, kp=kp2, w=w), dr2b),
+            ("train_attn_bwd", attn2, mm_attn, "attn_bwd",
+             dict(x=x2, enc=enc2, dr2=dr2b, kp=kp2, w=w), dx2)):
+        t = dict(matmul_ms=TIMERS["cuda5"](mm))
+        if parent is None:
+            t["ms"] = TIMERS["cuda5"](run)
+        else:
+            theirs = parent.load(kind, ops, seed=seed, kw=kw2)["out"]
+            err, scale, rms_err, rms = scaled_err(mine, theirs)
+            if not (err <= TRAIN_TOL * scale and rms_err <= TRAIN_RMS_TOL * rms):
+                die("%s at B=%d disagrees with the parent's kernel" % (name, n2))
+            del theirs
+            p1, k1, k2, p2 = (parent.time("cuda5"), TIMERS["cuda5"](run),
+                              TIMERS["cuda5"](run), parent.time("cuda5"))
+            t.update(ms=(k1 + k2) / 2, parent_ms=(p1 + p2) / 2)
+        t2[name] = t
+    del mm_ffn, mm_attn, run, mm, ops, mine  # they hold the operands
     t2["train_wgrad"] = wgrad_times(fprods2, aprods2, "cuda5")
     for name, t in t2.items():
         t["bound_ms"], t["bound_by"] = bound(*cost2[name])
         recs[name]["by_batch"] = {str(n2): t}
+
+    def parent_of(name):
+        return "%.4f ms" % t2[name]["parent_ms"] if "parent_ms" in t2[name] else "not run"
+
     log("training kernels at B=%d (L %d NAR, %d real rows, p = 0.5): K11 %.4f ms, K12a %.4f "
-        "ms, K12b %.4f ms (bounds %.4f / %.4f / %.4f, by %s); reduction %.4f ms for both "
-        "launches of one backward (bound %.4f by %s, torch.matmul %.4f, parent %s); the "
-        "reduction agrees with its plain version (%.0e / %.0e) and repeats bit for bit" % (
+        "ms, K12b %.4f ms (bounds %.4f / %.4f / %.4f, by %s; K12a / K12b: matmul_ms, bf16 "
+        "torch.matmul of their products on the same operands, %.4f / %.4f; parent %s / %s); "
+        "K12a and K12b agree with their plain versions (%.0e / %.0e; worst rms ratios %s) "
+        "and repeat bit for bit; reduction %.4f ms for both launches of one backward (bound "
+        "%.4f by %s, torch.matmul %.4f, parent %s); the reduction agrees with its plain "
+        "version (%.0e / %.0e) and repeats bit for bit" % (
             n2, l2, int((~kp2).sum()), t2["train_fwd"]["ms"], t2["train_ffn_bwd"]["ms"],
             t2["train_attn_bwd"]["ms"], t2["train_fwd"]["bound_ms"],
             t2["train_ffn_bwd"]["bound_ms"], t2["train_attn_bwd"]["bound_ms"],
             " / ".join(t2[k]["bound_by"] for k in ("train_fwd", "train_ffn_bwd",
                                                   "train_attn_bwd")),
+            t2["train_ffn_bwd"]["matmul_ms"], t2["train_attn_bwd"]["matmul_ms"],
+            parent_of("train_ffn_bwd"), parent_of("train_attn_bwd"), TRAIN_TOL,
+            TRAIN_RMS_TOL, {k: "%.3g (%s)" % v for k, v in ratio2.items()},
             t2["train_wgrad"]["ms"], t2["train_wgrad"]["bound_ms"],
             t2["train_wgrad"]["bound_by"], t2["train_wgrad"]["library_ms"],
-            "%.4f ms" % t2["train_wgrad"]["parent_ms"] if "parent_ms" in t2["train_wgrad"]
-            else "not run", WGRAD_TOL, WGRAD_RMS_TOL))
-    del x2, enc2, dy2, r2b, dr2b, fprods2, aprods2, prods2
+            parent_of("train_wgrad"), WGRAD_TOL, WGRAD_RMS_TOL))
+    del x2, enc2, dy2, r2b, dr2b, dx2, denc2, fprods2, aprods2, prods2
     torch.cuda.empty_cache()
 
     recs.update(ce_checks(cfg, model, g, record, parent))

@@ -12,29 +12,36 @@
 // round_up(L, 8) + j of tile s / 8 — so forward and backward, and the
 // port's plain versions, see the same masks bit for bit.
 //
-// What bounds them on the H100: per sequence of L = 30 rows at H = 512,
-// FFN 2048, the forward does ~0.3 GFLOP of matmuls against ~8 MB of bf16
-// weights (in L2) and the backward twice that with the recompute. These
-// per-sequence kernels are bound by the tensor cores at B = 64 and reach a
-// few percent of that: they stream weight fragments from L2 for 32 rows per
-// block, as K1.
+// What bounds them on the H100: the products. Per sequence of L = 30 rows
+// at H = 512, FFN 2048, the forward does ~0.3 GFLOP of matmuls against ~8
+// MB of bf16 weights (in L2) and the backward twice that with the
+// recompute: at B = 2048 K12a ~0.41 TFLOP and K12b ~0.53 over every padded
+// row, 0.4-0.5 ms at the bf16 tensor-core rate.
 //
 // Design: K11 is K1's one-block-per-sequence layer (csrc/fused_layer.cu;
 // the shared-memory layout, row GEMM, per-head softmax and FFN are
 // layer_common.cuh's, shared by both, and so is K11's own forward,
-// self_cross_fwd and layer_fwd, which K1u runs at p = 0) with the self and cross K/V
-// projected in the kernel from the
-// post-embedding rows and enc, dropout in the epilogues, and r2 written out
-// (bf16, rows padded to a multiple of 16). K12b runs the same device
-// function (self_cross_fwd) to recompute the forward, so its probabilities
-// and contexts are K11's bit for bit; it saves Q/K/V of both attentions to a
-// per-sequence global scratch (L2-resident) and then walks the backward
-// with one warp per head. The TPU kernels accumulate the 20 weight
-// gradients across their sequential grid; CUDA blocks run in parallel, so
-// K12a/K12b write each product's per-row operands (bf16, zero rows past L)
-// and per-sequence float32 column sums of each bias operand, and
-// train_wgrad_kernel (below) forms every dW = P^T Q over all rows and every
-// bias gradient: deterministic, no atomics.
+// self_cross_fwd and layer_fwd, which K1u runs at p = 0) with the self and
+// cross K/V projected in the kernel from the post-embedding rows and enc,
+// dropout in the epilogues, and r2 written out (bf16, rows padded to a
+// multiple of 16). One sequence per block streams every weight fragment
+// from L2 for its 32 rows, so it reaches a few percent of the tensor-core
+// rate. K12a and K12b instead multiply all N * Lp rows at once on the row
+// walk (row_gemm.cuh: TMA, an mbarrier ring, wgmma; each weight tile feeds
+// 64 rows), as a sequence of launches from one C entry: an elementwise
+// pass; the products, whose epilogues add the biases, apply gelu and its
+// derivative, the residuals times npm and the hash dropout of each site on
+// the JAX lattice (flat row r is position r % Lp of sequence r / Lp), and
+// sum each sequence's bias columns; and, for K12b, the per-(sequence,
+// head) attention, forward (K11's `attend`, bit for bit its probabilities
+// and contexts) and backward (one warp per head). K12b recomputes only the
+// forward its backward reads: Q/K/V of both attentions (to a global
+// scratch), the contexts and r1, not the cross-attention output. The TPU
+// kernels accumulate the 20 weight gradients across their sequential grid;
+// CUDA blocks run in parallel, so K12a/K12b write each product's per-row
+// operands (bf16, zero rows past L) and per-sequence float32 column sums of
+// each bias operand, and train_wgrad_kernel (below) forms every dW = P^T Q
+// over all rows and every bias gradient: deterministic, no atomics.
 //
 // The reduction, train_wgrad_kernel: replaces the accumulation of the
 // weight and bias gradients across the grid in
@@ -58,8 +65,10 @@
 // summed in a fixed order per tile; the bias gradients are further blocks,
 // a thread per column summing the sequences in order.
 
-#include "hopper.cuh"
+#include <initializer_list>
+
 #include "layer_common.cuh"
+#include "row_gemm.cuh"
 
 // Mirrored by _ProductArgs / _WgradArgs; the blocks are planned by
 // ops/fused_layer_train.py wgrad_plan.
@@ -99,127 +108,7 @@ __global__ void __launch_bounds__(NT, 1) train_fwd_kernel(const TrainArgs a) {
   layer_fwd(a, smem, kmask, npm);
 }
 
-// K12a: the FFN backward for one sequence. dt = drop_final(dy * npm),
-// dd = drop_down(dt); per FFN chunk: a = r2 Wi^T + bi (recomputed), g =
-// gelu(a), da = (dd Wo2) * gelu'(a); dr2 = dt + da Wi accumulates in
-// registers. Writes g, da, dd as operand rows and their bias column sums.
-__host__ __device__ inline size_t ffn_smem(int H) {
-  return 2 * tile_bytes(H) + (size_t)MR * FFN_CH * sizeof(float) +
-         ((size_t)MR * (FFN_CH + 8) * sizeof(bf16) + 127) / 128 * 128 +
-         (size_t)NW * 256 * sizeof(float);
-}
-
-__global__ void __launch_bounds__(NT, 1) train_ffn_bwd_kernel(const TrainArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ float kmask[MR], npm[MR];
-  const int n = blockIdx.x, H = a.H, L = a.L, I = a.I;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  init_masks(a, n, kmask, npm);
-  const Drop dr = make_drop(a, n);
-  const int ldb = H + 8, ldd = FFN_CH + 8, mt = (L + 15) / 16, ctw = H / 16 / NW;
-  const size_t tb = tile_bytes(H);
-  bf16* r2b = reinterpret_cast<bf16*>(smem);
-  bf16* ddb = reinterpret_cast<bf16*>(smem + tb);
-  float* af = reinterpret_cast<float*>(smem + 2 * tb);
-  bf16* dab = reinterpret_cast<bf16*>(smem + 2 * tb + (size_t)MR * FFN_CH * sizeof(float));
-  float* stg = reinterpret_cast<float*>(smem + ffn_smem(H) - (size_t)NW * 256 * sizeof(float)) +
-               warp * 256;
-  const size_t drow = (size_t)n * a.Lp;
-  bf16* ws_g = a.ws[WS_G];
-  bf16* ws_da = a.ws[WS_DA];
-
-  for (int c = threadIdx.x; c < H; c += NT) {
-    float sum = 0.f;
-    for (int i = 0; i < MR; ++i) {
-      float dd = 0.f;
-      if (i < L) {
-        const float dt = dr.hidden(a.dy[((size_t)n * L + i) * H + c] * npm[i], SITE_FFN_FINAL, i, c);
-        dd = dr.hidden(dt, SITE_FFN_DOWN, i, c);
-        sum += dd;
-      }
-      ddb[i * ldb + c] = __float2bfloat16(dd);
-      if (i < a.Lp) a.ws[WS_DD][(drow + i) * H + c] = __float2bfloat16(dd);
-      r2b[i * ldb + c] = i < a.Lp ? a.r2[(drow + i) * H + c] : __float2bfloat16(0.f);
-    }
-    a.part[P_BO2][(size_t)n * H + c] = sum;
-  }
-  __syncthreads();
-
-  Acc acc[2][4];
-#pragma unroll
-  for (int rt = 0; rt < 2; ++rt)
-#pragma unroll
-    for (int t = 0; t < 4; ++t) wmma::fill_fragment(acc[rt][t], 0.f);
-  for (int c0 = 0; c0 < I; c0 += FFN_CH) {
-    const int cw = min(FFN_CH, I - c0);
-    const float* bi = a.bi + c0;
-    const int Lp = a.Lp;
-    gemm_rows<false>(r2b, ldb, mt, a.wi + (size_t)c0 * H, H, cw, H, stg, [=](int i, int j, float v) {
-      const float av = v + bi[j];
-      af[i * FFN_CH + j] = av;
-      if (i < Lp) ws_g[(drow + i) * I + c0 + j] = __float2bfloat16(i < L ? gelu_new(av) : 0.f);
-    });
-    __syncthreads();
-    gemm_rows<true>(ddb, ldb, mt, a.wo2 + c0, I, cw, H, stg, [=](int i, int j, float v) {
-      const float da = i < L ? v * gelu_new_grad(af[i * FFN_CH + j]) : 0.f;
-      af[i * FFN_CH + j] = da;
-      dab[i * ldd + j] = __float2bfloat16(da);
-      if (i < Lp) ws_da[(drow + i) * I + c0 + j] = __float2bfloat16(da);
-    });
-    __syncthreads();
-    for (int j = threadIdx.x; j < cw; j += NT) {
-      float sum = 0.f;
-      for (int i = 0; i < L; ++i) sum += af[i * FFN_CH + j];
-      a.part[P_BI][(size_t)n * I + c0 + j] = sum;
-    }
-    for (int k = 0; k < cw; k += 16) {
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        if (t < ctw) {
-          const int ct = warp + NW * t;
-          BRow b;
-          wmma::load_matrix_sync(b, a.wi + (size_t)(c0 + k) * H + ct * 16, H);
-#pragma unroll
-          for (int rt = 0; rt < 2; ++rt) {
-            if (rt < mt) {
-              ARow fa;
-              wmma::load_matrix_sync(fa, dab + rt * 16 * ldd + k, ldd);
-              wmma::mma_sync(acc[rt][t], fa, b, acc[rt][t]);
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // dr2 = dt + da Wi
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    if (t < ctw) {
-      const int ct = warp + NW * t;
-#pragma unroll
-      for (int rt = 0; rt < 2; ++rt) {
-        if (rt < mt) {
-          wmma::store_matrix_sync(stg, acc[rt][t], 16, wmma::mem_row_major);
-          __syncwarp();
-          for (int e = lane; e < 256; e += 32) {
-            const int i = rt * 16 + e / 16, j = ct * 16 + e % 16;
-            if (i < L) {
-              const size_t o = ((size_t)n * L + i) * H + j;
-              const float dt = dr.hidden(a.dy[o] * npm[i], SITE_FFN_FINAL, i, j);
-              a.dr2[o] = dt + stg[e];
-            }
-          }
-          __syncwarp();
-        }
-      }
-    }
-  }
-}
-
-// K12b: the attention backward for one sequence, recomputing the forward
-// with K11's device code.
+// K12b's per-head backward: the gradients of one sequence's attention.
 struct HeadOut {
   bf16 *dq, *dk, *dv;      // operand rows of this sequence (ld H)
   float *pq, *pk, *pv;     // their bias column sums (H,)
@@ -345,108 +234,323 @@ __device__ void attn_bwd_heads(const bf16* Q, const bf16* K, const bf16* V, int 
   }
 }
 
-// Shared memory of K12b's backward phase (reuses the forward's):
-// dr [MR][H] f32 (dr1, then dx), dcb [MR][ldb] bf16 (dC of one attention),
-// per warp a 32x32 f32 slice and a 32x32 bf16 one, staging.
-__host__ __device__ inline size_t bwd_smem(int H) {
-  return (size_t)MR * H * sizeof(float) + tile_bytes(H) +
-         (size_t)NW * (SREG + MR * 32 * sizeof(bf16)) + (size_t)NW * 256 * sizeof(float);
-}
+// K12a and K12b on the row walk (row_gemm.cuh). Their phases, each a
+// launch on the caller's stream: an elementwise pass, then products over
+// the flattened rows whose epilogues do what the per-sequence kernels did
+// inside their lambdas, and, for K12b, the per-(sequence, head) attention
+// between them.
 
-__host__ __device__ inline size_t attn_bwd_smem(int H) {
-  return layer_smem_bytes(H) > bwd_smem(H) ? layer_smem_bytes(H) : bwd_smem(H);
-}
-
-// One pass over the columns of a (rows, H) gradient held in dr: y = dr *
-// npm; the dropped-out y (site) goes to the operand rows `out` (zero past
-// L) and its column sums to `psum`; dr keeps y. Column per thread, rows in
-// order.
-__device__ void output_grad(float* dr, const float* npm, const Drop& drop, int site, int L,
-                            int Lp, int H, bf16* out, float* psum) {
-  for (int c = threadIdx.x; c < H; c += NT) {
-    float sum = 0.f;
-    for (int i = 0; i < MR; ++i) {
-      const float y = dr[i * H + c] * npm[i];
-      const float o = drop.hidden(y, site, i, c);
-      dr[i * H + c] = y;
-      if (i < Lp) out[(size_t)i * H + c] = __float2bfloat16(i < L ? o : 0.f);
-      if (i < L) sum += o;
+// The elementwise first phase, a thread per (sequence, column), rows in
+// order. attn 0 (K12a): dd = drop_down(drop_final(dy * npm)) as WS_DD rows
+// and P_BO2. attn 1 (K12b): x' = drop_input(x) as WS_X rows, do2 =
+// drop_cross(dr2 * npm) as WS_DO2 rows and P_BOC, enc as WS_ENC rows.
+__global__ void __launch_bounds__(128) row_prep_kernel(const TrainArgs a, int attn) {
+  const int n = blockIdx.x, c = blockIdx.y * 128 + threadIdx.x, H = a.H, L = a.L;
+  if (c >= H) return;
+  const Drop dr = make_drop(a, n);
+  const size_t drow = (size_t)n * a.Lp;
+  float sum = 0.f;
+  for (int i = 0; i < a.Lp; ++i) {
+    float o = 0.f, xo = 0.f;
+    if (i < L) {
+      const size_t idx = ((size_t)n * L + i) * H + c;
+      const float npm = a.kp[(size_t)n * L + i] ? 0.f : 1.f;
+      if (attn) {
+        o = dr.hidden(a.dr2[idx] * npm, SITE_CROSS_OUT, i, c);
+        xo = dr.input(a.x[idx], i, c);
+      } else {
+        o = dr.hidden(dr.hidden(a.dy[idx] * npm, SITE_FFN_FINAL, i, c), SITE_FFN_DOWN, i, c);
+      }
+      sum += o;
     }
-    psum[c] = sum;
+    const size_t at = (drow + i) * H + c;
+    if (attn) {
+      a.ws[WS_DO2][at] = __float2bfloat16(o);
+      a.ws[WS_X][at] = __float2bfloat16(xo);
+    } else {
+      a.ws[WS_DD][at] = __float2bfloat16(o);
+    }
+  }
+  a.part[attn ? P_BOC : P_BO2][(size_t)n * H + c] = sum;
+  if (attn)
+    for (int i = 0; i < a.Lep; ++i)
+      a.ws[WS_ENC][((size_t)n * a.Lep + i) * H + c] =
+          __float2bfloat16(i < a.Le ? a.enc[((size_t)n * a.Le + i) * H + c] : 0.f);
+}
+
+// What a product's epilogue does with its float32 tile (pairs of columns c,
+// c + 1 of row r, position i of sequence n; `live`: i < valid):
+//  E_BF16   + the group's bias (if any), bf16 into out[group]
+//  E_RESID  r1 = (drop_self(v + bo_s) + drop_input(x)) * npm, bf16 (WS_R1)
+//  E_DR1    y = (dr2 * npm + v) * npm into dx (float32, kept for E_DX);
+//           do1 = drop_self(y), bf16 (WS_DO1), and its column sums (P_BOS)
+//  E_DENC   into denc, float32
+//  E_DX     dx = drop_input(dx + v)
+//  E_FFN1   (DUAL) a = v0 + bi: gelu_new(a) (WS_G), da = v1 gelu'(a) (WS_DA),
+//           and da's column sums (P_BI)
+//  E_DR2    dr2 = drop_final(dy * npm) + v
+enum { E_BF16, E_RESID, E_DR1, E_DENC, E_DX, E_FFN1, E_DR2 };
+
+template <int BN, int BT, int EPI, int WG>
+__global__ void __launch_bounds__(rg_threads(WG))
+row_gemm_kernel(const __grid_constant__ TrainArgs a, const __grid_constant__ RowGemm g,
+                const __grid_constant__ RowMaps m) {
+  constexpr bool DUAL = EPI == E_FFN1, SUMS = EPI == E_DR1 || EPI == E_FFN1;
+  constexpr bool NPM = EPI == E_RESID || EPI == E_DR1 || EPI == E_DR2;  // decoder rows only
+  using Lay = RgLayout<BN, DUAL, WG>;
+  constexpr int CONSUMERS = 128 * WG;
+  extern __shared__ unsigned char smem_raw[];
+  // 128-byte swizzled TMA boxes need 1024-byte aligned shared addresses
+  unsigned char* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + Lay::BARS);
+  uint64_t* empty = full + Lay::STAGES;
+  const int grp = blockIdx.x / g.tiles, c0 = (blockIdx.x % g.tiles) * BN;
+  const int row0 = blockIdx.y * WG * RG_BM;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < Lay::STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 4 * WG);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x >= CONSUMERS) {
+    if (threadIdx.x == CONSUMERS)
+      rg_produce<BN, BT, DUAL, WG>(m, g, ring, full, empty, grp, c0, row0);
+    return;
+  }
+  // warp-uniform as the compiler can see it, which keeps the wgmmas unserialized
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);
+  float acc0[BN / 2], acc1[BN / 2];
+  rg_consume<BN, BT, DUAL, WG>(g, ring, full, empty, wg, acc0, acc1);
+
+  // acc[4j + 2h + e]: row 16 warp + lane / 4 + 8h, column 8j + 2 (lane % 4) + e
+  const int lane = threadIdx.x & 31;
+  const int rl = (threadIdx.x >> 5) * 16 + (lane >> 2);
+  float* stg = reinterpret_cast<float*>(ring);  // column-sum staging, ld BN + 1
+  if constexpr (SUMS) named_barrier(1, CONSUMERS);  // every warp's products have read the ring
+  const int H = a.H, L = a.L;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + rl + 8 * h;
+    const int n = r / g.seq_rows, i = r % g.seq_rows;
+    const bool in = r < g.rows, live = in && i < g.valid;
+    const Drop dr = make_drop(a, n);
+    const float npm = NPM && live && !a.kp[(size_t)n * L + i] ? 1.f : 0.f;
+    const size_t drow = ((size_t)n * L + i) * H;  // the row of an (N, L, H) tensor
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int cl = 8 * j + 2 * (lane & 3), c = c0 + cl;
+      float v[2] = {acc0[4 * j + 2 * h], acc0[4 * j + 2 * h + 1]};
+      float s[2] = {0.f, 0.f};
+      if (in && c < g.cols) {  // cols is a multiple of 32: a pair is in or out whole
+        const size_t o = (size_t)r * g.cols + c;
+        if constexpr (EPI == E_BF16) {
+          const float* b = g.bias[grp];
+          *reinterpret_cast<__nv_bfloat162*>(g.out[grp] + o) =
+              __floats2bfloat162_rn(v[0] + (b ? b[c] : 0.f), v[1] + (b ? b[c + 1] : 0.f));
+        } else if constexpr (EPI == E_RESID) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            v[e] = live ? (dr.hidden(v[e] + g.bias[0][c + e], SITE_SELF_OUT, i, c + e) +
+                           dr.input(a.x[drow + c + e], i, c + e)) * npm
+                        : 0.f;
+          *reinterpret_cast<__nv_bfloat162*>(g.out[0] + o) = __floats2bfloat162_rn(v[0], v[1]);
+        } else if constexpr (EPI == E_DR1) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if (live) {
+              const float y = (a.dr2[drow + c + e] * npm + v[e]) * npm;
+              a.dx[drow + c + e] = y;
+              s[e] = dr.hidden(y, SITE_SELF_OUT, i, c + e);
+            }
+          }
+          *reinterpret_cast<__nv_bfloat162*>(g.out[0] + o) = __floats2bfloat162_rn(s[0], s[1]);
+        } else if constexpr (EPI == E_DENC) {
+          if (live)
+            *reinterpret_cast<float2*>(a.denc + ((size_t)n * a.Le + i) * H + c) =
+                make_float2(v[0], v[1]);
+        } else if constexpr (EPI == E_DX) {
+          if (live)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              a.dx[drow + c + e] = dr.input(a.dx[drow + c + e] + v[e], i, c + e);
+        } else if constexpr (EPI == E_FFN1) {
+          float gl[2] = {0.f, 0.f};
+          if (live)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float av = v[e] + g.bias[0][c + e];
+              gl[e] = gelu_new(av);
+              s[e] = acc1[4 * j + 2 * h + e] * gelu_new_grad(av);
+            }
+          *reinterpret_cast<__nv_bfloat162*>(g.out[0] + o) = __floats2bfloat162_rn(gl[0], gl[1]);
+          *reinterpret_cast<__nv_bfloat162*>(g.out[1] + o) = __floats2bfloat162_rn(s[0], s[1]);
+        } else if constexpr (EPI == E_DR2) {
+          if (live)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              a.dr2[drow + c + e] =
+                  dr.hidden(a.dy[drow + c + e] * npm, SITE_FFN_FINAL, i, c + e) + v[e];
+        }
+      }
+      if constexpr (SUMS) {
+        stg[(rl + 8 * h) * (BN + 1) + cl] = s[0];
+        stg[(rl + 8 * h) * (BN + 1) + cl + 1] = s[1];
+      }
+    }
+  }
+  if constexpr (SUMS) {
+    named_barrier(2, CONSUMERS);
+    rg_column_sums<BN, WG>(stg, g, row0, c0);
   }
 }
 
-__global__ void __launch_bounds__(NT, 1) train_attn_bwd_kernel(const TrainArgs a) {
+// The per-(sequence, head) attention of K12b, a block of NT threads per
+// sequence, a warp per head, on the Q/K/V the products wrote (bf16, S_*),
+// copied into shared memory first.
+// ATT_SELF_FWD: the self-attention context (WS_C1) with K11's `attend`;
+// ATT_CROSS: the cross-attention context (WS_C2), then its backward from
+// dC2 (in dc) with attn_bwd_heads: dQ2, dK2, dV2 and their column sums;
+// ATT_SELF_BWD: the self-attention backward from dC1 (in dc).
+enum { ATT_SELF_FWD, ATT_CROSS, ATT_SELF_BWD };
+
+// Shared memory: Q, K, V and dC tiles (MR rows, ld H + 8), the backward's
+// per-warp scratch (the forward's score slices alias it), staging.
+constexpr size_t ATT_WSCR = (size_t)NW * (SREG + MR * 32 * sizeof(bf16));
+__host__ __device__ inline size_t row_attn_smem(int H) {
+  return 4 * tile_bytes(H) + ATT_WSCR + (size_t)NW * 256 * sizeof(float);
+}
+
+// rows x H bf16 from global src (ld H) into shared dst (ld ldb), 16 bytes a thread
+__device__ void load_rows(const bf16* src, bf16* dst, int ldb, int rows, int H) {
+  const int per = H / 8;
+  for (int idx = threadIdx.x; idx < rows * per; idx += NT) {
+    const int r = idx / per, c = (idx % per) * 8;
+    *reinterpret_cast<uint4*>(dst + r * ldb + c) =
+        *reinterpret_cast<const uint4*>(src + (size_t)r * H + c);
+  }
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(NT, 1) row_attn_kernel(const TrainArgs a, const bf16* dc) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ float kmask[MR], npm[MR];
-  const int n = blockIdx.x, H = a.H, L = a.L, Le = a.Le, Lp = a.Lp;
-  const int warp = threadIdx.x >> 5;
+  const int n = blockIdx.x, H = a.H, L = a.L, Le = a.Le, Lp = a.Lp, Lep = a.Lep;
   init_masks(a, n, kmask, npm);
-  const Drop dr = make_drop(a, n);
-  self_cross_fwd(a, layer_layout(smem, H), n, dr, kmask, npm, true);
-
-  const int ldb = H + 8, mt = (L + 15) / 16, mte = (Le + 15) / 16;
-  float* g = reinterpret_cast<float*>(smem);  // dr1, then dx
-  bf16* dcb = reinterpret_cast<bf16*>(smem + (size_t)MR * H * sizeof(float));
-  unsigned char* wscr = smem + (size_t)MR * H * sizeof(float) + tile_bytes(H);
-  float* stg_all = reinterpret_cast<float*>(wscr + (size_t)NW * (SREG + MR * 32 * sizeof(bf16)));
-  float* stg = stg_all + warp * 256;
-  const size_t drow = (size_t)n * Lp, erow = (size_t)n * a.Lep;
+  const int mt = Lp / 16, mte = Lep / 16;
+  const size_t drow = (size_t)n * Lp, erow = (size_t)n * Lep;
+  const bool self = MODE != ATT_CROSS, causal = a.causal != 0;
+  auto self_masked = [=](int i, int j) { return kmask[j] > 0.5f || (causal && j > i); };
+  auto cross_masked = [=](int, int j) { return j >= Le; };
+  const bf16* Q = a.scr[self ? S_Q1 : S_Q2] + drow * H;
+  const size_t kvrow = self ? drow : erow;
+  const int mtk = self ? mt : mte;
+  const size_t tb = tile_bytes(H);
+  const int ldb = H + 8;
+  bf16* qb = reinterpret_cast<bf16*>(smem);
+  bf16* kb = reinterpret_cast<bf16*>(smem + tb);
+  bf16* vb = reinterpret_cast<bf16*>(smem + 2 * tb);
+  bf16* db = reinterpret_cast<bf16*>(smem + 3 * tb);
+  unsigned char* wscr = smem + 4 * tb;
+  float* stg_all = reinterpret_cast<float*>(wscr + ATT_WSCR);
+  load_rows(Q, qb, ldb, Lp, H);
+  load_rows(a.scr[self ? S_K1 : S_K2] + kvrow * H, kb, ldb, mtk * 16, H);
+  load_rows(a.scr[self ? S_V1 : S_V2] + kvrow * H, vb, ldb, mtk * 16, H);
+  if constexpr (MODE == ATT_SELF_BWD) load_rows(dc + drow * H, db, ldb, Lp, H);
+  __syncthreads();
+  if constexpr (MODE != ATT_SELF_BWD) {
+    LayerSmem s;
+    s.ldb = ldb;
+    s.xf = nullptr;
+    s.xb = reinterpret_cast<bf16*>(wscr);  // the warps' score slices
+    s.qb = qb;
+    s.kb = kb;
+    s.vb = vb;
+    s.stg = stg_all;
+    if constexpr (MODE == ATT_SELF_FWD)
+      attend(s, H, a.n_head, mt, mt, a.scale, self_masked);
+    else
+      attend(s, H, a.n_head, mt, mte, a.scale, cross_masked);
+    __syncthreads();
+    copy_rows(qb, ldb, a.ws[self ? WS_C1 : WS_C2] + drow * H, L, Lp, H);
+    if constexpr (MODE == ATT_SELF_FWD) return;
+    __syncthreads();  // the context has left qb: Q and dC2 in
+    load_rows(Q, qb, ldb, Lp, H);
+    load_rows(dc + drow * H, db, ldb, Lp, H);
+    __syncthreads();
+  }
   auto ws = [&](int k, size_t row) { return a.ws[k] + row * H; };
   auto part = [&](int k) { return a.part[k] + (size_t)n * H; };
-  float* denc = a.denc + (size_t)n * Le * H;
+  if constexpr (MODE == ATT_CROSS)
+    attn_bwd_heads(qb, kb, vb, ldb, db, ldb, H, a.n_head, mt, mte, a.scale, cross_masked, wscr,
+                   stg_all,
+                   HeadOut{ws(WS_DQ2, drow), ws(WS_DK2, erow), ws(WS_DV2, erow), part(P_BQC),
+                           part(P_BKC), part(P_BVC), L, Le});
+  else
+    attn_bwd_heads(qb, kb, vb, ldb, db, ldb, H, a.n_head, mt, mt, a.scale, self_masked, wscr,
+                   stg_all,
+                   HeadOut{ws(WS_DQ1, drow), ws(WS_DK1, drow), ws(WS_DV1, drow), part(P_BQS),
+                           part(P_BKS), part(P_BVS), L, L});
+}
 
-  // cross output: dr1 = dr2 * npm, do2 = drop(dr1)
-  for (int idx = threadIdx.x; idx < MR * H; idx += NT) {
-    const int i = idx / H, c = idx % H;
-    g[idx] = i < L ? a.dr2[((size_t)n * L + i) * H + c] : 0.f;
-  }
-  __syncthreads();
-  output_grad(g, npm, dr, SITE_CROSS_OUT, L, Lp, H, ws(WS_DO2, drow), part(P_BOC));
-  __syncthreads();
-  auto to_dcb = [=](int i, int j, float v) { dcb[i * ldb + j] = __float2bfloat16(v); };
-  gemm_rows<true>(ws(WS_DO2, drow), H, mt, a.w[7], H, H, H, stg, to_dcb);
-  __syncthreads();
-  attn_bwd_heads(a.scr[S_Q2] + drow * H, a.scr[S_K2] + erow * H, a.scr[S_V2] + erow * H, H, dcb,
-                 ldb, H, a.n_head, mt, mte, a.scale, [=](int, int j) { return j >= Le; }, wscr,
-                 stg_all,
-                 HeadOut{ws(WS_DQ2, drow), ws(WS_DK2, erow), ws(WS_DV2, erow), part(P_BQC),
-                         part(P_BKC), part(P_BVC), L, Le});
-  __syncthreads();
-  auto add_g = [=](int i, int j, float v) { g[i * H + j] += v; };
-  gemm_rows<true>(ws(WS_DQ2, drow), H, mt, a.w[4], H, H, H, stg, add_g);
-  gemm_rows<true>(ws(WS_DK2, erow), H, mte, a.w[5], H, H, H, stg, [=](int i, int j, float v) {
-    if (i < Le) denc[(size_t)i * H + j] = v;
-  });
-  __syncthreads();
-  gemm_rows<true>(ws(WS_DV2, erow), H, mte, a.w[6], H, H, H, stg, [=](int i, int j, float v) {
-    if (i < Le) denc[(size_t)i * H + j] += v;
-  });
-  __syncthreads();
+// Host: one product of the walk on tiles of 64 WG rows x BN columns; A and
+// B as rg_maps takes them.
+template <int BN, int BT, int EPI, int WG>
+int rg_launch(const TrainArgs& a, RowGemm g, std::initializer_list<const bf16*> A,
+              std::initializer_list<const bf16*> B, cudaStream_t st) {
+  constexpr bool DUAL = EPI == E_FFN1;
+  constexpr int BM = WG * RG_BM;
+  using Lay = RgLayout<BN, DUAL, WG>;
+  if (g.rows == 0) return 0;
+  g.tiles = (g.cols + BN - 1) / BN;
+  if ((g.rows + BM - 1) / BM > 65535) return (int)cudaErrorInvalidValue;
+  RowMaps m = {};
+  if (!rg_maps(&m, g, A.begin(), B.begin(), (int)A.size(), (int)B.size(), BN, DUAL ? 0 : BT,
+               DUAL ? 1 : BT))
+    return (int)cudaErrorInvalidValue;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(row_gemm_kernel<BN, BT, EPI, WG>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, Lay::BYTES);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid(g.tiles * g.groups, (g.rows + BM - 1) / BM);
+  row_gemm_kernel<BN, BT, EPI, WG><<<grid, rg_threads(WG), Lay::BYTES, st>>>(a, g, m);
+  return (int)cudaGetLastError();
+}
 
-  // self output: dx = dr1 * npm, do1 = drop(dx)
-  output_grad(g, npm, dr, SITE_SELF_OUT, L, Lp, H, ws(WS_DO1, drow), part(P_BOS));
-  __syncthreads();
-  gemm_rows<true>(ws(WS_DO1, drow), H, mt, a.w[3], H, H, H, stg, to_dcb);
-  __syncthreads();
-  const bool causal = a.causal != 0;
-  attn_bwd_heads(a.scr[S_Q1] + drow * H, a.scr[S_K1] + drow * H, a.scr[S_V1] + drow * H, H, dcb,
-                 ldb, H, a.n_head, mt, mt, a.scale,
-                 [=](int i, int j) { return kmask[j] > 0.5f || (causal && j > i); }, wscr,
-                 stg_all,
-                 HeadOut{ws(WS_DQ1, drow), ws(WS_DK1, drow), ws(WS_DV1, drow), part(P_BQS),
-                         part(P_BKS), part(P_BVS), L, L});
-  __syncthreads();
-  gemm_rows<true>(ws(WS_DQ1, drow), H, mt, a.w[0], H, H, H, stg, add_g);
-  __syncthreads();
-  gemm_rows<true>(ws(WS_DK1, drow), H, mt, a.w[1], H, H, H, stg, add_g);
-  __syncthreads();
-  gemm_rows<true>(ws(WS_DV1, drow), H, mt, a.w[2], H, H, H, stg, add_g);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < L * H; idx += NT) {
-    const int i = idx / H, c = idx % H;
-    a.dx[((size_t)n * L + i) * H + c] = dr.input(g[idx], i, c);
-  }
+// The same on the tile rg_plan picks for its rows and all its columns.
+template <int BT, int EPI>
+int rg_run(const TrainArgs& a, const RowGemm& g, std::initializer_list<const bf16*> A,
+           std::initializer_list<const bf16*> B, cudaStream_t st) {
+  constexpr bool DUAL = EPI == E_FFN1;
+  const RgTile t = rg_plan(g.rows, g.cols * g.groups, DUAL);
+  if (t.wg == 2) return rg_launch<DUAL ? 64 : 128, BT, EPI, 2>(a, g, A, B, st);
+  if constexpr (!DUAL)
+    if (t.bn == 128) return rg_launch<128, BT, EPI, 1>(a, g, A, B, st);
+  return rg_launch<64, BT, EPI, 1>(a, g, A, B, st);
+}
+
+// Host: a product over the decoder rows (enc false) or the encoder rows.
+RowGemm rg_rows(const TrainArgs& a, bool enc, int K, int nseg, int cols, int groups) {
+  RowGemm g = {};
+  g.seq_rows = enc ? a.Lep : a.Lp;
+  g.rows = a.n * g.seq_rows;
+  g.valid = enc ? a.Le : a.L;
+  g.K = K;
+  g.nseg = nseg;
+  g.cols = cols;
+  g.groups = groups;
+  return g;
+}
+
+// Host: the attention phase MODE, a block per sequence (H <= 512).
+template <int MODE>
+int attn_launch(const TrainArgs& a, const bf16* dc, cudaStream_t st) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      row_attn_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)row_attn_smem(512));
+  if (attr != cudaSuccess) return (int)attr;
+  row_attn_kernel<MODE><<<a.n, NT, row_attn_smem(a.H), st>>>(a, dc);
+  return (int)cudaGetLastError();
 }
 
 // The weight-gradient reduction (the design is in the header above).
@@ -551,12 +655,81 @@ NAVC_EXPORT int navc_train_fwd(const TrainArgs* args, void* stream) {
   return launch_rows(train_fwd_kernel, args, layer_smem_bytes(args->H), stream);
 }
 
+// K12a: the elementwise pass (dd, P_BO2); one product walk over the FFN
+// columns with two accumulators (a = r2 Wi^T, t = dd Wo2: g, da, P_BI);
+// dr2 = dt + da Wi (K = FFN).
 NAVC_EXPORT int navc_train_ffn_bwd(const TrainArgs* args, void* stream) {
-  return launch_rows(train_ffn_bwd_kernel, args, ffn_smem(args->H), stream);
+  const TrainArgs& a = *args;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  row_prep_kernel<<<dim3(a.n, (a.H + 127) / 128), 128, 0, st>>>(a, 0);
+  int e = (int)cudaGetLastError();
+  if (e) return e;
+  RowGemm g = rg_rows(a, false, a.H, 1, a.I, 1);
+  g.bias[0] = a.bi;
+  g.out[0] = a.ws[WS_G];
+  g.out[1] = a.ws[WS_DA];
+  g.part = a.part[P_BI];
+  if ((e = rg_run<0, E_FFN1>(a, g, {a.r2, a.ws[WS_DD]}, {a.wi, a.wo2}, st))) return e;
+  return rg_run<1, E_DR2>(a, rg_rows(a, false, a.I, 1, a.H, 1), {a.ws[WS_DA]}, {a.wi}, st);
 }
 
-NAVC_EXPORT int navc_train_attn_bwd(const TrainArgs* args, void* stream) {
-  return launch_rows(train_attn_bwd_kernel, args, attn_bwd_smem(args->H), stream);
+// K12b: the elementwise pass (x', do2, enc); the forward's products and
+// attention up to the cross-attention context; the backward from dC2 to
+// dx. dc (N * Lp, H) bf16 holds dC2, then dC1.
+NAVC_EXPORT int navc_train_attn_bwd(const TrainArgs* args, bf16* dc, void* stream) {
+  const TrainArgs& a = *args;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int H = a.H;
+  const bf16* const* w = a.w;
+  auto proj = [&](bool enc, int groups, int b0, bf16* o0, bf16* o1, bf16* o2) {
+    RowGemm g = rg_rows(a, enc, H, 1, H, groups);
+    bf16* outs[RG_MAX] = {o0, o1, o2};
+    for (int k = 0; k < groups; ++k) {
+      g.bias[k] = a.b[b0 + k];
+      g.out[k] = outs[k];
+    }
+    return g;
+  };
+  auto to_dc = [&]() {
+    RowGemm g = rg_rows(a, false, H, 1, H, 1);
+    g.out[0] = dc;
+    return g;
+  };
+  row_prep_kernel<<<dim3(a.n, (H + 127) / 128), 128, 0, st>>>(a, 1);
+  int e = (int)cudaGetLastError();
+  if (e) return e;
+  // [Q1 K1 V1] = x' [Wq Wk Wv]^T + b; [K2 V2] = enc [Wk_c Wv_c]^T + b
+  if ((e = rg_run<0, E_BF16>(a, proj(false, 3, 0, a.scr[S_Q1], a.scr[S_K1], a.scr[S_V1]),
+                             {a.ws[WS_X]}, {w[0], w[1], w[2]}, st)))
+    return e;
+  if ((e = rg_run<0, E_BF16>(a, proj(true, 2, 5, a.scr[S_K2], a.scr[S_V2], nullptr),
+                             {a.ws[WS_ENC]}, {w[5], w[6]}, st)))
+    return e;
+  if ((e = attn_launch<ATT_SELF_FWD>(a, dc, st))) return e;
+  // r1 = (drop(c1 Wo_s^T + bo_s) + x') npm; Q2 = r1 Wq_c^T + bq_c
+  RowGemm g = proj(false, 1, 3, a.ws[WS_R1], nullptr, nullptr);
+  if ((e = rg_run<0, E_RESID>(a, g, {a.ws[WS_C1]}, {w[3]}, st))) return e;
+  if ((e = rg_run<0, E_BF16>(a, proj(false, 1, 4, a.scr[S_Q2], nullptr, nullptr),
+                             {a.ws[WS_R1]}, {w[4]}, st)))
+    return e;
+  // dC2 = do2 Wo_c; the cross attention and its backward
+  if ((e = rg_run<1, E_BF16>(a, to_dc(), {a.ws[WS_DO2]}, {w[7]}, st))) return e;
+  if ((e = attn_launch<ATT_CROSS>(a, dc, st))) return e;
+  // dr1 = dr2 npm + dQ2 Wq_c: y = dr1 npm into dx, do1 = drop(y)
+  g = rg_rows(a, false, H, 1, H, 1);
+  g.out[0] = a.ws[WS_DO1];
+  g.part = a.part[P_BOS];
+  if ((e = rg_run<1, E_DR1>(a, g, {a.ws[WS_DQ2]}, {w[4]}, st))) return e;
+  // denc = [dK2 dV2] [Wk_c; Wv_c]
+  if ((e = rg_run<1, E_DENC>(a, rg_rows(a, true, H, 2, H, 1), {a.ws[WS_DK2], a.ws[WS_DV2]},
+                             {w[5], w[6]}, st)))
+    return e;
+  // dC1 = do1 Wo_s; the self-attention backward
+  if ((e = rg_run<1, E_BF16>(a, to_dc(), {a.ws[WS_DO1]}, {w[3]}, st))) return e;
+  if ((e = attn_launch<ATT_SELF_BWD>(a, dc, st))) return e;
+  // dx = drop_input(y + [dQ1 dK1 dV1] [Wq; Wk; Wv])
+  return rg_run<1, E_DX>(a, rg_rows(a, false, H, 3, H, 1),
+                         {a.ws[WS_DQ1], a.ws[WS_DK1], a.ws[WS_DV1]}, {w[0], w[1], w[2]}, st);
 }
 
 NAVC_EXPORT int navc_train_wgrad(const WgradArgs* args, void* stream) {

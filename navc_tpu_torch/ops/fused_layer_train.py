@@ -18,7 +18,9 @@ Four CUDA kernels (csrc/fused_layer_train.cu), one wrapper each:
   ``weight_grads``      every dW = Bᵀ·A over all rows, and every bias
                         gradient, in a fixed order
 
-The TPU kernels carry the weight gradients across their sequential grid in
+K12a and K12b multiply all N·Lp rows of the batch at once (csrc/row_gemm.cuh's
+TMA + wgmma walk), each as a few launches from one C entry. The TPU
+kernels carry the weight gradients across their sequential grid in
 VMEM scratch; CUDA blocks run in parallel, so K12a/K12b write the per-row
 operands of each product (rounded to the compute dtype, where the JAX kernel
 rounds them) and per-sequence float32 column sums of each bias operand, and
@@ -402,8 +404,9 @@ def wgrad_plan(shapes: List[Tuple[int, int]]) -> Tuple[List[int], List[int], int
 def _lib():
     return _build.load("fused_layer_train", {
         name: [ctypes.POINTER(TrainArgs), ctypes.c_void_p]
-        for name in ("navc_train_fwd", "navc_train_ffn_bwd", "navc_train_attn_bwd")
-    } | {"navc_train_wgrad": [ctypes.POINTER(_WgradArgs), ctypes.c_void_p]})
+        for name in ("navc_train_fwd", "navc_train_ffn_bwd")
+    } | {"navc_train_attn_bwd": [ctypes.POINTER(TrainArgs), ctypes.c_void_p, ctypes.c_void_p],
+         "navc_train_wgrad": [ctypes.POINTER(_WgradArgs), ctypes.c_void_p]})
 
 
 def _stream(t):
@@ -487,8 +490,8 @@ def kernel_args(x, enc, kp, w, seed, n_head, causal, p, p_input, **ptrs):
     for name, val in ptrs.items():
         if name in ("ws", "part", "scr"):
             arr = getattr(a, name)
-            for i, t in val.items():
-                arr[i] = _p(t)
+            for i, t in val.items():  # a tensor or an address
+                arr[i] = _p(t) if torch.is_tensor(t) else t
         else:
             setattr(a, name, val)
     return a
@@ -520,6 +523,11 @@ def train_fwd(x, enc, kp, w, seed, *, n_head, causal=False, p=0.5, p_input=0.0,
     return out, r2
 
 
+def _check_aligned(what, *tensors):
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("%s must be 16-byte aligned (a TMA requirement)" % what)
+
+
 def ffn_bwd_operands(r2, dy, kp, w, seed, *, p=0.5, compute_dtype=torch.bfloat16):
     """K12a: the FFN backward. r2 from ``train_fwd``; dy (N, L, H) float32.
     Returns (dr2 (N, L, H) float32, [Product wi, Product wo2])."""
@@ -532,19 +540,19 @@ def ffn_bwd_operands(r2, dy, kp, w, seed, *, p=0.5, compute_dtype=torch.bfloat16
     if r2.dtype != torch.bfloat16 or tuple(r2.shape) != (n, lp, h) \
             or not r2.is_contiguous():
         raise ValueError("r2 must be train_fwd's contiguous bf16 (N, Lp, H)")
+    _check_aligned("r2, wi and wo2", r2, w["wi"], w["wo2"])
     inter = w["wi"].shape[0]
     dev = dy.device
     dr2 = torch.empty((n, l, h), dtype=torch.float32, device=dev)
-    g = torch.empty((n * lp, inter), dtype=torch.bfloat16, device=dev)
-    da = torch.empty_like(g)
+    # g and da as one allocation (a view of each: fewer host operators)
+    g, da = torch.empty((2, n * lp, inter), dtype=torch.bfloat16, device=dev).unbind(0)
     dd = torch.empty((n * lp, h), dtype=torch.bfloat16, device=dev)
     pbi = torch.empty((n, inter), dtype=torch.float32, device=dev)
     pbd = torch.empty((n, h), dtype=torch.float32, device=dev)
     if n:
         a = kernel_args(dy, dy.new_empty((n, 0, h)), kp, w, seed, 1, False, p, 0.0,
-                  r2=_p(r2),
-                  dy=_p(dy), dr2=_p(dr2), ws={WS_G: g, WS_DA: da, WS_DD: dd},
-                  part={8: pbi, 9: pbd})
+                        r2=_p(r2), dy=_p(dy), dr2=_p(dr2),
+                        ws={WS_G: g, WS_DA: da, WS_DD: dd}, part={8: pbi, 9: pbd})
         lib = _lib()
         _build.check(lib, lib.navc_train_ffn_bwd(ctypes.byref(a), _stream(dy)),
                      "train_ffn_bwd")
@@ -553,10 +561,14 @@ def ffn_bwd_operands(r2, dy, kp, w, seed, *, p=0.5, compute_dtype=torch.bfloat16
                  Product("wo2", "bo2", dd, g, pbd)]
 
 
+ATTN_LP_ROWS = (WS_X, WS_C1, WS_R1, WS_C2, WS_DO1, WS_DQ1, WS_DK1, WS_DV1, WS_DO2, WS_DQ2)
+ATTN_LEP_ROWS = (WS_ENC, WS_DK2, WS_DV2)
+
+
 def attn_bwd_operands(x, enc, dr2, kp, w, seed, *, n_head, causal=False, p=0.5,
                       p_input=0.0, compute_dtype=torch.bfloat16):
     """K12b: the attention backward, recomputing the self- and
-    cross-attention forward with K11's device code. Returns (dx (N, L, H),
+    cross-attention forward (K11's per-head softmax). Returns (dx (N, L, H),
     denc (N, Le, H), the 8 attention Products), float32."""
     if x.device.type == "cpu":
         return attn_bwd_operands_plain(x, enc, dr2, kp, w, seed, n_head=n_head,
@@ -565,27 +577,33 @@ def attn_bwd_operands(x, enc, dr2, kp, w, seed, *, n_head, causal=False, p=0.5,
     check_operands(x, enc, kp, w, n_head, compute_dtype)
     if dr2.dtype != torch.float32 or dr2.shape != x.shape or not dr2.is_contiguous():
         raise ValueError("dr2 must be contiguous float32 (N, L, H)")
+    _check_aligned("the attention weights", *[w[k] for k in MATS])
     n, l, h = x.shape
     le = enc.shape[1]
     lp, lep = _round_up(l, ROW_TILE), _round_up(le, ROW_TILE)
     dev = x.device
+    bf = torch.bfloat16
 
-    def rows(r):
-        return torch.empty((n * r, h), dtype=torch.bfloat16, device=dev)
+    def stack(k, rows, dtype=bf):  # k tensors of (rows, H) in one allocation
+        return torch.empty((k, rows, h), dtype=dtype, device=dev).unbind(0)
 
-    ws = {i: rows(lp) for i in (WS_X, WS_C1, WS_R1, WS_C2, WS_DO1, WS_DQ1,
-                                WS_DK1, WS_DV1, WS_DO2, WS_DQ2)}
-    ws.update({i: rows(lep) for i in (WS_ENC, WS_DK2, WS_DV2)})
-    part = {i: torch.empty((n, h), dtype=torch.float32, device=dev) for i in range(8)}
-    scr = {0: rows(lp), 1: rows(lp), 2: rows(lp), 3: rows(lp), 4: rows(lep),
-           5: rows(lep)}
     dx = torch.empty((n, l, h), dtype=torch.float32, device=dev)
     denc = torch.empty((n, le, h), dtype=torch.float32, device=dev)
+    ws = dict(zip(ATTN_LP_ROWS, stack(len(ATTN_LP_ROWS), n * lp)))
+    ws.update(zip(ATTN_LEP_ROWS, stack(len(ATTN_LEP_ROWS), n * lep)))
+    part = dict(enumerate(stack(8, n, torch.float32)))
+    # this call's scratch, by address: Q/K/V of both attentions (S_Q1 .. S_V2)
+    # and dC of one (dC2, then dC1)
+    lps, leps = torch.empty((5, n * lp, h), dtype=bf, device=dev), \
+        torch.empty((2, n * lep, h), dtype=bf, device=dev)
+    q1, k1, v1, q2, dc = (lps.data_ptr() + i * lps.stride(0) * 2 for i in range(5))
+    k2, v2 = (leps.data_ptr() + i * leps.stride(0) * 2 for i in range(2))
     if n:
         a = kernel_args(x, enc, kp, w, seed, n_head, causal, p, p_input, dr2=_p(dr2),
-                  dx=_p(dx), denc=_p(denc), ws=ws, part=part, scr=scr)
+                        dx=_p(dx), denc=_p(denc), ws=ws, part=part,
+                        scr=dict(enumerate((q1, k1, v1, q2, k2, v2))))
         lib = _lib()
-        _build.check(lib, lib.navc_train_attn_bwd(ctypes.byref(a), _stream(x)),
+        _build.check(lib, lib.navc_train_attn_bwd(ctypes.byref(a), dc, _stream(x)),
                      "train_attn_bwd")
         _build.LAUNCHES["train_attn_bwd"] += 1
     spec = (("wq_s", "bq_s", WS_DQ1, WS_X), ("wk_s", "bk_s", WS_DK1, WS_X),

@@ -1,0 +1,79 @@
+#!/usr/bin/env python3
+"""Mutation check of the training layer's row walk (K12a, K12b) on a card.
+
+Each mutant is one exact edit of navc_tpu_torch/csrc, made in a copy of
+the package under a temporary directory (never in the checkout); the
+`cuda` training tests of tests/test_torch_port_cuda.py then run against the
+copy, all mutants at once, one process each. A mutant that no test fails is
+reported as surviving and the script exits 1. Run from the repo root on a
+machine with an NVIDIA card:
+
+    python3 scripts/port_mutants.py
+"""
+
+import os
+import re
+import shutil
+import subprocess
+import sys
+import tempfile
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MUTANTS = {  # name: (source under navc_tpu_torch/csrc, text, its replacement)
+    "a product skips its last k-step": (
+        "row_gemm.cuh", "for (int k = 0; k < RG_BK / 16; ++k) {",
+        "for (int k = 0; k < RG_BK / 16 - (c == chunks - 1); ++k) {"),
+    "a part sum drops the last sequence of a tile": (
+        "row_gemm.cuh", "for (int i = 0; i < g.valid; ++i) sum +=",
+        "for (int i = 0; i < (sq == per - 1 ? 0 : g.valid); ++i) sum +="),
+    "a dropout lattice row off by one": (
+        "fused_layer_train.cu", "s[e] = dr.hidden(y, SITE_SELF_OUT, i, c + e);",
+        "s[e] = dr.hidden(y, SITE_SELF_OUT, i + 1, c + e);"),
+    "the causal mask off by one": (
+        "fused_layer_train.cu",
+        "auto self_masked = [=](int i, int j) { return kmask[j] > 0.5f || (causal && j > i); };",
+        "auto self_masked = [=](int i, int j) { return kmask[j] > 0.5f || (causal && j > i + 1); };"),
+}
+
+
+def main():
+    work = tempfile.mkdtemp(prefix="port_mutants_")
+    procs = {}
+    try:
+        for k, (name, (src, old, new)) in enumerate(MUTANTS.items()):
+            root = os.path.join(work, "m%d" % k)
+            shutil.copytree(os.path.join(ROOT, "navc_tpu_torch"),
+                            os.path.join(root, "navc_tpu_torch"),
+                            ignore=shutil.ignore_patterns("build", "__pycache__"))
+            shutil.copytree(os.path.join(ROOT, "tests"), os.path.join(root, "tests"),
+                            ignore=shutil.ignore_patterns("__pycache__"))
+            path = os.path.join(root, "navc_tpu_torch", "csrc", src)
+            text = open(path).read()
+            if text.count(old) != 1:
+                sys.exit("mutant %r: its text is not in %s exactly once" % (name, src))
+            with open(path, "w") as f:
+                f.write(text.replace(old, new))
+            cmd = [sys.executable, "-m", "pytest", "tests/test_torch_port_cuda.py", "-q",
+                   "--noconftest", "-p", "no:cacheprovider", "-k", "train"]
+            procs[name] = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True,
+                                           env=dict(os.environ, PYTHONPATH=root))
+        survived = []
+        for name, proc in procs.items():
+            out, _ = proc.communicate()
+            tail = out.strip().splitlines()[-1] if out.strip() else "(no output)"
+            failed = re.search(r"(\d+) failed", tail)
+            print("%-48s %s" % (name, tail), flush=True)
+            if not failed:
+                survived.append(name)
+        if survived:
+            sys.exit("mutants no test failed: %s" % survived)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -683,6 +683,64 @@ def test_train_kernels_match_plain_with_large_biases(cuda, case):
     _check_train_kernels(cuda, case, bias_scale=10.0)
 
 
+# The row walk of K12a/K12b (csrc/row_gemm.cuh) at its edges: N * Lp no
+# multiple of 64 (N 1, 7, 33), Lp 16 and 32, FFN 1056 (a 64-column tile
+# half past the end), H = 128 (head width 16), Le 5, 17 and 32, causal and
+# NAR, p 0 and 0.5.
+ROW_CASES = [  # H, FFN, N, L, Le, causal, p
+    (512, 2048, 1, 30, 16, False, 0.5),
+    (512, 1056, 7, 16, 17, True, 0.5),
+    (128, 256, 7, 13, 5, False, 0.0),
+    (256, 1056, 9, 32, 32, True, 0.5),
+    (512, 2048, 33, 7, 17, False, 0.5),
+    (128, 1056, 1, 5, 32, True, 0.0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ROW_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_train_bwd_row_walk_matches_plain(cuda, case):
+    _check_train_kernels(cuda, case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [ROW_CASES[1], ROW_CASES[2]],
+                         ids=lambda c: "x".join(map(str, c)))
+def test_train_bwd_row_walk_matches_plain_with_large_biases(cuda, case):
+    _check_train_kernels(cuda, case, bias_scale=10.0)
+
+
+@pytest.mark.cuda
+def test_train_bwd_at_the_b2048_shape(cuda):
+    """The training step's B = 2048 NACF pass: 65536 operand rows, 1024 row
+    tiles."""
+    _check_train_kernels(cuda, (512, 2048, 2048, 30, 16, False, 0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [ROW_CASES[1], TRAIN_CASES[0]],
+                         ids=lambda c: "x".join(map(str, c)))
+def test_train_bwd_repeats_bitwise(cuda, case):
+    """Every sum of K12a/K12b runs in a fixed order (no atomics): two calls
+    on the same inputs give the same bits in every output."""
+    from navc_tpu_torch.ops import fused_layer_train as FT
+
+    h, inter, n, l, le, causal, p = case
+    x, enc, kp, w = _train_inputs(h, inter, n, l, le, _gen(5), cuda)
+    dy = torch.randn(n, l, h, generator=_gen(6)).to(cuda)
+    kw = dict(n_head=8, causal=causal, p=p, p_input=p)
+    _, r2 = FT.train_fwd(x, enc, kp, w, 7, **kw)
+
+    def run():
+        dr2, fp = FT.ffn_bwd_operands(r2, dy, kp, w, 7, p=p)
+        dx, denc, ap = FT.attn_bwd_operands(x, enc, dr2, kp, w, 7, **kw)
+        return [dr2, dx, denc] + [t for pr in fp + ap for t in (pr.P, pr.Q, pr.part)]
+
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
 @pytest.mark.cuda
 def test_train_layer_autograd_on_the_card(cuda):
     """The autograd Function on CUDA tensors: gradients of x, enc and the
