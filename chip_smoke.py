@@ -8,7 +8,9 @@ Run from the root of a checkout on a machine with one NVIDIA card:
 It builds the port's CUDA kernels from navc_tpu_torch/csrc with nvcc and
 drives the two ported serving paths at full width (random weights from a
 seed). NACF: each of K1-K4 held against its plain PyTorch version at the
-NACF main path's shapes and timed; K3 also at the decode's sparse row
+NACF main path's shapes and timed (K2 also beside bf16 torch.matmul of its
+products at their shapes, `matmul_ms`, and given --parent the parent's K2
+in turns); K3 also at the decode's sparse row
 counts (9216, 6144, 3072), K3/K4 untied, tied and with a bias ten times the
 scores' scale, and timed beside torch.matmul on the same operands and,
 given --parent (a checkout of an earlier commit, e.g. a `git archive` of
@@ -17,7 +19,8 @@ wrappers in a second process (this script with --worker DIR, which imports
 DIR's navc_tpu_torch); four 64-video requests through
 StreamingCaptioner with an NACF student and ARB teacher, with the launch
 counts and outputs checked; one more request profiled with torch.profiler
-(device time by kernel, idle share); part of the first request decoded
+(device time by kernel, idle share) and, given --parent, timed in turns
+with the parent's request and a fresh worker's; part of the first request decoded
 again on the CPU through the plain versions. ARB beam search: each of K5-K8
 held against its plain version at the ARB main path's shapes and timed (K5
 at 320, 300 and 5120 rows, k 1, 5 and 8, untied, tied and with a large
@@ -29,11 +32,12 @@ StreamingCaptioner; decodes at B=1024 under bench.py's protocol (with
 (K5's share of the device time); one request profiled; 16 videos decoded
 again on the CPU. Training: K11, K12a, K12b and the weight-gradient
 reduction held against their plain versions at full width (B=64, dropout
-0.5) and timed, and again at B=2048 (K12a, K12b and the reduction
-checked against their plain versions there too and bit for bit the same in
-two calls; K12a/K12b timed beside bf16 torch.matmul of the products they
-compute on the same operands, `matmul_ms`, and the parent's K12a/K12b in
-turns; the reduction beside torch.matmul and the parent's reduction); the fused projection + cross-entropy K9 and K10 (both
+0.5) and timed (K11 in turns with the parent's), and again at B=2048 (all
+four checked against their plain versions there too and bit for bit the
+same in two calls; K11/K12a/K12b timed beside bf16 torch.matmul of the
+products they compute on the same operands, `matmul_ms`, and the parent's
+kernels in turns; the reduction beside torch.matmul and the parent's
+reduction); the fused projection + cross-entropy K9 and K10 (both
 launches) held against their plain versions at the B=64 NACF pass, untied,
 tied and with a large bias, with K9's ties inside one thread and across
 vocab splits and labels at V - 1, K10 bit for bit the same in two calls at
@@ -182,14 +186,36 @@ def worker_case(kind, ops, args):
 
         calls = [[Product(**pr) for pr in call] for call in ops["calls"]]
         return lambda: {k: v for call in calls for k, v in weight_grads(call).items()}
-    if kind in ("ffn_bwd", "attn_bwd"):
+    if kind == "fused_layer_qsub":
+        from navc_tpu_torch.ops import fused_layer as FL
+
+        return lambda: dict(out=FL.fused_layer_qsub(
+            ops["qidx"], ops["mrow"], ops["raw"], ops["static"], ops["kp"], ops["ke"], ops["ve"],
+            FL.LayerWeights(**ops["w"]), ops["lns"], ops["lnb"], n_head=args["n_head"],
+            out_dtype=torch.bfloat16))
+    if kind in ("train_fwd", "ffn_bwd", "attn_bwd"):
         from navc_tpu_torch.ops import fused_layer_train as FT
 
+        if kind == "train_fwd":
+            return lambda: dict(zip(("out", "r2"), FT.train_fwd(
+                ops["x"], ops["enc"], ops["kp"], ops["w"], args["seed"],
+                out_dtype=torch.bfloat16, **args["kw"])))
         if kind == "ffn_bwd":
             return lambda: dict(out=FT.ffn_bwd_operands(ops["r2"], ops["dy"], ops["kp"], ops["w"],
                                                         args["seed"], p=args["kw"]["p"])[0])
         return lambda: dict(out=FT.attn_bwd_operands(ops["x"], ops["enc"], ops["dr2"], ops["kp"],
                                                      ops["w"], args["seed"], **args["kw"])[0])
+    if kind == "nacf_decode":
+        from navc_tpu_torch.config import default_config
+        from navc_tpu_torch.models import build_model
+        from navc_tpu_torch.runtime.serving import StreamingCaptioner
+
+        cfg, tcfg = (default_config(m, **args["over"]) for m in ("NACF", "ARB"))
+        model, teacher = (build_model(c, device="cuda", generator=torch.Generator().manual_seed(s))
+                          for c, s in ((cfg, args["seed"]), (tcfg, args["seed"] + 1)))
+        cap = StreamingCaptioner(cfg, model, (tcfg, teacher), depth=2)
+        req = ([f.cpu().numpy() for f in ops["feats"]], ops["cat"].cpu().numpy())
+        return lambda: dict(hyp=torch.as_tensor(list(cap.map_stream([req]))[0]))
     if kind == "arb_decode":
         from navc_tpu_torch.config import default_config
         from navc_tpu_torch.models import build_model
@@ -1254,22 +1280,28 @@ def hold(checks, where, errs, rms_ratio):
                 rms_ratio[name] = (rms_err / rms, what)
 
 
-def bwd_matmuls(fprods, aprods, w):
-    """The products K12a and K12b compute, as bf16 torch.matmul calls on the
-    same operand rows and weights: (K12a's, K12b's), each a callable."""
+def layer_matmuls(fprods, aprods, w):
+    """The products K11, K12a and K12b compute, as bf16 torch.matmul calls on
+    the same operand rows and weights (K11's are K12b's recompute of them):
+    (K11's, K12a's, K12b's), each a callable."""
     import torch
 
     wi, wo2 = w["wi"], w["wo2"]
-    xs, c1, r1, enc = aprods[0].Q, aprods[3].Q, aprods[4].Q, aprods[5].Q
+    xs, c1, r1, enc, c2 = aprods[0].Q, aprods[3].Q, aprods[4].Q, aprods[5].Q, aprods[7].Q
     dq1, dk1, dv1, do1, dq2, dk2, dv2, do2 = (pr.P for pr in aprods)
     m = {k: w[k] for k in ("wq_s", "wk_s", "wv_s", "wo_s", "wq_c", "wk_c", "wv_c", "wo_c")}
+    fwd = ([(xs, m[k].t()) for k in ("wq_s", "wk_s", "wv_s")]
+           + [(enc, m["wk_c"].t()), (enc, m["wv_c"].t()), (c1, m["wo_s"].t()),
+              (r1, m["wq_c"].t()), (c2, m["wo_c"].t()), (fprods[0].Q, wi.t()),
+              (fprods[1].Q, wo2.t())])
     ffn = [(fprods[0].Q, wi.t()), (fprods[1].P, wo2), (fprods[0].P, wi)]
     attn = ([(xs, m[k].t()) for k in ("wq_s", "wk_s", "wv_s")]
             + [(c1, m["wo_s"].t()), (r1, m["wq_c"].t()), (enc, m["wk_c"].t()),
                (enc, m["wv_c"].t()), (do2, m["wo_c"]), (dq2, m["wq_c"]), (dk2, m["wk_c"]),
                (dv2, m["wv_c"]), (do1, m["wo_s"]), (dq1, m["wq_s"]), (dk1, m["wk_s"]),
                (dv1, m["wv_s"])])
-    return (lambda: [torch.matmul(a, b) for a, b in ffn],
+    return (lambda: [torch.matmul(a, b) for a, b in fwd],
+            lambda: [torch.matmul(a, b) for a, b in ffn],
             lambda: [torch.matmul(a, b) for a, b in attn])
 
 
@@ -1420,14 +1452,32 @@ def train_phases(record, seeded, parent):
         recs[name] = record(name, errs[name], None, device_ms(run), cuda_ms(plain, iters=3),
                             *cost[name], note=note % (TRAIN_TOL, TRAIN_RMS_TOL)
                             + "; library_ms null: no one PyTorch call)")
-    # K12a / K12b's products as bf16 torch.matmul on the same operands: how far
-    # the row walk is from cuBLAS (not the library column: no one call computes them)
-    for name, mm in zip(("train_ffn_bwd", "train_attn_bwd"), bwd_matmuls(fprods, aprods, w)):
+    # K11 / K12a / K12b's products as bf16 torch.matmul on the same operands: how
+    # far the row walk is from cuBLAS (not the library column: no one call
+    # computes them)
+    for name, mm in zip(LAYER_KERNELS, layer_matmuls(fprods, aprods, w)):
         recs[name]["matmul_ms"] = device_ms(mm)
     del mm
+    if parent is not None:  # K11 beside the parent's through its own wrappers, in turns
+        k11 = lambda: FT.train_fwd(x, enc, kp, w, seed, out_dtype=torch.bfloat16,  # noqa: E731
+                                   **kw)
+        theirs = parent.load("train_fwd", dict(x=x, enc=enc, kp=kp, w=w), seed=seed, kw=kw)
+        for key, mine in zip(("out", "r2"), k11()):
+            err, scale, rms_err, rms = scaled_err(mine, theirs[key])
+            if not (err <= TRAIN_TOL * scale and rms_err <= TRAIN_RMS_TOL * rms):
+                die("train_fwd %s at B=%d disagrees with the parent's kernel" % (key, TRAIN_B))
+        del theirs
+        p1, k1, k2, p2 = (parent.time("device"), device_ms(k11), device_ms(k11),
+                          parent.time("device"))
+        recs["train_fwd"].update(ms=(k1 + k2) / 2, parent_ms=(p1 + p2) / 2)
+        log("K11 at B=%d in turns with the parent: %.4f ms, parent %.4f ms" % (
+            TRAIN_B, recs["train_fwd"]["ms"], recs["train_fwd"]["parent_ms"]))
+        del k11
     # the wrappers' host cost, which the host-bound B=64 step pays: us per call
     # queued while a device-side sleep holds the card, in turns with the parent's
     for name, kind, ops, run in (
+            ("train_fwd", "train_fwd", dict(x=x, enc=enc, kp=kp, w=w),
+             lambda: FT.train_fwd(x, enc, kp, w, seed, out_dtype=torch.bfloat16, **kw)),
             ("train_ffn_bwd", "ffn_bwd", dict(r2=r2, dy=dy, kp=kp, w=w),
              lambda: FT.ffn_bwd_operands(r2, dy, kp, w, seed, p=0.5)),
             ("train_attn_bwd", "attn_bwd", dict(x=x, enc=enc, dr2=dr2, kp=kp, w=w),
@@ -1439,14 +1489,18 @@ def train_phases(record, seeded, parent):
         p1, k1, k2, p2 = (parent.time("host_us"), host_us(run), host_us(run),
                           parent.time("host_us"))
         recs[name].update(host_us=(k1 + k2) / 2, parent_host_us=(p1 + p2) / 2)
+    log("K11 / K12a / K12b wrappers' host cost at B=%d (us per call, the card held by a "
+        "sleep%s): %s; this tree's K11 and K12b by function (us of its own per call): %s, %s"
+        % (TRAIN_B, ", in turns with the parent" if parent else "",
+           {k: {f: round(recs[k][f], 1) for f in ("host_us", "parent_host_us") if f in recs[k]}
+            for k in LAYER_KERNELS[:3]},
+           host_breakdown(lambda: FT.train_fwd(x, enc, kp, w, seed, out_dtype=torch.bfloat16,
+                                               **kw), top=6),
+           host_breakdown(run, top=6)))
     del run
-    log("K12a / K12b wrappers' host cost at B=%d (us per call, the card held by a sleep%s): "
-        "%s" % (TRAIN_B, ", in turns with the parent" if parent else "",
-                {k: {f: round(recs[k][f], 1) for f in ("host_us", "parent_host_us")
-                     if f in recs[k]} for k in ("train_ffn_bwd", "train_attn_bwd")}))
-    log("K12a / K12b at B=%d: matmul_ms %.4f / %.4f (bf16 torch.matmul of their products "
-        "on the same operands)" % (TRAIN_B, recs["train_ffn_bwd"]["matmul_ms"],
-                                   recs["train_attn_bwd"]["matmul_ms"]))
+    log("K11 / K12a / K12b at B=%d: matmul_ms %.4f / %.4f / %.4f (bf16 torch.matmul of "
+        "their products on the same operands)" % (TRAIN_B, *(recs[k]["matmul_ms"] for k in (
+            "train_fwd", "train_ffn_bwd", "train_attn_bwd"))))
     tw = wgrad_times(fprods, aprods, "device")
     recs["train_wgrad"] = record(
         "train_wgrad", errs["train_wgrad"], None, tw["ms"],
@@ -1471,13 +1525,20 @@ def train_phases(record, seeded, parent):
     kw2 = dict(n_head=nh, causal=False, p=0.5, p_input=0.5)
     fwd2 = lambda: FT.train_fwd(x2, enc2, kp2, w, seed,  # noqa: E731
                                 out_dtype=torch.bfloat16, **kw2)
-    _, r2b = fwd2()
+    out2, r2b = fwd2()
+    # K11 against its plain version at B=2048, and bit for bit in two calls
+    errs2, ratio2 = {}, {}
+    hold({"train_fwd": [(k, scaled_err(a, b)) for k, a, b in zip(
+        ("out", "r2"), (out2, r2b), FT.train_fwd_plain(x2, enc2, kp2, w, seed,
+                                                       out_dtype=torch.bfloat16, **kw2))]},
+         "B=%d" % n2, errs2, ratio2)
+    if not all(torch.equal(a, b) for a, b in zip((out2, r2b), fwd2())):
+        die("K11 at B=%d: two calls on the same inputs gave different bits" % n2)
     ffn2 = lambda: FT.ffn_bwd_operands(r2b, dy2, kp2, w, seed, p=0.5)  # noqa: E731
     dr2b, fprods2 = ffn2()
     attn2 = lambda: FT.attn_bwd_operands(x2, enc2, dr2b, kp2, w, seed, **kw2)  # noqa: E731
     dx2, denc2, aprods2 = attn2()
     # K12a and K12b against their plain versions, and bit for bit in two calls
-    errs2, ratio2 = {}, {}
     hold(bwd_checks((dr2b, fprods2, dx2, denc2, aprods2),
                     (*FT.ffn_bwd_operands_plain(r2b, dy2, kp2, w, seed, p=0.5),
                      *FT.attn_bwd_operands_plain(x2, enc2, dr2b, kp2, w, seed, **kw2))),
@@ -1504,12 +1565,14 @@ def train_phases(record, seeded, parent):
                 "(scale %.3e), rms err %.3e (rms %.3e)" % (k, n2, err, scale, rms_err, rms))
     del got2, want2
     cost2 = costs(kp2, prods2)
-    t2 = {"train_fwd": dict(ms=cuda_ms(fwd2, iters=3))}
-    # K12a / K12b: beside bf16 torch.matmul of the products they compute, on
-    # the same operands (no one PyTorch call computes either), and given
+    t2 = {}
+    # K11 / K12a / K12b: beside bf16 torch.matmul of the products they compute,
+    # on the same operands (no one PyTorch call computes any), and given
     # --parent, the parent's kernels through its own wrappers, in turns
-    mm_ffn, mm_attn = bwd_matmuls(fprods2, aprods2, w)
+    mm_fwd, mm_ffn, mm_attn = layer_matmuls(fprods2, aprods2, w)
     for name, run, mm, kind, ops, mine in (
+            ("train_fwd", fwd2, mm_fwd, "train_fwd",
+             dict(x=x2, enc=enc2, kp=kp2, w=w), out2),
             ("train_ffn_bwd", ffn2, mm_ffn, "ffn_bwd",
              dict(r2=r2b, dy=dy2, kp=kp2, w=w), dr2b),
             ("train_attn_bwd", attn2, mm_attn, "attn_bwd",
@@ -1527,7 +1590,7 @@ def train_phases(record, seeded, parent):
                               TIMERS["cuda5"](run), parent.time("cuda5"))
             t.update(ms=(k1 + k2) / 2, parent_ms=(p1 + p2) / 2)
         t2[name] = t
-    del mm_ffn, mm_attn, run, mm, ops, mine  # they hold the operands
+    del mm_fwd, mm_ffn, mm_attn, run, mm, ops, mine  # they hold the operands
     t2["train_wgrad"] = wgrad_times(fprods2, aprods2, "cuda5")
     for name, t in t2.items():
         t["bound_ms"], t["bound_by"] = bound(*cost2[name])
@@ -1537,9 +1600,9 @@ def train_phases(record, seeded, parent):
         return "%.4f ms" % t2[name]["parent_ms"] if "parent_ms" in t2[name] else "not run"
 
     log("training kernels at B=%d (L %d NAR, %d real rows, p = 0.5): K11 %.4f ms, K12a %.4f "
-        "ms, K12b %.4f ms (bounds %.4f / %.4f / %.4f, by %s; K12a / K12b: matmul_ms, bf16 "
-        "torch.matmul of their products on the same operands, %.4f / %.4f; parent %s / %s); "
-        "K12a and K12b agree with their plain versions (%.0e / %.0e; worst rms ratios %s) "
+        "ms, K12b %.4f ms (bounds %.4f / %.4f / %.4f, by %s; matmul_ms, bf16 torch.matmul of "
+        "their products on the same operands, %.4f / %.4f / %.4f; parent %s / %s / %s); "
+        "K11, K12a and K12b agree with their plain versions (%.0e / %.0e; worst rms ratios %s) "
         "and repeat bit for bit; reduction %.4f ms for both launches of one backward (bound "
         "%.4f by %s, torch.matmul %.4f, parent %s); the reduction agrees with its plain "
         "version (%.0e / %.0e) and repeats bit for bit" % (
@@ -1548,13 +1611,14 @@ def train_phases(record, seeded, parent):
             t2["train_ffn_bwd"]["bound_ms"], t2["train_attn_bwd"]["bound_ms"],
             " / ".join(t2[k]["bound_by"] for k in ("train_fwd", "train_ffn_bwd",
                                                   "train_attn_bwd")),
-            t2["train_ffn_bwd"]["matmul_ms"], t2["train_attn_bwd"]["matmul_ms"],
+            t2["train_fwd"]["matmul_ms"], t2["train_ffn_bwd"]["matmul_ms"],
+            t2["train_attn_bwd"]["matmul_ms"], parent_of("train_fwd"),
             parent_of("train_ffn_bwd"), parent_of("train_attn_bwd"), TRAIN_TOL,
             TRAIN_RMS_TOL, {k: "%.3g (%s)" % v for k, v in ratio2.items()},
             t2["train_wgrad"]["ms"], t2["train_wgrad"]["bound_ms"],
             t2["train_wgrad"]["bound_by"], t2["train_wgrad"]["library_ms"],
             parent_of("train_wgrad"), WGRAD_TOL, WGRAD_RMS_TOL))
-    del x2, enc2, dy2, r2b, dr2b, dx2, denc2, fprods2, aprods2, prods2
+    del x2, enc2, dy2, out2, r2b, dr2b, dx2, denc2, fprods2, aprods2, prods2
     torch.cuda.empty_cache()
 
     recs.update(ce_checks(cfg, model, g, record, parent))
@@ -1800,10 +1864,10 @@ def main():
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent", help="a checkout of an earlier commit: its K3-K5, K9 and "
-                    "K10 kernels, weight-gradient reduction, B=1024 ARB decode and B=2048 "
-                    "train step are run through its own wrappers in a second process and "
-                    "timed in turns with this tree's")
+    ap.add_argument("--parent", help="a checkout of an earlier commit: its K2-K5 and "
+                    "K9-K12b kernels, weight-gradient reduction, NACF request, B=1024 ARB "
+                    "decode, B=64 epoch and B=2048 train step are run through its own "
+                    "wrappers in a second process and timed in turns with this tree's")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
@@ -1976,12 +2040,39 @@ def main():
     n_used = int(used.sum())
     fl2 = layer_flops(n_used, int((~m_kp).sum()), n, le, h, inter)
     nb2 = layer_bytes(n, l, le, h, inter, n * k_slots, extra=n * k_slots * 4)
-    rec_k2 = record("fused_layer_qsub", err_k2, HID_TOL, cuda_ms(k2),
-                    cuda_ms(k2p, iters=5), fl2, nb2,
-                    note="  rows vs K1 rows %.3e, %d of %d slots used"
-                    % (k2_vs_k1, n_used, n * k_slots))
     if not k2_vs_k1 <= HID_TOL:
         die("K2 rows differ from K1 rows at the same positions: %.3e" % k2_vs_k1)
+    # K2 beside bf16 torch.matmul of its 8 products at their shapes (matmul_ms:
+    # the N * L canvas rows, here the static features; the N * K query rows;
+    # FFN activations) and, given --parent, the parent's K2 through its own
+    # wrappers, in turns (parent, this, this, parent)
+    qx = static[:, :k_slots].reshape(n * k_slots, h)
+    acts = torch.randn(n * k_slots, inter, generator=seeded(9)).to(dev, torch.bfloat16)
+    k2_mm = [(static.view(n * l, h), ops.layer.wk_s), (static.view(n * l, h), ops.layer.wv_s)] + [
+        (qx, getattr(ops.layer, k)) for k in ("wq_s", "wo_s", "wq_c", "wo_c", "wi")] + [
+        (acts, ops.layer.wo2)]
+    t_k2 = dict(matmul_ms=device_ms(lambda: [torch.matmul(a, b.t()) for a, b in k2_mm]))
+    del qx, acts, k2_mm
+    if parent is None:
+        t_k2["ms"] = device_ms(k2)
+    else:
+        theirs = parent.load("fused_layer_qsub", dict(
+            qidx=qidx, mrow=mrow, raw=m_raw, static=static, kp=m_kp, ke=ke, ve=ve,
+            w=vars(ops.layer), lns=ops.ln_scale, lnb=ops.ln_bias), n_head=ops.n_head)["out"]
+        err = hid_err(k2(), theirs)
+        if not err <= HID_TOL:
+            die("the parent's fused_layer_qsub disagrees with this one: %.3e" % err)
+        del theirs
+        p1, a1, a2, p2 = (parent.time("device"), device_ms(k2), device_ms(k2),
+                          parent.time("device"))
+        t_k2.update(ms=(a1 + a2) / 2, parent_ms=(p1 + p2) / 2)
+    rec_k2 = record("fused_layer_qsub", err_k2, HID_TOL, t_k2["ms"],
+                    cuda_ms(k2p, iters=5), fl2, nb2,
+                    note="  rows vs K1 rows %.3e, %d of %d slots used; matmul_ms %.4f; "
+                    "parent %s" % (k2_vs_k1, n_used, n * k_slots, t_k2["matmul_ms"],
+                                   "%.4f ms" % t_k2["parent_ms"] if "parent_ms" in t_k2
+                                   else "not run"))
+    rec_k2.update((k, t_k2[k]) for k in ("matmul_ms", "parent_ms") if k in t_k2)
 
     # K1u, the unfolded form (float32 embedded rows, cross K/V projected in
     # the kernel) at K1's shape; no path of navc_tpu or of the port calls it
@@ -2151,6 +2242,32 @@ def main():
     # where one request's time goes on the card (not counted above)
     extra = request()
     print_profile(device_breakdown(lambda: list(cap.map_stream([extra]))))
+    if parent is not None:
+        # the parent commit's request (its own models from the same seeds, its
+        # own wrappers), this tree's in a worker as fresh as the parent's, and
+        # this one in turns: parent, fresh, this, this, fresh, parent, three
+        # times, 3 requests each (host clock, each ends in the tokens' copy)
+        fresh = Worker(ROOT)
+        case = dict(feats=[torch.as_tensor(f) for f in extra[0]], cat=torch.as_tensor(extra[1]))
+        got = {w: w.load("nacf_decode", case, over=OVER, seed=0)["hyp"].cpu().numpy()
+               for w in (parent, fresh)}
+        decode = lambda: list(cap.map_stream([extra]))  # noqa: E731
+        hyp = decode()[0]
+        ms = {"this": [], "this, fresh process": [], "parent": []}
+        for _ in range(3):
+            ms["parent"].append(parent.time("host3"))
+            ms["this, fresh process"].append(fresh.time("host3"))
+            ms["this"] += [host_ms(decode), host_ms(decode)]
+            ms["this, fresh process"].append(fresh.time("host3"))
+            ms["parent"].append(parent.time("host3"))
+        fresh.close()
+        log("NACF request of %d videos in turns: %s ms per request; token agreement with "
+            "this process's request: parent %.4f, fresh process %.4f" % (
+                N_VIDEOS, "; ".join("%s %s (mean %.2f, median %.2f)" % (
+                    who, " ".join("%.2f" % x for x in t), np.mean(t), np.median(t))
+                    for who, t in ms.items()),
+                float((got[parent] == hyp).mean()), float((got[fresh] == hyp).mean())))
+        del decode
 
     # the first request's first videos again, on the CPU, plain versions
     cpu_model = build_model(cfg, device="cpu", generator=seeded(0))

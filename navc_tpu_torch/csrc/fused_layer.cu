@@ -1,46 +1,58 @@
-// Whole post-LN BertLayer of the NAR decode (eval mode) in one kernel: the
-// embedding LayerNorm prologue, masked self-attention, cross-attention over
-// hoisted K/V, and the gelu_new FFN, with the residual times the non-pad
-// multiplier after every stage. The same source serves the dense form (K1,
-// every canvas row is a query; `causal` masks future keys for the AR
-// teacher) and the sparse-query form (K2, only the re-masked slots named by
-// an index tensor are queries; keys and values span the whole canvas).
+// The post-LN BertLayer of the NAR decode (eval mode): the embedding
+// LayerNorm prologue, masked self-attention, cross-attention over hoisted
+// K/V, and the gelu_new FFN, with the residual times the non-pad multiplier
+// after every stage. Two forms: the dense one (K1, every canvas row is a
+// query; `causal` masks future keys for the AR teacher) and the
+// sparse-query one (K2, only the re-masked slots named by an index tensor
+// are queries; keys and values span the whole canvas). K1u, the layer on
+// embedded rows, is the training forward at p = 0 (below).
 //
 // Replaces: navc_tpu/ops/fused_layer.py fused_nar_decoder_layer in its fold +
 // pre_kv form (pallas_call at :289, body _kernel_fold :143 -> _layer_body
 // :108 -> _attend_2d :50), fused_nar_decoder_layer_qsub (pallas_call at
 // :461, body _kernel_fold_qsub :337) and, as K1u, fused_nar_decoder_layer
 // in its unfolded form (pallas_call at :303, body _kernel :133: the layer on
-// embedded rows, cross K/V projected in the kernel). K1u is K11's forward
-// (layer_common.cuh layer_fwd) with both dropout probabilities 0. The bf16 rounding points are those of
-// _attend_2d / _layer_body: bf16 matmul operands with float32 accumulation,
-// float32 bias, LayerNorm and softmax, the result in the output dtype.
+// embedded rows, cross K/V projected in the kernel). K1u is the training
+// forward of layer_common.cuh (layer_fwd) with both dropout probabilities
+// 0. The bf16 rounding points are those of _attend_2d / _layer_body: bf16
+// matmul operands with float32 accumulation, float32 bias, LayerNorm,
+// softmax and residual, the result in the output dtype.
 //
-// What bounds it on the H100: per sequence it does ~235 MFLOP of matmuls
-// (L = 32 rows, H = 512, FFN 2048) against ~8 MB of bf16 weights. The
-// weights sit in L2, but with 32 rows per block each weight element feeds
-// only 2 wmma row tiles, so the block is bound by reading weight fragments
-// from L2, not by the tensor cores; across the grid the FLOP bound is ~0.09
-// ms and the device-memory byte bound ~0.03 ms per dense call.
+// What bounds it on the H100: the products. A decode's sparse step (K2, N =
+// 384 canvases of 32, K = 24 query slots) does ~71 GFLOP of matmuls against
+// ~8 MB of bf16 weights, 0.07 ms at the bf16 tensor-core rate; a dense call
+// (K1) ~90 GFLOP; the bytes (rows in and out, weights) take ~0.03 ms.
 //
-// Design: one block (8 warps) per sequence, since L <= 32 — per-sequence
-// attention replaces the TPU kernel's block-diagonal (T, T) scoring trick
-// (fused_layer.py:12-23). The residual stream stays in shared memory as
-// float32, with a bf16 copy as the A operand of every product. Products are
-// bf16 wmma 16x16x16 with float32 accumulation; B fragments come straight
-// from the weights in nn.Linear's (out, in) layout, which is the col-major
-// B operand. One warp per head computes its 32x32 scores into a private
-// slice of shared memory, softmaxes a row per lane, and multiplies by V. The
-// FFN walks the 2048 intermediate columns 256 at a time: up-projection,
-// gelu_new, bf16, then its share of the down-projection accumulates into
-// register fragments, so the 32x2048 float intermediate never exists.
-// Shared memory: 32x512 f32 residual + 4 bf16 32x520 tiles + staging, ~202 KB.
-// The layout, the row GEMM, the per-head softmax and the FFN live in
-// layer_common.cuh, shared with the training layer (fused_layer_train.cu).
-// Not yet done (later work): several sequences per block to reuse weight
-// fragments, cp.async/TMA staging of weight tiles, wgmma.
+// Design of K1 and K1u: one block (8 warps) per sequence, since L <= 32 —
+// per-sequence attention replaces the TPU kernel's block-diagonal (T, T)
+// scoring trick (fused_layer.py:12-23). The residual stream stays in shared
+// memory as float32, with a bf16 copy as the A operand of every product.
+// Products are bf16 wmma 16x16x16 with float32 accumulation; B fragments
+// come straight from the weights in nn.Linear's (out, in) layout. One warp
+// per head computes its 32x32 scores into a private slice of shared memory,
+// softmaxes a row per lane, and multiplies by V. The FFN walks the 2048
+// intermediate columns 256 at a time, so the 32x2048 intermediate never
+// exists. Shared memory ~202 KB. With 32 rows per block each weight
+// fragment, streamed from L2, feeds only 2 row tiles: they reach a few
+// percent of the tensor-core rate.
+//
+// Design of K2: the serving walk, a sequence of launches from one C entry
+// on the caller's stream. A LayerNorm pass, a warp per row, forms the
+// canvas rows x = LN(raw + static) (bf16, N * Lp rows, zero past L) and the
+// query rows xq = LN(<mask> + static[qidx]) (float32 and bf16, N * K rows
+// flattened: the products take no per-sequence sums, so the query rows need
+// no sequence alignment). The products run on row_gemm.cuh's walk (TMA, an
+// mbarrier ring, wgmma; each weight tile feeds 64 or 128 rows) with serving
+// epilogues (bias; the residual times the slot's multiplier on a float32
+// residual stream kept in place; gelu_new; the output in its dtype): [K1
+// V1] over the canvas rows, then Q1, Wo_s, Q2, Wo_c, Wi and Wo2 over the
+// query rows. The two attentions run a block per sequence on
+// layer_common.cuh's `attend`, the sequence's K query rows zero-filled to
+// 16-row tiles in shared memory. Unused slots (qidx -1) come out as zero
+// rows. K1 and K1u still run one block per sequence.
 
 #include "layer_common.cuh"
+#include "row_gemm.cuh"
 
 // Mirrored field by field by navc_tpu_torch/ops/fused_layer.py (_LayerArgs).
 struct LayerArgs {
@@ -51,8 +63,8 @@ struct LayerArgs {
   const unsigned char* kp;  // (N, L) 1 where the canvas token is PAD
   const bf16* ke;       // (N, Le, H) hoisted cross keys
   const bf16* ve;       // (N, Le, H) hoisted cross values
-  const int* qidx;      // (N, K) canvas position per query slot, -1 unused; null = dense
-  const bf16* mrow;     // (H,) <mask> word embedding (sparse form)
+  const int* qidx;      // K2: (N, K) canvas position per query slot, -1 unused
+  const bf16* mrow;     // K2: (H,) <mask> word embedding
   const bf16* w[8];     // wq_s, wk_s, wv_s, wo_s, wq_c, wk_c, wv_c, wo_c: (H, H) (out, in)
   const float* b[8];    // their biases (H,)
   const bf16* wi;       // (I, H)
@@ -60,6 +72,9 @@ struct LayerArgs {
   const bf16* wo2;      // (H, I)
   const float* bo2;     // (H,)
   void* out;            // (N, L or K, H) bf16 or f32
+  bf16* ws[6];          // K2 scratch, QS_*: N * Lp canvas rows, N * K query rows, (rows, H)
+  bf16* g;              // K2: (N * K, I) FFN activations
+  float* res;           // K2: (N * K, H) the float32 residual stream
   int out_bf16;
   int n, L, Le, K, H, I, n_head, causal;
   float scale, eps;
@@ -91,13 +106,12 @@ __device__ __forceinline__ void ln_row(float (&x)[16], int H, const float* lns, 
     }
 }
 
+// K1: the dense form, one block per sequence.
 __global__ void __launch_bounds__(NT, 1) fused_layer_kernel(const LayerArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int H = a.H, L = a.L, n = blockIdx.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const bool dense = a.qidx == nullptr;
-  const int nq = dense ? L : a.K;
-  const int mtq = (nq + 15) / 16, mtk = (L + 15) / 16, mte = (a.Le + 15) / 16;
+  const int mt = (L + 15) / 16, mte = (a.Le + 15) / 16;
   const int per = H / 32;
 
   const LayerSmem s = layer_layout(smem, H);
@@ -105,22 +119,14 @@ __global__ void __launch_bounds__(NT, 1) fused_layer_kernel(const LayerArgs a) {
   const int ldb = s.ldb;
 
   __shared__ float kmask[MR];  // 1 where the self-attention key is masked
-  __shared__ float npm[MR];    // non-pad multiplier of each query row
-  __shared__ int qpos[MR];     // canvas position of each query row
+  __shared__ float npm[MR];    // non-pad multiplier of each row
   if (threadIdx.x < MR) {
     const int j = threadIdx.x;
     kmask[j] = (j < L) ? (a.kp[(size_t)n * L + j] ? 1.f : 0.f) : 1.f;
-    if (dense) {
-      qpos[j] = j;
-      npm[j] = (j < L) ? 1.f - kmask[j] : 0.f;
-    } else {
-      qpos[j] = (j < a.K) ? a.qidx[(size_t)n * a.K + j] : -1;
-      npm[j] = qpos[j] >= 0 ? 1.f : 0.f;
-    }
+    npm[j] = (j < L) ? 1.f - kmask[j] : 0.f;
   }
 
-  // 1. canvas rows: x = LN(raw + static) -> bf16 A operand (and the f32
-  //    residual in the dense form)
+  // 1. canvas rows: x = LN(raw + static) -> f32 residual and bf16 A operand
   for (int r = warp; r < MR; r += NW) {
     float x[16];
     if (r < L) {
@@ -141,57 +147,28 @@ __global__ void __launch_bounds__(NT, 1) fused_layer_kernel(const LayerArgs a) {
       if (j < per) {
         const int c = lane + 32 * j;
         s.xb[r * ldb + c] = __float2bfloat16(x[j]);
-        if (dense) s.xf[r * H + c] = x[j];
+        s.xf[r * H + c] = x[j];
       }
   }
   __syncthreads();
 
-  // 2. self-attention K, V (and Q in the dense form) from the canvas rows
+  // 2. self-attention Q, K, V from the canvas rows
   auto to_bf16 = [&](bf16* dst, const float* bias) {
     return [=](int i, int j, float v) { dst[i * ldb + j] = __float2bfloat16(v + bias[j]); };
   };
-  gemm_rows(s.xb, ldb, mtk, a.w[1], H, H, H, stg, to_bf16(s.kb, a.b[1]));
-  gemm_rows(s.xb, ldb, mtk, a.w[2], H, H, H, stg, to_bf16(s.vb, a.b[2]));
-  if (dense) gemm_rows(s.xb, ldb, mtq, a.w[0], H, H, H, stg, to_bf16(s.qb, a.b[0]));
+  gemm_rows(s.xb, ldb, mt, a.w[1], H, H, H, stg, to_bf16(s.kb, a.b[1]));
+  gemm_rows(s.xb, ldb, mt, a.w[2], H, H, H, stg, to_bf16(s.vb, a.b[2]));
+  gemm_rows(s.xb, ldb, mt, a.w[0], H, H, H, stg, to_bf16(s.qb, a.b[0]));
   __syncthreads();
 
-  if (!dense) {
-    // 3. query slots: x_q = LN(<mask> row + static[pos]); unused slots read
-    //    LN(<mask> row) and are zeroed by their multiplier
-    for (int r = warp; r < MR; r += NW) {
-      float x[16];
-      const int pos = qpos[r];
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-        if (j < per) {
-          const int c = lane + 32 * j;
-          x[j] = __bfloat162float(a.mrow[c]) +
-                 (pos >= 0 ? __bfloat162float(a.stat[((size_t)n * L + pos) * H + c]) : 0.f);
-        }
-      ln_row(x, H, a.lns, a.lnb, a.eps);
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-        if (j < per) {
-          const int c = lane + 32 * j;
-          s.xf[r * H + c] = x[j];
-          s.xb[r * ldb + c] = __float2bfloat16(x[j]);
-        }
-    }
-    __syncthreads();
-    gemm_rows(s.xb, ldb, mtq, a.w[0], H, H, H, stg, to_bf16(s.qb, a.b[0]));
-    __syncthreads();
-  }
-
-  // 4. masked self-attention; the context replaces Q in qb
+  // 3. masked self-attention; the context replaces Q in qb
   const bool causal = a.causal != 0;
   const float* kmask_p = kmask;
-  const int* qpos_p = qpos;
-  attend(s, H, a.n_head, mtq, mtk, a.scale, [=](int i, int j) {
-    return kmask_p[j] > 0.5f || (causal && j > qpos_p[i]);
-  });
+  attend(s, H, a.n_head, mt, mt, a.scale,
+         [=](int i, int j) { return kmask_p[j] > 0.5f || (causal && j > i); });
   __syncthreads();
 
-  // 5. self output: att = (ctx @ Wo + bo + x) * npm
+  // 4. self output: att = (ctx @ Wo + bo + x) * npm
   const float* npm_p = npm;
   auto residual = [&](const float* bias) {
     return [=](int i, int j, float v) {
@@ -200,10 +177,10 @@ __global__ void __launch_bounds__(NT, 1) fused_layer_kernel(const LayerArgs a) {
       s.xb[i * ldb + j] = __float2bfloat16(y);
     };
   };
-  gemm_rows(s.qb, ldb, mtq, a.w[3], H, H, H, stg, residual(a.b[3]));
+  gemm_rows(s.qb, ldb, mt, a.w[3], H, H, H, stg, residual(a.b[3]));
   __syncthreads();
 
-  // 6. cross-attention over the hoisted K/V
+  // 5. cross-attention over the hoisted K/V
   {
     const int vecs = H / 8;
     for (int i = threadIdx.x; i < mte * 16 * vecs; i += NT) {
@@ -218,23 +195,22 @@ __global__ void __launch_bounds__(NT, 1) fused_layer_kernel(const LayerArgs a) {
       *reinterpret_cast<uint4*>(s.vb + r * ldb + c) = vv;
     }
   }
-  gemm_rows(s.xb, ldb, mtq, a.w[4], H, H, H, stg, to_bf16(s.qb, a.b[4]));
+  gemm_rows(s.xb, ldb, mt, a.w[4], H, H, H, stg, to_bf16(s.qb, a.b[4]));
   __syncthreads();
   const int Le = a.Le;
-  attend(s, H, a.n_head, mtq, mte, a.scale, [=](int, int j) { return j >= Le; });
+  attend(s, H, a.n_head, mt, mte, a.scale, [=](int, int j) { return j >= Le; });
   __syncthreads();
-  gemm_rows(s.qb, ldb, mtq, a.w[7], H, H, H, stg, residual(a.b[7]));
+  gemm_rows(s.qb, ldb, mt, a.w[7], H, H, H, stg, residual(a.b[7]));
   __syncthreads();
 
-  // 7. FFN; out = (down + bo2 + att) * npm, rows of real queries only
-  const int rows_out = dense ? L : a.K;
+  // 6. FFN; out = (down + bo2 + att) * npm
   const float* bo2 = a.bo2;
   void* out = a.out;
   const bool out_bf16 = a.out_bf16 != 0;
-  ffn_rows(s, H, a.I, mtq, a.wi, a.bi, a.wo2, [=](int i, int j, float v) {
-    if (i < rows_out) {
+  ffn_rows(s, H, a.I, mt, a.wi, a.bi, a.wo2, [=](int i, int j, float v) {
+    if (i < L) {
       const float y = (v + bo2[j] + s.xf[i * H + j]) * npm_p[i];
-      const size_t o = ((size_t)n * rows_out + i) * H + j;
+      const size_t o = ((size_t)n * L + i) * H + j;
       if (out_bf16)
         static_cast<bf16*>(out)[o] = __float2bfloat16(y);
       else
@@ -250,11 +226,247 @@ __global__ void __launch_bounds__(NT, 1) unfolded_layer_kernel(const TrainArgs a
   layer_fwd(a, smem, kmask, npm);
 }
 
+// K2, the serving walk. Its scratch rows in LayerArgs::ws.
+enum { QS_X, QS_K1, QS_V1, QS_XQ, QS_Q, QS_C };
+
+// K2's first pass, a warp per row: the N * Lp canvas rows x = LN(raw +
+// static) (bf16, zero past L), then the N * K query rows xq = LN(<mask> +
+// static[qidx]), float32 into res and bf16; an unused slot reads
+// LN(<mask>) and is zeroed by its multiplier downstream.
+__global__ void __launch_bounds__(256) qsub_ln_kernel(const LayerArgs a, int Lp) {
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  const int H = a.H, L = a.L, per = H / 32, canvas = a.n * Lp;
+  if (row >= canvas + a.n * a.K) return;
+  float x[16];
+  bf16* dst;
+  float* f = nullptr;
+  if (row < canvas) {
+    const int n = row / Lp, i = row % Lp;
+    dst = a.ws[QS_X] + (size_t)row * H;
+    if (i >= L) {
+      for (int c = lane; c < H; c += 32) dst[c] = __float2bfloat16(0.f);
+      return;
+    }
+    const size_t base = ((size_t)n * L + i) * H;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      if (j < per) {
+        const int c = lane + 32 * j;
+        x[j] = __bfloat162float(a.raw[base + c]) + __bfloat162float(a.stat[base + c]);
+      }
+  } else {
+    const int q = row - canvas, n = q / a.K, pos = a.qidx[q];
+    dst = a.ws[QS_XQ] + (size_t)q * H;
+    f = a.res + (size_t)q * H;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      if (j < per) {
+        const int c = lane + 32 * j;
+        x[j] = __bfloat162float(a.mrow[c]) +
+               (pos >= 0 ? __bfloat162float(a.stat[((size_t)n * L + pos) * H + c]) : 0.f);
+      }
+  }
+  ln_row(x, H, a.lns, a.lnb, a.eps);
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    if (j < per) {
+      const int c = lane + 32 * j;
+      dst[c] = __float2bfloat16(x[j]);
+      if (f) f[c] = x[j];
+    }
+}
+
+// K2's attention, a block of NT threads per sequence, a warp per head
+// (`attend`): the sequence's K query rows (QS_Q, zero-filled to 16-row
+// tiles) against the canvas keys (QS_K1 / QS_V1, PAD keys masked) or, with
+// CROSS, the hoisted cross keys (ke / ve, zero-filled, keys from Le on
+// masked); the context rows into QS_C. Shared memory: the warps' score
+// slices, then Q, K and V tiles (MR rows, ld H + 8), then staging.
+__host__ __device__ inline size_t qsub_attn_smem(int H) {
+  return 4 * tile_bytes(H) + (size_t)NW * 256 * sizeof(float);
+}
+
+template <bool CROSS>
+__global__ void __launch_bounds__(NT, 1) qsub_attn_kernel(const LayerArgs a, int Lp) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float kmask[MR];  // 1 where the self-attention key is masked
+  const int n = blockIdx.x, H = a.H, L = a.L, K = a.K, Le = a.Le;
+  const int mtq = (K + 15) / 16, mtk = CROSS ? (Le + 15) / 16 : Lp / 16;
+  if (threadIdx.x < MR) {
+    const int j = threadIdx.x;
+    kmask[j] = (j < L) ? (a.kp[(size_t)n * L + j] ? 1.f : 0.f) : 1.f;
+  }
+  const size_t tb = tile_bytes(H);
+  LayerSmem s;
+  s.ldb = H + 8;
+  s.xf = nullptr;
+  s.xb = reinterpret_cast<bf16*>(smem);
+  s.qb = reinterpret_cast<bf16*>(smem + tb);
+  s.kb = reinterpret_cast<bf16*>(smem + 2 * tb);
+  s.vb = reinterpret_cast<bf16*>(smem + 3 * tb);
+  s.stg = reinterpret_cast<float*>(smem + 4 * tb);
+  const size_t qrow = (size_t)n * K * H;
+  load_rows(a.ws[QS_Q] + qrow, s.qb, s.ldb, K, mtq * 16, H);
+  if constexpr (CROSS) {
+    load_rows(a.ke + (size_t)n * Le * H, s.kb, s.ldb, Le, mtk * 16, H);
+    load_rows(a.ve + (size_t)n * Le * H, s.vb, s.ldb, Le, mtk * 16, H);
+  } else {
+    load_rows(a.ws[QS_K1] + (size_t)n * Lp * H, s.kb, s.ldb, Lp, Lp, H);
+    load_rows(a.ws[QS_V1] + (size_t)n * Lp * H, s.vb, s.ldb, Lp, Lp, H);
+  }
+  __syncthreads();
+  if constexpr (CROSS) {
+    attend(s, H, a.n_head, mtq, mtk, a.scale, [=](int, int j) { return j >= Le; });
+  } else {
+    const float* kmask_p = kmask;
+    attend(s, H, a.n_head, mtq, mtk, a.scale, [=](int, int j) { return kmask_p[j] > 0.5f; });
+  }
+  __syncthreads();
+  copy_rows(s.qb, s.ldb, a.ws[QS_C] + qrow, K, K, H);
+}
+
+// What a K2 product's epilogue does with its float32 tile (pairs of columns
+// c, c + 1 of flattened row r; npm 1 where query slot r is used):
+//  S_BF16   + the group's bias, bf16 into out[group]
+//  S_RESID  y = (v + bias + res) * npm, res read from outf: float32 into
+//           outf in place, bf16 into out[0]
+//  S_GELU   gelu_new(v + bias), bf16 into out[0]
+//  S_OUT    (v + bias + res) * npm into a.out (N * K, H) in its dtype
+enum { S_BF16, S_RESID, S_GELU, S_OUT };
+
+template <int BN, int EPI, int WG>
+__global__ void __launch_bounds__(rg_threads(WG))
+qsub_gemm_kernel(const __grid_constant__ LayerArgs a, const __grid_constant__ RowGemm g,
+                 const __grid_constant__ RowMaps m) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = rg_ring(smem_raw);
+  const int grp = blockIdx.x / g.tiles, c0 = (blockIdx.x % g.tiles) * BN;
+  const int row0 = blockIdx.y * WG * RG_BM;
+  float acc0[BN / 2], acc1[BN / 2];
+  if (!rg_tile<BN, 0, false, WG>(m, g, ring, grp, c0, row0, acc0, acc1)) return;
+
+  // acc[4j + 2h + e]: row 16 warp + lane / 4 + 8h, column 8j + 2 (lane % 4) + e
+  const int lane = threadIdx.x & 31;
+  const int rl = (threadIdx.x >> 5) * 16 + (lane >> 2);
+  const float* b = g.bias[grp];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + rl + 8 * h;
+    if (r >= g.rows) continue;
+    const float npm = (EPI == S_RESID || EPI == S_OUT) && a.qidx[r] >= 0 ? 1.f : 0.f;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int c = c0 + 8 * j + 2 * (lane & 3);
+      if (c >= g.cols) continue;  // cols is even: a pair is in or out whole
+      const size_t o = (size_t)r * g.cols + c;
+      float v[2] = {acc0[4 * j + 2 * h] + b[c], acc0[4 * j + 2 * h + 1] + b[c + 1]};
+      if constexpr (EPI == S_GELU) {
+        v[0] = gelu_new(v[0]);
+        v[1] = gelu_new(v[1]);
+      }
+      if constexpr (EPI == S_RESID || EPI == S_OUT) {
+        const float2 res = *reinterpret_cast<const float2*>(g.outf + o);
+        v[0] = (v[0] + res.x) * npm;
+        v[1] = (v[1] + res.y) * npm;
+      }
+      if constexpr (EPI == S_RESID)
+        *reinterpret_cast<float2*>(g.outf + o) = make_float2(v[0], v[1]);
+      if constexpr (EPI == S_OUT) {
+        if (a.out_bf16)
+          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(a.out) + o) =
+              __floats2bfloat162_rn(v[0], v[1]);
+        else
+          *reinterpret_cast<float2*>(static_cast<float*>(a.out) + o) = make_float2(v[0], v[1]);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(g.out[grp] + o) = __floats2bfloat162_rn(v[0], v[1]);
+      }
+    }
+  }
+}
+
+// Host: one K2 product with epilogue EPI on the tile rg_plan picks; A and B
+// (K-major weights) as rg_maps takes them.
+template <int BN, int EPI, int WG>
+int qs_tile_launch(const LayerArgs& a, const RowGemm& g, std::initializer_list<const bf16*> A,
+                   std::initializer_list<const bf16*> B, cudaStream_t st) {
+  return rg_launch<qsub_gemm_kernel<BN, EPI, WG>, BN, false, WG>(a, g, A, B, 0, 0, st);
+}
+
+template <int EPI>
+int qs_run(const LayerArgs& a, const RowGemm& g, std::initializer_list<const bf16*> A,
+           std::initializer_list<const bf16*> B, cudaStream_t st) {
+  const RgTile t = rg_plan(g.rows, g.cols * g.groups, false);
+  if (t.wg == 2) return qs_tile_launch<128, EPI, 2>(a, g, A, B, st);
+  if (t.bn == 128) return qs_tile_launch<128, EPI, 1>(a, g, A, B, st);
+  return qs_tile_launch<64, EPI, 1>(a, g, A, B, st);
+}
+
+// Host: a K2 product of one column group, K of each row, into cols columns.
+RowGemm qs_rows(int rows, int K, int cols, const float* bias, bf16* out, float* outf) {
+  RowGemm g = {};
+  g.rows = rows;
+  g.K = K;
+  g.nseg = 1;
+  g.cols = cols;
+  g.groups = 1;
+  g.bias[0] = bias;
+  g.out[0] = out;
+  g.outf = outf;
+  return g;
+}
+
+// Host: K2's attention, CROSS or self, a block per sequence (H <= 512).
+template <bool CROSS>
+int qs_attn(const LayerArgs& a, int Lp, cudaStream_t st) {
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(qsub_attn_kernel<CROSS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)qsub_attn_smem(512));
+  if (attr != cudaSuccess) return (int)attr;
+  qsub_attn_kernel<CROSS><<<a.n, NT, qsub_attn_smem(a.H), st>>>(a, Lp);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// K1u: x (N, L, H) f32 embedded rows, enc (N, Le, H) f32, no dropout, no r2.
+// K2: the LayerNorm pass; [K1 V1] = x [Wk Wv]^T + b over the canvas rows;
+// Q1 = xq Wq^T + bq over the query rows; the self attention; att1 = (c1
+// Wo_s^T + bo_s + xq) npm; Q2 = att1 Wq_c^T + bq_c; the cross attention;
+// att2 = (c2 Wo_c^T + bo_c + att1) npm; g = gelu_new(att2 Wi^T + bi); out =
+// (g Wo2^T + bo2 + att2) npm. The query rows' scratch is reused: xq, att1
+// and att2 in QS_XQ (bf16) and res (float32), Q1 then Q2 in QS_Q, c1 then
+// c2 in QS_C.
+NAVC_EXPORT int navc_fused_layer_qsub(const LayerArgs* args, void* stream) {
+  const LayerArgs& a = *args;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int H = a.H, Lp = (a.L + 15) / 16 * 16, canvas = a.n * Lp, nq = a.n * a.K;
+  bf16* const* ws = a.ws;
+  qsub_ln_kernel<<<(canvas + nq + 7) / 8, 256, 0, st>>>(a, Lp);
+  int e = (int)cudaGetLastError();
+  if (e) return e;
+  RowGemm g = qs_rows(canvas, H, H, a.b[1], ws[QS_K1], nullptr);
+  g.groups = 2;
+  g.bias[1] = a.b[2];
+  g.out[1] = ws[QS_V1];
+  if ((e = qs_run<S_BF16>(a, g, {ws[QS_X]}, {a.w[1], a.w[2]}, st)) ||
+      (e = qs_run<S_BF16>(a, qs_rows(nq, H, H, a.b[0], ws[QS_Q], nullptr), {ws[QS_XQ]},
+                          {a.w[0]}, st)) ||
+      (e = qs_attn<false>(a, Lp, st)) ||
+      (e = qs_run<S_RESID>(a, qs_rows(nq, H, H, a.b[3], ws[QS_XQ], a.res), {ws[QS_C]},
+                           {a.w[3]}, st)) ||
+      (e = qs_run<S_BF16>(a, qs_rows(nq, H, H, a.b[4], ws[QS_Q], nullptr), {ws[QS_XQ]},
+                          {a.w[4]}, st)) ||
+      (e = qs_attn<true>(a, Lp, st)) ||
+      (e = qs_run<S_RESID>(a, qs_rows(nq, H, H, a.b[7], ws[QS_XQ], a.res), {ws[QS_C]},
+                           {a.w[7]}, st)) ||
+      (e = qs_run<S_GELU>(a, qs_rows(nq, H, a.I, a.bi, a.g, nullptr), {ws[QS_XQ]}, {a.wi},
+                          st)))
+    return e;
+  return qs_run<S_OUT>(a, qs_rows(nq, a.I, H, a.bo2, nullptr, a.res), {a.g}, {a.wo2}, st);
+}
+
+// K1u: x (N, L, H) f32 embedded rows, enc (N, Le, H) f32, no dropout.
 NAVC_EXPORT int navc_fused_layer_unfolded(const TrainArgs* args, void* stream) {
-  if (args->on_hidden || args->on_input || args->r2) return (int)cudaErrorInvalidValue;
+  if (args->on_hidden || args->on_input) return (int)cudaErrorInvalidValue;
   return launch_rows(unfolded_layer_kernel, args, layer_smem_bytes(args->H), stream);
 }
 

@@ -13,30 +13,28 @@
 // port's plain versions, see the same masks bit for bit.
 //
 // What bounds them on the H100: the products. Per sequence of L = 30 rows
-// at H = 512, FFN 2048, the forward does ~0.3 GFLOP of matmuls against ~8
+// at H = 512, FFN 2048, the forward does ~0.25 GFLOP of matmuls against ~8
 // MB of bf16 weights (in L2) and the backward twice that with the
-// recompute: at B = 2048 K12a ~0.41 TFLOP and K12b ~0.53 over every padded
-// row, 0.4-0.5 ms at the bf16 tensor-core rate.
+// recompute: at B = 2048, over every padded row, K11 ~0.52 TFLOP, K12a
+// ~0.41 and K12b ~0.53, 0.4-0.55 ms each at the bf16 tensor-core rate.
 //
-// Design: K11 is K1's one-block-per-sequence layer (csrc/fused_layer.cu;
-// the shared-memory layout, row GEMM, per-head softmax and FFN are
-// layer_common.cuh's, shared by both, and so is K11's own forward,
-// self_cross_fwd and layer_fwd, which K1u runs at p = 0) with the self and
-// cross K/V projected in the kernel from the post-embedding rows and enc,
-// dropout in the epilogues, and r2 written out (bf16, rows padded to a
-// multiple of 16). One sequence per block streams every weight fragment
-// from L2 for its 32 rows, so it reaches a few percent of the tensor-core
-// rate. K12a and K12b instead multiply all N * Lp rows at once on the row
-// walk (row_gemm.cuh: TMA, an mbarrier ring, wgmma; each weight tile feeds
-// 64 rows), as a sequence of launches from one C entry: an elementwise
-// pass; the products, whose epilogues add the biases, apply gelu and its
-// derivative, the residuals times npm and the hash dropout of each site on
-// the JAX lattice (flat row r is position r % Lp of sequence r / Lp), and
-// sum each sequence's bias columns; and, for K12b, the per-(sequence,
-// head) attention, forward (K11's `attend`, bit for bit its probabilities
-// and contexts) and backward (one warp per head). K12b recomputes only the
-// forward its backward reads: Q/K/V of both attentions (to a global
-// scratch), the contexts and r1, not the cross-attention output. The TPU
+// Design: K11, K12a and K12b multiply all N * Lp decoder rows (and the N *
+// Lep encoder rows) at once on the row walk (row_gemm.cuh: TMA, an mbarrier
+// ring, wgmma; each weight tile feeds 64 or 128 rows), each as a sequence of
+// launches from one C entry: an elementwise pass (row_prep_kernel); the
+// products, whose epilogues add the biases, apply gelu and its derivative,
+// the residuals times npm and the hash dropout of each site on the JAX
+// lattice (flat row r is position r % Lp of sequence r / Lp), and sum each
+// sequence's bias columns; and the per-(sequence, head) attention
+// (row_attn_kernel, a block per sequence on layer_common.cuh's `attend`;
+// the backward one warp per head). K11's residual stream stays float32 in
+// a scratch of N * Lp rows beside the bf16 operand rows of each product;
+// only out and r2 outlive the call. K12b recomputes only the forward its
+// backward reads (the same launches as K11's up to Q2, then the cross
+// context): Q/K/V of both attentions (to a global scratch), the contexts
+// and r1, not the cross-attention output. K1u (fused_layer.cu) is the
+// last user of the one-block-per-sequence training forward
+// (layer_common.cuh layer_fwd), at p = 0. The TPU
 // kernels accumulate the 20 weight gradients across their sequential grid;
 // CUDA blocks run in parallel, so K12a/K12b write each product's per-row
 // operands (bf16, zero rows past L) and per-sequence float32 column sums of
@@ -64,8 +62,6 @@
 // the M and K edges of a tile; the epilogue stores by index. The rows are
 // summed in a fixed order per tile; the bias gradients are further blocks,
 // a thread per column summing the sequences in order.
-
-#include <initializer_list>
 
 #include "layer_common.cuh"
 #include "row_gemm.cuh"
@@ -99,13 +95,6 @@ __device__ __forceinline__ float gelu_new_grad(float a) {
   const float th = tanhf(u);
   const float du = SQRT_2_OVER_PI * (1.f + 0.134145f * a * a);
   return 0.5f * (1.f + th) + 0.5f * a * (1.f - th * th) * du;
-}
-
-// K11
-__global__ void __launch_bounds__(NT, 1) train_fwd_kernel(const TrainArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ float kmask[MR], npm[MR];
-  layer_fwd(a, smem, kmask, npm);
 }
 
 // K12b's per-head backward: the gradients of one sequence's attention.
@@ -234,17 +223,19 @@ __device__ void attn_bwd_heads(const bf16* Q, const bf16* K, const bf16* V, int 
   }
 }
 
-// K12a and K12b on the row walk (row_gemm.cuh). Their phases, each a
+// K11, K12a and K12b on the row walk (row_gemm.cuh). Their phases, each a
 // launch on the caller's stream: an elementwise pass, then products over
-// the flattened rows whose epilogues do what the per-sequence kernels did
-// inside their lambdas, and, for K12b, the per-(sequence, head) attention
-// between them.
+// the flattened rows whose epilogues do the per-element work of the layer,
+// and the per-(sequence, head) attention between them.
 
 // The elementwise first phase, a thread per (sequence, column), rows in
-// order. attn 0 (K12a): dd = drop_down(drop_final(dy * npm)) as WS_DD rows
-// and P_BO2. attn 1 (K12b): x' = drop_input(x) as WS_X rows, do2 =
+// order. PREP_FFN (K12a): dd = drop_down(drop_final(dy * npm)) as WS_DD
+// rows and P_BO2. PREP_ATTN (K12b): x' = drop_input(x) as WS_X rows, do2 =
 // drop_cross(dr2 * npm) as WS_DO2 rows and P_BOC, enc as WS_ENC rows.
-__global__ void __launch_bounds__(128) row_prep_kernel(const TrainArgs a, int attn) {
+// PREP_FWD (K11): x' and enc only.
+enum { PREP_FFN, PREP_ATTN, PREP_FWD };
+
+__global__ void __launch_bounds__(128) row_prep_kernel(const TrainArgs a, int mode) {
   const int n = blockIdx.x, c = blockIdx.y * 128 + threadIdx.x, H = a.H, L = a.L;
   if (c >= H) return;
   const Drop dr = make_drop(a, n);
@@ -255,24 +246,24 @@ __global__ void __launch_bounds__(128) row_prep_kernel(const TrainArgs a, int at
     if (i < L) {
       const size_t idx = ((size_t)n * L + i) * H + c;
       const float npm = a.kp[(size_t)n * L + i] ? 0.f : 1.f;
-      if (attn) {
-        o = dr.hidden(a.dr2[idx] * npm, SITE_CROSS_OUT, i, c);
-        xo = dr.input(a.x[idx], i, c);
-      } else {
+      if (mode == PREP_FFN) {
         o = dr.hidden(dr.hidden(a.dy[idx] * npm, SITE_FFN_FINAL, i, c), SITE_FFN_DOWN, i, c);
+      } else {
+        xo = dr.input(a.x[idx], i, c);
+        if (mode == PREP_ATTN) o = dr.hidden(a.dr2[idx] * npm, SITE_CROSS_OUT, i, c);
       }
       sum += o;
     }
     const size_t at = (drow + i) * H + c;
-    if (attn) {
-      a.ws[WS_DO2][at] = __float2bfloat16(o);
-      a.ws[WS_X][at] = __float2bfloat16(xo);
-    } else {
+    if (mode == PREP_FFN) {
       a.ws[WS_DD][at] = __float2bfloat16(o);
+    } else {
+      a.ws[WS_X][at] = __float2bfloat16(xo);
+      if (mode == PREP_ATTN) a.ws[WS_DO2][at] = __float2bfloat16(o);
     }
   }
-  a.part[attn ? P_BOC : P_BO2][(size_t)n * H + c] = sum;
-  if (attn)
+  if (mode != PREP_FWD) a.part[mode == PREP_ATTN ? P_BOC : P_BO2][(size_t)n * H + c] = sum;
+  if (mode != PREP_FFN)
     for (int i = 0; i < a.Lep; ++i)
       a.ws[WS_ENC][((size_t)n * a.Lep + i) * H + c] =
           __float2bfloat16(i < a.Le ? a.enc[((size_t)n * a.Le + i) * H + c] : 0.f);
@@ -282,6 +273,12 @@ __global__ void __launch_bounds__(128) row_prep_kernel(const TrainArgs a, int at
 // c + 1 of row r, position i of sequence n; `live`: i < valid):
 //  E_BF16   + the group's bias (if any), bf16 into out[group]
 //  E_RESID  r1 = (drop_self(v + bo_s) + drop_input(x)) * npm, bf16 (WS_R1)
+//           and, given outf, float32 into outf
+//  E_R2     r2 = (drop_cross(v + bo_c) + r1) * npm, r1 read from outf: bf16
+//           into out[0] (r2), float32 into outf in place
+//  E_GELU   gelu_new(v + bi), bf16
+//  E_OUT    out = drop_final(drop_down(v + bo2) + r2) * npm, r2 read from
+//           outf, into a.out (N, L, H) in its dtype
 //  E_DR1    y = (dr2 * npm + v) * npm into dx (float32, kept for E_DX);
 //           do1 = drop_self(y), bf16 (WS_DO1), and its column sums (P_BOS)
 //  E_DENC   into denc, float32
@@ -289,40 +286,22 @@ __global__ void __launch_bounds__(128) row_prep_kernel(const TrainArgs a, int at
 //  E_FFN1   (DUAL) a = v0 + bi: gelu_new(a) (WS_G), da = v1 gelu'(a) (WS_DA),
 //           and da's column sums (P_BI)
 //  E_DR2    dr2 = drop_final(dy * npm) + v
-enum { E_BF16, E_RESID, E_DR1, E_DENC, E_DX, E_FFN1, E_DR2 };
+enum { E_BF16, E_RESID, E_DR1, E_DENC, E_DX, E_FFN1, E_DR2, E_R2, E_GELU, E_OUT };
 
 template <int BN, int BT, int EPI, int WG>
 __global__ void __launch_bounds__(rg_threads(WG))
 row_gemm_kernel(const __grid_constant__ TrainArgs a, const __grid_constant__ RowGemm g,
                 const __grid_constant__ RowMaps m) {
   constexpr bool DUAL = EPI == E_FFN1, SUMS = EPI == E_DR1 || EPI == E_FFN1;
-  constexpr bool NPM = EPI == E_RESID || EPI == E_DR1 || EPI == E_DR2;  // decoder rows only
-  using Lay = RgLayout<BN, DUAL, WG>;
+  constexpr bool NPM = EPI == E_RESID || EPI == E_DR1 || EPI == E_DR2 || EPI == E_R2 ||
+                       EPI == E_OUT;  // decoder rows only
   constexpr int CONSUMERS = 128 * WG;
   extern __shared__ unsigned char smem_raw[];
-  // 128-byte swizzled TMA boxes need 1024-byte aligned shared addresses
-  unsigned char* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + Lay::BARS);
-  uint64_t* empty = full + Lay::STAGES;
+  unsigned char* ring = rg_ring(smem_raw);
   const int grp = blockIdx.x / g.tiles, c0 = (blockIdx.x % g.tiles) * BN;
   const int row0 = blockIdx.y * WG * RG_BM;
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < Lay::STAGES; ++i) {
-      mbar_init(&full[i], 1);
-      mbar_init(&empty[i], 4 * WG);  // one arrival per consumer warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  if (threadIdx.x >= CONSUMERS) {
-    if (threadIdx.x == CONSUMERS)
-      rg_produce<BN, BT, DUAL, WG>(m, g, ring, full, empty, grp, c0, row0);
-    return;
-  }
-  // warp-uniform as the compiler can see it, which keeps the wgmmas unserialized
-  const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);
   float acc0[BN / 2], acc1[BN / 2];
-  rg_consume<BN, BT, DUAL, WG>(g, ring, full, empty, wg, acc0, acc1);
+  if (!rg_tile<BN, BT, DUAL, WG>(m, g, ring, grp, c0, row0, acc0, acc1)) return;
 
   // acc[4j + 2h + e]: row 16 warp + lane / 4 + 8h, column 8j + 2 (lane % 4) + e
   const int lane = threadIdx.x & 31;
@@ -356,6 +335,39 @@ row_gemm_kernel(const __grid_constant__ TrainArgs a, const __grid_constant__ Row
                            dr.input(a.x[drow + c + e], i, c + e)) * npm
                         : 0.f;
           *reinterpret_cast<__nv_bfloat162*>(g.out[0] + o) = __floats2bfloat162_rn(v[0], v[1]);
+          if (g.outf) *reinterpret_cast<float2*>(g.outf + o) = make_float2(v[0], v[1]);
+        } else if constexpr (EPI == E_R2) {
+          const float2 r1 = *reinterpret_cast<const float2*>(g.outf + o);
+          const float r1v[2] = {r1.x, r1.y};
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            v[e] = live ? (dr.hidden(v[e] + g.bias[0][c + e], SITE_CROSS_OUT, i, c + e) +
+                           r1v[e]) * npm
+                        : 0.f;
+          *reinterpret_cast<__nv_bfloat162*>(g.out[0] + o) = __floats2bfloat162_rn(v[0], v[1]);
+          *reinterpret_cast<float2*>(g.outf + o) = make_float2(v[0], v[1]);
+        } else if constexpr (EPI == E_GELU) {
+          float gl[2] = {0.f, 0.f};
+          if (live)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) gl[e] = gelu_new(v[e] + g.bias[0][c + e]);
+          *reinterpret_cast<__nv_bfloat162*>(g.out[0] + o) = __floats2bfloat162_rn(gl[0], gl[1]);
+        } else if constexpr (EPI == E_OUT) {
+          if (live) {
+            const float2 r2 = *reinterpret_cast<const float2*>(g.outf + o);
+            const float r2v[2] = {r2.x, r2.y};
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              v[e] = dr.hidden(dr.hidden(v[e] + g.bias[0][c + e], SITE_FFN_DOWN, i, c + e) +
+                                   r2v[e],
+                               SITE_FFN_FINAL, i, c + e) * npm;
+            if (a.out_bf16)
+              *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(a.out) + drow + c) =
+                  __floats2bfloat162_rn(v[0], v[1]);
+            else
+              *reinterpret_cast<float2*>(static_cast<float*>(a.out) + drow + c) =
+                  make_float2(v[0], v[1]);
+          }
         } else if constexpr (EPI == E_DR1) {
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
@@ -406,30 +418,21 @@ row_gemm_kernel(const __grid_constant__ TrainArgs a, const __grid_constant__ Row
   }
 }
 
-// The per-(sequence, head) attention of K12b, a block of NT threads per
-// sequence, a warp per head, on the Q/K/V the products wrote (bf16, S_*),
-// copied into shared memory first.
-// ATT_SELF_FWD: the self-attention context (WS_C1) with K11's `attend`;
-// ATT_CROSS: the cross-attention context (WS_C2), then its backward from
-// dC2 (in dc) with attn_bwd_heads: dQ2, dK2, dV2 and their column sums;
+// The per-(sequence, head) attention of K11 and K12b, a block of NT threads
+// per sequence, a warp per head, on the Q/K/V the products wrote (bf16,
+// S_*), copied into shared memory first.
+// ATT_SELF_FWD: the self-attention context (WS_C1) with `attend`;
+// ATT_CROSS_FWD: the cross-attention context (WS_C2);
+// ATT_CROSS: the cross-attention context, then its backward from dC2 (in
+// dc) with attn_bwd_heads: dQ2, dK2, dV2 and their column sums;
 // ATT_SELF_BWD: the self-attention backward from dC1 (in dc).
-enum { ATT_SELF_FWD, ATT_CROSS, ATT_SELF_BWD };
+enum { ATT_SELF_FWD, ATT_CROSS_FWD, ATT_CROSS, ATT_SELF_BWD };
 
 // Shared memory: Q, K, V and dC tiles (MR rows, ld H + 8), the backward's
 // per-warp scratch (the forward's score slices alias it), staging.
 constexpr size_t ATT_WSCR = (size_t)NW * (SREG + MR * 32 * sizeof(bf16));
 __host__ __device__ inline size_t row_attn_smem(int H) {
   return 4 * tile_bytes(H) + ATT_WSCR + (size_t)NW * 256 * sizeof(float);
-}
-
-// rows x H bf16 from global src (ld H) into shared dst (ld ldb), 16 bytes a thread
-__device__ void load_rows(const bf16* src, bf16* dst, int ldb, int rows, int H) {
-  const int per = H / 8;
-  for (int idx = threadIdx.x; idx < rows * per; idx += NT) {
-    const int r = idx / per, c = (idx % per) * 8;
-    *reinterpret_cast<uint4*>(dst + r * ldb + c) =
-        *reinterpret_cast<const uint4*>(src + (size_t)r * H + c);
-  }
 }
 
 template <int MODE>
@@ -440,7 +443,7 @@ __global__ void __launch_bounds__(NT, 1) row_attn_kernel(const TrainArgs a, cons
   init_masks(a, n, kmask, npm);
   const int mt = Lp / 16, mte = Lep / 16;
   const size_t drow = (size_t)n * Lp, erow = (size_t)n * Lep;
-  const bool self = MODE != ATT_CROSS, causal = a.causal != 0;
+  const bool self = MODE == ATT_SELF_FWD || MODE == ATT_SELF_BWD, causal = a.causal != 0;
   auto self_masked = [=](int i, int j) { return kmask[j] > 0.5f || (causal && j > i); };
   auto cross_masked = [=](int, int j) { return j >= Le; };
   const bf16* Q = a.scr[self ? S_Q1 : S_Q2] + drow * H;
@@ -454,10 +457,10 @@ __global__ void __launch_bounds__(NT, 1) row_attn_kernel(const TrainArgs a, cons
   bf16* db = reinterpret_cast<bf16*>(smem + 3 * tb);
   unsigned char* wscr = smem + 4 * tb;
   float* stg_all = reinterpret_cast<float*>(wscr + ATT_WSCR);
-  load_rows(Q, qb, ldb, Lp, H);
-  load_rows(a.scr[self ? S_K1 : S_K2] + kvrow * H, kb, ldb, mtk * 16, H);
-  load_rows(a.scr[self ? S_V1 : S_V2] + kvrow * H, vb, ldb, mtk * 16, H);
-  if constexpr (MODE == ATT_SELF_BWD) load_rows(dc + drow * H, db, ldb, Lp, H);
+  load_rows(Q, qb, ldb, Lp, Lp, H);
+  load_rows(a.scr[self ? S_K1 : S_K2] + kvrow * H, kb, ldb, mtk * 16, mtk * 16, H);
+  load_rows(a.scr[self ? S_V1 : S_V2] + kvrow * H, vb, ldb, mtk * 16, mtk * 16, H);
+  if constexpr (MODE == ATT_SELF_BWD) load_rows(dc + drow * H, db, ldb, Lp, Lp, H);
   __syncthreads();
   if constexpr (MODE != ATT_SELF_BWD) {
     LayerSmem s;
@@ -474,10 +477,10 @@ __global__ void __launch_bounds__(NT, 1) row_attn_kernel(const TrainArgs a, cons
       attend(s, H, a.n_head, mt, mte, a.scale, cross_masked);
     __syncthreads();
     copy_rows(qb, ldb, a.ws[self ? WS_C1 : WS_C2] + drow * H, L, Lp, H);
-    if constexpr (MODE == ATT_SELF_FWD) return;
+    if constexpr (MODE == ATT_SELF_FWD || MODE == ATT_CROSS_FWD) return;
     __syncthreads();  // the context has left qb: Q and dC2 in
-    load_rows(Q, qb, ldb, Lp, H);
-    load_rows(dc + drow * H, db, ldb, Lp, H);
+    load_rows(Q, qb, ldb, Lp, Lp, H);
+    load_rows(dc + drow * H, db, ldb, Lp, Lp, H);
     __syncthreads();
   }
   auto ws = [&](int k, size_t row) { return a.ws[k] + row * H; };
@@ -487,47 +490,32 @@ __global__ void __launch_bounds__(NT, 1) row_attn_kernel(const TrainArgs a, cons
                    stg_all,
                    HeadOut{ws(WS_DQ2, drow), ws(WS_DK2, erow), ws(WS_DV2, erow), part(P_BQC),
                            part(P_BKC), part(P_BVC), L, Le});
-  else
+  else if constexpr (MODE == ATT_SELF_BWD)
     attn_bwd_heads(qb, kb, vb, ldb, db, ldb, H, a.n_head, mt, mt, a.scale, self_masked, wscr,
                    stg_all,
                    HeadOut{ws(WS_DQ1, drow), ws(WS_DK1, drow), ws(WS_DV1, drow), part(P_BQS),
                            part(P_BKS), part(P_BVS), L, L});
 }
 
-// Host: one product of the walk on tiles of 64 WG rows x BN columns; A and
-// B as rg_maps takes them.
+// Host: one product of the walk with epilogue EPI on the tile rg_plan
+// picks for its rows and all its columns; A and B as rg_maps takes them.
 template <int BN, int BT, int EPI, int WG>
-int rg_launch(const TrainArgs& a, RowGemm g, std::initializer_list<const bf16*> A,
-              std::initializer_list<const bf16*> B, cudaStream_t st) {
+int rg_tile_launch(const TrainArgs& a, const RowGemm& g, std::initializer_list<const bf16*> A,
+                   std::initializer_list<const bf16*> B, cudaStream_t st) {
   constexpr bool DUAL = EPI == E_FFN1;
-  constexpr int BM = WG * RG_BM;
-  using Lay = RgLayout<BN, DUAL, WG>;
-  if (g.rows == 0) return 0;
-  g.tiles = (g.cols + BN - 1) / BN;
-  if ((g.rows + BM - 1) / BM > 65535) return (int)cudaErrorInvalidValue;
-  RowMaps m = {};
-  if (!rg_maps(&m, g, A.begin(), B.begin(), (int)A.size(), (int)B.size(), BN, DUAL ? 0 : BT,
-               DUAL ? 1 : BT))
-    return (int)cudaErrorInvalidValue;
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(row_gemm_kernel<BN, BT, EPI, WG>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, Lay::BYTES);
-  if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid(g.tiles * g.groups, (g.rows + BM - 1) / BM);
-  row_gemm_kernel<BN, BT, EPI, WG><<<grid, rg_threads(WG), Lay::BYTES, st>>>(a, g, m);
-  return (int)cudaGetLastError();
+  return rg_launch<row_gemm_kernel<BN, BT, EPI, WG>, BN, DUAL, WG>(a, g, A, B, DUAL ? 0 : BT,
+                                                                  DUAL ? 1 : BT, st);
 }
 
-// The same on the tile rg_plan picks for its rows and all its columns.
 template <int BT, int EPI>
 int rg_run(const TrainArgs& a, const RowGemm& g, std::initializer_list<const bf16*> A,
            std::initializer_list<const bf16*> B, cudaStream_t st) {
   constexpr bool DUAL = EPI == E_FFN1;
   const RgTile t = rg_plan(g.rows, g.cols * g.groups, DUAL);
-  if (t.wg == 2) return rg_launch<DUAL ? 64 : 128, BT, EPI, 2>(a, g, A, B, st);
+  if (t.wg == 2) return rg_tile_launch<DUAL ? 64 : 128, BT, EPI, 2>(a, g, A, B, st);
   if constexpr (!DUAL)
-    if (t.bn == 128) return rg_launch<128, BT, EPI, 1>(a, g, A, B, st);
-  return rg_launch<64, BT, EPI, 1>(a, g, A, B, st);
+    if (t.bn == 128) return rg_tile_launch<128, BT, EPI, 1>(a, g, A, B, st);
+  return rg_tile_launch<64, BT, EPI, 1>(a, g, A, B, st);
 }
 
 // Host: a product over the decoder rows (enc false) or the encoder rows.
@@ -540,6 +528,18 @@ RowGemm rg_rows(const TrainArgs& a, bool enc, int K, int nseg, int cols, int gro
   g.nseg = nseg;
   g.cols = cols;
   g.groups = groups;
+  return g;
+}
+
+// Host: a product of the H-wide inputs of one row set into `groups` H-wide
+// column groups with the weights and biases b0, b0 + 1, ... into o0, o1, o2.
+RowGemm proj(const TrainArgs& a, bool enc, int groups, int b0, bf16* o0, bf16* o1, bf16* o2) {
+  RowGemm g = rg_rows(a, enc, a.H, 1, a.H, groups);
+  bf16* outs[RG_MAX] = {o0, o1, o2};
+  for (int k = 0; k < groups; ++k) {
+    g.bias[k] = a.b[b0 + k];
+    g.out[k] = outs[k];
+  }
   return g;
 }
 
@@ -582,8 +582,7 @@ train_wgrad_kernel(const __grid_constant__ WgradArgs a, const __grid_constant__ 
   const int chunks = (g.R + WR - 1) / WR;
 
   extern __shared__ unsigned char smem_raw[];
-  // 128-byte swizzled TMA boxes need 1024-byte aligned shared addresses
-  unsigned char* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* ring = rg_ring(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + W_STAGES * W_STAGE);
   uint64_t* empty = full + W_STAGES;
   if (threadIdx.x == 0) {
@@ -651,8 +650,50 @@ train_wgrad_kernel(const __grid_constant__ WgradArgs a, const __grid_constant__ 
 
 }  // namespace
 
-NAVC_EXPORT int navc_train_fwd(const TrainArgs* args, void* stream) {
-  return launch_rows(train_fwd_kernel, args, layer_smem_bytes(args->H), stream);
+// The forward of K11 and of K12b's recompute after row_prep_kernel (x',
+// enc): [Q1 K1 V1] = x' [Wq Wk Wv]^T + b; [K2 V2] = enc [Wk_c Wv_c]^T + b;
+// the self attention; r1 = (drop(c1 Wo_s^T + bo_s) + x') npm, bf16 (WS_R1)
+// and, given res, float32; Q2 = r1 Wq_c^T + bq_c.
+int fwd_to_q2(const TrainArgs& a, float* res, cudaStream_t st) {
+  const bf16* const* w = a.w;
+  int e;
+  if ((e = rg_run<0, E_BF16>(a, proj(a, false, 3, 0, a.scr[S_Q1], a.scr[S_K1], a.scr[S_V1]),
+                             {a.ws[WS_X]}, {w[0], w[1], w[2]}, st)))
+    return e;
+  if ((e = rg_run<0, E_BF16>(a, proj(a, true, 2, 5, a.scr[S_K2], a.scr[S_V2], nullptr),
+                             {a.ws[WS_ENC]}, {w[5], w[6]}, st)))
+    return e;
+  if ((e = attn_launch<ATT_SELF_FWD>(a, nullptr, st))) return e;
+  RowGemm g = proj(a, false, 1, 3, a.ws[WS_R1], nullptr, nullptr);
+  g.outf = res;
+  if ((e = rg_run<0, E_RESID>(a, g, {a.ws[WS_C1]}, {w[3]}, st))) return e;
+  return rg_run<0, E_BF16>(a, proj(a, false, 1, 4, a.scr[S_Q2], nullptr, nullptr),
+                           {a.ws[WS_R1]}, {w[4]}, st);
+}
+
+// K11: the elementwise pass (x', enc); the products and attention to Q2;
+// the cross context; r2 = (drop(c2 Wo_c^T + bo_c) + r1) npm (bf16 into
+// a.r2, float32 into res); g = gelu_new(r2 Wi^T + bi); out =
+// drop_final(drop_down(g Wo2^T + bo2) + r2) npm. res (N * Lp, H) float32
+// holds the residual stream, r1 then r2.
+NAVC_EXPORT int navc_train_fwd(const TrainArgs* args, float* res, void* stream) {
+  const TrainArgs& a = *args;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  row_prep_kernel<<<dim3(a.n, (a.H + 127) / 128), 128, 0, st>>>(a, PREP_FWD);
+  int e = (int)cudaGetLastError();
+  if (e || (e = fwd_to_q2(a, res, st)) || (e = attn_launch<ATT_CROSS_FWD>(a, nullptr, st)))
+    return e;
+  RowGemm g = proj(a, false, 1, 7, a.r2, nullptr, nullptr);
+  g.outf = res;
+  if ((e = rg_run<0, E_R2>(a, g, {a.ws[WS_C2]}, {a.w[7]}, st))) return e;
+  g = rg_rows(a, false, a.H, 1, a.I, 1);
+  g.bias[0] = a.bi;
+  g.out[0] = a.ws[WS_G];
+  if ((e = rg_run<0, E_GELU>(a, g, {a.r2}, {a.wi}, st))) return e;
+  g = rg_rows(a, false, a.I, 1, a.H, 1);
+  g.bias[0] = a.bo2;
+  g.outf = res;
+  return rg_run<0, E_OUT>(a, g, {a.ws[WS_G]}, {a.wo2}, st);
 }
 
 // K12a: the elementwise pass (dd, P_BO2); one product walk over the FFN
@@ -661,7 +702,7 @@ NAVC_EXPORT int navc_train_fwd(const TrainArgs* args, void* stream) {
 NAVC_EXPORT int navc_train_ffn_bwd(const TrainArgs* args, void* stream) {
   const TrainArgs& a = *args;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  row_prep_kernel<<<dim3(a.n, (a.H + 127) / 128), 128, 0, st>>>(a, 0);
+  row_prep_kernel<<<dim3(a.n, (a.H + 127) / 128), 128, 0, st>>>(a, PREP_FFN);
   int e = (int)cudaGetLastError();
   if (e) return e;
   RowGemm g = rg_rows(a, false, a.H, 1, a.I, 1);
@@ -681,42 +722,19 @@ NAVC_EXPORT int navc_train_attn_bwd(const TrainArgs* args, bf16* dc, void* strea
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int H = a.H;
   const bf16* const* w = a.w;
-  auto proj = [&](bool enc, int groups, int b0, bf16* o0, bf16* o1, bf16* o2) {
-    RowGemm g = rg_rows(a, enc, H, 1, H, groups);
-    bf16* outs[RG_MAX] = {o0, o1, o2};
-    for (int k = 0; k < groups; ++k) {
-      g.bias[k] = a.b[b0 + k];
-      g.out[k] = outs[k];
-    }
-    return g;
-  };
   auto to_dc = [&]() {
     RowGemm g = rg_rows(a, false, H, 1, H, 1);
     g.out[0] = dc;
     return g;
   };
-  row_prep_kernel<<<dim3(a.n, (H + 127) / 128), 128, 0, st>>>(a, 1);
+  row_prep_kernel<<<dim3(a.n, (H + 127) / 128), 128, 0, st>>>(a, PREP_ATTN);
   int e = (int)cudaGetLastError();
-  if (e) return e;
-  // [Q1 K1 V1] = x' [Wq Wk Wv]^T + b; [K2 V2] = enc [Wk_c Wv_c]^T + b
-  if ((e = rg_run<0, E_BF16>(a, proj(false, 3, 0, a.scr[S_Q1], a.scr[S_K1], a.scr[S_V1]),
-                             {a.ws[WS_X]}, {w[0], w[1], w[2]}, st)))
-    return e;
-  if ((e = rg_run<0, E_BF16>(a, proj(true, 2, 5, a.scr[S_K2], a.scr[S_V2], nullptr),
-                             {a.ws[WS_ENC]}, {w[5], w[6]}, st)))
-    return e;
-  if ((e = attn_launch<ATT_SELF_FWD>(a, dc, st))) return e;
-  // r1 = (drop(c1 Wo_s^T + bo_s) + x') npm; Q2 = r1 Wq_c^T + bq_c
-  RowGemm g = proj(false, 1, 3, a.ws[WS_R1], nullptr, nullptr);
-  if ((e = rg_run<0, E_RESID>(a, g, {a.ws[WS_C1]}, {w[3]}, st))) return e;
-  if ((e = rg_run<0, E_BF16>(a, proj(false, 1, 4, a.scr[S_Q2], nullptr, nullptr),
-                             {a.ws[WS_R1]}, {w[4]}, st)))
-    return e;
+  if (e || (e = fwd_to_q2(a, nullptr, st))) return e;
   // dC2 = do2 Wo_c; the cross attention and its backward
   if ((e = rg_run<1, E_BF16>(a, to_dc(), {a.ws[WS_DO2]}, {w[7]}, st))) return e;
   if ((e = attn_launch<ATT_CROSS>(a, dc, st))) return e;
   // dr1 = dr2 npm + dQ2 Wq_c: y = dr1 npm into dx, do1 = drop(y)
-  g = rg_rows(a, false, H, 1, H, 1);
+  RowGemm g = rg_rows(a, false, H, 1, H, 1);
   g.out[0] = a.ws[WS_DO1];
   g.part = a.part[P_BOS];
   if ((e = rg_run<1, E_DR1>(a, g, {a.ws[WS_DQ2]}, {w[4]}, st))) return e;

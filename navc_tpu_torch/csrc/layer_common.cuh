@@ -1,10 +1,12 @@
-// Device code shared by the whole-layer kernels: fused_layer.cu (K1/K2, the
-// eval layer of the NAR decode, and K1u) and fused_layer_train.cu (K11 and
-// K12b's recompute of it). Both run one block of NT threads per sequence of at most
-// MR rows, keep the layer in shared memory in the layout below, multiply with
-// bf16 wmma 16x16x16 fragments accumulating in float32, and share the
-// per-head softmax and the chunked FFN, so the forward of the two sources
-// does the same arithmetic in the same order.
+// Device code shared by the layer kernels of fused_layer.cu (K1, K2, K1u:
+// the eval layer of the NAR decode) and fused_layer_train.cu (K11, K12a,
+// K12b: the training layer). The per-sequence kernels (K1, K1u) run one
+// block of NT threads per sequence of at most MR rows, keep the layer in
+// shared memory in the layout below and multiply with bf16 wmma 16x16x16
+// fragments accumulating in float32. The per-head softmax (`attend`) also
+// serves the attention launches of the row-walk kernels (K2, K11, K12b),
+// which copy one sequence's Q/K/V rows into the same layout, so every
+// kernel's attention does the same arithmetic in the same order.
 #pragma once
 
 #include "common.cuh"
@@ -160,6 +162,30 @@ __device__ void head_probs(const bf16* Q, int ldq, const bf16* K, int ldk, int c
   __syncwarp();  // every lane has read its scores before P overwrites them
 }
 
+// rows x H bf16 from global src (ld H) into shared dst (ld ldb), 16 bytes a
+// thread, zero from row `valid` on.
+__device__ void load_rows(const bf16* src, bf16* dst, int ldb, int valid, int rows, int H) {
+  const int per = H / 8;
+  for (int idx = threadIdx.x; idx < rows * per; idx += NT) {
+    const int r = idx / per, c = (idx % per) * 8;
+    *reinterpret_cast<uint4*>(dst + r * ldb + c) =
+        r < valid ? *reinterpret_cast<const uint4*>(src + (size_t)r * H + c)
+                  : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// rows x H bf16 from shared src (ld lds) to global dst (ld H), 16 bytes a
+// thread, zero from row `valid` on.
+__device__ void copy_rows(const bf16* src, int lds, bf16* dst, int valid, int rows, int H) {
+  const int per = H / 8;
+  for (int idx = threadIdx.x; idx < rows * per; idx += NT) {
+    const int r = idx / per, c = (idx % per) * 8;
+    *reinterpret_cast<uint4*>(dst + (size_t)r * H + c) =
+        r < valid ? *reinterpret_cast<const uint4*>(src + r * lds + c)
+                  : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
 // Per-head attention of the forward, one warp per head. Queries: qb rows
 // 0 .. mtq*16; keys/values: kb/vb rows 0 .. mtk*16. The context (bf16)
 // replaces each head's query columns in qb. Score slices alias xb.
@@ -266,9 +292,9 @@ __device__ __forceinline__ void ffn_rows(const LayerSmem& s, int H, int I, int m
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// The layer forward with the cross K/V projected in the kernel and the
-// training layer's hash dropout: K11 and K12b's recompute of it
-// (fused_layer_train.cu), and K1u at p = 0 (fused_layer.cu).
+// The training layer's arguments and hash dropout (fused_layer_train.cu), and
+// the per-sequence layer forward with the cross K/V projected in the kernel,
+// which K1u (fused_layer.cu) runs at p = 0.
 // ---------------------------------------------------------------------------
 
 namespace {
@@ -304,7 +330,7 @@ struct TrainArgs {
   float* denc;              // K12b: (N, Le, H)
   bf16* ws[16];             // operand rows (N * Lp or N * Lep, H or I), WS_*
   float* part[10];          // per-sequence bias column sums (N, H or I), P_*
-  bf16* scr[6];             // K12b scratch: Q/K/V of both attentions, S_*
+  bf16* scr[6];             // K11 / K12b scratch: Q/K/V of both attentions, S_*
   int out_bf16, n, L, Le, H, I, n_head, causal, Lp, Lep, on_hidden, on_input;
   unsigned seed, th_hidden, th_input;
   float keep_hidden, keep_input, scale;
@@ -354,31 +380,20 @@ __device__ Drop make_drop(const TrainArgs& a, int n) {
   return d;
 }
 
-// rows x H bf16 from src (ld lds) to dst (ld H), zero from row `valid` on.
-__device__ void copy_rows(const bf16* src, int lds, bf16* dst, int valid, int rows, int H) {
-  for (int idx = threadIdx.x; idx < rows * H; idx += NT) {
-    const int r = idx / H, c = idx % H;
-    dst[(size_t)r * H + c] = r < valid ? src[r * lds + c] : __float2bfloat16(0.f);
-  }
-}
-
 // x' = input dropout of x; self-attention; cross-attention over enc. Leaves
-// r2 in xf (f32) and xb (bf16). With `save`, writes the backward's operand
-// rows (x', c1, r1, c2, enc) and the Q/K/V scratch of both attentions.
+// r2 in xf (f32) and xb (bf16).
 __device__ void self_cross_fwd(const TrainArgs& a, const LayerSmem& s, int n, const Drop& dr,
-                               const float* kmask, const float* npm, bool save) {
+                               const float* kmask, const float* npm) {
   const int H = a.H, L = a.L, Le = a.Le, ldb = s.ldb;
   const int warp = threadIdx.x >> 5;
   const int mt = (L + 15) / 16, mte = (Le + 15) / 16;
   float* stg = s.stg + warp * 256;
-  const size_t drow = (size_t)n * a.Lp, erow = (size_t)n * a.Lep;
 
   for (int idx = threadIdx.x; idx < MR * H; idx += NT) {
     const int r = idx / H, c = idx % H;
     const float v = r < L ? dr.input(a.x[((size_t)n * L + r) * H + c], r, c) : 0.f;
     s.xf[r * H + c] = v;
     s.xb[r * ldb + c] = __float2bfloat16(v);
-    if (save && r < a.Lp) a.ws[WS_X][(drow + r) * H + c] = __float2bfloat16(v);
   }
   __syncthreads();
 
@@ -389,18 +404,11 @@ __device__ void self_cross_fwd(const TrainArgs& a, const LayerSmem& s, int n, co
   gemm_rows<false>(s.xb, ldb, mt, a.w[2], H, H, H, stg, to_bf16(s.vb, a.b[2]));
   gemm_rows<false>(s.xb, ldb, mt, a.w[0], H, H, H, stg, to_bf16(s.qb, a.b[0]));
   __syncthreads();
-  if (save) {
-    copy_rows(s.qb, ldb, a.scr[S_Q1] + drow * H, a.Lp, a.Lp, H);
-    copy_rows(s.kb, ldb, a.scr[S_K1] + drow * H, a.Lp, a.Lp, H);
-    copy_rows(s.vb, ldb, a.scr[S_V1] + drow * H, a.Lp, a.Lp, H);
-    __syncthreads();  // the attention overwrites qb
-  }
 
   const bool causal = a.causal != 0;
   attend(s, H, a.n_head, mt, mt, a.scale,
              [=](int i, int j) { return kmask[j] > 0.5f || (causal && j > i); });
   __syncthreads();
-  if (save) copy_rows(s.qb, ldb, a.ws[WS_C1] + drow * H, L, a.Lp, H);
 
   auto residual = [&](const float* bias, int site) {
     return [=](int i, int j, float v) {
@@ -412,14 +420,11 @@ __device__ void self_cross_fwd(const TrainArgs& a, const LayerSmem& s, int n, co
   };
   gemm_rows<false>(s.qb, ldb, mt, a.w[3], H, H, H, stg, residual(a.b[3], SITE_SELF_OUT));
   __syncthreads();
-  if (save) copy_rows(s.xb, ldb, a.ws[WS_R1] + drow * H, L, a.Lp, H);
 
   // cross K/V from the encoder rows (bf16 in qb)
   for (int idx = threadIdx.x; idx < MR * H; idx += NT) {
     const int r = idx / H, c = idx % H;
-    const bf16 v = __float2bfloat16(r < Le ? a.enc[((size_t)n * Le + r) * H + c] : 0.f);
-    s.qb[r * ldb + c] = v;
-    if (save && r < a.Lep) a.ws[WS_ENC][(erow + r) * H + c] = v;
+    s.qb[r * ldb + c] = __float2bfloat16(r < Le ? a.enc[((size_t)n * Le + r) * H + c] : 0.f);
   }
   __syncthreads();
   gemm_rows<false>(s.qb, ldb, mte, a.w[5], H, H, H, stg, to_bf16(s.kb, a.b[5]));
@@ -427,15 +432,8 @@ __device__ void self_cross_fwd(const TrainArgs& a, const LayerSmem& s, int n, co
   __syncthreads();
   gemm_rows<false>(s.xb, ldb, mt, a.w[4], H, H, H, stg, to_bf16(s.qb, a.b[4]));
   __syncthreads();
-  if (save) {
-    copy_rows(s.qb, ldb, a.scr[S_Q2] + drow * H, a.Lp, a.Lp, H);
-    copy_rows(s.kb, ldb, a.scr[S_K2] + erow * H, a.Lep, a.Lep, H);
-    copy_rows(s.vb, ldb, a.scr[S_V2] + erow * H, a.Lep, a.Lep, H);
-    __syncthreads();
-  }
   attend(s, H, a.n_head, mt, mte, a.scale, [=](int, int j) { return j >= Le; });
   __syncthreads();
-  if (save) copy_rows(s.qb, ldb, a.ws[WS_C2] + drow * H, L, a.Lp, H);
   gemm_rows<false>(s.qb, ldb, mt, a.w[7], H, H, H, stg, residual(a.b[7], SITE_CROSS_OUT));
   __syncthreads();
 }
@@ -450,17 +448,16 @@ __device__ void init_masks(const TrainArgs& a, int n, float* kmask, float* npm) 
 }
 
 // The layer forward of sequence blockIdx.x with the cross K/V projected in
-// the kernel: K11 (fused_layer_train.cu), and K1u (fused_layer.cu) with both
-// dropout probabilities 0 and no r2. r2 is written when a.r2 is not null.
-// FFN as K1; out = drop_final(drop_down(down + bo2) + r2) * npm.
+// the kernel, one block per sequence: K1u (fused_layer.cu), with both
+// dropout probabilities 0. FFN as K1; out = drop_final(drop_down(down +
+// bo2) + r2) * npm.
 __device__ __forceinline__ void layer_fwd(const TrainArgs& a, unsigned char* smem, float* kmask,
                                           float* npm) {
   const int n = blockIdx.x, H = a.H, L = a.L;
   init_masks(a, n, kmask, npm);
   const LayerSmem s = layer_layout(smem, H);
   const Drop dr = make_drop(a, n);
-  self_cross_fwd(a, s, n, dr, kmask, npm, false);
-  if (a.r2 != nullptr) copy_rows(s.xb, s.ldb, a.r2 + (size_t)n * a.Lp * H, L, a.Lp, H);
+  self_cross_fwd(a, s, n, dr, kmask, npm);
 
   const float* bo2 = a.bo2;
   const float* npm_p = npm;

@@ -1,7 +1,11 @@
-// The row-batched product walk of the training layer's backward kernels
-// (K12a, K12b in fused_layer_train.cu): C = A B over all N * Lp operand rows
-// of a batch at once, flattened, where the per-sequence kernels multiplied
-// one sequence's 32 rows by every weight matrix.
+// The row-batched product walk of the layer kernels: C = A B over all
+// flattened operand rows of a batch at once, where the per-sequence kernels
+// multiplied one sequence's 32 rows by every weight matrix. The training
+// layer's forward and backward (K11, K12a, K12b in fused_layer_train.cu)
+// walk the N * Lp decoder rows and N * Lep encoder rows; the NAR decode's
+// sparse-query layer (K2 in fused_layer.cu) walks the N * Lp canvas rows and
+// the N * K query rows. Each kernel brings its own epilogues (rg_tile
+// below hands them the tile in registers).
 //
 // A block computes one output tile of 64 WG rows by BN (64 or 128)
 // columns, WG (1 or 2) consumer warpgroups of 64 rows sharing each B tile.
@@ -35,6 +39,8 @@
 #pragma once
 
 #include "hopper.cuh"
+
+#include <initializer_list>
 
 namespace {
 
@@ -123,9 +129,10 @@ __device__ __forceinline__ uint64_t rg_desc_b(const unsigned char* b, int k) {
 
 }  // namespace
 
-// One product of the walk, filled by the C entries of
-// fused_layer_train.cu. Rows are flattened: row r is position r %
-// seq_rows of sequence r / seq_rows; positions from `valid` on are padding.
+// One product of the walk, filled by the C entries of fused_layer_train.cu
+// and fused_layer.cu. Rows are flattened: in the training layer, row r is
+// position r % seq_rows of sequence r / seq_rows, and positions from `valid`
+// on are padding.
 struct RowGemm {
   int rows;               // R = N * seq_rows
   int seq_rows;           // Lp or Lep: 16 or 32
@@ -137,6 +144,8 @@ struct RowGemm {
   int tiles;              // BN-wide column tiles of one group
   const float* bias[RG_MAX];  // per group, or null
   bf16* out[RG_MAX];          // bf16 outputs (rows, cols) per group (DUAL: g, da)
+  float* outf;                // the float32 residual rows (rows, cols) an epilogue
+                              // reads and writes, or null
   float* part;                // per-sequence column sums (N, cols), or null
 };
 
@@ -220,6 +229,42 @@ __device__ __forceinline__ void rg_consume(const RowGemm& g, const unsigned char
   if constexpr (DUAL) fence_acc(acc1);
 }
 
+// The 1024-aligned start of a block's dynamic shared memory: 128-byte
+// swizzled TMA boxes need 1024-byte aligned shared addresses.
+__device__ __forceinline__ unsigned char* rg_ring(unsigned char* raw) {
+  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+}
+
+// One block's tile of a product (ring from rg_ring): the producer thread
+// streams the K walk and the producer warp returns false; each consumer
+// thread returns true with its warpgroup's 64 rows of the tile in acc0
+// (and acc1 for DUAL), the ring free for the epilogue's staging.
+template <int BN, int BT, bool DUAL, int WG>
+__device__ __forceinline__ bool rg_tile(const RowMaps& m, const RowGemm& g, unsigned char* ring,
+                                        int grp, int c0, int row0, float (&acc0)[BN / 2],
+                                        float (&acc1)[BN / 2]) {
+  using Lay = RgLayout<BN, DUAL, WG>;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + Lay::BARS);
+  uint64_t* empty = full + Lay::STAGES;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < Lay::STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 4 * WG);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x >= 128 * WG) {
+    if (threadIdx.x == 128 * WG)
+      rg_produce<BN, BT, DUAL, WG>(m, g, ring, full, empty, grp, c0, row0);
+    return false;
+  }
+  // warp-uniform as the compiler can see it, which keeps the wgmmas unserialized
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);
+  rg_consume<BN, BT, DUAL, WG>(g, ring, full, empty, wg, acc0, acc1);
+  return true;
+}
+
 // The per-sequence column sums of a tile: stg holds the tile's 64 WG x BN
 // float32 values (ld BN + 1, zero where they add nothing); a thread sums
 // one column of one sequence over its `valid` rows in row order into
@@ -254,6 +299,29 @@ inline bool rg_maps(RowMaps* m, const RowGemm& g, const bf16* const* a, const bf
     if (!ok) return false;
   }
   return true;
+}
+
+// Host: one product on tiles of 64 WG rows x BN columns, launched as
+// KERNEL, the instance of a row-walk kernel (args, RowGemm, RowMaps) for
+// that tile; A and B as rg_maps takes them (bt0 / bt1: B K-major or
+// MN-major).
+template <auto KERNEL, int BN, bool DUAL, int WG, typename Args>
+int rg_launch(const Args& a, RowGemm g, std::initializer_list<const bf16*> A,
+              std::initializer_list<const bf16*> B, int bt0, int bt1, cudaStream_t st) {
+  constexpr int BM = WG * RG_BM;
+  using Lay = RgLayout<BN, DUAL, WG>;
+  if (g.rows == 0) return 0;
+  g.tiles = (g.cols + BN - 1) / BN;
+  if ((g.rows + BM - 1) / BM > 65535) return (int)cudaErrorInvalidValue;
+  RowMaps m = {};
+  if (!rg_maps(&m, g, A.begin(), B.begin(), (int)A.size(), (int)B.size(), BN, bt0, bt1))
+    return (int)cudaErrorInvalidValue;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, Lay::BYTES);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid(g.tiles * g.groups, (g.rows + BM - 1) / BM);
+  KERNEL<<<grid, rg_threads(WG), Lay::BYTES, st>>>(a, g, m);
+  return (int)cudaGetLastError();
 }
 
 // Host: the SM count of the current device, read once.

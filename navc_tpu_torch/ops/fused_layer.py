@@ -17,12 +17,16 @@ layer's forward (K11) with both dropout probabilities 0, so it shares K11's
 device code and plain version. No decode path of navc_tpu calls this form
 (its decodes pass ``static=``, which selects K1).
 
-All three are one CUDA source (csrc/fused_layer.cu). Each wrapper launches it for
-CUDA tensors and raises if the build or the launch fails; only for CPU
-tensors does it run the plain version beside it — float32 PyTorch with the
-kernel's bf16 rounding points (bf16 matmul operands with float32
-accumulation, float32 bias, LayerNorm and softmax; ``_attend_2d`` /
-``_layer_body`` of the JAX kernel).
+All three are one CUDA source (csrc/fused_layer.cu). K1 and K1u run one
+block per sequence; K2 is a sequence of launches (a LayerNorm pass, the
+products on the row walk of csrc/row_gemm.cuh over the canvas and query
+rows, and two per-sequence attention launches) on scratch that the wrapper
+allocates for the call. Each wrapper launches its kernel for CUDA tensors
+and raises if the build or the launch fails; only for CPU tensors does it
+run the plain version beside it — float32 PyTorch with the kernel's bf16
+rounding points (bf16 matmul operands with float32 accumulation, float32
+bias, LayerNorm, softmax and residual; ``_attend_2d`` / ``_layer_body`` of
+the JAX kernel).
 
 Weights are a ``LayerWeights`` made once from a BertLayer: bf16 matrices in
 ``nn.Linear``'s (out, in) layout, float32 biases.
@@ -39,8 +43,8 @@ import torch
 
 from . import _build
 from ..models.layers import MASK_FILL
-from .fused_layer_train import (TrainArgs, check_operands, kernel_args,
-                                train_fwd_plain)
+from .fused_layer_train import (ROW_TILE, TrainArgs, check_aligned,
+                                check_operands, kernel_args, train_fwd_plain)
 
 SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 MAX_ROWS = 32  # canvas length, query slots and encoder positions per block
@@ -208,6 +212,7 @@ class _LayerArgs(ctypes.Structure):
         "raw", "stat", "lns", "lnb", "kp", "ke", "ve", "qidx", "mrow")]
         + [("w", ctypes.c_void_p * 8), ("b", ctypes.c_void_p * 8)]
         + [(name, ctypes.c_void_p) for name in ("wi", "bi", "wo2", "bo2", "out")]
+        + [("ws", ctypes.c_void_p * 6), ("g", ctypes.c_void_p), ("res", ctypes.c_void_p)]
         + [(name, ctypes.c_int) for name in (
             "out_bf16", "n", "L", "Le", "K", "H", "I", "n_head", "causal")]
         + [("scale", ctypes.c_float), ("eps", ctypes.c_float)])
@@ -252,8 +257,8 @@ def _check(raw, static, kp, ke, ve, w, ln_scale, ln_bias, n_head, out_dtype):
             raise ValueError("%s must be bfloat16 (H, H)" % name)
 
 
-def _launch(raw, static, kp, ke, ve, w, ln_scale, ln_bias, n_head, causal,
-            ln_eps, out, qidx=None, mask_row=None):
+def _launch(entry, raw, static, kp, ke, ve, w, ln_scale, ln_bias, n_head, causal,
+            ln_eps, out, qidx=None, mask_row=None, ws=(), g=None, res=None):
     n, l, h = raw.shape
     p = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     args = _LayerArgs(
@@ -262,16 +267,17 @@ def _launch(raw, static, kp, ke, ve, w, ln_scale, ln_bias, n_head, causal,
         w=(ctypes.c_void_p * 8)(*[p(getattr(w, k)) for k in MATS]),
         b=(ctypes.c_void_p * 8)(*[p(getattr(w, k)) for k in BIASES]),
         wi=p(w.wi), bi=p(w.bi), wo2=p(w.wo2), bo2=p(w.bo2), out=p(out),
+        ws=(ctypes.c_void_p * 6)(*[p(t) for t in ws]), g=p(g), res=p(res),
         out_bf16=int(out.dtype == torch.bfloat16), n=n, L=l, Le=ke.shape[1],
         K=0 if qidx is None else qidx.shape[1], H=h, I=w.wi.shape[0],
         n_head=n_head, causal=int(causal),
         scale=1.0 / math.sqrt(h // n_head), eps=ln_eps)
     lib = _build.load("fused_layer", {
-        "navc_fused_layer": [ctypes.POINTER(_LayerArgs), ctypes.c_void_p]})
-    code = lib.navc_fused_layer(
+        entry: [ctypes.POINTER(_LayerArgs), ctypes.c_void_p]})
+    code = getattr(lib, entry)(
         ctypes.byref(args),
         ctypes.c_void_p(torch.cuda.current_stream(raw.device).cuda_stream))
-    _build.check(lib, code, "fused_layer")
+    _build.check(lib, code, entry[len("navc_"):])
 
 
 def fused_layer(raw, static, kp, ke, ve, w: LayerWeights, ln_scale, ln_bias,
@@ -290,8 +296,8 @@ def fused_layer(raw, static, kp, ke, ve, w: LayerWeights, ln_scale, ln_bias,
     _check(raw, static, kp, ke, ve, w, ln_scale, ln_bias, n_head, out_dtype)
     out = torch.empty(raw.shape, dtype=out_dtype, device=raw.device)
     if raw.shape[0]:
-        _launch(raw, static, kp, ke, ve, w, ln_scale, ln_bias, n_head, causal,
-                ln_eps, out)
+        _launch("navc_fused_layer", raw, static, kp, ke, ve, w, ln_scale, ln_bias,
+                n_head, causal, ln_eps, out)
         _build.LAUNCHES["fused_layer"] += 1
     return out
 
@@ -318,10 +324,22 @@ def fused_layer_qsub(qidx, mask_row, raw, static, kp, ke, ve, w: LayerWeights,
     if (mask_row.dtype != torch.bfloat16 or tuple(mask_row.shape) != (h,)
             or mask_row.device != raw.device or not mask_row.is_contiguous()):
         raise ValueError("mask_row must be bfloat16 (H,) on %s" % raw.device)
-    out = torch.empty((n, qidx.shape[1], h), dtype=out_dtype, device=raw.device)
-    if n and qidx.shape[1]:
-        _launch(raw, static, kp, ke, ve, w, ln_scale, ln_bias, n_head, False,
-                ln_eps, out, qidx=qidx, mask_row=mask_row)
+    check_aligned("the layer's matrices", *[getattr(w, k) for k in MATS + ("wi", "wo2")])
+    k = qidx.shape[1]
+    out = torch.empty((n, k, h), dtype=out_dtype, device=raw.device)
+    if n and k:
+        # this call's scratch: the canvas rows (x, K1, V1), the query rows
+        # (xq / att1 / att2, Q1 / Q2, c1 / c2), the FFN activations and the
+        # float32 residual stream of the query rows
+        lp = -(-l // ROW_TILE) * ROW_TILE
+        bf = torch.bfloat16
+        canvas = torch.empty((3, n * lp, h), dtype=bf, device=raw.device).unbind(0)
+        query = torch.empty((3, n * k, h), dtype=bf, device=raw.device).unbind(0)
+        g = torch.empty((n * k, w.wi.shape[0]), dtype=bf, device=raw.device)
+        res = torch.empty((n * k, h), dtype=torch.float32, device=raw.device)
+        _launch("navc_fused_layer_qsub", raw, static, kp, ke, ve, w, ln_scale, ln_bias,
+                n_head, False, ln_eps, out, qidx=qidx, mask_row=mask_row,
+                ws=canvas + query, g=g, res=res)
         _build.LAUNCHES["fused_layer_qsub"] += 1
     return out
 

@@ -18,8 +18,9 @@ Four CUDA kernels (csrc/fused_layer_train.cu), one wrapper each:
   ``weight_grads``      every dW = Bᵀ·A over all rows, and every bias
                         gradient, in a fixed order
 
-K12a and K12b multiply all N·Lp rows of the batch at once (csrc/row_gemm.cuh's
-TMA + wgmma walk), each as a few launches from one C entry. The TPU
+K11, K12a and K12b multiply all N·Lp rows of the batch at once
+(csrc/row_gemm.cuh's TMA + wgmma walk), each as a few launches from one C
+entry on scratch that its wrapper allocates for the call. The TPU
 kernels carry the weight gradients across their sequential grid in
 VMEM scratch; CUDA blocks run in parallel, so K12a/K12b write the per-row
 operands of each product (rounded to the compute dtype, where the JAX kernel
@@ -402,11 +403,11 @@ def wgrad_plan(shapes: List[Tuple[int, int]]) -> Tuple[List[int], List[int], int
 
 
 def _lib():
+    args, ptr = ctypes.POINTER(TrainArgs), ctypes.c_void_p
     return _build.load("fused_layer_train", {
-        name: [ctypes.POINTER(TrainArgs), ctypes.c_void_p]
-        for name in ("navc_train_fwd", "navc_train_ffn_bwd")
-    } | {"navc_train_attn_bwd": [ctypes.POINTER(TrainArgs), ctypes.c_void_p, ctypes.c_void_p],
-         "navc_train_wgrad": [ctypes.POINTER(_WgradArgs), ctypes.c_void_p]})
+        "navc_train_fwd": [args, ptr, ptr], "navc_train_ffn_bwd": [args, ptr],
+        "navc_train_attn_bwd": [args, ptr, ptr],
+        "navc_train_wgrad": [ctypes.POINTER(_WgradArgs), ptr]})
 
 
 def _stream(t):
@@ -472,6 +473,11 @@ def check_operands(x, enc, kp, w, n_head, compute_dtype):
             raise ValueError("operands must be contiguous and on %s" % x.device)
 
 
+def check_aligned(what, *tensors):
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("%s must be 16-byte aligned (a TMA requirement)" % what)
+
+
 def kernel_args(x, enc, kp, w, seed, n_head, causal, p, p_input, **ptrs):
     n, l, h = x.shape
     le = enc.shape[1]
@@ -510,22 +516,35 @@ def train_fwd(x, enc, kp, w, seed, *, n_head, causal=False, p=0.5, p_input=0.0,
     check_operands(x, enc, kp, w, n_head, compute_dtype)
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError("out_dtype must be bfloat16 or float32")
+    check_aligned("the layer's matrices", *[w[k] for k in MATS + ("wi", "wo2")])
     n, l, h = x.shape
-    out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
-    r2 = torch.empty((n, _round_up(l, ROW_TILE), h), dtype=torch.bfloat16,
-                     device=x.device)
+    lp, lep = _round_up(l, ROW_TILE), _round_up(enc.shape[1], ROW_TILE)
+    dev = x.device
+    bf = torch.bfloat16
+    out = torch.empty(x.shape, dtype=out_dtype, device=dev)
+    r2 = torch.empty((n, lp, h), dtype=bf, device=dev)
     if n:
+        # this call's scratch, by address: x' then r1 (WS_X, WS_R1), Q1 then
+        # Q2, K1, V1, c1 then c2 (WS_C1, WS_C2) over the decoder rows; enc, K2,
+        # V2 over the encoder rows; the FFN activations; the float32 residual
+        # stream (r1, then r2). Each alias is written after its first
+        # tenant's last reader in the launch order of navc_train_fwd.
+        lps = torch.empty((5, n * lp, h), dtype=bf, device=dev)
+        leps = torch.empty((3, n * lep, h), dtype=bf, device=dev)
+        gel = torch.empty((n * lp, w["wi"].shape[0]), dtype=bf, device=dev)
+        res = torch.empty((n * lp, h), dtype=torch.float32, device=dev)
+        xr, q, k1, v1, c = (lps.data_ptr() + i * lps.stride(0) * 2 for i in range(5))
+        enc_, k2, v2 = (leps.data_ptr() + i * leps.stride(0) * 2 for i in range(3))
         a = kernel_args(x, enc, kp, w, seed, n_head, causal, p, p_input, out=_p(out),
-                  r2=_p(r2), out_bf16=int(out_dtype == torch.bfloat16))
+                        r2=_p(r2), out_bf16=int(out_dtype == torch.bfloat16),
+                        ws={WS_X: xr, WS_R1: xr, WS_C1: c, WS_C2: c, WS_ENC: enc_,
+                            WS_G: gel},
+                        scr=dict(enumerate((q, k1, v1, q, k2, v2))))
         lib = _lib()
-        _build.check(lib, lib.navc_train_fwd(ctypes.byref(a), _stream(x)), "train_fwd")
+        _build.check(lib, lib.navc_train_fwd(ctypes.byref(a), _p(res), _stream(x)),
+                     "train_fwd")
         _build.LAUNCHES["train_fwd"] += 1
     return out, r2
-
-
-def _check_aligned(what, *tensors):
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError("%s must be 16-byte aligned (a TMA requirement)" % what)
 
 
 def ffn_bwd_operands(r2, dy, kp, w, seed, *, p=0.5, compute_dtype=torch.bfloat16):
@@ -540,7 +559,7 @@ def ffn_bwd_operands(r2, dy, kp, w, seed, *, p=0.5, compute_dtype=torch.bfloat16
     if r2.dtype != torch.bfloat16 or tuple(r2.shape) != (n, lp, h) \
             or not r2.is_contiguous():
         raise ValueError("r2 must be train_fwd's contiguous bf16 (N, Lp, H)")
-    _check_aligned("r2, wi and wo2", r2, w["wi"], w["wo2"])
+    check_aligned("r2, wi and wo2", r2, w["wi"], w["wo2"])
     inter = w["wi"].shape[0]
     dev = dy.device
     dr2 = torch.empty((n, l, h), dtype=torch.float32, device=dev)
@@ -577,7 +596,7 @@ def attn_bwd_operands(x, enc, dr2, kp, w, seed, *, n_head, causal=False, p=0.5,
     check_operands(x, enc, kp, w, n_head, compute_dtype)
     if dr2.dtype != torch.float32 or dr2.shape != x.shape or not dr2.is_contiguous():
         raise ValueError("dr2 must be contiguous float32 (N, L, H)")
-    _check_aligned("the attention weights", *[w[k] for k in MATS])
+    check_aligned("the attention weights", *[w[k] for k in MATS])
     n, l, h = x.shape
     le = enc.shape[1]
     lp, lep = _round_up(l, ROW_TILE), _round_up(le, ROW_TILE)

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Mutation check of the training layer's row walk (K12a, K12b) on a card.
+"""Mutation check of the row-walk kernels (K11, K12a, K12b, K2) on a card.
 
 Each mutant is one exact edit of navc_tpu_torch/csrc, made in a copy of
 the package under a temporary directory (never in the checkout); the
-`cuda` training tests of tests/test_torch_port_cuda.py then run against the
-copy, all mutants at once, one process each. A mutant that no test fails is
-reported as surviving and the script exits 1. Run from the repo root on a
-machine with an NVIDIA card:
+`cuda` tests of tests/test_torch_port_cuda.py that cover its kernel (the
+training tests, or K2's) then run against the copy, all mutants at once,
+one process each. A mutant that no test fails is reported as surviving and
+the script exits 1. Run from the repo root on a machine with an NVIDIA
+card:
 
     python3 scripts/port_mutants.py
 """
@@ -19,20 +20,34 @@ import sys
 import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-MUTANTS = {  # name: (source under navc_tpu_torch/csrc, text, its replacement)
+MUTANTS = {  # name: (source under navc_tpu_torch/csrc, text, its replacement, tests)
     "a product skips its last k-step": (
         "row_gemm.cuh", "for (int k = 0; k < RG_BK / 16; ++k) {",
-        "for (int k = 0; k < RG_BK / 16 - (c == chunks - 1); ++k) {"),
+        "for (int k = 0; k < RG_BK / 16 - (c == chunks - 1); ++k) {", "train"),
     "a part sum drops the last sequence of a tile": (
         "row_gemm.cuh", "for (int i = 0; i < g.valid; ++i) sum +=",
-        "for (int i = 0; i < (sq == per - 1 ? 0 : g.valid); ++i) sum +="),
+        "for (int i = 0; i < (sq == per - 1 ? 0 : g.valid); ++i) sum +=", "train"),
     "a dropout lattice row off by one": (
         "fused_layer_train.cu", "s[e] = dr.hidden(y, SITE_SELF_OUT, i, c + e);",
-        "s[e] = dr.hidden(y, SITE_SELF_OUT, i + 1, c + e);"),
+        "s[e] = dr.hidden(y, SITE_SELF_OUT, i + 1, c + e);", "train"),
     "the causal mask off by one": (
         "fused_layer_train.cu",
         "auto self_masked = [=](int i, int j) { return kmask[j] > 0.5f || (causal && j > i); };",
-        "auto self_masked = [=](int i, int j) { return kmask[j] > 0.5f || (causal && j > i + 1); };"),
+        "auto self_masked = [=](int i, int j) { return kmask[j] > 0.5f || (causal && j > i + 1); };",
+        "train"),
+    "K11: the cross-out dropout on the self-out site": (
+        "fused_layer_train.cu", "v[e] + g.bias[0][c + e], SITE_CROSS_OUT, i, c + e)",
+        "v[e] + g.bias[0][c + e], SITE_SELF_OUT, i, c + e)", "train"),
+    "K11: r2's residual dropped from the last epilogue": (
+        "fused_layer_train.cu", "SITE_FFN_DOWN, i, c + e) +\n                                   r2v[e],",
+        "SITE_FFN_DOWN, i, c + e),", "train"),
+    "K2: an unused slot left unzeroed": (
+        "fused_layer.cu", "const float npm = (EPI == S_RESID || EPI == S_OUT) && a.qidx[r] >= 0",
+        "const float npm = (EPI == S_RESID || EPI == S_OUT) && (EPI == S_OUT || a.qidx[r] >= 0)",
+        "qsub"),
+    "K2: the query LayerNorm reads raw instead of the <mask> row": (
+        "fused_layer.cu", "x[j] = __bfloat162float(a.mrow[c]) +",
+        "x[j] = __bfloat162float(a.raw[((size_t)n * L + max(pos, 0)) * H + c]) +", "qsub"),
 }
 
 
@@ -40,7 +55,7 @@ def main():
     work = tempfile.mkdtemp(prefix="port_mutants_")
     procs = {}
     try:
-        for k, (name, (src, old, new)) in enumerate(MUTANTS.items()):
+        for k, (name, (src, old, new, tests)) in enumerate(MUTANTS.items()):
             root = os.path.join(work, "m%d" % k)
             shutil.copytree(os.path.join(ROOT, "navc_tpu_torch"),
                             os.path.join(root, "navc_tpu_torch"),
@@ -54,7 +69,7 @@ def main():
             with open(path, "w") as f:
                 f.write(text.replace(old, new))
             cmd = [sys.executable, "-m", "pytest", "tests/test_torch_port_cuda.py", "-q",
-                   "--noconftest", "-p", "no:cacheprovider", "-k", "train"]
+                   "--noconftest", "-p", "no:cacheprovider", "-k", tests]
             procs[name] = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
                                            stderr=subprocess.STDOUT, text=True,
                                            env=dict(os.environ, PYTHONPATH=root))

@@ -150,6 +150,68 @@ def test_fused_layer_qsub_matches_plain_and_dense_rows(cuda, shape, k):
     assert (out - rows)[used].abs().max().item() <= HID_TOL
 
 
+# K2 on its serving walk (csrc/fused_layer.cu): N * K query rows flattened
+# (37 * 16 and 5 * 16 rows leave a ragged last row tile), K 8 to 32 with
+# unused slots, one canvas all PAD (its slots all unused), raw at the query
+# positions left as it is (the kernel must read the <mask> row there), f32
+# and bf16 outputs. N = 384 with K = 24 is the decode's first sparse step
+# (128 x 128 tiles), K = 8 its last (64 x 128).
+QSUB_CASES = [  # n, L, Le, H, heads, FFN, K, out dtype
+    (384, 32, 16, 512, 8, 2048, 24, torch.bfloat16),
+    (384, 32, 16, 512, 8, 2048, 8, torch.float32),
+    (37, 30, 16, 512, 8, 2048, 16, torch.float32),
+    (9, 32, 8, 128, 2, 256, 32, torch.bfloat16),
+    (5, 13, 20, 256, 16, 272, 16, torch.bfloat16),
+]
+
+
+def _query_slots(kp, k, g):
+    """qidx (N, K) int32: up to K distinct non-PAD positions of each canvas
+    in order, at least one slot of each canvas unused, -1 after them."""
+    n = kp.shape[0]
+    qidx = torch.full((n, k), -1, dtype=torch.int32)
+    for i in range(n):
+        real = int((~kp[i]).sum())
+        pos = torch.randperm(real, generator=g)[:min(k - 1, real)].sort().values
+        qidx[i, :len(pos)] = pos.to(torch.int32)
+    return qidx.to(kp.device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", QSUB_CASES, ids=lambda c: "x".join(map(str, c[:7])) + (
+    "-bf16" if c[7] == torch.bfloat16 else "-f32"))
+def test_fused_layer_qsub_walk_matches_plain_and_dense_rows(cuda, case):
+    n, l, le, h, heads, inter, k, dtype = case
+    g = _gen(sum(case[:7]))
+    w = _weights(h, inter, g, cuda)
+    raw, static, kp, ke, ve, lns, lnb = _layer_inputs(n, l, le, h, g, cuda)
+    kp[-1] = True  # a canvas all PAD
+    mask_row = torch.randn(h, generator=g).to(cuda, torch.bfloat16)
+    qidx = _query_slots(kp, k, g)
+    used = qidx >= 0
+    args = (raw, static, kp, ke, ve, w, lns, lnb)
+    before = _build.LAUNCHES["fused_layer_qsub"]
+    out = fused_layer_qsub(qidx, mask_row, *args, n_head=heads, out_dtype=dtype)
+    assert _build.LAUNCHES["fused_layer_qsub"] == before + 1
+    again = fused_layer_qsub(qidx, mask_row, *args, n_head=heads, out_dtype=dtype)
+    out32 = fused_layer_qsub(qidx, mask_row, *args, n_head=heads)
+    ref = fused_layer_qsub_plain(qidx, mask_row, *args, n_head=heads)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (n, k, h)
+    assert torch.equal(out, again) and torch.equal(out, out32.to(dtype))
+    assert (out32 - ref).abs().max().item() <= HID_TOL
+    assert torch.all(out32[~used] == 0)
+    # with the <mask> row at the query positions, K2's rows are K1's there
+    rows_of = torch.arange(n, device=cuda)[:, None].expand(n, k)
+    sel = torch.zeros(n, l, dtype=torch.bool, device=cuda)
+    sel[rows_of[used], qidx[used].long()] = True
+    args = (torch.where(sel[..., None], mask_row, raw),) + args[1:]
+    out32 = fused_layer_qsub(qidx, mask_row, *args, n_head=heads)
+    dense = fused_layer(*args, n_head=heads)
+    rows = torch.gather(dense, 1, qidx.clamp(min=0).long()[..., None].expand(-1, -1, h))
+    assert (out32 - rows)[used].abs().max().item() <= HID_TOL
+
+
 VOCAB_SHAPES = [  # rows, d, V
     (1, 512, 10048), (70, 64, 50), (200, 16, 1001), (129, 512, 4099),
     # the decode's sparse row counts (k_bound 8, 16, 24 of 384 rows)
@@ -708,6 +770,57 @@ def test_train_bwd_row_walk_matches_plain(cuda, case):
                          ids=lambda c: "x".join(map(str, c)))
 def test_train_bwd_row_walk_matches_plain_with_large_biases(cuda, case):
     _check_train_kernels(cuda, case, bias_scale=10.0)
+
+
+# K11 on the row walk: the tiles rg_plan picks for the H-wide products, 64 x
+# 64 at N * Lp = 2048 rows (B = 64), 64 x 128 at 3200 (N = 100), 128 x 128
+# at 65536 (B = 2048); NAR and causal, p 0 and 0.5 with p_input 0, 0.3 or
+# 0.5, a ragged row count (33 * 16), FFN 1056 and 288, H 128 and 256.
+FWD_CASES = [  # H, FFN, N, L, Le, causal, p, p_input
+    (512, 2048, 64, 30, 16, False, 0.5, 0.3),
+    (512, 2048, 100, 30, 16, False, 0.5, 0.0),
+    (512, 2048, 100, 29, 16, True, 0.0, 0.5),
+    (512, 2048, 2048, 30, 16, False, 0.5, 0.5),
+    (256, 1056, 33, 7, 17, True, 0.5, 0.3),
+    (128, 288, 5, 32, 32, False, 0.0, 0.0),
+]
+
+
+def _check_train_fwd(cuda, case, bias_scale=1.0):
+    """K11 against its plain version with the last sequence all PAD: out and
+    r2 within the training tolerances, zero at PAD rows and past L, bit for
+    bit the same in two calls, one launch a call."""
+    from navc_tpu_torch.ops import fused_layer_train as FT
+
+    h, inter, n, l, le, causal, p, p_input = case
+    g = _gen(sum(case[:5]))
+    x, enc, kp, w = _train_inputs(h, inter, n, l, le, g, cuda, bias_scale)
+    kp[-1] = True
+    kw = dict(n_head=8, causal=causal, p=p, p_input=p_input)
+    before = _build.LAUNCHES["train_fwd"]
+    out, r2 = FT.train_fwd(x, enc, kp, w, 31337, out_dtype=torch.bfloat16, **kw)
+    assert _build.LAUNCHES["train_fwd"] == before + 1
+    out2, r22 = FT.train_fwd(x, enc, kp, w, 31337, out_dtype=torch.bfloat16, **kw)
+    out_p, r2_p = FT.train_fwd_plain(x, enc, kp, w, 31337, out_dtype=torch.bfloat16, **kw)
+    torch.cuda.synchronize()
+    _close(out, out_p, TRAIN_TOL, "out", rms_tol=TRAIN_RMS_TOL)
+    _close(r2, r2_p, TRAIN_TOL, "r2", rms_tol=TRAIN_RMS_TOL)
+    assert torch.all(out[kp] == 0) and torch.all(r2[:, l:] == 0) and torch.all(r2[-1] == 0)
+    assert torch.equal(out, out2) and torch.equal(r2, r22)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FWD_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_train_fwd_row_walk_matches_plain(cuda, case):
+    _check_train_fwd(cuda, case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [FWD_CASES[1], FWD_CASES[4]],
+                         ids=lambda c: "x".join(map(str, c)))
+def test_train_fwd_row_walk_matches_plain_with_large_biases(cuda, case):
+    """Every bias ten times the others' scale (see the backward's)."""
+    _check_train_fwd(cuda, case, bias_scale=10.0)
 
 
 @pytest.mark.cuda
