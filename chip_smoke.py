@@ -8,9 +8,10 @@ Run from the root of a checkout on a machine with one NVIDIA card:
 It builds the port's CUDA kernels from navc_tpu_torch/csrc with nvcc and
 drives the two ported serving paths at full width (random weights from a
 seed). NACF: each of K1-K4 held against its plain PyTorch version at the
-NACF main path's shapes and timed (K2 also beside bf16 torch.matmul of its
-products at their shapes, `matmul_ms`, and given --parent the parent's K2
-in turns); K3 also at the decode's sparse row
+NACF main path's shapes and timed (K1 NAR and causal, and K2, also beside
+bf16 torch.matmul of their products at their shapes, `matmul_ms`, and
+given --parent the parent's K1 and K2 in turns; K1 bit for bit the same in
+two calls, its PAD rows zero); K3 also at the decode's sparse row
 counts (9216, 6144, 3072), K3/K4 untied, tied and with a bias ten times the
 scores' scale, and timed beside torch.matmul on the same operands and,
 given --parent (a checkout of an earlier commit, e.g. a `git archive` of
@@ -25,11 +26,13 @@ again on the CPU through the plain versions. ARB beam search: each of K5-K8
 held against its plain version at the ARB main path's shapes and timed (K5
 at 320, 300 and 5120 rows, k 1, 5 and 8, untied, tied and with a large
 bias; timed at k 5 beside torch.matmul and the parent's K5, with the host's
-cost of one wrapper call on both sides); four 64-video requests (K5, K6, K7
+cost of one wrapper call on both sides; K6 at 320 and 5120 rows, single
+steps and a chained decode, timed at tpos 14 beside the parent's K6 in
+turns); four 64-video requests (K5, K6, K7
 once per beam step) and one 60-video request (K8 instead of K6) through
 StreamingCaptioner; decodes at B=1024 under bench.py's protocol (with
 --parent, in turns with the parent's own decode), then one more profiled
-(K5's share of the device time); one request profiled; 16 videos decoded
+(K5's and K6's shares of the device time); one request profiled; 16 videos decoded
 again on the CPU. Training: K11, K12a, K12b and the weight-gradient
 reduction held against their plain versions at full width (B=64, dropout
 0.5) and timed (K11 in turns with the parent's), and again at B=2048 (all
@@ -186,6 +189,19 @@ def worker_case(kind, ops, args):
 
         calls = [[Product(**pr) for pr in call] for call in ops["calls"]]
         return lambda: {k: v for call in calls for k, v in weight_grads(call).items()}
+    if kind == "fused_layer":
+        from navc_tpu_torch.ops import fused_layer as FL
+
+        return lambda: dict(out=FL.fused_layer(
+            ops["raw"], ops["static"], ops["kp"], ops["ke"], ops["ve"], FL.LayerWeights(**ops["w"]),
+            ops["lns"], ops["lnb"], n_head=args["n_head"], causal=args["causal"],
+            out_dtype=torch.bfloat16))
+    if kind == "beam_attend_step":
+        from navc_tpu_torch.ops.beam_attend import beam_attend_step
+
+        return lambda: dict(zip(("kc", "vc", "att"), beam_attend_step(
+            ops["kc"], ops["vc"], ops["q"], ops["kt"], ops["vt"], ops["prev_k"], ops["amask"],
+            args["tpos"], args["nh"])))
     if kind == "fused_layer_qsub":
         from navc_tpu_torch.ops import fused_layer as FL
 
@@ -652,17 +668,18 @@ def arb_phases(cfg, model, cpu_model, record, parent):
     if "parent_ms" in by_rows[n_main]:
         recs["project_topk"]["parent_ms"] = by_rows[n_main]["parent_ms"]
 
-    # K6: single steps at tpos 0, 14, 29, then every step of a decode
-    def step_inputs(tpos):
-        q, kt, vt = (torch.randn(n, h, generator=g).to(dev) for _ in range(3))
-        prev_k = torch.randint(0, k, (b, k), generator=g).to(dev, torch.int32)
+    # K6: single steps at tpos 0, 14, 29, then every step of a decode, at
+    # the 64-video request's rows and the B=1024 decode's
+    def step_inputs(bb, tpos):
+        q, kt, vt = (torch.randn(bb * k, h, generator=g).to(dev) for _ in range(3))
+        prev_k = torch.randint(0, k, (bb, k), generator=g).to(dev, torch.int32)
         mask = torch.arange(l)[None, :] > tpos
-        mask = mask | ((torch.rand(n, l, generator=g) < 0.1) & (torch.arange(l) > 0))
+        mask = mask | ((torch.rand(bb * k, l, generator=g) < 0.1) & (torch.arange(l) > 0))
         mask[:, tpos] = False
         return q, kt, vt, prev_k, torch.where(mask, -1e7, 0.0).to(dev)
 
-    def caches():
-        return tuple(torch.randn(n, l * h, generator=g).to(dev, torch.bfloat16)
+    def caches(rows):
+        return tuple(torch.randn(rows, l * h, generator=g).to(dev, torch.bfloat16)
                      for _ in range(2))
 
     def step_err(kc, vc, args, tpos):
@@ -673,34 +690,75 @@ def arb_phases(cfg, model, cpu_model, record, parent):
         if not (torch.equal(ok[:, :lim], rk[:, :lim])
                 and torch.equal(ov[:, :lim], rv[:, :lim])):
             die("beam_attend_step caches differ from the plain version at "
-                "tpos %d" % tpos)
+                "%d rows, tpos %d" % (kc.shape[0], tpos))
         return float((att - ratt).abs().max())
 
     err = 0.0
-    for tpos in (0, 14, 29):
-        err = max(err, step_err(*caches(), step_inputs(tpos), tpos))
-    kc = torch.zeros(n, l * h, dtype=torch.bfloat16, device=dev)
-    vc = torch.zeros_like(kc)
-    for tpos in range(l - 1):
-        args = step_inputs(tpos)
-        if tpos == 0:
-            args[3].zero_()
-        err = max(err, step_err(kc, vc, args, tpos))
-    log("beam_attend_step: single steps at tpos 0, 14, 29 and a chained "
-        "%d-step decode agree with the plain version" % (l - 1))
+    step_rows = (b, ARB_BENCH)  # instances: 320 and 5120 beam rows
+    for bb in step_rows:
+        for tpos in (0, 14, 29):
+            err = max(err, step_err(*caches(bb * k), step_inputs(bb, tpos), tpos))
+        kc = torch.zeros(bb * k, l * h, dtype=torch.bfloat16, device=dev)
+        vc = torch.zeros_like(kc)
+        for tpos in range(l - 1):
+            args = step_inputs(bb, tpos)
+            if tpos == 0:
+                args[3].zero_()
+            err = max(err, step_err(kc, vc, args, tpos))
+        del kc, vc
+    log("beam_attend_step: single steps at tpos 0, 14, 29 and a chained %d-step decode "
+        "agree with the plain version at %s rows (attention max err %.3e)"
+        % (l - 1, " and ".join(str(bb * k) for bb in step_rows), err))
+    # times at tpos 14, both row counts, and given --parent the parent's K6
+    # on the same operands in turns (parent, this, this, parent)
     tpos = 14
-    kc, vc = caches()
-    args = step_inputs(tpos)
-    pk, pv = kc.clone(), vc.clone()
-    att_bytes = (2 * n * tpos * h * 2 + 3 * n * h * 4 + n * 4 + n * (tpos + 1) * 4
-                 + 2 * n * (tpos + 1) * h * 2 + n * h * 4)
+    steps_by_rows = {}
+    for bb in step_rows:
+        rows = bb * k
+        kc, vc = caches(rows)
+        args = step_inputs(bb, tpos)
+        run = lambda: beam_attend_step(kc, vc, *args, tpos, nh)  # noqa: E731
+        t = {}
+        if parent is None:
+            t["ms"] = device_ms(run)
+        else:
+            got = parent.load("beam_attend_step", dict(kc=kc, vc=vc, q=args[0], kt=args[1],
+                                                       vt=args[2], prev_k=args[3],
+                                                       amask=args[4]), tpos=tpos, nh=nh)
+            ok, ov, att = beam_attend_step(kc.clone(), vc.clone(), *args, tpos, nh)
+            torch.cuda.synchronize()
+            lim = (tpos + 1) * h
+            if not (torch.equal(got["kc"][:, :lim], ok[:, :lim])
+                    and torch.equal(got["vc"][:, :lim], ov[:, :lim])
+                    and float((got["att"] - att).abs().max()) <= 1e-4):
+                die("the parent's beam_attend_step disagrees with this one at %d rows" % rows)
+            del got, ok, ov, att
+            p1, a1, a2, p2 = (parent.time("device"), device_ms(run), device_ms(run),
+                              parent.time("device"))
+            t.update(ms=(a1 + a2) / 2, parent_ms=(p1 + p2) / 2)
+        t["bytes"] = (2 * rows * tpos * h * 2 + 3 * rows * h * 4 + rows * 4
+                      + rows * (tpos + 1) * 4 + 2 * rows * (tpos + 1) * h * 2 + rows * h * 4)
+        t["bound_ms"] = bound(4 * rows * (tpos + 1) * h, t["bytes"], PEAK_F32_FLOPS)[0]
+        steps_by_rows[str(rows)] = t
+        log("beam_attend_step at %d rows, tpos %d: kernel %.4f ms, parent %s, bound %.4f ms"
+            % (rows, tpos, t["ms"], "%.4f ms (%.2fx faster)" % (
+                t["parent_ms"], t["parent_ms"] / t["ms"]) if "parent_ms" in t else "not run",
+               t["bound_ms"]))
+        del kc, vc
+    kc, vc = caches(n)
+    args = step_inputs(b, tpos)
+    t = steps_by_rows[str(n)]
     recs["beam_attend_step"] = record(
-        "beam_attend_step", err, 1e-4,
-        device_ms(lambda: beam_attend_step(kc, vc, *args, tpos, nh)),
-        device_ms(lambda: beam_attend_step_plain(pk, pv, *args, tpos, nh), iters=5),
-        4 * n * (tpos + 1) * h, att_bytes, peak=PEAK_F32_FLOPS,
-        note="  (tpos %d; max_err: attention, absolute; library_ms null: no "
-             "one PyTorch call permutes, appends and attends)" % tpos)
+        "beam_attend_step", err, 1e-4, t["ms"],
+        device_ms(lambda: beam_attend_step_plain(kc, vc, *args, tpos, nh), iters=5),
+        4 * n * (tpos + 1) * h, t["bytes"], peak=PEAK_F32_FLOPS,
+        note="  (tpos %d; max_err: attention, absolute, at %s rows; library_ms null: no "
+             "one PyTorch call permutes, appends and attends)"
+        % (tpos, " and ".join(steps_by_rows)))
+    recs["beam_attend_step"]["by_rows"] = steps_by_rows
+    if "parent_ms" in t:
+        recs["beam_attend_step"]["parent_ms"] = t["parent_ms"]
+    del kc, vc
 
     # K7: cross-attention over the Te encoder positions
     q = torch.randn(n, h, generator=g).to(dev)
@@ -720,7 +778,7 @@ def arb_phases(cfg, model, cpu_model, record, parent):
         peak=PEAK_F32_FLOPS, note="  (max_err: absolute; library: bf16 SDPA)")
 
     # K8: the cache permute
-    kc, vc = caches()
+    kc, vc = caches(n)
     prev_k = torch.randint(0, k, (b, k), generator=g).to(dev, torch.int32)
     ok, ov = permute_beam_caches(kc, vc, prev_k)
     rk, rv = permute_beam_caches_plain(kc, vc, prev_k)
@@ -834,6 +892,12 @@ def arb_phases(cfg, model, cpu_model, record, parent):
             "launches (walk + merge)" % (ARB_BENCH, sum(ms for ms, _ in k5), prof[1],
                                          sum(ms for ms, _ in k5) / prof[1],
                                          sum(c for _, c in k5)))
+        k6 = [(ms, count) for name, (ms, count) in prof[2].items()
+              if "step_run_kernel" in name or "step_merge_kernel" in name]
+        log("K6 in the B=%d decode: %.3f ms of %.3f device-busy ms (share %.3f), %d "
+            "launches (runs + merges)" % (ARB_BENCH, sum(ms for ms, _ in k6), prof[1],
+                                          sum(ms for ms, _ in k6) / prof[1],
+                                          sum(c for _, c in k6)))
 
     print_profile(device_breakdown(lambda: list(cap.map_stream([request(b)]))))
     steps0 = cap.generate.steps_run
@@ -1864,7 +1928,7 @@ def main():
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent", help="a checkout of an earlier commit: its K2-K5 and "
+    ap.add_argument("--parent", help="a checkout of an earlier commit: its K1-K6 and "
                     "K9-K12b kernels, weight-gradient reduction, NACF request, B=1024 ARB "
                     "decode, B=64 epoch and B=2048 train step are run through its own "
                     "wrappers in a second process and timed in turns with this tree's")
@@ -1974,6 +2038,31 @@ def main():
     HID_TOL = 5e-2  # bf16 operands; a float32 sum-order flip of one bf16
     #                 rounding (2^-8 relative) propagates through the layer
 
+    def k1_times(run, case, causal, n_head):
+        """K1's device ms (a call issues ~10 launches: device_ms) and, given
+        --parent, the parent's K1 through its own wrappers on the same
+        operands, in turns (parent, this, this, parent)."""
+        if parent is None:
+            return dict(ms=device_ms(run))
+        theirs = parent.load("fused_layer", case, n_head=n_head, causal=causal)["out"]
+        err = hid_err(run(), theirs)
+        if not err <= HID_TOL:
+            die("the parent's fused_layer (%s) disagrees with this one: %.3e"
+                % ("causal" if causal else "nar", err))
+        del theirs
+        p1, a1, a2, p2 = (parent.time("device"), device_ms(run), device_ms(run),
+                          parent.time("device"))
+        return dict(ms=(a1 + a2) / 2, parent_ms=(p1 + p2) / 2)
+
+    # K1's 8 products as bf16 torch.matmul at their shapes (matmul_ms): the
+    # N * L canvas rows (here the static features) by Wq, Wk, Wv, Wo_s, Wq_c,
+    # Wo_c and Wi, the FFN activations by Wo2
+    acts = torch.randn(n * l, inter, generator=seeded(8)).to(dev, torch.bfloat16)
+    k1_mm = [(static.view(n * l, h), getattr(ops.layer, k)) for k in (
+        "wq_s", "wk_s", "wv_s", "wo_s", "wq_c", "wo_c", "wi")] + [(acts, ops.layer.wo2)]
+    k1_matmul_ms = device_ms(lambda: [torch.matmul(a, b.t()) for a, b in k1_mm])
+    del acts, k1_mm
+
     # K1, dense NAR form
     k1 = lambda: fused_layer(raw, static, kp, ke, ve, *lw,  # noqa: E731
                              n_head=ops.n_head, out_dtype=torch.bfloat16)
@@ -1984,11 +2073,19 @@ def main():
     err_nar = hid_err(fused_layer(raw, static, kp, ke, ve, *lw, n_head=ops.n_head),
                       fused_layer_plain(raw, static, kp, ke, ve, *lw,
                                         n_head=ops.n_head))
+    if not (torch.equal(k1(), out_k1) and bool((out_k1[kp] == 0).all())):
+        die("fused_layer: two calls differ, or a PAD row is not zero")
     real = int((~kp).sum())
     fl = layer_flops(real, real, n, le, h, inter)
     nb = layer_bytes(n, l, le, h, inter, n * l)
-    rec_nar = record("fused_layer[nar]", err_nar, HID_TOL, cuda_ms(k1),
-                     cuda_ms(k1p, iters=5), fl, nb)
+    t_nar = k1_times(k1, dict(raw=raw, static=static, kp=kp, ke=ke, ve=ve, w=vars(ops.layer),
+                              lns=ops.ln_scale, lnb=ops.ln_bias), False, ops.n_head)
+    rec_nar = record("fused_layer[nar]", err_nar, HID_TOL, t_nar["ms"],
+                     cuda_ms(k1p, iters=5), fl, nb,
+                     note="  matmul_ms %.4f; parent %s" % (
+                         k1_matmul_ms, "%.4f ms" % t_nar["parent_ms"]
+                         if "parent_ms" in t_nar else "not run"))
+    rec_nar.update(matmul_ms=k1_matmul_ms, **{k: t_nar[k] for k in ("parent_ms",) if k in t_nar})
 
     # K1, causal teacher form
     t_inp = torch.cat([torch.full((n, 1), C.BOS, device=dev, dtype=torch.int32),
@@ -2010,9 +2107,18 @@ def main():
                     causal=True),
         fused_layer_plain(t_raw, t_static, t_kp, tke, tve, *tlw,
                           n_head=tops.n_head, causal=True))
+    if not (torch.equal(k1c(), out_k1c) and bool((out_k1c[t_kp] == 0).all())):
+        die("fused_layer (causal): two calls differ, or a PAD row is not zero")
     t_real = int((~t_kp).sum())
-    record("fused_layer[causal]", err_causal, HID_TOL, cuda_ms(k1c),
-           cuda_ms(k1cp, iters=5), layer_flops(t_real, t_real, n, le, h, inter), nb)
+    t_causal = k1_times(k1c, dict(raw=t_raw, static=t_static, kp=t_kp, ke=tke, ve=tve,
+                                  w=vars(tops.layer), lns=tops.ln_scale, lnb=tops.ln_bias),
+                        True, tops.n_head)
+    rec_causal = record("fused_layer[causal]", err_causal, HID_TOL, t_causal["ms"],
+                        cuda_ms(k1cp, iters=5), layer_flops(t_real, t_real, n, le, h, inter),
+                        nb, note="  parent %s" % ("%.4f ms" % t_causal["parent_ms"]
+                                                  if "parent_ms" in t_causal else "not run"))
+    rec_nar["causal"] = dict(rec_causal, **{k: t_causal[k] for k in ("parent_ms",)
+                                           if k in t_causal})
 
     # K2, the first sparse step's width (K = 24)
     k_slots = 24

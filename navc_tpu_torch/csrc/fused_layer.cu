@@ -21,35 +21,30 @@
 // What bounds it on the H100: the products. A decode's sparse step (K2, N =
 // 384 canvases of 32, K = 24 query slots) does ~71 GFLOP of matmuls against
 // ~8 MB of bf16 weights, 0.07 ms at the bf16 tensor-core rate; a dense call
-// (K1) ~90 GFLOP; the bytes (rows in and out, weights) take ~0.03 ms.
+// (K1) ~90 GFLOP over its non-PAD rows, 0.05 ms; the bytes (rows in and out,
+// weights) take ~0.03 ms. One block per sequence, K1's earlier design
+// (wmma 16x16x16 with B fragments streamed from L2, each weight fragment
+// feeding 2 row tiles, ~202 KB of shared memory and so one block per SM),
+// reached a few percent of that rate: 1.6 ms a call.
 //
-// Design of K1 and K1u: one block (8 warps) per sequence, since L <= 32 —
-// per-sequence attention replaces the TPU kernel's block-diagonal (T, T)
-// scoring trick (fused_layer.py:12-23). The residual stream stays in shared
-// memory as float32, with a bf16 copy as the A operand of every product.
-// Products are bf16 wmma 16x16x16 with float32 accumulation; B fragments
-// come straight from the weights in nn.Linear's (out, in) layout. One warp
-// per head computes its 32x32 scores into a private slice of shared memory,
-// softmaxes a row per lane, and multiplies by V. The FFN walks the 2048
-// intermediate columns 256 at a time, so the 32x2048 intermediate never
-// exists. Shared memory ~202 KB. With 32 rows per block each weight
-// fragment, streamed from L2, feeds only 2 row tiles: they reach a few
-// percent of the tensor-core rate.
-//
-// Design of K2: the serving walk, a sequence of launches from one C entry
-// on the caller's stream. A LayerNorm pass, a warp per row, forms the
-// canvas rows x = LN(raw + static) (bf16, N * Lp rows, zero past L) and the
-// query rows xq = LN(<mask> + static[qidx]) (float32 and bf16, N * K rows
-// flattened: the products take no per-sequence sums, so the query rows need
-// no sequence alignment). The products run on row_gemm.cuh's walk (TMA, an
-// mbarrier ring, wgmma; each weight tile feeds 64 or 128 rows) with serving
-// epilogues (bias; the residual times the slot's multiplier on a float32
-// residual stream kept in place; gelu_new; the output in its dtype): [K1
-// V1] over the canvas rows, then Q1, Wo_s, Q2, Wo_c, Wi and Wo2 over the
-// query rows. The two attentions run a block per sequence on
-// layer_common.cuh's `attend`, the sequence's K query rows zero-filled to
-// 16-row tiles in shared memory. Unused slots (qidx -1) come out as zero
-// rows. K1 and K1u still run one block per sequence.
+// Design of K1 and K2: the serving walk, a sequence of launches from one C
+// entry on the caller's stream. A LayerNorm pass, a warp per row, forms the
+// canvas rows x = LN(raw + static) (bf16; K2: N * Lp rows, zero past L; K1:
+// the N * L rows, which are its query rows, also float32 into the residual
+// stream) and, for K2, the query rows xq = LN(<mask> + static[qidx])
+// (float32 and bf16, N * K rows flattened: the products take no
+// per-sequence sums, so the query rows need no sequence alignment). The
+// products run on row_gemm.cuh's walk (TMA, an mbarrier ring, wgmma; each
+// weight tile feeds 64 or 128 rows) with serving epilogues (bias; the
+// residual times the row's multiplier on a float32 residual stream kept in
+// place; gelu_new; the output in its dtype): K1 [Q1 K1 V1] over its N * L
+// rows as one 3-group product, K2 [K1 V1] over the canvas rows and Q1 over
+// the query rows; then Wo_s, Q2, Wo_c, Wi and Wo2 over the query rows. The
+// two attentions run a block per sequence on layer_common.cuh's `attend`,
+// the sequence's query rows zero-filled to 16-row tiles in shared memory;
+// K1's self mask adds the causal term for the AR teacher. The multiplier is
+// 1 - kp at a K1 row, 1 at a used K2 slot (qidx >= 0): PAD rows and unused
+// slots come out as zero rows. K1u still runs one block per sequence.
 
 #include "layer_common.cuh"
 #include "row_gemm.cuh"
@@ -63,7 +58,7 @@ struct LayerArgs {
   const unsigned char* kp;  // (N, L) 1 where the canvas token is PAD
   const bf16* ke;       // (N, Le, H) hoisted cross keys
   const bf16* ve;       // (N, Le, H) hoisted cross values
-  const int* qidx;      // K2: (N, K) canvas position per query slot, -1 unused
+  const int* qidx;      // K2: (N, K) canvas position per query slot, -1 unused; K1: null
   const bf16* mrow;     // K2: (H,) <mask> word embedding
   const bf16* w[8];     // wq_s, wk_s, wv_s, wo_s, wq_c, wk_c, wv_c, wo_c: (H, H) (out, in)
   const float* b[8];    // their biases (H,)
@@ -72,9 +67,10 @@ struct LayerArgs {
   const bf16* wo2;      // (H, I)
   const float* bo2;     // (H,)
   void* out;            // (N, L or K, H) bf16 or f32
-  bf16* ws[6];          // K2 scratch, QS_*: N * Lp canvas rows, N * K query rows, (rows, H)
-  bf16* g;              // K2: (N * K, I) FFN activations
-  float* res;           // K2: (N * K, H) the float32 residual stream
+  bf16* ws[6];          // the walk's scratch rows, QS_*: canvas rows (K2: N * Lp), query
+                        // rows (K2: N * K; K1: its N * L canvas rows), (rows, H)
+  bf16* g;              // (query rows, I) FFN activations
+  float* res;           // (query rows, H) the float32 residual stream
   int out_bf16;
   int n, L, Le, K, H, I, n_head, causal;
   float scale, eps;
@@ -106,119 +102,6 @@ __device__ __forceinline__ void ln_row(float (&x)[16], int H, const float* lns, 
     }
 }
 
-// K1: the dense form, one block per sequence.
-__global__ void __launch_bounds__(NT, 1) fused_layer_kernel(const LayerArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int H = a.H, L = a.L, n = blockIdx.x;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int mt = (L + 15) / 16, mte = (a.Le + 15) / 16;
-  const int per = H / 32;
-
-  const LayerSmem s = layer_layout(smem, H);
-  float* stg = s.stg + warp * 256;
-  const int ldb = s.ldb;
-
-  __shared__ float kmask[MR];  // 1 where the self-attention key is masked
-  __shared__ float npm[MR];    // non-pad multiplier of each row
-  if (threadIdx.x < MR) {
-    const int j = threadIdx.x;
-    kmask[j] = (j < L) ? (a.kp[(size_t)n * L + j] ? 1.f : 0.f) : 1.f;
-    npm[j] = (j < L) ? 1.f - kmask[j] : 0.f;
-  }
-
-  // 1. canvas rows: x = LN(raw + static) -> f32 residual and bf16 A operand
-  for (int r = warp; r < MR; r += NW) {
-    float x[16];
-    if (r < L) {
-      const size_t base = ((size_t)n * L + r) * H;
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-        if (j < per) {
-          const int c = lane + 32 * j;
-          x[j] = __bfloat162float(a.raw[base + c]) + __bfloat162float(a.stat[base + c]);
-        }
-      ln_row(x, H, a.lns, a.lnb, a.eps);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 16; ++j) x[j] = 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-      if (j < per) {
-        const int c = lane + 32 * j;
-        s.xb[r * ldb + c] = __float2bfloat16(x[j]);
-        s.xf[r * H + c] = x[j];
-      }
-  }
-  __syncthreads();
-
-  // 2. self-attention Q, K, V from the canvas rows
-  auto to_bf16 = [&](bf16* dst, const float* bias) {
-    return [=](int i, int j, float v) { dst[i * ldb + j] = __float2bfloat16(v + bias[j]); };
-  };
-  gemm_rows(s.xb, ldb, mt, a.w[1], H, H, H, stg, to_bf16(s.kb, a.b[1]));
-  gemm_rows(s.xb, ldb, mt, a.w[2], H, H, H, stg, to_bf16(s.vb, a.b[2]));
-  gemm_rows(s.xb, ldb, mt, a.w[0], H, H, H, stg, to_bf16(s.qb, a.b[0]));
-  __syncthreads();
-
-  // 3. masked self-attention; the context replaces Q in qb
-  const bool causal = a.causal != 0;
-  const float* kmask_p = kmask;
-  attend(s, H, a.n_head, mt, mt, a.scale,
-         [=](int i, int j) { return kmask_p[j] > 0.5f || (causal && j > i); });
-  __syncthreads();
-
-  // 4. self output: att = (ctx @ Wo + bo + x) * npm
-  const float* npm_p = npm;
-  auto residual = [&](const float* bias) {
-    return [=](int i, int j, float v) {
-      const float y = (v + bias[j] + s.xf[i * H + j]) * npm_p[i];
-      s.xf[i * H + j] = y;
-      s.xb[i * ldb + j] = __float2bfloat16(y);
-    };
-  };
-  gemm_rows(s.qb, ldb, mt, a.w[3], H, H, H, stg, residual(a.b[3]));
-  __syncthreads();
-
-  // 5. cross-attention over the hoisted K/V
-  {
-    const int vecs = H / 8;
-    for (int i = threadIdx.x; i < mte * 16 * vecs; i += NT) {
-      const int r = i / vecs, c = (i % vecs) * 8;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (r < a.Le) {
-        const size_t off = ((size_t)n * a.Le + r) * H + c;
-        kv = *reinterpret_cast<const uint4*>(a.ke + off);
-        vv = *reinterpret_cast<const uint4*>(a.ve + off);
-      }
-      *reinterpret_cast<uint4*>(s.kb + r * ldb + c) = kv;
-      *reinterpret_cast<uint4*>(s.vb + r * ldb + c) = vv;
-    }
-  }
-  gemm_rows(s.xb, ldb, mt, a.w[4], H, H, H, stg, to_bf16(s.qb, a.b[4]));
-  __syncthreads();
-  const int Le = a.Le;
-  attend(s, H, a.n_head, mt, mte, a.scale, [=](int, int j) { return j >= Le; });
-  __syncthreads();
-  gemm_rows(s.qb, ldb, mt, a.w[7], H, H, H, stg, residual(a.b[7]));
-  __syncthreads();
-
-  // 6. FFN; out = (down + bo2 + att) * npm
-  const float* bo2 = a.bo2;
-  void* out = a.out;
-  const bool out_bf16 = a.out_bf16 != 0;
-  ffn_rows(s, H, a.I, mt, a.wi, a.bi, a.wo2, [=](int i, int j, float v) {
-    if (i < L) {
-      const float y = (v + bo2[j] + s.xf[i * H + j]) * npm_p[i];
-      const size_t o = ((size_t)n * L + i) * H + j;
-      if (out_bf16)
-        static_cast<bf16*>(out)[o] = __float2bfloat16(y);
-      else
-        static_cast<float*>(out)[o] = y;
-    }
-  });
-}
-
 // K1u
 __global__ void __launch_bounds__(NT, 1) unfolded_layer_kernel(const TrainArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -226,23 +109,29 @@ __global__ void __launch_bounds__(NT, 1) unfolded_layer_kernel(const TrainArgs a
   layer_fwd(a, smem, kmask, npm);
 }
 
-// K2, the serving walk. Its scratch rows in LayerArgs::ws.
+// The serving walk (K1 and K2). Its scratch rows in LayerArgs::ws: the
+// canvas rows x, the self keys and values, the query rows' bf16 residual
+// (K1: x itself), Q, the attention context.
 enum { QS_X, QS_K1, QS_V1, QS_XQ, QS_Q, QS_C };
 
-// K2's first pass, a warp per row: the N * Lp canvas rows x = LN(raw +
-// static) (bf16, zero past L), then the N * K query rows xq = LN(<mask> +
-// static[qidx]), float32 into res and bf16; an unused slot reads
-// LN(<mask>) and is zeroed by its multiplier downstream.
+// The walk's first pass, a warp per row: the N * Lp canvas rows x = LN(raw
+// + static) (bf16, zero past L), then K2's N * K query rows xq = LN(<mask>
+// + static[qidx]), float32 into res and bf16; an unused slot reads
+// LN(<mask>) and is zeroed by its multiplier downstream. K1 (qidx null,
+// Lp = L) has no other query rows: its canvas rows also go float32 into
+// res.
 __global__ void __launch_bounds__(256) qsub_ln_kernel(const LayerArgs a, int Lp) {
   const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   const int H = a.H, L = a.L, per = H / 32, canvas = a.n * Lp;
-  if (row >= canvas + a.n * a.K) return;
+  const bool dense = a.qidx == nullptr;
+  if (row >= canvas + (dense ? 0 : a.n * a.K)) return;
   float x[16];
   bf16* dst;
   float* f = nullptr;
   if (row < canvas) {
     const int n = row / Lp, i = row % Lp;
     dst = a.ws[QS_X] + (size_t)row * H;
+    if (dense) f = a.res + (size_t)row * H;
     if (i >= L) {
       for (int c = lane; c < H; c += 32) dst[c] = __float2bfloat16(0.f);
       return;
@@ -276,22 +165,24 @@ __global__ void __launch_bounds__(256) qsub_ln_kernel(const LayerArgs a, int Lp)
     }
 }
 
-// K2's attention, a block of NT threads per sequence, a warp per head
-// (`attend`): the sequence's K query rows (QS_Q, zero-filled to 16-row
-// tiles) against the canvas keys (QS_K1 / QS_V1, PAD keys masked) or, with
-// CROSS, the hoisted cross keys (ke / ve, zero-filled, keys from Le on
-// masked); the context rows into QS_C. Shared memory: the warps' score
-// slices, then Q, K and V tiles (MR rows, ld H + 8), then staging.
+// The walk's attention, a block of NT threads per sequence, a warp per
+// head (`attend`): the sequence's K query rows (QS_Q, zero-filled to 16-row
+// tiles; K1: K = L) against the canvas keys (QS_K1 / QS_V1, kstride rows a
+// sequence, zero-filled; PAD keys masked, and with `causal` the keys after
+// the query's position) or, with CROSS, the hoisted cross keys (ke / ve,
+// zero-filled, keys from Le on masked); the context rows into QS_C. Shared
+// memory: the warps' score slices, then Q, K and V tiles (MR rows, ld H +
+// 8), then staging.
 __host__ __device__ inline size_t qsub_attn_smem(int H) {
   return 4 * tile_bytes(H) + (size_t)NW * 256 * sizeof(float);
 }
 
 template <bool CROSS>
-__global__ void __launch_bounds__(NT, 1) qsub_attn_kernel(const LayerArgs a, int Lp) {
+__global__ void __launch_bounds__(NT, 1) qsub_attn_kernel(const LayerArgs a, int kstride) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ float kmask[MR];  // 1 where the self-attention key is masked
   const int n = blockIdx.x, H = a.H, L = a.L, K = a.K, Le = a.Le;
-  const int mtq = (K + 15) / 16, mtk = CROSS ? (Le + 15) / 16 : Lp / 16;
+  const int mtq = (K + 15) / 16, mtk = (CROSS ? Le + 15 : L + 15) / 16;
   if (threadIdx.x < MR) {
     const int j = threadIdx.x;
     kmask[j] = (j < L) ? (a.kp[(size_t)n * L + j] ? 1.f : 0.f) : 1.f;
@@ -311,27 +202,30 @@ __global__ void __launch_bounds__(NT, 1) qsub_attn_kernel(const LayerArgs a, int
     load_rows(a.ke + (size_t)n * Le * H, s.kb, s.ldb, Le, mtk * 16, H);
     load_rows(a.ve + (size_t)n * Le * H, s.vb, s.ldb, Le, mtk * 16, H);
   } else {
-    load_rows(a.ws[QS_K1] + (size_t)n * Lp * H, s.kb, s.ldb, Lp, Lp, H);
-    load_rows(a.ws[QS_V1] + (size_t)n * Lp * H, s.vb, s.ldb, Lp, Lp, H);
+    load_rows(a.ws[QS_K1] + (size_t)n * kstride * H, s.kb, s.ldb, kstride, mtk * 16, H);
+    load_rows(a.ws[QS_V1] + (size_t)n * kstride * H, s.vb, s.ldb, kstride, mtk * 16, H);
   }
   __syncthreads();
   if constexpr (CROSS) {
     attend(s, H, a.n_head, mtq, mtk, a.scale, [=](int, int j) { return j >= Le; });
   } else {
     const float* kmask_p = kmask;
-    attend(s, H, a.n_head, mtq, mtk, a.scale, [=](int, int j) { return kmask_p[j] > 0.5f; });
+    const bool causal = a.causal != 0;
+    attend(s, H, a.n_head, mtq, mtk, a.scale,
+           [=](int i, int j) { return kmask_p[j] > 0.5f || (causal && j > i); });
   }
   __syncthreads();
   copy_rows(s.qb, s.ldb, a.ws[QS_C] + qrow, K, K, H);
 }
 
-// What a K2 product's epilogue does with its float32 tile (pairs of columns
-// c, c + 1 of flattened row r; npm 1 where query slot r is used):
+// What a walk product's epilogue does with its float32 tile (pairs of
+// columns c, c + 1 of flattened query row r; npm 1 where K2's slot r is
+// used, 1 - kp[r] at K1's row r, the canvas row itself):
 //  S_BF16   + the group's bias, bf16 into out[group]
 //  S_RESID  y = (v + bias + res) * npm, res read from outf: float32 into
 //           outf in place, bf16 into out[0]
 //  S_GELU   gelu_new(v + bias), bf16 into out[0]
-//  S_OUT    (v + bias + res) * npm into a.out (N * K, H) in its dtype
+//  S_OUT    (v + bias + res) * npm into a.out (query rows, H) in its dtype
 enum { S_BF16, S_RESID, S_GELU, S_OUT };
 
 template <int BN, int EPI, int WG>
@@ -353,7 +247,9 @@ qsub_gemm_kernel(const __grid_constant__ LayerArgs a, const __grid_constant__ Ro
   for (int h = 0; h < 2; ++h) {
     const int r = row0 + rl + 8 * h;
     if (r >= g.rows) continue;
-    const float npm = (EPI == S_RESID || EPI == S_OUT) && a.qidx[r] >= 0 ? 1.f : 0.f;
+    float npm = 0.f;
+    if constexpr (EPI == S_RESID || EPI == S_OUT)
+      npm = (a.qidx ? a.qidx[r] >= 0 : !a.kp[r]) ? 1.f : 0.f;
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       const int c = c0 + 8 * j + 2 * (lane & 3);
@@ -384,7 +280,7 @@ qsub_gemm_kernel(const __grid_constant__ LayerArgs a, const __grid_constant__ Ro
   }
 }
 
-// Host: one K2 product with epilogue EPI on the tile rg_plan picks; A and B
+// Host: one walk product with epilogue EPI on the tile rg_plan picks; A and B
 // (K-major weights) as rg_maps takes them.
 template <int BN, int EPI, int WG>
 int qs_tile_launch(const LayerArgs& a, const RowGemm& g, std::initializer_list<const bf16*> A,
@@ -401,7 +297,7 @@ int qs_run(const LayerArgs& a, const RowGemm& g, std::initializer_list<const bf1
   return qs_tile_launch<64, EPI, 1>(a, g, A, B, st);
 }
 
-// Host: a K2 product of one column group, K of each row, into cols columns.
+// Host: a walk product of one column group, K of each row, into cols columns.
 RowGemm qs_rows(int rows, int K, int cols, const float* bias, bf16* out, float* outf) {
   RowGemm g = {};
   g.rows = rows;
@@ -415,26 +311,47 @@ RowGemm qs_rows(int rows, int K, int cols, const float* bias, bf16* out, float* 
   return g;
 }
 
-// Host: K2's attention, CROSS or self, a block per sequence (H <= 512).
+// Host: the walk's attention, CROSS or self, a block per sequence (H <= 512);
+// kstride canvas rows a sequence in QS_K1 / QS_V1.
 template <bool CROSS>
-int qs_attn(const LayerArgs& a, int Lp, cudaStream_t st) {
+int qs_attn(const LayerArgs& a, int kstride, cudaStream_t st) {
   static const cudaError_t attr =
       cudaFuncSetAttribute(qsub_attn_kernel<CROSS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)qsub_attn_smem(512));
   if (attr != cudaSuccess) return (int)attr;
-  qsub_attn_kernel<CROSS><<<a.n, NT, qsub_attn_smem(a.H), st>>>(a, Lp);
+  qsub_attn_kernel<CROSS><<<a.n, NT, qsub_attn_smem(a.H), st>>>(a, kstride);
   return (int)cudaGetLastError();
+}
+
+// Host: the walk from the self attention on, over the nq query rows: c1 =
+// attention; att1 = (c1 Wo_s^T + bo_s + xq) npm; Q2 = att1 Wq_c^T + bq_c;
+// c2 = the cross attention; att2 = (c2 Wo_c^T + bo_c + att1) npm; g =
+// gelu_new(att2 Wi^T + bi); out = (g Wo2^T + bo2 + att2) npm. The query
+// rows' scratch is reused: xq, att1 and att2 in QS_XQ (bf16) and res
+// (float32), Q1 then Q2 in QS_Q, c1 then c2 in QS_C.
+int walk_tail(const LayerArgs& a, int nq, int kstride, cudaStream_t st) {
+  const int H = a.H;
+  bf16* const* ws = a.ws;
+  int e;
+  if ((e = qs_attn<false>(a, kstride, st)) ||
+      (e = qs_run<S_RESID>(a, qs_rows(nq, H, H, a.b[3], ws[QS_XQ], a.res), {ws[QS_C]},
+                           {a.w[3]}, st)) ||
+      (e = qs_run<S_BF16>(a, qs_rows(nq, H, H, a.b[4], ws[QS_Q], nullptr), {ws[QS_XQ]},
+                          {a.w[4]}, st)) ||
+      (e = qs_attn<true>(a, kstride, st)) ||
+      (e = qs_run<S_RESID>(a, qs_rows(nq, H, H, a.b[7], ws[QS_XQ], a.res), {ws[QS_C]},
+                           {a.w[7]}, st)) ||
+      (e = qs_run<S_GELU>(a, qs_rows(nq, H, a.I, a.bi, a.g, nullptr), {ws[QS_XQ]}, {a.wi},
+                          st)))
+    return e;
+  return qs_run<S_OUT>(a, qs_rows(nq, a.I, H, a.bo2, nullptr, a.res), {a.g}, {a.wo2}, st);
 }
 
 }  // namespace
 
 // K2: the LayerNorm pass; [K1 V1] = x [Wk Wv]^T + b over the canvas rows;
-// Q1 = xq Wq^T + bq over the query rows; the self attention; att1 = (c1
-// Wo_s^T + bo_s + xq) npm; Q2 = att1 Wq_c^T + bq_c; the cross attention;
-// att2 = (c2 Wo_c^T + bo_c + att1) npm; g = gelu_new(att2 Wi^T + bi); out =
-// (g Wo2^T + bo2 + att2) npm. The query rows' scratch is reused: xq, att1
-// and att2 in QS_XQ (bf16) and res (float32), Q1 then Q2 in QS_Q, c1 then
-// c2 in QS_C.
+// Q1 = xq Wq^T + bq over the query rows; then walk_tail over the N * K
+// query rows.
 NAVC_EXPORT int navc_fused_layer_qsub(const LayerArgs* args, void* stream) {
   const LayerArgs& a = *args;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -449,32 +366,37 @@ NAVC_EXPORT int navc_fused_layer_qsub(const LayerArgs* args, void* stream) {
   g.out[1] = ws[QS_V1];
   if ((e = qs_run<S_BF16>(a, g, {ws[QS_X]}, {a.w[1], a.w[2]}, st)) ||
       (e = qs_run<S_BF16>(a, qs_rows(nq, H, H, a.b[0], ws[QS_Q], nullptr), {ws[QS_XQ]},
-                          {a.w[0]}, st)) ||
-      (e = qs_attn<false>(a, Lp, st)) ||
-      (e = qs_run<S_RESID>(a, qs_rows(nq, H, H, a.b[3], ws[QS_XQ], a.res), {ws[QS_C]},
-                           {a.w[3]}, st)) ||
-      (e = qs_run<S_BF16>(a, qs_rows(nq, H, H, a.b[4], ws[QS_Q], nullptr), {ws[QS_XQ]},
-                          {a.w[4]}, st)) ||
-      (e = qs_attn<true>(a, Lp, st)) ||
-      (e = qs_run<S_RESID>(a, qs_rows(nq, H, H, a.b[7], ws[QS_XQ], a.res), {ws[QS_C]},
-                           {a.w[7]}, st)) ||
-      (e = qs_run<S_GELU>(a, qs_rows(nq, H, a.I, a.bi, a.g, nullptr), {ws[QS_XQ]}, {a.wi},
-                          st)))
+                          {a.w[0]}, st)))
     return e;
-  return qs_run<S_OUT>(a, qs_rows(nq, a.I, H, a.bo2, nullptr, a.res), {a.g}, {a.wo2}, st);
+  return walk_tail(a, nq, Lp, st);
+}
+
+// K1: every canvas row a query row (K = L, qidx null), the N * L rows
+// flattened with no sequence padding; x and its residual successors in
+// QS_X, which serves as QS_XQ. The LayerNorm pass; [Q1 K1 V1] = x [Wq Wk
+// Wv]^T + b as one 3-group product; then walk_tail over the N * L rows.
+NAVC_EXPORT int navc_fused_layer(const LayerArgs* args, void* stream) {
+  LayerArgs a = *args;
+  a.K = a.L;
+  a.qidx = nullptr;
+  a.ws[QS_XQ] = a.ws[QS_X];
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int H = a.H, nq = a.n * a.L;
+  qsub_ln_kernel<<<(nq + 7) / 8, 256, 0, st>>>(a, a.L);
+  int e = (int)cudaGetLastError();
+  if (e) return e;
+  RowGemm g = qs_rows(nq, H, H, a.b[0], a.ws[QS_Q], nullptr);
+  g.groups = 3;
+  g.bias[1] = a.b[1];
+  g.out[1] = a.ws[QS_K1];
+  g.bias[2] = a.b[2];
+  g.out[2] = a.ws[QS_V1];
+  if ((e = qs_run<S_BF16>(a, g, {a.ws[QS_X]}, {a.w[0], a.w[1], a.w[2]}, st))) return e;
+  return walk_tail(a, nq, a.L, st);
 }
 
 // K1u: x (N, L, H) f32 embedded rows, enc (N, Le, H) f32, no dropout.
 NAVC_EXPORT int navc_fused_layer_unfolded(const TrainArgs* args, void* stream) {
   if (args->on_hidden || args->on_input) return (int)cudaErrorInvalidValue;
   return launch_rows(unfolded_layer_kernel, args, layer_smem_bytes(args->H), stream);
-}
-
-NAVC_EXPORT int navc_fused_layer(const LayerArgs* args, void* stream) {
-  const size_t smem = layer_smem_bytes(args->H);
-  cudaError_t e = cudaFuncSetAttribute(fused_layer_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  fused_layer_kernel<<<args->n, NT, smem, static_cast<cudaStream_t>(stream)>>>(*args);
-  return (int)cudaGetLastError();
 }

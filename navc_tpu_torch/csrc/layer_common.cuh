@@ -1,10 +1,10 @@
 // Device code shared by the layer kernels of fused_layer.cu (K1, K2, K1u:
 // the eval layer of the NAR decode) and fused_layer_train.cu (K11, K12a,
-// K12b: the training layer). The per-sequence kernels (K1, K1u) run one
-// block of NT threads per sequence of at most MR rows, keep the layer in
-// shared memory in the layout below and multiply with bf16 wmma 16x16x16
+// K12b: the training layer). The per-sequence kernel (K1u) runs one block
+// of NT threads per sequence of at most MR rows, keeps the layer in shared
+// memory in the layout below and multiplies with bf16 wmma 16x16x16
 // fragments accumulating in float32. The per-head softmax (`attend`) also
-// serves the attention launches of the row-walk kernels (K2, K11, K12b),
+// serves the attention launches of the row-walk kernels (K1, K2, K11, K12b),
 // which copy one sequence's Q/K/V rows into the same layout, so every
 // kernel's attention does the same arithmetic in the same order.
 #pragma once
@@ -449,7 +449,7 @@ __device__ void init_masks(const TrainArgs& a, int n, float* kmask, float* npm) 
 
 // The layer forward of sequence blockIdx.x with the cross K/V projected in
 // the kernel, one block per sequence: K1u (fused_layer.cu), with both
-// dropout probabilities 0. FFN as K1; out = drop_final(drop_down(down +
+// dropout probabilities 0. FFN by ffn_rows; out = drop_final(drop_down(down +
 // bo2) + r2) * npm.
 __device__ __forceinline__ void layer_fwd(const TrainArgs& a, unsigned char* smem, float* kmask,
                                           float* npm) {

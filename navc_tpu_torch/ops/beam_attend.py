@@ -2,10 +2,15 @@
 (K6) and the beam cross-attention (K7).
 
 Port of navc_tpu/ops/beam_attend.py. ``beam_attend_step`` does in one
-launch what the beam step otherwise does in three passes over the K/V
+call what the beam step otherwise does in three passes over the K/V
 caches: the ancestry permute by the PREVIOUS step's selection, the write of
 the new position, and the causal cached attention (float32 softmax,
-additive key mask). ``cross_attend`` is the mask-free attention of each beam
+additive key mask). On the card it is one launch of a position-split
+kernel: a block per instance and run of positions stages, permutes,
+appends and attends its run (``attend_runs`` plans the run length); with
+more than one run the runs' partial softmaxes are merged, by each
+instance's last block when the blocks take more than one wave, else by a
+second launch. ``cross_attend`` is the mask-free attention of each beam
 row over its instance's encoder positions.
 
 Each wrapper launches its CUDA kernel (csrc/beam_attend.cu) for CUDA
@@ -18,6 +23,7 @@ them in float32, unlike the XLA ``attend`` of decoding/beam.py).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Tuple
 
@@ -28,9 +34,12 @@ from .beam_permute import ancestor_rows
 
 MAX_BEAM = 32      # rows of one instance a K6 block owns
 MAX_HEAD_DIM = 128  # head width the kernels' lanes cover
+RUN_MAX = 32        # K6 positions a block owns, at most
+STAGE_BYTES = 64 * 1024   # K6's planned stage a block: four blocks an SM
+STAGE_MAX = 192 * 1024    # the most a K6 block stages (csrc/beam_attend.cu)
 _SIGNATURES = {
-    "navc_beam_attend_step": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    "navc_beam_attend_step": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     "navc_cross_attend": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
 }
@@ -48,6 +57,37 @@ def kernel_shape_ok(k: int, h: int, n_head: int, itemsize: int) -> bool:
     width <= MAX_HEAD_DIM, 16-byte cache positions."""
     return (1 <= k <= MAX_BEAM and h % n_head == 0
             and h // n_head <= MAX_HEAD_DIM and (h * itemsize) % 16 == 0)
+
+
+def stage_bytes(k: int, h: int, n_head: int, itemsize: int, run: int) -> int:
+    """Shared memory of a K6 block: both caches' k rows over ``run``
+    positions, each position row padded by 16 bytes, then each (row,
+    head)'s max and sum and its ``run`` scores (float32)."""
+    return 2 * k * run * (h * itemsize + 16) + k * n_head * (8 + 4 * run)
+
+
+def attend_runs(b: int, k: int, tpos: int, h: int, n_head: int, itemsize: int,
+                sms: int) -> Tuple[int, int]:
+    """K6's run length: (run, runs), the positions of one instance's k rows
+    that a block stages and attends, and the blocks per instance.
+    Enough runs that the b * runs blocks give each of ``sms`` SMs two; no
+    run longer than STAGE_BYTES of stage hold (one position at least) or
+    than RUN_MAX; runs of near-equal length, together covering [0, tpos]
+    once. Raises ValueError if one position exceeds STAGE_MAX."""
+    per_pos = stage_bytes(k, h, n_head, itemsize, 1)
+    if per_pos > STAGE_MAX:
+        raise ValueError("beam_attend_step: one position of the k rows takes %d bytes "
+                         "of stage, more than %d" % (per_pos, STAGE_MAX))
+    p = tpos + 1
+    cap = max(1, min(RUN_MAX, STAGE_BYTES // per_pos))
+    runs = min(p, max(-(-2 * sms // b), -(-p // cap)))
+    run = -(-p // runs)
+    return run, -(-p // run)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _softmax_attend(q, keys, values, n_head, mask=None):
@@ -144,12 +184,22 @@ def beam_attend_step(kc: torch.Tensor, vc: torch.Tensor, q: torch.Tensor,
     att = torch.empty((n, h), dtype=torch.float32, device=q.device)
     if n == 0:
         return kc, vc, att
+    run, runs = attend_runs(b, k, tpos, h, n_head, kc.element_size(),
+                            _sm_count(q.device.index or 0))
+    part = None
+    if runs > 1:
+        # the runs' partials: weighted V sums (N, runs, H) and (max, sum of
+        # exponentials) per (row, run, head); then a counter per instance,
+        # zero, of its runs done (where its last block merges them)
+        cells = runs * n * (h + 2 * n_head)
+        part = torch.empty(cells + b, dtype=torch.float32, device=q.device)
+        part[cells:].zero_()
     lib = _build.load("beam_attend", _SIGNATURES)
     code = lib.navc_beam_attend_step(
         _ptr(kc), _ptr(vc), _ptr(q), _ptr(kt), _ptr(vt), _ptr(prev_k),
-        _ptr(amask), _ptr(att), n, k, l, h, n_head, int(tpos),
-        1.0 / math.sqrt(h // n_head), int(kc.dtype == torch.float32),
-        _stream(q))
+        _ptr(amask), _ptr(att), None if part is None else _ptr(part), n, k, l, h,
+        n_head, int(tpos), 1.0 / math.sqrt(h // n_head),
+        int(kc.dtype == torch.float32), run, _stream(q))
     _build.check(lib, code, "beam_attend_step")
     _build.LAUNCHES["beam_attend_step"] += 1
     return kc, vc, att

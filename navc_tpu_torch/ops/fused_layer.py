@@ -17,11 +17,12 @@ layer's forward (K11) with both dropout probabilities 0, so it shares K11's
 device code and plain version. No decode path of navc_tpu calls this form
 (its decodes pass ``static=``, which selects K1).
 
-All three are one CUDA source (csrc/fused_layer.cu). K1 and K1u run one
-block per sequence; K2 is a sequence of launches (a LayerNorm pass, the
-products on the row walk of csrc/row_gemm.cuh over the canvas and query
-rows, and two per-sequence attention launches) on scratch that the wrapper
-allocates for the call. Each wrapper launches its kernel for CUDA tensors
+All three are one CUDA source (csrc/fused_layer.cu). K1 and K2 are the
+serving walk, a sequence of launches (a LayerNorm pass, the products on the
+row walk of csrc/row_gemm.cuh over the canvas and query rows — K1's query
+rows are its canvas rows — and two per-sequence attention launches) on
+scratch that the wrapper allocates for the call (``walk_scratch``); K1u
+runs one block per sequence. Each wrapper launches its kernel for CUDA tensors
 and raises if the build or the launch fails; only for CPU tensors does it
 run the plain version beside it — float32 PyTorch with the kernel's bf16
 rounding points (bf16 matmul operands with float32 accumulation, float32
@@ -37,7 +38,7 @@ from __future__ import annotations
 import ctypes
 import math
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -218,9 +219,16 @@ class _LayerArgs(ctypes.Structure):
         + [("scale", ctypes.c_float), ("eps", ctypes.c_float)])
 
 
-def _check(raw, static, kp, ke, ve, w, ln_scale, ln_bias, n_head, out_dtype):
-    if raw.device.type != "cuda":
-        raise ValueError("the kernel takes CUDA tensors, got %s" % raw.device)
+def _on_card(t):
+    if t.device.type != "cuda":
+        raise ValueError("the kernel takes CUDA tensors, got %s" % t.device)
+
+
+def check_layer(raw, static, kp, ke, ve, w, ln_scale, ln_bias, n_head, out_dtype):
+    """Raise ValueError on operands the walk (K1, K2) does not take: shapes,
+    types, lengths above MAX_ROWS, widths, contiguity, and matrices that are
+    not 16-byte aligned (TMA reads them). The device is the wrapper's
+    check."""
     n, l, h = raw.shape
     checks = [
         (static.shape == raw.shape, "static must match raw (N, L, H)"),
@@ -255,6 +263,35 @@ def _check(raw, static, kp, ke, ve, w, ln_scale, ln_bias, n_head, out_dtype):
         m = getattr(w, name)
         if m.dtype != torch.bfloat16 or tuple(m.shape) != (h, h):
             raise ValueError("%s must be bfloat16 (H, H)" % name)
+    check_aligned("the layer's matrices", *[getattr(w, k) for k in MATS + ("wi", "wo2")])
+
+
+def walk_scratch(n: int, l: int, h: int, inter: int, k: Optional[int] = None
+                 ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """The scratch of one serving-walk call, {name: (shape, dtype)}. K1
+    (``k`` None) takes its N·L canvas rows as its query rows, flattened
+    with no sequence padding: ``rows`` holds x (then att1, att2), Q, K, V
+    and the context. K2 takes the N·Lp canvas rows (``canvas``: x, K, V)
+    and its N·K query rows (``query``: xq / att1 / att2, Q, the context).
+    Both: the FFN activations ``g`` and the float32 residual stream ``res``
+    of the query rows. Every (rows, H) slice starts 16-byte aligned, as TMA
+    needs: H is a multiple of 128."""
+    bf = torch.bfloat16
+    if k is None:
+        rows = n * l
+        out = {"rows": ((5, rows, h), bf)}
+    else:
+        rows = n * k
+        out = {"canvas": ((3, n * (-(-l // ROW_TILE) * ROW_TILE), h), bf),
+               "query": ((3, rows, h), bf)}
+    out.update(g=((rows, inter), bf), res=((rows, h), torch.float32))
+    return out
+
+
+def _scratch(raw, inter, k=None):
+    n, l, h = raw.shape
+    return {name: torch.empty(shape, dtype=dt, device=raw.device)
+            for name, (shape, dt) in walk_scratch(n, l, h, inter, k).items()}
 
 
 def _launch(entry, raw, static, kp, ke, ve, w, ln_scale, ln_bias, n_head, causal,
@@ -293,11 +330,15 @@ def fused_layer(raw, static, kp, ke, ve, w: LayerWeights, ln_scale, ln_bias,
     if raw.device.type == "cpu":
         return fused_layer_plain(raw, static, kp, ke, ve, w, ln_scale, ln_bias,
                                  n_head, causal, ln_eps, out_dtype)
-    _check(raw, static, kp, ke, ve, w, ln_scale, ln_bias, n_head, out_dtype)
+    _on_card(raw)
+    check_layer(raw, static, kp, ke, ve, w, ln_scale, ln_bias, n_head, out_dtype)
     out = torch.empty(raw.shape, dtype=out_dtype, device=raw.device)
     if raw.shape[0]:
+        sc = _scratch(raw, w.wi.shape[0])
+        x, k1, v1, q, c = sc["rows"].unbind(0)
         _launch("navc_fused_layer", raw, static, kp, ke, ve, w, ln_scale, ln_bias,
-                n_head, causal, ln_eps, out)
+                n_head, causal, ln_eps, out, ws=(x, k1, v1, None, q, c), g=sc["g"],
+                res=sc["res"])
         _build.LAUNCHES["fused_layer"] += 1
     return out
 
@@ -315,7 +356,8 @@ def fused_layer_qsub(qidx, mask_row, raw, static, kp, ke, ve, w: LayerWeights,
         return fused_layer_qsub_plain(qidx, mask_row, raw, static, kp, ke, ve,
                                       w, ln_scale, ln_bias, n_head, ln_eps,
                                       out_dtype)
-    _check(raw, static, kp, ke, ve, w, ln_scale, ln_bias, n_head, out_dtype)
+    _on_card(raw)
+    check_layer(raw, static, kp, ke, ve, w, ln_scale, ln_bias, n_head, out_dtype)
     n, l, h = raw.shape
     if (qidx.dtype != torch.int32 or qidx.dim() != 2 or qidx.shape[0] != n
             or qidx.shape[1] > MAX_ROWS or not qidx.is_contiguous()
@@ -324,22 +366,14 @@ def fused_layer_qsub(qidx, mask_row, raw, static, kp, ke, ve, w: LayerWeights,
     if (mask_row.dtype != torch.bfloat16 or tuple(mask_row.shape) != (h,)
             or mask_row.device != raw.device or not mask_row.is_contiguous()):
         raise ValueError("mask_row must be bfloat16 (H,) on %s" % raw.device)
-    check_aligned("the layer's matrices", *[getattr(w, k) for k in MATS + ("wi", "wo2")])
     k = qidx.shape[1]
     out = torch.empty((n, k, h), dtype=out_dtype, device=raw.device)
     if n and k:
-        # this call's scratch: the canvas rows (x, K1, V1), the query rows
-        # (xq / att1 / att2, Q1 / Q2, c1 / c2), the FFN activations and the
-        # float32 residual stream of the query rows
-        lp = -(-l // ROW_TILE) * ROW_TILE
-        bf = torch.bfloat16
-        canvas = torch.empty((3, n * lp, h), dtype=bf, device=raw.device).unbind(0)
-        query = torch.empty((3, n * k, h), dtype=bf, device=raw.device).unbind(0)
-        g = torch.empty((n * k, w.wi.shape[0]), dtype=bf, device=raw.device)
-        res = torch.empty((n * k, h), dtype=torch.float32, device=raw.device)
+        sc = _scratch(raw, w.wi.shape[0], k)
         _launch("navc_fused_layer_qsub", raw, static, kp, ke, ve, w, ln_scale, ln_bias,
                 n_head, False, ln_eps, out, qidx=qidx, mask_row=mask_row,
-                ws=canvas + query, g=g, res=res)
+                ws=sc["canvas"].unbind(0) + sc["query"].unbind(0), g=sc["g"],
+                res=sc["res"])
         _build.LAUNCHES["fused_layer_qsub"] += 1
     return out
 

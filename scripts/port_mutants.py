@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Mutation check of the row-walk kernels (K11, K12a, K12b, K2) on a card.
+"""Mutation check of the redesigned kernels (K11, K12a, K12b, K2, K1, K6)
+on a card.
 
 Each mutant is one exact edit of navc_tpu_torch/csrc, made in a copy of
 the package under a temporary directory (never in the checkout); the
 `cuda` tests of tests/test_torch_port_cuda.py that cover its kernel (the
-training tests, or K2's) then run against the copy, all mutants at once,
-one process each. A mutant that no test fails is reported as surviving and
+training tests, K2's, K1's walk tests or K6's) then run against the copy,
+all mutants at once, one process each. A mutant that no test fails is reported as surviving and
 the script exits 1. Run from the repo root on a machine with an NVIDIA
 card:
 
@@ -42,12 +43,23 @@ MUTANTS = {  # name: (source under navc_tpu_torch/csrc, text, its replacement, t
         "fused_layer_train.cu", "SITE_FFN_DOWN, i, c + e) +\n                                   r2v[e],",
         "SITE_FFN_DOWN, i, c + e),", "train"),
     "K2: an unused slot left unzeroed": (
-        "fused_layer.cu", "const float npm = (EPI == S_RESID || EPI == S_OUT) && a.qidx[r] >= 0",
-        "const float npm = (EPI == S_RESID || EPI == S_OUT) && (EPI == S_OUT || a.qidx[r] >= 0)",
-        "qsub"),
+        "fused_layer.cu", "npm = (a.qidx ? a.qidx[r] >= 0 : !a.kp[r])",
+        "npm = (a.qidx ? (EPI == S_OUT || a.qidx[r] >= 0) : !a.kp[r])", "qsub"),
     "K2: the query LayerNorm reads raw instead of the <mask> row": (
         "fused_layer.cu", "x[j] = __bfloat162float(a.mrow[c]) +",
         "x[j] = __bfloat162float(a.raw[((size_t)n * L + max(pos, 0)) * H + c]) +", "qsub"),
+    "K1: the causal term dropped from the self mask": (
+        "fused_layer.cu", "return kmask_p[j] > 0.5f || (causal && j > i); });",
+        "return kmask_p[j] > 0.5f || (causal && j > i + L); });", "fused_layer_walk"),
+    "K1: the S_OUT multiplier fixed at 1 (PAD rows not zeroed)": (
+        "fused_layer.cu", "npm = (a.qidx ? a.qidx[r] >= 0 : !a.kp[r])",
+        "npm = (a.qidx ? a.qidx[r] >= 0 : (EPI == S_OUT || !a.kp[r]))", "fused_layer_walk"),
+    "K6: the tpos row left out of its run's partial": (
+        "beam_attend.cu", "const float e = expf(sr[p] - mx);",
+        "const float e = p0 + p < tpos ? expf(sr[p] - mx) : 0.f;", "beam_attend_step"),
+    "K6: the merge takes the runs' sums out of order": (
+        "beam_attend.cu", "acc += __ldcg(&a[(size_t)j * H]) *",
+        "acc += __ldcg(&a[(size_t)(runs - 1 - j) * H]) *", "beam_attend_step"),
 }
 
 

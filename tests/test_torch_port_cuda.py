@@ -5,8 +5,10 @@ no NVIDIA card is present. chip_smoke.py checks the kernels at the NACF and
 ARB main paths' shapes; these tests cover the other shapes the kernels
 accept — ragged row tiles, a vocab edge inside a tile, canvases and encoder
 lengths below 32, one query tile, H = 128 and 256, beam sizes 1 to 8,
-batches that are no multiple of 16 — plus the wrappers' refusals and launch
-counts. Run them on a machine with a card:
+batches that are no multiple of 16, K6 at the B=1024 decode's 5120 rows,
+with an identity ancestry and with runs of positions that do not divide
+tpos — plus the wrappers' refusals and launch counts, and that K1 and K6
+give the same bits in two calls. Run them on a machine with a card:
 
     python3 -m pytest tests/test_torch_port_cuda.py -q --noconftest
 
@@ -210,6 +212,70 @@ def test_fused_layer_qsub_walk_matches_plain_and_dense_rows(cuda, case):
     dense = fused_layer(*args, n_head=heads)
     rows = torch.gather(dense, 1, qidx.clamp(min=0).long()[..., None].expand(-1, -1, h))
     assert (out32 - rows)[used].abs().max().item() <= HID_TOL
+
+
+# K1 on the serving walk (csrc/fused_layer.cu navc_fused_layer): its N * L
+# canvas rows flattened with no sequence padding (384 * 32 rows is the
+# decode's dense call, 128 x 128 tiles; 37 * 24, 9 * 29 and 5 * 13 leave a
+# ragged last row tile), L 13, 24, 29 (no multiple of 16) and 32, one
+# sequence, H 256 and 512, f32 and bf16 outputs, NAR and causal. PAD rows
+# come out exactly zero (their multiplier), and two calls give the same
+# bits (no atomics).
+DENSE_CASES = [  # n, L, Le, H, heads, FFN, out dtype
+    (384, 32, 16, 512, 8, 2048, torch.bfloat16),
+    (384, 32, 16, 512, 8, 2048, torch.float32),
+    (37, 24, 16, 512, 8, 2048, torch.float32),
+    (9, 29, 8, 256, 4, 1024, torch.bfloat16),
+    (1, 32, 16, 512, 8, 2048, torch.float32),
+    (1, 29, 20, 256, 16, 272, torch.bfloat16),
+    (5, 13, 20, 256, 16, 272, torch.float32),
+]
+
+
+def _dense_id(c):
+    return "x".join(map(str, c[:6])) + ("-bf16" if c[6] == torch.bfloat16 else "-f32")
+
+
+def _check_dense_walk(cuda, case, causal, bias_scale=1.0):
+    n, l, le, h, heads, inter, dtype = case
+    g = _gen(sum(case[:6]) + causal)
+    w = _weights(h, inter, g, cuda)
+    for f in w.__dataclass_fields__:
+        if f.startswith("b"):
+            getattr(w, f).mul_(bias_scale)
+    raw, static, kp, ke, ve, lns, lnb = _layer_inputs(n, l, le, h, g, cuda)
+    args = (raw, static, kp, ke, ve, w, lns, lnb)
+    before = _build.LAUNCHES["fused_layer"]
+    out = fused_layer(*args, n_head=heads, causal=causal, out_dtype=dtype)
+    assert _build.LAUNCHES["fused_layer"] == before + 1
+    again = fused_layer(*args, n_head=heads, causal=causal, out_dtype=dtype)
+    ref = fused_layer_plain(*args, n_head=heads, causal=causal)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (n, l, h)
+    assert torch.equal(out, again)
+    assert torch.all(out[kp] == 0)
+    return out, ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DENSE_CASES, ids=_dense_id)
+@pytest.mark.parametrize("causal", [False, True], ids=["nar", "causal"])
+def test_fused_layer_walk_matches_plain(cuda, case, causal):
+    out, ref = _check_dense_walk(cuda, case, causal)
+    assert (out.float() - ref).abs().max().item() <= HID_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [DENSE_CASES[1], DENSE_CASES[3]], ids=_dense_id)
+@pytest.mark.parametrize("causal", [False, True], ids=["nar", "causal"])
+def test_fused_layer_walk_matches_plain_with_large_biases(cuda, case, causal):
+    """Every bias U(-1, 1), ten times the test's usual scale: a bias added
+    to the wrong column group of the [Q K V] product, or left out, moves
+    every downstream element past the rms tolerance. The values grow with
+    the biases, so the tolerances are the training kernels' (relative to
+    the largest |value| and to the rms)."""
+    out, ref = _check_dense_walk(cuda, case, causal, bias_scale=10.0)
+    _close(out, ref, TRAIN_TOL, "out", rms_tol=TRAIN_RMS_TOL)
 
 
 VOCAB_SHAPES = [  # rows, d, V
@@ -589,6 +655,68 @@ def test_beam_attend_step_chained_matches_plain(cuda, dtype):
         lim = (t + 1) * h
         assert torch.equal(kc[:, :lim], rk[:, :lim]) and torch.equal(vc[:, :lim], rv[:, :lim])
         assert (att - ratt).abs().max().item() <= ATT_TOL, t
+
+
+def _check_step(cuda, b, k, l, h, heads, tpos, dtype, seed, identity=False):
+    """One K6 call against the plain version on the same inputs; returns
+    the kernel's (kc, vc, att) and the inputs' caches."""
+    g = _gen(seed)
+    kc, vc = _caches(b * k, l, h, dtype, g, cuda)
+    q, kt, vt, prev_k, amask = _step_inputs(b, k, l, h, tpos, g, cuda)
+    if identity:
+        prev_k = torch.arange(k, dtype=torch.int32, device=cuda).repeat(b, 1)
+    k0, v0 = kc.clone(), vc.clone()
+    rk, rv = kc.clone(), vc.clone()
+    before = _build.LAUNCHES["beam_attend_step"]
+    ok, ov, att = beam_attend_step(kc, vc, q, kt, vt, prev_k, amask, tpos, heads)
+    assert _build.LAUNCHES["beam_attend_step"] == before + 1
+    rk, rv, ratt = beam_attend_step_plain(rk, rv, q, kt, vt, prev_k, amask, tpos, heads)
+    torch.cuda.synchronize()
+    lim = (tpos + 1) * h
+    assert torch.equal(ok[:, :lim], rk[:, :lim]) and torch.equal(ov[:, :lim], rv[:, :lim])
+    assert (att - ratt).abs().max().item() <= ATT_TOL
+    again = beam_attend_step(k0.clone(), v0.clone(), q, kt, vt, prev_k, amask, tpos, heads)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x[:, :lim], y[:, :lim]) for x, y in zip(again[:2], (ok, ov)))
+    assert torch.equal(again[2], att)  # a fixed merge order: the same bits
+    return ok, ov, att, k0, v0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["first", "middle", "last"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_beam_attend_step_at_the_b1024_shape(cuda, where, dtype):
+    """The B=1024 decode's 5120 rows (beam 5, H 512, 8 heads, L 30): many
+    runs of a few positions, partials merged."""
+    tpos = {"first": 0, "middle": 14, "last": 29}[where]
+    _check_step(cuda, 1024, 5, 30, 512, 8, tpos, dtype, seed=tpos + 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,tpos", [(64, 13), (1024, 13), (64, 16), (60, 28)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_beam_attend_step_with_a_run_that_does_not_divide(cuda, b, tpos, dtype):
+    """Runs whose length does not divide the tpos + 1 positions: the last
+    run is short, and it holds the new row at tpos."""
+    from navc_tpu_torch.ops.beam_attend import attend_runs
+
+    run, runs = attend_runs(b, 5, tpos, 512, 8, torch.empty((), dtype=dtype).element_size(),
+                            torch.cuda.get_device_properties(0).multi_processor_count)
+    assert runs > 1 and (tpos + 1) % run != 0
+    _check_step(cuda, b, 5, 30, 512, 8, tpos, dtype, seed=b + tpos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,tpos", [(64, 14), (1024, 29), (3, 5)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_beam_attend_step_with_an_identity_ancestry(cuda, b, tpos, dtype):
+    """Every instance's beams kept their slots: the prefix stays as it was
+    (no copy-back), the new row lands at tpos, and the attention reads the
+    staged rows all the same."""
+    ok, ov, _, k0, v0 = _check_step(cuda, b, 5, 30, 512, 8, tpos, dtype, seed=7 + tpos,
+                                    identity=True)
+    lim = tpos * 512
+    assert torch.equal(ok[:, :lim], k0[:, :lim]) and torch.equal(ov[:, :lim], v0[:, :lim])
 
 
 @pytest.mark.cuda
