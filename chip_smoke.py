@@ -28,11 +28,13 @@ at 320, 300 and 5120 rows, k 1, 5 and 8, untied, tied and with a large
 bias; timed at k 5 beside torch.matmul and the parent's K5, with the host's
 cost of one wrapper call on both sides; K6 at 320 and 5120 rows, single
 steps and a chained decode, timed at tpos 14 beside the parent's K6 in
-turns); four 64-video requests (K5, K6, K7
+turns; K7 at 320 and 5120 rows with bf16 and float32 K/V, bit for bit the
+same in two calls, timed beside bf16 SDPA, in each head group it takes and
+beside the parent's K7 in turns); four 64-video requests (K5, K6, K7
 once per beam step) and one 60-video request (K8 instead of K6) through
 StreamingCaptioner; decodes at B=1024 under bench.py's protocol (with
 --parent, in turns with the parent's own decode), then one more profiled
-(K5's and K6's shares of the device time); one request profiled; 16 videos decoded
+(K5's, K6's and K7's shares of the device time); one request profiled; 16 videos decoded
 again on the CPU. Training: K11, K12a, K12b and the weight-gradient
 reduction held against their plain versions at full width (B=64, dropout
 0.5) and timed (K11 in turns with the parent's), and again at B=2048 (all
@@ -51,8 +53,10 @@ peak memory, one step profiled); bench.py's train protocol at B=2048
 (profiled: K9/K10's share; with --parent, in turns with the parent's own
 step: synchronised ms, idle share, peak memory); one bf16 step of
 16 videos against the CPU plain path; 20 steps on one batch at dropout 0.1
-must lower the loss. K1u (the unfolded eval layer, which no path calls) is
-held against its plain version at K1's shape. The entry point:
+must lower the loss. K1u (the unfolded eval layer, which no path calls;
+K11's launches at p = 0) is held against its plain version at K1's shape,
+NAR and causal, bit for bit the same in two calls, and timed beside bf16
+torch.matmul of its products and the parent's K1u in turns. The entry point:
 train_network_all at full width on a synthetic 320-video corpus, ARB for
 one epoch, then NACF for two with that teacher (validation decodes through
 K1-K7, steps through K9-K12). It exits non-zero on any failure, without a
@@ -202,6 +206,16 @@ def worker_case(kind, ops, args):
         return lambda: dict(zip(("kc", "vc", "att"), beam_attend_step(
             ops["kc"], ops["vc"], ops["q"], ops["kt"], ops["vt"], ops["prev_k"], ops["amask"],
             args["tpos"], args["nh"])))
+    if kind == "cross_attend":
+        from navc_tpu_torch.ops.beam_attend import cross_attend
+
+        return lambda: dict(att=cross_attend(ops["q"], ops["ke"], ops["ve"], args["nh"]))
+    if kind == "fused_layer_unfolded":
+        from navc_tpu_torch.ops import fused_layer as FL
+
+        return lambda: dict(out=FL.fused_layer_unfolded(
+            ops["x"], ops["enc"], ops["kp"], FL.LayerWeights(**ops["w"]), args["n_head"],
+            args["causal"], torch.bfloat16))
     if kind == "fused_layer_qsub":
         from navc_tpu_torch.ops import fused_layer as FL
 
@@ -558,6 +572,54 @@ def check_captions(hyp, b, max_len, v, eos, pad):
         die("ARB: a non-PAD token follows an EOS")
 
 
+def cross_layouts(k, te, h, nh, sms, gen, instances=(16, 64, 128, 256, 512, 1024)):
+    """K7 in each head group and thread layout it takes, through its C entry
+    (the wrapper takes ``cross_groups``' plan), at beam k and bf16 K/V over
+    ``instances``: each held against the plain version, timed, and the
+    plan's time set beside the fastest. Returns {instances: {"plan": [g,
+    layout], "ms": {"g layout": ms}}}."""
+    import ctypes
+    import math
+
+    import torch
+
+    from navc_tpu_torch.ops import _build
+    from navc_tpu_torch.ops.beam_attend import (_SIGNATURES, cross_attend_plain,
+                                                cross_group_ok, cross_groups)
+
+    lib = _build.load("beam_attend", _SIGNATURES)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    out = {}
+    for b in instances:
+        q = torch.randn(b * k, h, generator=gen).to("cuda")
+        ke, ve = (torch.randn(b, te, h, generator=gen).to("cuda", torch.bfloat16)
+                  for _ in range(2))
+        att = torch.empty_like(q)
+        want = cross_attend_plain(q, ke, ve, nh)
+        times = {}
+        for gg in range(1, nh + 1):
+            for reuse in (0, 1) if cross_group_ok(gg, k, te, h, nh, 2) else ():
+                def run():
+                    _build.check(lib, lib.navc_cross_attend(
+                        q.data_ptr(), ke.data_ptr(), ve.data_ptr(), att.data_ptr(), b * k, k,
+                        te, h, nh, 1.0 / math.sqrt(h // nh), 0, gg, reuse, stream),
+                        "cross_attend")
+                run()
+                if float((att - want).abs().max()) > 1e-4:
+                    die("cross_attend with %d heads a block, reuse %d, disagrees with its "
+                        "plain version at %d instances" % (gg, reuse, b))
+                times["%d %s" % (gg, ("narrow", "reuse")[reuse])] = device_ms(run)
+        gg, reuse = cross_groups(b, k, te, h, nh, 2, sms)
+        plan = "%d %s" % (gg, ("narrow", "reuse")[reuse])
+        best = min(times, key=times.get)
+        out[str(b)] = {"plan": plan, "ms": times}
+        log("cross_attend layouts at %d instances (%d blocks planned): planned %s %.4f ms, "
+            "fastest %s %.4f ms; %s" % (
+                b, b * nh // gg, plan, times[plan], best, times[best],
+                ", ".join("%s %.4f" % kv for kv in times.items())))
+    return out
+
+
 def arb_phases(cfg, model, cpu_model, record, parent):
     """K5-K8 against their plain versions at the ARB main path's shapes, then
     ARB serving through StreamingCaptioner. ``parent``: a Worker or None.
@@ -571,7 +633,8 @@ def arb_phases(cfg, model, cpu_model, record, parent):
     from navc_tpu_torch.ops.beam_attend import (beam_attend_step,
                                                 beam_attend_step_plain,
                                                 cross_attend,
-                                                cross_attend_plain)
+                                                cross_attend_plain,
+                                                cross_groups)
     from navc_tpu_torch.ops.beam_permute import (permute_beam_caches,
                                                  permute_beam_caches_plain)
     from navc_tpu_torch.ops.vocab_fused import (project_topk,
@@ -760,22 +823,61 @@ def arb_phases(cfg, model, cpu_model, record, parent):
         recs["beam_attend_step"]["parent_ms"] = t["parent_ms"]
     del kc, vc
 
-    # K7: cross-attention over the Te encoder positions
-    q = torch.randn(n, h, generator=g).to(dev)
-    ke = torch.randn(b, te, h, generator=g).to(dev, torch.bfloat16)
-    ve = torch.randn(b, te, h, generator=g).to(dev, torch.bfloat16)
-    err = float((cross_attend(q, ke, ve, nh) - cross_attend_plain(q, ke, ve, nh)
-                 ).abs().max())
+    # K7: cross-attention over the Te encoder positions at the 64-video
+    # request's rows and the B=1024 decode's, float32 and bf16 K/V (the
+    # decode's) against the plain version; timed with bf16 K/V beside bf16
+    # SDPA, and given --parent beside the parent's K7 on the same operands
+    # in turns (parent, this, this, parent)
     dh = h // nh
-    q4 = q.to(torch.bfloat16).view(b, k, nh, dh).transpose(1, 2)
-    k4 = ke.view(b, te, nh, dh).transpose(1, 2)
-    v4 = ve.view(b, te, nh, dh).transpose(1, 2)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    err, cross_by_rows = 0.0, {}
+    for bb in step_rows:
+        rows = bb * k
+        q = torch.randn(rows, h, generator=g).to(dev)
+        kv32 = [torch.randn(bb, te, h, generator=g).to(dev) for _ in range(2)]
+        for dt in (torch.float32, torch.bfloat16):
+            ke, ve = (t.to(dt) for t in kv32)
+            att = cross_attend(q, ke, ve, nh)
+            err = max(err, float((att - cross_attend_plain(q, ke, ve, nh)).abs().max()))
+            if not torch.equal(cross_attend(q, ke, ve, nh), att):
+                die("cross_attend: two calls differ at %d rows" % rows)
+        run = lambda: cross_attend(q, ke, ve, nh)  # noqa: E731
+        q4 = q.to(torch.bfloat16).view(bb, k, nh, dh).transpose(1, 2)
+        k4 = ke.view(bb, te, nh, dh).transpose(1, 2)
+        v4 = ve.view(bb, te, nh, dh).transpose(1, 2)
+        t = dict(library_ms=device_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4)),
+                 plan=cross_groups(bb, k, te, h, nh, 2, sms))
+        if parent is None:
+            t["ms"] = device_ms(run)
+        else:
+            got = parent.load("cross_attend", dict(q=q, ke=ke, ve=ve), nh=nh)["att"]
+            if float((got - att).abs().max()) > 1e-4:
+                die("the parent's cross_attend disagrees with this one at %d rows" % rows)
+            p1, a1, a2, p2 = (parent.time("device"), device_ms(run), device_ms(run),
+                              parent.time("device"))
+            t.update(ms=(a1 + a2) / 2, parent_ms=(p1 + p2) / 2)
+        t["bytes"] = rows * h * 4 + 2 * bb * te * h * 2 + rows * h * 4
+        t["bound_ms"] = bound(4 * rows * te * h, t["bytes"], PEAK_F32_FLOPS)[0]
+        cross_by_rows[str(rows)] = t
+        log("cross_attend at %d rows, Te %d: kernel %.4f ms (%d heads a block, %s), bf16 "
+            "SDPA %.4f ms, parent %s, bound %.4f ms" % (
+                rows, te, t["ms"], t["plan"][0], "reuse" if t["plan"][1] else "narrow",
+                t["library_ms"],
+                "%.4f ms (%.2fx faster)" % (t["parent_ms"], t["parent_ms"] / t["ms"])
+                if "parent_ms" in t else "not run", t["bound_ms"]))
+    t = cross_by_rows[str(n)]
+    q = torch.randn(n, h, generator=g).to(dev)
+    ke, ve = (torch.randn(b, te, h, generator=g).to(dev, torch.bfloat16) for _ in range(2))
     recs["cross_attend"] = record(
-        "cross_attend", err, 1e-4, device_ms(lambda: cross_attend(q, ke, ve, nh)),
+        "cross_attend", err, 1e-4, t["ms"],
         device_ms(lambda: cross_attend_plain(q, ke, ve, nh), iters=5),
-        4 * n * te * h, n * h * 4 + 2 * b * te * h * 2 + n * h * 4,
-        lib_ms=device_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4)),
-        peak=PEAK_F32_FLOPS, note="  (max_err: absolute; library: bf16 SDPA)")
+        4 * n * te * h, t["bytes"], lib_ms=t["library_ms"], peak=PEAK_F32_FLOPS,
+        note="  (max_err: absolute, bf16 and float32 K/V at %s rows; library: bf16 SDPA)"
+        % " and ".join(cross_by_rows))
+    recs["cross_attend"]["by_rows"] = cross_by_rows
+    if "parent_ms" in t:
+        recs["cross_attend"]["parent_ms"] = t["parent_ms"]
+    recs["cross_attend"]["by_layout"] = cross_layouts(k, te, h, nh, sms, g)
 
     # K8: the cache permute
     kc, vc = caches(n)
@@ -898,6 +1000,10 @@ def arb_phases(cfg, model, cpu_model, record, parent):
             "launches (runs + merges)" % (ARB_BENCH, sum(ms for ms, _ in k6), prof[1],
                                           sum(ms for ms, _ in k6) / prof[1],
                                           sum(c for _, c in k6)))
+        k7 = [(ms, count) for name, (ms, count) in prof[2].items() if "cross_kernel" in name]
+        log("K7 in the B=%d decode: %.3f ms of %.3f device-busy ms (share %.3f), %d "
+            "launches" % (ARB_BENCH, sum(ms for ms, _ in k7), prof[1],
+                          sum(ms for ms, _ in k7) / prof[1], sum(c for _, c in k7)))
 
     print_profile(device_breakdown(lambda: list(cap.map_stream([request(b)]))))
     steps0 = cap.generate.steps_run
@@ -1538,7 +1644,10 @@ def train_phases(record, seeded, parent):
             TRAIN_B, recs["train_fwd"]["ms"], recs["train_fwd"]["parent_ms"]))
         del k11
     # the wrappers' host cost, which the host-bound B=64 step pays: us per call
-    # queued while a device-side sleep holds the card, in turns with the parent's
+    # queued while a device-side sleep holds the card, in turns with the
+    # parent's and with this tree's in a worker as fresh as the parent's
+    # (this process's host clock is slower than a fresh one's: PERF.md)
+    fresh = Worker(ROOT) if parent is not None else None
     for name, kind, ops, run in (
             ("train_fwd", "train_fwd", dict(x=x, enc=enc, kp=kp, w=w),
              lambda: FT.train_fwd(x, enc, kp, w, seed, out_dtype=torch.bfloat16, **kw)),
@@ -1549,14 +1658,17 @@ def train_phases(record, seeded, parent):
         if parent is None:
             recs[name]["host_us"] = host_us(run)
             continue
-        parent.load(kind, ops, seed=seed, kw=kw)
-        p1, k1, k2, p2 = (parent.time("host_us"), host_us(run), host_us(run),
-                          parent.time("host_us"))
-        recs[name].update(host_us=(k1 + k2) / 2, parent_host_us=(p1 + p2) / 2)
+        for side in (parent, fresh):
+            side.load(kind, ops, seed=seed, kw=kw)
+        p1, f1, k1, k2, f2, p2 = (parent.time("host_us"), fresh.time("host_us"), host_us(run),
+                                  host_us(run), fresh.time("host_us"), parent.time("host_us"))
+        recs[name].update(host_us=(k1 + k2) / 2, fresh_host_us=(f1 + f2) / 2,
+                          parent_host_us=(p1 + p2) / 2)
     log("K11 / K12a / K12b wrappers' host cost at B=%d (us per call, the card held by a "
         "sleep%s): %s; this tree's K11 and K12b by function (us of its own per call): %s, %s"
-        % (TRAIN_B, ", in turns with the parent" if parent else "",
-           {k: {f: round(recs[k][f], 1) for f in ("host_us", "parent_host_us") if f in recs[k]}
+        % (TRAIN_B, ", in turns with the parent and a fresh process of this tree" if parent
+           else "", {k: {f: round(recs[k][f], 1) for f in (
+               "host_us", "fresh_host_us", "parent_host_us") if f in recs[k]}
             for k in LAYER_KERNELS[:3]},
            host_breakdown(lambda: FT.train_fwd(x, enc, kp, w, seed, out_dtype=torch.bfloat16,
                                                **kw), top=6),
@@ -1718,28 +1830,36 @@ def train_phases(record, seeded, parent):
         die("training metrics not finite: %s" % info)
     print_profile(device_breakdown(lambda: step(batches[0], gen)), "training step")
     if parent is not None:  # the same epoch on the parent's checkout, in turns
-        parent.load("train_epoch", {}, seed=0)
+        for side in (parent, fresh):
+            side.load("train_epoch", {}, seed=0)
         epoch = nacf_epoch(0)
         epoch()  # first use
-        parent.time("epoch_step"), TIMERS["epoch_step"](epoch)  # warm both sides
-        sides = {"this": [], "parent": []}
+        for side in (parent, fresh):  # warm every side
+            side.time("epoch_step")
+        TIMERS["epoch_step"](epoch)
+        sides = {"this": [], "this, fresh process": [], "parent": []}
         for _ in range(EPOCH_ROUNDS):
-            p1, k1, k2, p2 = (parent.time("epoch_step"), TIMERS["epoch_step"](epoch),
-                              TIMERS["epoch_step"](epoch), parent.time("epoch_step"))
+            p1, f1, k1, k2, f2, p2 = (
+                parent.time("epoch_step"), fresh.time("epoch_step"),
+                TIMERS["epoch_step"](epoch), TIMERS["epoch_step"](epoch),
+                fresh.time("epoch_step"), parent.time("epoch_step"))
             sides["this"] += [k1, k2]
+            sides["this, fresh process"] += [f1, f2]
             sides["parent"] += [p1, p2]
-        wins = sum(k < p for k, p in zip(sides["this"], sides["parent"]))
-        log("B=%d NACF steps through run_train_epoch in turns with the parent (parent, this, "
-            "this, parent; %d rounds of 3 epochs of %d steps; ms per step, host clock): this "
-            "%s (median %.3f, mean %.3f), parent %s (median %.3f, mean %.3f); this faster in %d "
-            "of %d pairs; idle share of one epoch this %.3f, parent %.3f; top-level host "
-            "operators per epoch this %d, parent %d"
-            % (TRAIN_B, EPOCH_ROUNDS, TRAIN_STEPS, [round(x, 3) for x in sides["this"]],
-               np.median(sides["this"]), np.mean(sides["this"]),
-               [round(x, 3) for x in sides["parent"]], np.median(sides["parent"]),
-               np.mean(sides["parent"]), wins, len(sides["this"]), idle_share(epoch),
+        wins = {who: sum(k < p for k, p in zip(sides[who], sides["parent"]))
+                for who in ("this", "this, fresh process")}
+        log("B=%d NACF steps through run_train_epoch in turns with the parent (parent, fresh, "
+            "this, this, fresh, parent; %d rounds of 3 epochs of %d steps; ms per step, host "
+            "clock): %s; faster than the parent in %s of %d pairs; idle share of one epoch this "
+            "%.3f, parent %.3f; top-level host operators per epoch this %d, parent %d"
+            % (TRAIN_B, EPOCH_ROUNDS, TRAIN_STEPS, "; ".join(
+                "%s %s (median %.3f, mean %.3f)" % (who, [round(x, 3) for x in t],
+                                                   np.median(t), np.mean(t))
+                for who, t in sides.items()), wins, len(sides["this"]), idle_share(epoch),
                parent.time("idle"), TIMERS["host_ops"](epoch), parent.time("host_ops")))
         del epoch
+    if fresh is not None:
+        fresh.close()
 
     # -- (c) bench.py's train protocol at B=2048 ----------------------------
     del state, step, model
@@ -1928,8 +2048,8 @@ def main():
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent", help="a checkout of an earlier commit: its K1-K6 and "
-                    "K9-K12b kernels, weight-gradient reduction, NACF request, B=1024 ARB "
+    ap.add_argument("--parent", help="a checkout of an earlier commit: its K1-K7, K1u "
+                    "and K9-K12b kernels, weight-gradient reduction, NACF request, B=1024 ARB "
                     "decode, B=64 epoch and B=2048 train step are run through its own "
                     "wrappers in a second process and timed in turns with this tree's")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
@@ -2181,35 +2301,70 @@ def main():
     rec_k2.update((k, t_k2[k]) for k in ("matmul_ms", "parent_ms") if k in t_k2)
 
     # K1u, the unfolded form (float32 embedded rows, cross K/V projected in
-    # the kernel) at K1's shape; no path of navc_tpu or of the port calls it
+    # the kernel) at K1's shape, NAR and causal: K11's launches at p = 0. No
+    # path of navc_tpu or of the port calls it. Timed beside bf16
+    # torch.matmul of its 10 products at their shapes (matmul_ms: the N * L
+    # rows by Wq, Wk, Wv, Wo_s, Wq_c, Wo_c and Wi, the N * Le encoder rows by
+    # Wk_c and Wv_c, the FFN activations by Wo2) and, given --parent, the
+    # parent's K1u on the same operands in turns (parent, this, this, parent)
     x_u = torch.randn(n, l, h, generator=g).to(dev)
     enc_u = torch.repeat_interleave(enc, cfg.length_beam_size, 0)
-    err_u = 0.0
+    err_u, t_u = 0.0, {}
     for causal in (False, True):
-        out_u = fused_layer_unfolded(x_u, enc_u, kp, ops.layer, ops.n_head, causal,
-                                     torch.bfloat16)
+        k1u = lambda: fused_layer_unfolded(x_u, enc_u, kp, ops.layer,  # noqa: E731
+                                           ops.n_head, causal, torch.bfloat16)
+        out_u = k1u()
         want_u = fused_layer_unfolded_plain(x_u, enc_u, kp, ops.layer, ops.n_head,
                                             causal, torch.bfloat16)
         torch.cuda.synchronize()
         e, sc, re, rs = scaled_err(out_u, want_u)
+        what = "causal" if causal else "nar"
         if not (e <= TRAIN_TOL * sc and re <= TRAIN_RMS_TOL * rs):
             die("fused_layer_unfolded (%s) disagrees with its plain version: max err "
-                "%.3e (scale %.3e), rms err %.3e (rms %.3e)"
-                % ("causal" if causal else "nar", e, sc, re, rs))
+                "%.3e (scale %.3e), rms err %.3e (rms %.3e)" % (what, e, sc, re, rs))
+        if not (torch.equal(k1u(), out_u) and bool((out_u[kp] == 0).all())):
+            die("fused_layer_unfolded (%s): two calls differ, or a PAD row is not zero" % what)
         err_u = max(err_u, e)
+        t = {}
+        if parent is None:
+            t["ms"] = device_ms(k1u)
+        else:
+            theirs = parent.load("fused_layer_unfolded", dict(
+                x=x_u, enc=enc_u, kp=kp, w=vars(ops.layer)), n_head=ops.n_head,
+                causal=causal)["out"]
+            e, sc, re, rs = scaled_err(theirs, out_u)
+            if not (e <= TRAIN_TOL * sc and re <= TRAIN_RMS_TOL * rs):
+                die("the parent's fused_layer_unfolded (%s) disagrees with this one: %.3e"
+                    % (what, e))
+            del theirs
+            p1, a1, a2, p2 = (parent.time("device"), device_ms(k1u), device_ms(k1u),
+                              parent.time("device"))
+            t.update(ms=(a1 + a2) / 2, parent_ms=(p1 + p2) / 2)
+        t_u[causal] = t
+        log("fused_layer_unfolded (%s) at N=%d, L=%d, Le=%d: kernel %.4f ms, parent %s"
+            % (what, n, l, le, t["ms"], "%.4f ms (%.2fx faster)" % (
+                t["parent_ms"], t["parent_ms"] / t["ms"]) if "parent_ms" in t else "not run"))
+    x16 = x_u.view(n * l, h).to(torch.bfloat16)
+    e16 = enc_u.view(n * le, h).to(torch.bfloat16)
+    acts = torch.randn(n * l, inter, generator=seeded(10)).to(dev, torch.bfloat16)
+    u_mm = [(x16, getattr(ops.layer, k)) for k in (
+        "wq_s", "wk_s", "wv_s", "wo_s", "wq_c", "wo_c", "wi")] + [
+        (e16, ops.layer.wk_c), (e16, ops.layer.wv_c), (acts, ops.layer.wo2)]
+    u_matmul_ms = device_ms(lambda: [torch.matmul(a, b.t()) for a, b in u_mm])
+    del x16, e16, acts, u_mm
     weights_b = (8 * h * h + 2 * h * inter) * 2 + (8 * h + inter + h) * 4
     rec_k1u = record(
-        "fused_layer_unfolded", err_u, None,
-        cuda_ms(lambda: fused_layer_unfolded(x_u, enc_u, kp, ops.layer, ops.n_head,
-                                             False, torch.bfloat16)),
+        "fused_layer_unfolded", err_u, None, t_u[False]["ms"],
         cuda_ms(lambda: fused_layer_unfolded_plain(x_u, enc_u, kp, ops.layer,
                                                    ops.n_head, False, torch.bfloat16),
                 iters=5),
         layer_flops(real, real, n, le, h, inter) + 2 * 2 * n * le * h * h,
         n * l * h * 4 + n * le * h * 4 + n * l + weights_b + n * l * h * 2,
         note="  (max_err: absolute, NAR and causal; tolerance %.0e of the largest "
-        "|value| and %.0e of the rms; no path of navc_tpu reaches it: launches 0)"
-        % (TRAIN_TOL, TRAIN_RMS_TOL))
+        "|value| and %.0e of the rms; matmul_ms %.4f; causal %.4f ms; no path of navc_tpu "
+        "reaches it: launches 0)" % (TRAIN_TOL, TRAIN_RMS_TOL, u_matmul_ms, t_u[True]["ms"]))
+    rec_k1u.update(matmul_ms=u_matmul_ms, causal=t_u[True],
+                   **{k: t_u[False][k] for k in ("parent_ms",) if k in t_u[False]})
 
     # K3 / K4 on the dense layer output (R = N * L rows), untied (the
     # model's projection), tied (a bias at 0.1) and with a bias ten times
@@ -2447,7 +2602,7 @@ def main():
               "navc_tpu/ops/vocab_ce.py:152", train_recs["ce_bwd_dh"], train_launches),
         entry("ce_bwd_dw", "navc_tpu_torch/csrc/vocab_ce.cu",
               "navc_tpu/ops/vocab_ce.py:152", train_recs["ce_bwd_dw"], train_launches),
-        dict(entry("fused_layer_unfolded", "navc_tpu_torch/csrc/fused_layer.cu",
+        dict(entry("fused_layer_unfolded", "navc_tpu_torch/csrc/fused_layer_train.cu",
                    "navc_tpu/ops/fused_layer.py:303", rec_k1u),
              note="no path of navc_tpu reaches the unfolded form (its decodes pass "
              "static=, which selects :289); held against its plain version only"),

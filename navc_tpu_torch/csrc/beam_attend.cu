@@ -53,12 +53,45 @@
 // planned on the host (navc_tpu_torch/ops/beam_attend.py attend_runs) from
 // the instances, k, tpos, H, the heads and the SM count.
 //
-// K7: a warp per (row, head) walks the Te encoder positions with an online
-// softmax (warp_attend), without a mask. The k beams of an instance share
-// its encoder K/V, so the kernel reads the per-instance (b, Te, H) tensors
-// at row / k; the JAX wrapper's per-decode expansion to b*k rows is not
-// needed. It reads q and the per-instance encoder K/V (~2 MB at 64 videos):
-// bytes bound it too; its loads are serialised through the softmax chain.
+// K7, one call per beam step: the mask-free attention of each beam row over
+// its instance's Te encoder positions. The k beams of an instance share its
+// encoder K/V, so the kernel reads the per-instance (b, Te, H) tensors; the
+// JAX wrapper's per-decode expansion to b*k rows is not needed.
+//
+// What bounds it on the H100: bytes. It reads q (n, H) float32 and the
+// per-instance K/V and writes att (n, H) float32: at the B=1024 decode's
+// 5120 rows (Te 16, H 512, bf16 K/V) 54.5 MB, 0.016 ms at 3.35 TB/s, against
+// 84 MFLOP, 0.0013 ms at the float32 rate. In the earlier design a block
+// owned a beam row and a warp a head, walking the positions one by one
+// through an online softmax (a shuffle reduction and two expf a position):
+// the loads were serialised behind that chain, and the k blocks of an
+// instance each read its K/V again through L2.
+//
+// Design: a block per (instance, group of g heads), g planned on the host
+// (navc_tpu_torch/ops/beam_attend.py cross_groups) from the instances, k,
+// Te, H, the heads and the SM count. The block stages its instance's Te x
+// g*dh slice of K and its k query rows' g*dh float32 columns, then the V
+// slice, in shared memory with 16-byte cp.async copies, all in flight at
+// once, V landing while the scores are computed (position rows padded by
+// 16 bytes, so that threads reading different positions hit different
+// banks): each instance's K/V leaves device memory once. From the stage:
+// the scores, float32 dot products of dh; each (row, head)'s softmax over
+// the positions; the weighted V sums over the positions in order, divided
+// by the sum. Two thread layouts, planned on the host with g. Where the
+// grid gives each SM several blocks (the card's throughput sets the time),
+// or where the group is wide enough that its column pairs fill a block: a
+// thread per (head, position) scores all k rows, a thread per (row, head)
+// takes the softmax and a thread per pair of columns sums all k rows, each
+// K and V element and each exponential read once for all the rows (a
+// thread per (row, column) spends most of the time reading shared memory
+// there). Else a block's latency sets it: a group of lanes per (row, head)
+// scores its positions and takes their max and sum by shuffles, and a
+// thread per (row, column) sums, as many threads as a block's short phases
+// can use. No atomics: two calls
+// give the same bits. The tensor cores would not help: at ~1.5 FLOP a byte
+// the products are far below the ~295 at which bf16 wgmma binds, and a
+// bf16 q would drop the float32 q.K that the TPU kernel keeps with its
+// segment passes.
 
 #include "common.cuh"
 
@@ -67,9 +100,10 @@ namespace {
 constexpr int NTHREADS = 256;
 constexpr int NWARPS = NTHREADS / 32;
 constexpr int MAX_BEAM = 32;         // rows of one instance (k)
-constexpr int MAX_DL = 4;            // head width <= 32 * MAX_DL
+constexpr int MAX_DH = 128;          // head width, at most
+constexpr int CROSS_R = 8;           // K7 rows a thread's sums cover at once
 constexpr int MAX_RUN = 32;          // K6 positions a block owns, at most
-constexpr int STAGE_MAX = 192 * 1024;  // K6 shared memory a block, at most
+constexpr int STAGE_MAX = 192 * 1024;  // K6 / K7 shared memory a block, at most
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
@@ -80,50 +114,6 @@ template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ bf16 from_f32<bf16>(float x) { return __float2bfloat16(x); }
-
-// One warp (K7): softmax(q . K[p] * scale) over positions 0..np-1, applied
-// to V. q_row, att_row: this head's slice; kb, vb: position 0 of this head's
-// slice, positions `stride` elements apart.
-template <typename T>
-__device__ __forceinline__ void warp_attend(const float* q_row, const T* kb, const T* vb,
-                                            size_t stride, int np, int dh, float scale,
-                                            float* att_row) {
-  const int lane = threadIdx.x & 31;
-  float qv[MAX_DL], acc[MAX_DL];
-#pragma unroll
-  for (int j = 0; j < MAX_DL; ++j) {
-    const int d = lane + 32 * j;
-    qv[j] = d < dh ? q_row[d] : 0.f;
-    acc[j] = 0.f;
-  }
-  float m = -INFINITY, s = 0.f;
-  for (int p = 0; p < np; ++p) {
-    const T* kp = kb + (size_t)p * stride;
-    const T* vp = vb + (size_t)p * stride;
-    float part = 0.f;
-#pragma unroll
-    for (int j = 0; j < MAX_DL; ++j) {
-      const int d = lane + 32 * j;
-      if (d < dh) part += qv[j] * to_f32(kp[d]);
-    }
-    const float sc = warp_sum(part) * scale;
-    const float mn = fmaxf(m, sc);
-    const float a = expf(m - mn);
-    const float e = expf(sc - mn);
-    s = s * a + e;
-#pragma unroll
-    for (int j = 0; j < MAX_DL; ++j) {
-      const int d = lane + 32 * j;
-      if (d < dh) acc[j] = acc[j] * a + e * to_f32(vp[d]);
-    }
-    m = mn;
-  }
-#pragma unroll
-  for (int j = 0; j < MAX_DL; ++j) {
-    const int d = lane + 32 * j;
-    if (d < dh) att_row[d] = acc[j] / s;
-  }
-}
 
 // 16 bytes from global src to shared dst, asynchronously (cp.async).
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -137,6 +127,17 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// Close this thread's group of cp.async copies; wait until at most N of its
+// groups are still in flight.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // The even (low half) and odd (high half) bf16 of a 32-bit pair as floats.
 __device__ __forceinline__ float bf_lo(unsigned u) { return __uint_as_float(u << 16); }
 __device__ __forceinline__ float bf_hi(unsigned u) { return __uint_as_float(u & 0xffff0000u); }
@@ -144,6 +145,64 @@ __device__ __forceinline__ float bf_hi(unsigned u) { return __uint_as_float(u & 
 // One staged position row: H elements and 16 bytes of padding.
 template <typename T>
 __host__ __device__ inline int stage_ld(int H) { return H + 16 / (int)sizeof(T); }
+
+// 16 bytes of staged T (16-byte aligned) as floats.
+template <typename T>
+__device__ __forceinline__ void load_vec(const T* src, float (&out)[16 / sizeof(T)]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(src);
+  if constexpr (sizeof(T) == 4) {
+    out[0] = __uint_as_float(u.x);
+    out[1] = __uint_as_float(u.y);
+    out[2] = __uint_as_float(u.z);
+    out[3] = __uint_as_float(u.w);
+  } else {
+    const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      out[2 * i] = bf_lo(w[i]);
+      out[2 * i + 1] = bf_hi(w[i]);
+    }
+  }
+}
+
+// The max and the sum of v over an aligned group of P lanes (P a power of
+// two, at most 32); every lane of the warp must call it.
+__device__ __forceinline__ float group_max(float v, int P) {
+  for (int o = P / 2; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float group_sum(float v, int P) {
+  for (int o = P / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// 2 staged T (4 or 8 bytes, aligned) as floats.
+template <typename T>
+__device__ __forceinline__ void load2(const T* src, float (&out)[2]) {
+  if constexpr (sizeof(T) == 4) {
+    const float2 u = *reinterpret_cast<const float2*>(src);
+    out[0] = u.x;
+    out[1] = u.y;
+  } else {
+    const unsigned u = *reinterpret_cast<const unsigned*>(src);
+    out[0] = bf_lo(u);
+    out[1] = bf_hi(u);
+  }
+}
+
+// K7's output of row r at column c (head hd) of the group: the exponentials
+// ex (head-major, [te][kp] a head, hs floats apart) times the staged V
+// column over the positions in order, over the (row, head)'s sum.
+template <typename T>
+__device__ __forceinline__ float weighted_v(const float* ex, const T* vs, const float* sum, int hd,
+                                            int r, int c, int te, int kp, int hs, int ldk,
+                                            int g) {
+  const float* e = ex + hd * hs + r;
+  float acc = 0.f;
+  for (int p = 0; p < te; ++p) acc += e[p * kp] * to_f32(vs[p * ldk + c]);
+  return acc / sum[r * g + hd];
+}
 
 // q . K[p] over the head's dh dimensions: kr this head's slice of a staged
 // position row, qr its slice of the query row (float32, device memory).
@@ -351,23 +410,197 @@ step_merge_kernel(const float* pacc, const float2* pml, float* __restrict__ att,
   att[i] = merge_sum(pacc + (size_t)row * runs * H + c, m, runs, nh, H, tot.x) / tot.y;
 }
 
-// Grid: one block per row; warps walk the heads. ke, ve (b, Te, H).
+// K7. Block inst * (nh / g) + gi owns instance inst's k rows and heads [gi
+// g, (gi + 1) g): the gw = g dh columns from c0 = gi gw. Shared memory: the
+// staged K rows [te][gw + pad], the V rows, the query rows [k][gw + 4]
+// (float32), the exponentials [g][te][kp] + 4 floats a head (kp = k rounded
+// up to 4: a position's rows are float4s; the 4 keep the heads' rows on
+// different banks), each (row, head)'s sum [k][g]. q, att (n, H) float32;
+// ke, ve (n / k, te, H). `reuse`: a thread per (head, position) scores all
+// k rows and a thread per pair of columns sums them, so each K and V
+// element and each exponential is read once for every row; else a group of
+// lanes per (row, head) and a thread per (row, column), the most threads a
+// block's short phases can use.
 template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
 cross_kernel(const float* __restrict__ q, const T* __restrict__ ke, const T* __restrict__ ve,
-             float* __restrict__ att, int k, int te, int H, int nh, float scale) {
-  const size_t row = blockIdx.x;
-  const size_t inst = row / k;
-  const int dh = H / nh;
-  for (int hd = threadIdx.x >> 5; hd < nh; hd += blockDim.x >> 5) {
-    warp_attend<T>(q + row * H + hd * dh, ke + inst * te * H + hd * dh,
-                   ve + inst * te * H + hd * dh, H, te, dh, scale,
-                   att + row * H + hd * dh);
+             float* __restrict__ att, int k, int te, int H, int nh, int g, float scale,
+             int reuse) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, nt = blockDim.x, groups = nh / g;
+  const int inst = blockIdx.x / groups, gi = blockIdx.x - inst * groups;
+  const int dh = H / nh, gw = g * dh, c0 = gi * gw, row0 = inst * k;
+  const int ldk = stage_ld<T>(gw), ldq = gw + 4, kp = (k + 3) / 4 * 4, hs = te * kp + 4;
+  T* ks = reinterpret_cast<T*>(smem);
+  T* vs = ks + (size_t)te * ldk;
+  float* qs = reinterpret_cast<float*>(vs + (size_t)te * ldk);
+  float* ex = qs + (size_t)k * ldq;
+  float* sum = ex + (size_t)g * hs;
+
+  // 1. stage K and the query columns, then V, which lands while the scores
+  //    are computed: 16-byte vectors, a position's (a row's) on neighbouring
+  //    threads; vector i of a K/V slice is at stage_at(i) in the stage and
+  //    src_at(i) in the instance's (te, H) rows
+  constexpr int EV = 16 / (int)sizeof(T);  // elements a vector
+  const int kv_vecs = gw / EV, q_vecs = gw / 4;
+  auto stage_at = [=](int i) { return (i / kv_vecs) * ldk + (i % kv_vecs) * EV; };
+  auto src_at = [=](int i) {
+    const int p = i / kv_vecs, e = (i - p * kv_vecs) * EV;
+    return (size_t)p * H + c0 + e;
+  };
+  const T* kin = ke + (size_t)inst * te * H;
+  const T* vin = ve + (size_t)inst * te * H;
+  for (int i = tid; i < te * kv_vecs; i += nt) cp_async16(ks + stage_at(i), kin + src_at(i));
+  for (int i = tid; i < k * q_vecs; i += nt) {
+    const int r = i / q_vecs, e = (i - r * q_vecs) * 4;
+    cp_async16(qs + r * ldq + e, q + (size_t)(row0 + r) * H + c0 + e);
+  }
+  cp_async_commit();
+  for (int i = tid; i < te * kv_vecs; i += nt) cp_async16(vs + stage_at(i), vin + src_at(i));
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+
+  // 2. the scores q . K[p] * scale and their softmax: the exponentials
+  //    into ex, each (row, head)'s sum into sum
+  if (reuse) {
+    // a thread per (head, position) scores CROSS_R rows at a time
+    const bool vec = (dh * (int)sizeof(T)) % 16 == 0;  // head slices of whole vectors
+    for (int t = tid; t < g * te; t += nt) {
+      const int hd = t / te, p = t - hd * te;
+      const T* kr = ks + p * ldk + hd * dh;
+      for (int r0 = 0; r0 < k; r0 += CROSS_R) {
+        const float* qr = qs + (size_t)r0 * ldq + hd * dh;
+        float acc[CROSS_R];
+#pragma unroll
+        for (int j = 0; j < CROSS_R; ++j) acc[j] = 0.f;
+        if (vec) {
+          for (int d = 0; d < dh; d += EV) {
+            float kv[EV];
+            load_vec<T>(kr + d, kv);
+#pragma unroll
+            for (int j = 0; j < CROSS_R; ++j) {
+              if (r0 + j < k) {
+                const float* qj = qr + j * ldq + d;
+#pragma unroll
+                for (int e = 0; e < EV; e += 4) {
+                  const float4 qa = *reinterpret_cast<const float4*>(qj + e);
+                  acc[j] += qa.x * kv[e] + qa.y * kv[e + 1] + qa.z * kv[e + 2] + qa.w * kv[e + 3];
+                }
+              }
+            }
+          }
+        } else {
+          for (int d = 0; d < dh; ++d) {
+            const float kv = to_f32(kr[d]);
+#pragma unroll
+            for (int j = 0; j < CROSS_R; ++j)
+              if (r0 + j < k) acc[j] += qr[j * ldq + d] * kv;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < CROSS_R; ++j)
+          if (r0 + j < k) ex[hd * hs + p * kp + r0 + j] = acc[j] * scale;
+      }
+    }
+    __syncthreads();
+    // a thread per (row, head): the max, the exponentials, their sum, over
+    // the positions in order (fewer instructions than a group of lanes
+    // each, which is what counts here)
+    for (int item = tid; item < k * g; item += nt) {
+      const int hd = item / k, r = item - hd * k;
+      float* sr = ex + hd * hs + r;
+      float mx = -INFINITY, l = 0.f;
+      for (int p = 0; p < te; ++p) mx = fmaxf(mx, sr[p * kp]);
+      for (int p = 0; p < te; ++p) {
+        sr[p * kp] = expf(sr[p * kp] - mx);
+        l += sr[p * kp];
+      }
+      sum[r * g + hd] = l;
+    }
+  } else {
+    // a group of P lanes (te rounded up to a power of two, at most 32) per
+    // (row, head), lane j taking positions j, j + P, ...: each lane keeps
+    // its scores' max and then sum of exponentials, the group's by
+    // shuffles (every lane of a warp runs them: the count is rounded up to
+    // 32), with no pass of a thread walking all the positions
+    int P = 1;
+    while (P < te && P < 32) P *= 2;
+    for (int t = tid; t < (k * g * P + 31) / 32 * 32; t += nt) {
+      const int item = t / P, lane = t - item * P, hd = item / k, r = item - hd * k;
+      const bool live = item < k * g;
+      float* er = ex + hd * hs + r;
+      float mx = -INFINITY, l = 0.f;
+      for (int p = lane; live && p < te; p += P) {
+        const float x = dot_head<T>(qs + r * ldq + hd * dh, ks + p * ldk + hd * dh, dh) * scale;
+        er[p * kp] = x;
+        mx = fmaxf(mx, x);
+      }
+      mx = group_max(mx, P);
+      for (int p = lane; live && p < te; p += P) {
+        const float x = expf(er[p * kp] - mx);
+        er[p * kp] = x;
+        l += x;
+      }
+      l = group_sum(l, P);
+      if (live && lane == 0) sum[r * g + hd] = l;
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  // 3. the weighted V sums over the positions in order, over the sum
+  if (reuse) {  // a thread per pair of columns, CROSS_R rows at a time
+    for (int c = 2 * tid; c < gw; c += 2 * nt) {
+      const int hd = c / dh;
+      if (hd != (c + 1) / dh) {  // the pair straddles two heads: one by one
+        for (int cc = c; cc < c + 2; ++cc)
+          for (int r = 0; r < k; ++r)
+            att[(size_t)(row0 + r) * H + c0 + cc] =
+                weighted_v(ex, vs, sum, cc / dh, r, cc, te, kp, hs, ldk, g);
+        continue;
+      }
+      for (int r0 = 0; r0 < k; r0 += CROSS_R) {
+        const float* er = ex + hd * hs + r0;
+        float acc[CROSS_R][2];
+#pragma unroll
+        for (int j = 0; j < CROSS_R; ++j) acc[j][0] = acc[j][1] = 0.f;
+        for (int p = 0; p < te; ++p) {
+          float v[2];
+          load2<T>(vs + p * ldk + c, v);
+#pragma unroll
+          for (int j = 0; j < CROSS_R; j += 4) {
+            if (r0 + j < k) {
+              const float4 e = *reinterpret_cast<const float4*>(er + p * kp + j);
+              const float ej[4] = {e.x, e.y, e.z, e.w};
+#pragma unroll
+              for (int jj = 0; jj < 4; ++jj) {
+                acc[j + jj][0] += ej[jj] * v[0];
+                acc[j + jj][1] += ej[jj] * v[1];
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < CROSS_R; ++j) {
+          if (r0 + j < k) {
+            const float s = sum[(r0 + j) * g + hd];
+            *reinterpret_cast<float2*>(att + (size_t)(row0 + r0 + j) * H + c0 + c) =
+                make_float2(acc[j][0] / s, acc[j][1] / s);
+          }
+        }
+      }
+    }
+  } else {  // a thread per (row, column)
+    for (int o = tid; o < k * gw; o += nt) {
+      const int r = o / gw, c = o - r * gw;
+      att[(size_t)(row0 + r) * H + c0 + c] =
+          weighted_v(ex, vs, sum, c / dh, r, c, te, kp, hs, ldk, g);
+    }
   }
 }
 
 bool shape_ok(int k, int H, int nh, int esz) {
-  return k >= 1 && k <= MAX_BEAM && nh >= 1 && H % nh == 0 && H / nh <= 32 * MAX_DL &&
+  return k >= 1 && k <= MAX_BEAM && nh >= 1 && H % nh == 0 && H / nh <= MAX_DH &&
          (H * esz) % 16 == 0;
 }
 
@@ -415,13 +648,33 @@ int launch_step(void* kc, void* vc, const void* q, const void* kt, const void* v
   return (int)cudaGetLastError();
 }
 
+// Host: K7's shared memory a block with heads in groups of g (as
+// ops/beam_attend.py cross_stage_bytes).
+template <typename T>
+size_t cross_bytes(int k, int te, int H, int nh, int g) {
+  const int gw = g * (H / nh), kp = (k + 3) / 4 * 4;
+  return 2 * (size_t)te * stage_ld<T>(gw) * sizeof(T) + (size_t)k * (gw + 4) * 4 +
+         (size_t)g * (te * kp + 4) * 4 + (size_t)k * g * 4;
+}
+
 template <typename T>
 int launch_cross(const void* q, const void* ke, const void* ve, void* att, int n, int k, int te,
-                 int H, int nh, float scale, cudaStream_t st) {
-  const int threads = 32 * min(nh, NWARPS);
-  cross_kernel<T><<<n, threads, 0, st>>>(static_cast<const float*>(q),
-                                         static_cast<const T*>(ke), static_cast<const T*>(ve),
-                                         static_cast<float*>(att), k, te, H, nh, scale);
+                 int H, int nh, int g, int reuse, float scale, cudaStream_t st) {
+  const size_t smem = cross_bytes<T>(k, te, H, nh, g);
+  const long blocks = (long)(n / k) * (nh / g);
+  if (g < 1 || nh % g != 0 || (g * (H / nh) * (int)sizeof(T)) % 16 != 0 || smem > STAGE_MAX ||
+      blocks > 0x7fffffffL)
+    return (int)cudaErrorInvalidValue;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      cross_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, STAGE_MAX);
+  if (attr != cudaSuccess) return (int)attr;
+  // threads for the layout's widest phase, fewer where the group is narrow
+  const int gw = g * (H / nh);
+  const int want = reuse ? max(gw / 2, g * te) : k * max(gw, g * te);
+  const int threads = min(NTHREADS, max(64, (want + 31) / 32 * 32));
+  cross_kernel<T><<<(unsigned)blocks, threads, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const T*>(ke), static_cast<const T*>(ve),
+      static_cast<float*>(att), k, te, H, nh, g, scale, reuse);
   return (int)cudaGetLastError();
 }
 
@@ -448,13 +701,17 @@ NAVC_EXPORT int navc_beam_attend_step(void* kc, void* vc, const void* q, const v
 }
 
 // q (n, H) f32; ke, ve (n / k, te, H) f32 (kv_f32 = 1) or bf16 -> att (n, H)
-// f32.
+// f32. groups: heads a block owns (divides nh; g dh elements a multiple of
+// 16 bytes); reuse: the thread layout (both planned by
+// navc_tpu_torch/ops/beam_attend.py cross_groups).
 NAVC_EXPORT int navc_cross_attend(const void* q, const void* ke, const void* ve, void* att, int n,
                                   int k, int te, int H, int nh, float scale, int kv_f32,
-                                  void* stream) {
+                                  int groups, int reuse, void* stream) {
   const int esz = kv_f32 ? 4 : 2;
   if (!shape_ok(k, H, nh, esz) || n % k != 0 || te < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return kv_f32 ? launch_cross<float>(q, ke, ve, att, n, k, te, H, nh, scale, st)
-                : launch_cross<bf16>(q, ke, ve, att, n, k, te, H, nh, scale, st);
+  return kv_f32 ? launch_cross<float>(q, ke, ve, att, n, k, te, H, nh, groups, reuse != 0,
+                                     scale, st)
+                : launch_cross<bf16>(q, ke, ve, att, n, k, te, H, nh, groups, reuse != 0, scale,
+                                     st);
 }

@@ -5,18 +5,17 @@
 // query; `causal` masks future keys for the AR teacher) and the
 // sparse-query one (K2, only the re-masked slots named by an index tensor
 // are queries; keys and values span the whole canvas). K1u, the layer on
-// embedded rows, is the training forward at p = 0 (below).
+// embedded rows (fused_nar_decoder_layer's unfolded form, pallas_call at
+// :303), is the training forward K11 at p = 0 and runs K11's launches: its
+// entry is in fused_layer_train.cu.
 //
 // Replaces: navc_tpu/ops/fused_layer.py fused_nar_decoder_layer in its fold +
 // pre_kv form (pallas_call at :289, body _kernel_fold :143 -> _layer_body
-// :108 -> _attend_2d :50), fused_nar_decoder_layer_qsub (pallas_call at
-// :461, body _kernel_fold_qsub :337) and, as K1u, fused_nar_decoder_layer
-// in its unfolded form (pallas_call at :303, body _kernel :133: the layer on
-// embedded rows, cross K/V projected in the kernel). K1u is the training
-// forward of layer_common.cuh (layer_fwd) with both dropout probabilities
-// 0. The bf16 rounding points are those of _attend_2d / _layer_body: bf16
-// matmul operands with float32 accumulation, float32 bias, LayerNorm,
-// softmax and residual, the result in the output dtype.
+// :108 -> _attend_2d :50) and fused_nar_decoder_layer_qsub (pallas_call at
+// :461, body _kernel_fold_qsub :337). The bf16 rounding points are those of
+// _attend_2d / _layer_body: bf16 matmul operands with float32 accumulation,
+// float32 bias, LayerNorm, softmax and residual, the result in the output
+// dtype.
 //
 // What bounds it on the H100: the products. A decode's sparse step (K2, N =
 // 384 canvases of 32, K = 24 query slots) does ~71 GFLOP of matmuls against
@@ -44,7 +43,7 @@
 // the sequence's query rows zero-filled to 16-row tiles in shared memory;
 // K1's self mask adds the causal term for the AR teacher. The multiplier is
 // 1 - kp at a K1 row, 1 at a used K2 slot (qidx >= 0): PAD rows and unused
-// slots come out as zero rows. K1u still runs one block per sequence.
+// slots come out as zero rows.
 
 #include "layer_common.cuh"
 #include "row_gemm.cuh"
@@ -100,13 +99,6 @@ __device__ __forceinline__ void ln_row(float (&x)[16], int H, const float* lns, 
       const int c = lane + 32 * j;
       x[j] = (x[j] - mu) * rstd * lns[c] + lnb[c];
     }
-}
-
-// K1u
-__global__ void __launch_bounds__(NT, 1) unfolded_layer_kernel(const TrainArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ float kmask[MR], npm[MR];
-  layer_fwd(a, smem, kmask, npm);
 }
 
 // The serving walk (K1 and K2). Its scratch rows in LayerArgs::ws: the
@@ -190,7 +182,6 @@ __global__ void __launch_bounds__(NT, 1) qsub_attn_kernel(const LayerArgs a, int
   const size_t tb = tile_bytes(H);
   LayerSmem s;
   s.ldb = H + 8;
-  s.xf = nullptr;
   s.xb = reinterpret_cast<bf16*>(smem);
   s.qb = reinterpret_cast<bf16*>(smem + tb);
   s.kb = reinterpret_cast<bf16*>(smem + 2 * tb);
@@ -393,10 +384,4 @@ NAVC_EXPORT int navc_fused_layer(const LayerArgs* args, void* stream) {
   g.out[2] = a.ws[QS_V1];
   if ((e = qs_run<S_BF16>(a, g, {a.ws[QS_X]}, {a.w[0], a.w[1], a.w[2]}, st))) return e;
   return walk_tail(a, nq, a.L, st);
-}
-
-// K1u: x (N, L, H) f32 embedded rows, enc (N, Le, H) f32, no dropout.
-NAVC_EXPORT int navc_fused_layer_unfolded(const TrainArgs* args, void* stream) {
-  if (args->on_hidden || args->on_input) return (int)cudaErrorInvalidValue;
-  return launch_rows(unfolded_layer_kernel, args, layer_smem_bytes(args->H), stream);
 }

@@ -3,7 +3,7 @@
 // reduction, as four kernels.
 //
 // Replaces: navc_tpu/ops/fused_layer_train.py — pallas_call at :411
-// (_fwd_kernel :218 with _self_cross_fwd :187), :447 (_ffn_bwd_kernel :241)
+// (_fwd_kernel :218, its attention forward :187), :447 (_ffn_bwd_kernel :241)
 // and :499 (_attn_bwd_kernel :286). The rounding points are the JAX
 // kernels': every product takes bf16 operands and sums in float32; biases,
 // softmax, residuals and bias gradients stay float32. Dropout masks are the
@@ -32,9 +32,10 @@
 // only out and r2 outlive the call. K12b recomputes only the forward its
 // backward reads (the same launches as K11's up to Q2, then the cross
 // context): Q/K/V of both attentions (to a global scratch), the contexts
-// and r1, not the cross-attention output. K1u (fused_layer.cu) is the
-// last user of the one-block-per-sequence training forward
-// (layer_common.cuh layer_fwd), at p = 0. The TPU
+// and r1, not the cross-attention output. K1u, the eval layer on embedded
+// rows (navc_tpu/ops/fused_layer.py, pallas_call at :303, body _kernel
+// :133), is K11 at p = p_input = 0: navc_fused_layer_unfolded (below)
+// issues K11's launches with both dropout sites off. The TPU
 // kernels accumulate the 20 weight gradients across their sequential grid;
 // CUDA blocks run in parallel, so K12a/K12b write each product's per-row
 // operands (bf16, zero rows past L) and per-sequence float32 column sums of
@@ -465,7 +466,6 @@ __global__ void __launch_bounds__(NT, 1) row_attn_kernel(const TrainArgs a, cons
   if constexpr (MODE != ATT_SELF_BWD) {
     LayerSmem s;
     s.ldb = ldb;
-    s.xf = nullptr;
     s.xb = reinterpret_cast<bf16*>(wscr);  // the warps' score slices
     s.qb = qb;
     s.kb = kb;
@@ -694,6 +694,13 @@ NAVC_EXPORT int navc_train_fwd(const TrainArgs* args, float* res, void* stream) 
   g.bias[0] = a.bo2;
   g.outf = res;
   return rg_run<0, E_OUT>(a, g, {a.ws[WS_G]}, {a.wo2}, st);
+}
+
+// K1u: x (N, L, H) f32 embedded rows, enc (N, Le, H) f32; K11 with no
+// dropout.
+NAVC_EXPORT int navc_fused_layer_unfolded(const TrainArgs* args, float* res, void* stream) {
+  if (args->on_hidden || args->on_input) return (int)cudaErrorInvalidValue;
+  return navc_train_fwd(args, res, stream);
 }
 
 // K12a: the elementwise pass (dd, P_BO2); one product walk over the FFN

@@ -1,19 +1,16 @@
-// Device code shared by the layer kernels of fused_layer.cu (K1, K2, K1u:
-// the eval layer of the NAR decode) and fused_layer_train.cu (K11, K12a,
-// K12b: the training layer). The per-sequence kernel (K1u) runs one block
-// of NT threads per sequence of at most MR rows, keeps the layer in shared
-// memory in the layout below and multiplies with bf16 wmma 16x16x16
-// fragments accumulating in float32. The per-head softmax (`attend`) also
-// serves the attention launches of the row-walk kernels (K1, K2, K11, K12b),
-// which copy one sequence's Q/K/V rows into the same layout, so every
-// kernel's attention does the same arithmetic in the same order.
+// Device code shared by the layer kernels of fused_layer.cu (K1, K2: the
+// eval layer of the NAR decode) and fused_layer_train.cu (K11, K12a, K12b:
+// the training layer, and K1u, K11 at p = 0). Their attention launches run
+// a block of NT threads per sequence of at most MR rows, copy the
+// sequence's Q/K/V rows into the shared-memory layout below and take the
+// per-head softmax (`attend`, bf16 wmma 16x16x16 fragments accumulating in
+// float32), so every kernel's attention does the same arithmetic in the same
+// order. Then the training layer's arguments and its hash dropout.
 #pragma once
 
 #include "common.cuh"
 
 #include <mma.h>
-
-#include <type_traits>
 
 using namespace nvcuda;
 
@@ -22,7 +19,6 @@ namespace {
 constexpr int NT = 256;            // threads per block
 constexpr int NW = NT / 32;        // warps per block
 constexpr int MR = 32;             // rows held per block (queries and keys)
-constexpr int FFN_CH = 256;        // FFN intermediate columns per chunk
 constexpr int SREG = MR * 32 * 4;  // per-warp 32x32 float32 score slice, bytes
 constexpr float MASK_FILL = -10e6f;
 constexpr float SQRT_2_OVER_PI = 0.7978845608028654f;
@@ -33,88 +29,26 @@ typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> ACol;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> BRow;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> BCol;
 
-// Shared memory of the layer forward.
+// Shared memory of an attention launch.
 struct LayerSmem {
-  float* xf;   // [MR][H] residual stream, f32
-  bf16* xb;    // [MR][ldb] bf16 A operand; per-warp score slices alias it
+  bf16* xb;    // the warps' score slices
   bf16* qb;    // [MR][ldb] queries, then attention context
-  bf16* kb;    // [MR][ldb] keys; FFN chunk activations alias it
+  bf16* kb;    // [MR][ldb] keys
   bf16* vb;    // [MR][ldb] values
   float* stg;  // [NW][256] per-warp accumulator staging
   int ldb;
 };
 
-// One bf16 tile of the layout: MR rows of H, the warps' score slices, or
-// the FFN chunk's activations, whichever is largest.
+// One bf16 tile of the layout: MR rows of H or the warps' score slices,
+// whichever is larger.
 __host__ __device__ inline size_t tile_bytes(int H) {
   const size_t a = (size_t)MR * (H + 8) * sizeof(bf16);
   const size_t b = (size_t)NW * SREG;
-  const size_t c = (size_t)MR * (FFN_CH + 8) * sizeof(bf16);
-  size_t m = a > b ? a : b;
-  m = m > c ? m : c;
-  return (m + 127) / 128 * 128;
-}
-
-__host__ __device__ inline size_t layer_smem_bytes(int H) {
-  return (size_t)MR * H * sizeof(float) + 4 * tile_bytes(H) + (size_t)NW * 256 * sizeof(float);
-}
-
-__device__ inline LayerSmem layer_layout(unsigned char* smem, int H) {
-  LayerSmem s;
-  s.ldb = H + 8;
-  const size_t tb = tile_bytes(H);
-  s.xf = reinterpret_cast<float*>(smem);
-  unsigned char* p = smem + (size_t)MR * H * sizeof(float);
-  s.xb = reinterpret_cast<bf16*>(p);
-  s.qb = reinterpret_cast<bf16*>(p + tb);
-  s.kb = reinterpret_cast<bf16*>(p + 2 * tb);
-  s.vb = reinterpret_cast<bf16*>(p + 3 * tb);
-  s.stg = reinterpret_cast<float*>(p + 4 * tb);
-  return s;
+  return ((a > b ? a : b) + 127) / 128 * 128;
 }
 
 __device__ __forceinline__ float gelu_new(float x) {
   return 0.5f * x * (1.f + tanhf(SQRT_2_OVER_PI * (x + 0.044715f * x * x * x)));
-}
-
-// C[rows 0 .. mt*16, cols 0 .. n_out) = A @ B over k_in, A bf16 row-major
-// (shared or global memory, lda). BROW false: W is (n_out, k_in) row-major
-// (nn.Linear's weight, the col-major B); BROW true: W is (k_in, n_out)
-// row-major with leading dimension ldw. Warp w takes output column tiles w,
-// w + NW, ...; epi(row, col, value) consumes every accumulated element.
-template <bool BROW = false, typename Epi>
-__device__ void gemm_rows(const bf16* A, int lda, int mt, const bf16* W, int ldw, int n_out,
-                          int k_in, float* stg, Epi epi) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int ct = warp; ct < n_out / 16; ct += NW) {
-    Acc acc[2];
-    wmma::fill_fragment(acc[0], 0.f);
-    wmma::fill_fragment(acc[1], 0.f);
-    for (int k = 0; k < k_in; k += 16) {
-      typename std::conditional<BROW, BRow, BCol>::type b;
-      if constexpr (BROW)
-        wmma::load_matrix_sync(b, W + (size_t)k * ldw + ct * 16, ldw);
-      else
-        wmma::load_matrix_sync(b, W + (size_t)ct * 16 * ldw + k, ldw);
-#pragma unroll
-      for (int rt = 0; rt < 2; ++rt) {
-        if (rt < mt) {
-          ARow a;
-          wmma::load_matrix_sync(a, A + (size_t)rt * 16 * lda + k, lda);
-          wmma::mma_sync(acc[rt], a, b, acc[rt]);
-        }
-      }
-    }
-#pragma unroll
-    for (int rt = 0; rt < 2; ++rt) {
-      if (rt < mt) {
-        wmma::store_matrix_sync(stg, acc[rt], 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32) epi(rt * 16 + e / 16, ct * 16 + e % 16, stg[e]);
-        __syncwarp();
-      }
-    }
-  }
 }
 
 // One head's probabilities (warp): scores Q_h K_h^T into sreg (32x32 f32),
@@ -226,75 +160,10 @@ __device__ void attend(const LayerSmem& s, int H, int n_head, int mtq, int mtk, 
   }
 }
 
-// The FFN of xb's rows 0 .. mt*16 (bf16): per FFN_CH-column chunk, the
-// up-projection + bi + gelu_new into bf16 (aliasing kb), then its share of
-// the down-projection accumulates in register fragments, so the rows x I
-// float intermediate never exists. Warp w owns output column tiles w,
-// w + NW, ... (at most 4: H <= 512). epi(row, col, value) then consumes
-// every element of the down-projection, without its bias.
-template <typename Epi>
-__device__ __forceinline__ void ffn_rows(const LayerSmem& s, int H, int I, int mt, const bf16* wi,
-                                         const float* bi, const bf16* wo2, Epi epi) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int ctw = H / 16 / NW, ldb = s.ldb;
-  float* stg = s.stg + warp * 256;
-  Acc down[2][4];
-#pragma unroll
-  for (int rt = 0; rt < 2; ++rt)
-#pragma unroll
-    for (int t = 0; t < 4; ++t) wmma::fill_fragment(down[rt][t], 0.f);
-  bf16* ib = s.kb;
-  const int ldi = FFN_CH + 8;
-  for (int c0 = 0; c0 < I; c0 += FFN_CH) {
-    const int cw = min(FFN_CH, I - c0);
-    const float* bc = bi + c0;
-    gemm_rows(s.xb, ldb, mt, wi + (size_t)c0 * H, H, cw, H, stg, [=](int i, int j, float v) {
-      ib[i * ldi + j] = __float2bfloat16(gelu_new(v + bc[j]));
-    });
-    __syncthreads();
-    for (int k = 0; k < cw; k += 16) {
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        if (t < ctw) {
-          const int ct = warp + NW * t;
-          BCol b;
-          wmma::load_matrix_sync(b, wo2 + (size_t)ct * 16 * I + c0 + k, I);
-#pragma unroll
-          for (int rt = 0; rt < 2; ++rt) {
-            if (rt < mt) {
-              ARow fa;
-              wmma::load_matrix_sync(fa, ib + rt * 16 * ldi + k, ldi);
-              wmma::mma_sync(down[rt][t], fa, b, down[rt][t]);
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    if (t < ctw) {
-      const int ct = warp + NW * t;
-#pragma unroll
-      for (int rt = 0; rt < 2; ++rt) {
-        if (rt < mt) {
-          wmma::store_matrix_sync(stg, down[rt][t], 16, wmma::mem_row_major);
-          __syncwarp();
-          for (int e = lane; e < 256; e += 32) epi(rt * 16 + e / 16, ct * 16 + e % 16, stg[e]);
-          __syncwarp();
-        }
-      }
-    }
-  }
-}
-
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// The training layer's arguments and hash dropout (fused_layer_train.cu), and
-// the per-sequence layer forward with the cross K/V projected in the kernel,
-// which K1u (fused_layer.cu) runs at p = 0.
+// The training layer's arguments and hash dropout (fused_layer_train.cu).
 // ---------------------------------------------------------------------------
 
 namespace {
@@ -380,64 +249,6 @@ __device__ Drop make_drop(const TrainArgs& a, int n) {
   return d;
 }
 
-// x' = input dropout of x; self-attention; cross-attention over enc. Leaves
-// r2 in xf (f32) and xb (bf16).
-__device__ void self_cross_fwd(const TrainArgs& a, const LayerSmem& s, int n, const Drop& dr,
-                               const float* kmask, const float* npm) {
-  const int H = a.H, L = a.L, Le = a.Le, ldb = s.ldb;
-  const int warp = threadIdx.x >> 5;
-  const int mt = (L + 15) / 16, mte = (Le + 15) / 16;
-  float* stg = s.stg + warp * 256;
-
-  for (int idx = threadIdx.x; idx < MR * H; idx += NT) {
-    const int r = idx / H, c = idx % H;
-    const float v = r < L ? dr.input(a.x[((size_t)n * L + r) * H + c], r, c) : 0.f;
-    s.xf[r * H + c] = v;
-    s.xb[r * ldb + c] = __float2bfloat16(v);
-  }
-  __syncthreads();
-
-  auto to_bf16 = [&](bf16* dst, const float* bias) {
-    return [=](int i, int j, float v) { dst[i * ldb + j] = __float2bfloat16(v + bias[j]); };
-  };
-  gemm_rows<false>(s.xb, ldb, mt, a.w[1], H, H, H, stg, to_bf16(s.kb, a.b[1]));
-  gemm_rows<false>(s.xb, ldb, mt, a.w[2], H, H, H, stg, to_bf16(s.vb, a.b[2]));
-  gemm_rows<false>(s.xb, ldb, mt, a.w[0], H, H, H, stg, to_bf16(s.qb, a.b[0]));
-  __syncthreads();
-
-  const bool causal = a.causal != 0;
-  attend(s, H, a.n_head, mt, mt, a.scale,
-             [=](int i, int j) { return kmask[j] > 0.5f || (causal && j > i); });
-  __syncthreads();
-
-  auto residual = [&](const float* bias, int site) {
-    return [=](int i, int j, float v) {
-      const float o = dr.hidden(v + bias[j], site, i, j);
-      const float y = (o + s.xf[i * H + j]) * npm[i];
-      s.xf[i * H + j] = y;
-      s.xb[i * ldb + j] = __float2bfloat16(y);
-    };
-  };
-  gemm_rows<false>(s.qb, ldb, mt, a.w[3], H, H, H, stg, residual(a.b[3], SITE_SELF_OUT));
-  __syncthreads();
-
-  // cross K/V from the encoder rows (bf16 in qb)
-  for (int idx = threadIdx.x; idx < MR * H; idx += NT) {
-    const int r = idx / H, c = idx % H;
-    s.qb[r * ldb + c] = __float2bfloat16(r < Le ? a.enc[((size_t)n * Le + r) * H + c] : 0.f);
-  }
-  __syncthreads();
-  gemm_rows<false>(s.qb, ldb, mte, a.w[5], H, H, H, stg, to_bf16(s.kb, a.b[5]));
-  gemm_rows<false>(s.qb, ldb, mte, a.w[6], H, H, H, stg, to_bf16(s.vb, a.b[6]));
-  __syncthreads();
-  gemm_rows<false>(s.xb, ldb, mt, a.w[4], H, H, H, stg, to_bf16(s.qb, a.b[4]));
-  __syncthreads();
-  attend(s, H, a.n_head, mt, mte, a.scale, [=](int, int j) { return j >= Le; });
-  __syncthreads();
-  gemm_rows<false>(s.qb, ldb, mt, a.w[7], H, H, H, stg, residual(a.b[7], SITE_CROSS_OUT));
-  __syncthreads();
-}
-
 __device__ void init_masks(const TrainArgs& a, int n, float* kmask, float* npm) {
   if (threadIdx.x < MR) {
     const int j = threadIdx.x;
@@ -445,46 +256,6 @@ __device__ void init_masks(const TrainArgs& a, int n, float* kmask, float* npm) 
     npm[j] = (j < a.L) ? 1.f - kmask[j] : 0.f;
   }
   __syncthreads();
-}
-
-// The layer forward of sequence blockIdx.x with the cross K/V projected in
-// the kernel, one block per sequence: K1u (fused_layer.cu), with both
-// dropout probabilities 0. FFN by ffn_rows; out = drop_final(drop_down(down +
-// bo2) + r2) * npm.
-__device__ __forceinline__ void layer_fwd(const TrainArgs& a, unsigned char* smem, float* kmask,
-                                          float* npm) {
-  const int n = blockIdx.x, H = a.H, L = a.L;
-  init_masks(a, n, kmask, npm);
-  const LayerSmem s = layer_layout(smem, H);
-  const Drop dr = make_drop(a, n);
-  self_cross_fwd(a, s, n, dr, kmask, npm);
-
-  const float* bo2 = a.bo2;
-  const float* npm_p = npm;
-  void* out = a.out;
-  const bool out_bf16 = a.out_bf16 != 0;
-  ffn_rows(s, H, a.I, (L + 15) / 16, a.wi, a.bi, a.wo2, [=](int i, int j, float v) {
-    if (i < L) {
-      const float dd = dr.hidden(v + bo2[j], SITE_FFN_DOWN, i, j);
-      const float t2 = dr.hidden(dd + s.xf[i * H + j], SITE_FFN_FINAL, i, j);
-      const float y = t2 * npm_p[i];
-      const size_t o = ((size_t)n * L + i) * H + j;
-      if (out_bf16)
-        static_cast<bf16*>(out)[o] = __float2bfloat16(y);
-      else
-        static_cast<float*>(out)[o] = y;
-    }
-  });
-}
-
-// One block of NT threads per sequence.
-template <typename Kernel>
-int launch_rows(Kernel kernel, const TrainArgs* args, size_t smem, void* stream) {
-  cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  kernel<<<args->n, NT, smem, static_cast<cudaStream_t>(stream)>>>(*args);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace

@@ -11,7 +11,10 @@ appends and attends its run (``attend_runs`` plans the run length); with
 more than one run the runs' partial softmaxes are merged, by each
 instance's last block when the blocks take more than one wave, else by a
 second launch. ``cross_attend`` is the mask-free attention of each beam
-row over its instance's encoder positions.
+row over its instance's encoder positions: on the card a block per
+instance and group of heads (``cross_groups`` plans the group and the
+block's thread layout) stages that instance's K/V slice once and attends its
+k rows from the stage.
 
 Each wrapper launches its CUDA kernel (csrc/beam_attend.cu) for CUDA
 tensors and raises if the build or the launch fails; only for CPU tensors
@@ -33,15 +36,16 @@ from . import _build
 from .beam_permute import ancestor_rows
 
 MAX_BEAM = 32      # rows of one instance a K6 block owns
-MAX_HEAD_DIM = 128  # head width the kernels' lanes cover
+MAX_HEAD_DIM = 128  # head width the kernels take, at most
 RUN_MAX = 32        # K6 positions a block owns, at most
 STAGE_BYTES = 64 * 1024   # K6's planned stage a block: four blocks an SM
-STAGE_MAX = 192 * 1024    # the most a K6 block stages (csrc/beam_attend.cu)
+STAGE_MAX = 192 * 1024    # the most a K6 or K7 block stages (csrc/beam_attend.cu)
+NTHREADS = 256            # threads of a K6 or K7 block, at most (csrc/beam_attend.cu)
 _SIGNATURES = {
     "navc_beam_attend_step": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     "navc_cross_attend": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
 }
 
 
@@ -83,6 +87,51 @@ def attend_runs(b: int, k: int, tpos: int, h: int, n_head: int, itemsize: int,
     runs = min(p, max(-(-2 * sms // b), -(-p // cap)))
     run = -(-p // runs)
     return run, -(-p // run)
+
+
+def cross_stage_bytes(k: int, te: int, h: int, n_head: int, itemsize: int,
+                      g: int) -> int:
+    """Shared memory of a K7 block owning ``g`` heads: the Te positions of
+    its K and V slices (g * dh elements, each position padded by 16 bytes),
+    its k query rows' g * dh float32 columns (padded by 16 bytes), each
+    head's Te x kp exponentials (kp = k rounded up to 4) and 4 floats more,
+    each (row, head)'s sum (float32)."""
+    gw, kp = g * (h // n_head), -(-k // 4) * 4
+    return (2 * te * (gw * itemsize + 16) + k * (gw + 4) * 4 + g * (te * kp + 4) * 4
+            + k * g * 4)
+
+
+def cross_group_ok(g: int, k: int, te: int, h: int, n_head: int,
+                   itemsize: int) -> bool:
+    """Whether K7 takes heads in groups of ``g``: g divides the heads, a
+    group's slice of a position is a whole number of 16-byte vectors (the
+    stage's copies), and its stage fits STAGE_MAX."""
+    return (g >= 1 and n_head % g == 0
+            and g * (h // n_head) * itemsize % 16 == 0
+            and cross_stage_bytes(k, te, h, n_head, itemsize, g) <= STAGE_MAX)
+
+
+def cross_groups(b: int, k: int, te: int, h: int, n_head: int, itemsize: int,
+                 sms: int) -> Tuple[int, bool]:
+    """K7's plan: (g, reuse). g, the heads a block owns, of b * (n_head / g)
+    blocks: the largest g the kernel takes (``cross_group_ok``) whose grid
+    still gives each of ``sms`` SMs a block (fewer, larger blocks: less
+    fixed cost a head), else the smallest g it takes (the most blocks).
+    ``reuse``, the block's thread layout: a thread per (head, position)
+    scores all k rows and a thread per column pair sums them, reading each
+    staged element once; taken where its column pairs fill a block (g * dh
+    >= 2 * NTHREADS) or the grid gives each SM more than four blocks (the
+    card's throughput, not a block's latency, sets the time). Else a group
+    of lanes per (row, head) and a thread per (row, column): more threads,
+    a shorter chain a block. Raises ValueError if the kernel takes no g (a
+    stage of even one head above STAGE_MAX)."""
+    ok = [g for g in range(1, n_head + 1) if cross_group_ok(g, k, te, h, n_head, itemsize)]
+    if not ok:
+        raise ValueError("cross_attend: no head group of %d heads, Te %d, k %d fits "
+                         "%d bytes of stage" % (n_head, te, k, STAGE_MAX))
+    filling = [g for g in ok if b * (n_head // g) >= sms]
+    g = max(filling) if filling else min(ok)
+    return g, g * (h // n_head) >= 2 * NTHREADS or b * (n_head // g) > 4 * sms
 
 
 @functools.lru_cache(maxsize=None)
@@ -223,11 +272,16 @@ def cross_attend(q: torch.Tensor, ke: torch.Tensor, ve: torch.Tensor,
             or b == 0 or n % b or te == 0
             or not kernel_shape_ok(n // b, h, n_head, ke.element_size())):
         raise ValueError("cross_attend: shapes or types the kernel does not take")
+    if any(t.data_ptr() % 16 for t in (q, ke, ve)):
+        raise ValueError("cross_attend: q, ke, ve must be 16-byte aligned (cp.async)")
+    k = n // b
+    groups, reuse = cross_groups(b, k, te, h, n_head, ke.element_size(),
+                                 _sm_count(q.device.index or 0))
     att = torch.empty((n, h), dtype=torch.float32, device=q.device)
     lib = _build.load("beam_attend", _SIGNATURES)
     code = lib.navc_cross_attend(
-        _ptr(q), _ptr(ke), _ptr(ve), _ptr(att), n, n // b, te, h, n_head,
-        1.0 / math.sqrt(h // n_head), int(ke.dtype == torch.float32),
+        _ptr(q), _ptr(ke), _ptr(ve), _ptr(att), n, k, te, h, n_head,
+        1.0 / math.sqrt(h // n_head), int(ke.dtype == torch.float32), groups, int(reuse),
         _stream(q))
     _build.check(lib, code, "cross_attend")
     _build.LAUNCHES["cross_attend"] += 1

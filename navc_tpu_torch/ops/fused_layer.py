@@ -13,16 +13,16 @@ those positions.
 
 ``fused_layer_unfolded`` (K1u) is the eval layer on already-embedded rows
 with the cross K/V projected in the kernel from ``enc``: the training
-layer's forward (K11) with both dropout probabilities 0, so it shares K11's
-device code and plain version. No decode path of navc_tpu calls this form
-(its decodes pass ``static=``, which selects K1).
+layer's forward (K11) with both dropout probabilities 0, so it runs K11's
+launches (csrc/fused_layer_train.cu, the row walk) and shares its plain
+version. No decode path of navc_tpu calls this form (its decodes pass
+``static=``, which selects K1).
 
-All three are one CUDA source (csrc/fused_layer.cu). K1 and K2 are the
-serving walk, a sequence of launches (a LayerNorm pass, the products on the
-row walk of csrc/row_gemm.cuh over the canvas and query rows — K1's query
-rows are its canvas rows — and two per-sequence attention launches) on
-scratch that the wrapper allocates for the call (``walk_scratch``); K1u
-runs one block per sequence. Each wrapper launches its kernel for CUDA tensors
+K1 and K2 are one CUDA source (csrc/fused_layer.cu), the serving walk, a
+sequence of launches (a LayerNorm pass, the products on the row walk of
+csrc/row_gemm.cuh over the canvas and query rows — K1's query rows are its
+canvas rows — and two per-sequence attention launches) on scratch that the
+wrapper allocates for the call (``walk_scratch``). Each wrapper launches its kernel for CUDA tensors
 and raises if the build or the launch fails; only for CPU tensors does it
 run the plain version beside it — float32 PyTorch with the kernel's bf16
 rounding points (bf16 matmul operands with float32 accumulation, float32
@@ -44,8 +44,8 @@ import torch
 
 from . import _build
 from ..models.layers import MASK_FILL
-from .fused_layer_train import (ROW_TILE, TrainArgs, check_aligned,
-                                check_operands, kernel_args, train_fwd_plain)
+from .fused_layer_train import (ROW_TILE, check_aligned, fwd_call,
+                                train_fwd_plain)
 
 SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 MAX_ROWS = 32  # canvas length, query slots and encoder positions per block
@@ -398,22 +398,14 @@ def fused_layer_unfolded(x, enc, kp, w: LayerWeights, n_head: int,
     x: (N, L, H) post-embedding states; enc: (N, Le, H) encoder output (its
     cross K/V are projected in the kernel); kp: (N, L) bool, True at PAD;
     w: ``layer_weights``. On CUDA x and enc must be float32 (navc_tpu's
-    kernel reads x as float32). Returns (N, L, H) in ``out_dtype``."""
+    kernel reads x as float32). Returns (N, L, H) in ``out_dtype``. On the
+    card, K11's launch sequence (``fwd_call``) at p = p_input = 0, its
+    residual stream, r2 and operand rows scratch of the call."""
     if x.device.type == "cpu":
         return fused_layer_unfolded_plain(x, enc, kp, w, n_head, causal, out_dtype)
-    wd = _train_dict(w)
-    check_operands(x, enc, kp, wd, n_head, torch.bfloat16)
-    if out_dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError("out_dtype must be bfloat16 or float32")
     out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    fwd_call("navc_fused_layer_unfolded", x, enc, kp, _train_dict(w), 0, n_head, causal,
+             0.0, 0.0, out)
     if x.shape[0]:
-        a = kernel_args(x, enc, kp, wd, 0, n_head, causal, 0.0, 0.0,
-                        out=out.data_ptr(), out_bf16=int(out_dtype == torch.bfloat16))
-        lib = _build.load("fused_layer", {
-            "navc_fused_layer_unfolded": [ctypes.POINTER(TrainArgs), ctypes.c_void_p]})
-        _build.check(lib, lib.navc_fused_layer_unfolded(
-            ctypes.byref(a),
-            ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)),
-            "fused_layer_unfolded")
         _build.LAUNCHES["fused_layer_unfolded"] += 1
     return out

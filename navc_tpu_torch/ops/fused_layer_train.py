@@ -405,7 +405,8 @@ def wgrad_plan(shapes: List[Tuple[int, int]]) -> Tuple[List[int], List[int], int
 def _lib():
     args, ptr = ctypes.POINTER(TrainArgs), ctypes.c_void_p
     return _build.load("fused_layer_train", {
-        "navc_train_fwd": [args, ptr, ptr], "navc_train_ffn_bwd": [args, ptr],
+        "navc_train_fwd": [args, ptr, ptr], "navc_fused_layer_unfolded": [args, ptr, ptr],
+        "navc_train_ffn_bwd": [args, ptr],
         "navc_train_attn_bwd": [args, ptr, ptr],
         "navc_train_wgrad": [ctypes.POINTER(_WgradArgs), ptr]})
 
@@ -503,6 +504,53 @@ def kernel_args(x, enc, kp, w, seed, n_head, causal, p, p_input, **ptrs):
     return a
 
 
+def fwd_scratch(n: int, l: int, le: int, h: int, inter: int
+                ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """The scratch of one forward call on the row walk (K11, and K1u on the
+    same launches), {name: (shape, dtype)}: ``rows``, five bf16 tenants of
+    the N·Lp decoder rows (x' then r1, Q1 then Q2, K1, V1, c1 then c2);
+    ``enc_rows``, three of the N·Lep encoder rows (enc, K2, V2); the FFN
+    activations ``g``; the float32 residual stream ``res`` (r1, then r2);
+    and ``r2`` (N, Lp, H), which K11 returns. Lp, Lep: L and Le rounded up
+    to ROW_TILE. Each alias is written after its first tenant's last reader
+    in the launch order of navc_train_fwd. Every (rows, H) slice starts
+    16-byte aligned, as TMA needs: H is a multiple of 128."""
+    lp, lep = _round_up(l, ROW_TILE), _round_up(le, ROW_TILE)
+    bf = torch.bfloat16
+    return {"rows": ((5, n * lp, h), bf), "enc_rows": ((3, n * lep, h), bf),
+            "g": ((n * lp, inter), bf), "res": ((n * lp, h), torch.float32),
+            "r2": ((n, lp, h), bf)}
+
+
+def fwd_call(entry, x, enc, kp, w, seed, n_head, causal, p, p_input, out,
+             compute_dtype=torch.bfloat16):
+    """The forward's launch sequence through the C entry ``entry``
+    (navc_train_fwd, or K1u's navc_fused_layer_unfolded) into ``out``, on
+    scratch allocated for the call (``fwd_scratch``). Returns r2. Raises on
+    operands the kernels do not take."""
+    check_operands(x, enc, kp, w, n_head, compute_dtype)
+    if out.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError("out_dtype must be bfloat16 or float32")
+    check_aligned("the layer's matrices", *[w[k] for k in MATS + ("wi", "wo2")])
+    n, l, h = x.shape
+    # in fwd_scratch's order; the tenants of rows and enc_rows by address
+    rows, enc_rows, gel, res, r2 = (
+        torch.empty(shape, dtype=dt, device=x.device)
+        for shape, dt in fwd_scratch(n, l, enc.shape[1], h, w["wi"].shape[0]).values())
+    if n:
+        xr, q, k1, v1, c = (rows.data_ptr() + i * rows.stride(0) * 2 for i in range(5))
+        enc_, k2, v2 = (enc_rows.data_ptr() + i * enc_rows.stride(0) * 2 for i in range(3))
+        a = kernel_args(x, enc, kp, w, seed, n_head, causal, p, p_input, out=_p(out),
+                        r2=_p(r2), out_bf16=int(out.dtype == torch.bfloat16),
+                        ws={WS_X: xr, WS_R1: xr, WS_C1: c, WS_C2: c, WS_ENC: enc_,
+                            WS_G: gel},
+                        scr=dict(enumerate((q, k1, v1, q, k2, v2))))
+        lib = _lib()
+        _build.check(lib, getattr(lib, entry)(ctypes.byref(a), _p(res), _stream(x)),
+                     entry[len("navc_"):])
+    return r2
+
+
 def train_fwd(x, enc, kp, w, seed, *, n_head, causal=False, p=0.5, p_input=0.0,
               compute_dtype=torch.bfloat16, out_dtype=torch.float32):
     """K11: the layer forward. x (N, L, H) float32 post-embedding states; enc
@@ -513,36 +561,10 @@ def train_fwd(x, enc, kp, w, seed, *, n_head, causal=False, p=0.5, p_input=0.0,
         return train_fwd_plain(x, enc, kp, w, seed, n_head=n_head, causal=causal,
                                p=p, p_input=p_input, compute_dtype=compute_dtype,
                                out_dtype=out_dtype)
-    check_operands(x, enc, kp, w, n_head, compute_dtype)
-    if out_dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError("out_dtype must be bfloat16 or float32")
-    check_aligned("the layer's matrices", *[w[k] for k in MATS + ("wi", "wo2")])
-    n, l, h = x.shape
-    lp, lep = _round_up(l, ROW_TILE), _round_up(enc.shape[1], ROW_TILE)
-    dev = x.device
-    bf = torch.bfloat16
-    out = torch.empty(x.shape, dtype=out_dtype, device=dev)
-    r2 = torch.empty((n, lp, h), dtype=bf, device=dev)
-    if n:
-        # this call's scratch, by address: x' then r1 (WS_X, WS_R1), Q1 then
-        # Q2, K1, V1, c1 then c2 (WS_C1, WS_C2) over the decoder rows; enc, K2,
-        # V2 over the encoder rows; the FFN activations; the float32 residual
-        # stream (r1, then r2). Each alias is written after its first
-        # tenant's last reader in the launch order of navc_train_fwd.
-        lps = torch.empty((5, n * lp, h), dtype=bf, device=dev)
-        leps = torch.empty((3, n * lep, h), dtype=bf, device=dev)
-        gel = torch.empty((n * lp, w["wi"].shape[0]), dtype=bf, device=dev)
-        res = torch.empty((n * lp, h), dtype=torch.float32, device=dev)
-        xr, q, k1, v1, c = (lps.data_ptr() + i * lps.stride(0) * 2 for i in range(5))
-        enc_, k2, v2 = (leps.data_ptr() + i * leps.stride(0) * 2 for i in range(3))
-        a = kernel_args(x, enc, kp, w, seed, n_head, causal, p, p_input, out=_p(out),
-                        r2=_p(r2), out_bf16=int(out_dtype == torch.bfloat16),
-                        ws={WS_X: xr, WS_R1: xr, WS_C1: c, WS_C2: c, WS_ENC: enc_,
-                            WS_G: gel},
-                        scr=dict(enumerate((q, k1, v1, q, k2, v2))))
-        lib = _lib()
-        _build.check(lib, lib.navc_train_fwd(ctypes.byref(a), _p(res), _stream(x)),
-                     "train_fwd")
+    out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    r2 = fwd_call("navc_train_fwd", x, enc, kp, w, seed, n_head, causal, p, p_input,
+                  out, compute_dtype)
+    if x.shape[0]:
         _build.LAUNCHES["train_fwd"] += 1
     return out, r2
 

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Mutation check of the redesigned kernels (K11, K12a, K12b, K2, K1, K6)
-on a card.
+"""Mutation check of the redesigned kernels (K11, K12a, K12b, K2, K1, K6,
+K7, K1u) on a card.
 
 Each mutant is one exact edit of navc_tpu_torch/csrc, made in a copy of
 the package under a temporary directory (never in the checkout); the
 `cuda` tests of tests/test_torch_port_cuda.py that cover its kernel (the
-training tests, K2's, K1's walk tests or K6's) then run against the copy,
+training tests, K2's, K1's walk tests, K6's, K7's or K1u's) then run against the copy,
 all mutants at once, one process each. A mutant that no test fails is reported as surviving and
 the script exits 1. Run from the repo root on a machine with an NVIDIA
 card:
@@ -60,6 +60,16 @@ MUTANTS = {  # name: (source under navc_tpu_torch/csrc, text, its replacement, t
     "K6: the merge takes the runs' sums out of order": (
         "beam_attend.cu", "acc += __ldcg(&a[(size_t)j * H]) *",
         "acc += __ldcg(&a[(size_t)(runs - 1 - j) * H]) *", "beam_attend_step"),
+    "K7: the last position left out of the weighted V sum": (
+        "beam_attend.cu", "load2<T>(vs + p * ldk + c, v);",
+        "if (p < te - 1) load2<T>(vs + p * ldk + c, v); else v[0] = v[1] = 0.f;",
+        "cross_attend"),
+    "K7: a head group's K/V staged one head off": (
+        "beam_attend.cu", "return (size_t)p * H + c0 + e;",
+        "return (size_t)p * H + (c0 + e + dh) % H;", "cross_attend"),
+    "K1u: the output skips the PAD multiplier": (
+        "fused_layer_train.cu", "SITE_FFN_FINAL, i, c + e) * npm;",
+        "SITE_FFN_FINAL, i, c + e);", "unfolded"),
 }
 
 

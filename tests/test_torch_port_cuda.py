@@ -7,8 +7,10 @@ accept — ragged row tiles, a vocab edge inside a tile, canvases and encoder
 lengths below 32, one query tile, H = 128 and 256, beam sizes 1 to 8,
 batches that are no multiple of 16, K6 at the B=1024 decode's 5120 rows,
 with an identity ancestry and with runs of positions that do not divide
-tpos — plus the wrappers' refusals and launch counts, and that K1 and K6
-give the same bits in two calls. Run them on a machine with a card:
+tpos, K7 at 5120 rows, in each head group, at Te 1 and 13 and beam 1 and
+32, K1u with a float32 output — plus the wrappers' refusals and launch
+counts, and that K1, K6, K7 and K1u give the same bits in two calls (K1u
+K11's at p = 0). Run them on a machine with a card:
 
     python3 -m pytest tests/test_torch_port_cuda.py -q --noconftest
 
@@ -23,15 +25,17 @@ vocab cross-entropy backward (K10) as the training kernels below, exactly
 on integer operands and bit for bit between two calls.
 """
 
+import ctypes
 import math
 
 import pytest
 import torch
 
-from navc_tpu_torch.ops import _build
+from navc_tpu_torch.ops import _build, beam_attend
 from navc_tpu_torch.ops.beam_attend import (beam_attend_step,
                                             beam_attend_step_plain,
-                                            cross_attend, cross_attend_plain)
+                                            cross_attend, cross_attend_plain,
+                                            cross_group_ok, cross_groups)
 from navc_tpu_torch.ops.beam_permute import (permute_beam_caches,
                                              permute_beam_caches_plain)
 from navc_tpu_torch.ops.fused_layer import (LayerWeights, fused_layer,
@@ -719,11 +723,7 @@ def test_beam_attend_step_with_an_identity_ancestry(cuda, b, tpos, dtype):
     assert torch.equal(ok[:, :lim], k0[:, :lim]) and torch.equal(ov[:, :lim], v0[:, :lim])
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,k,te,h,heads", [
-    (64, 5, 16, 512, 8), (7, 1, 8, 256, 4), (12, 3, 16, 256, 2), (16, 8, 16, 512, 16)])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-def test_cross_attend_matches_plain(cuda, b, k, te, h, heads, dtype):
+def _check_cross(cuda, b, k, te, h, heads, dtype):
     g = _gen(b + k + te + h)
     q = torch.randn(b * k, h, generator=g).to(cuda)
     ke = torch.randn(b, te, h, generator=g).to(cuda, dtype)
@@ -734,6 +734,104 @@ def test_cross_attend_matches_plain(cuda, b, k, te, h, heads, dtype):
     ratt = cross_attend_plain(q, ke, ve, heads)
     torch.cuda.synchronize()
     assert (att - ratt).abs().max().item() <= ATT_TOL
+    return q, ke, ve, att
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k,te,h,heads", [
+    (64, 5, 16, 512, 8), (7, 1, 8, 256, 4), (12, 3, 16, 256, 2), (16, 8, 16, 512, 16),
+    (12, 3, 16, 120, 8), (1024, 3, 16, 120, 8)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cross_attend_matches_plain(cuda, b, k, te, h, heads, dtype):
+    """The last two cases: heads 15 wide, whose slices are no whole 16-byte
+    vectors (the scores' scalar loop) and whose column pairs straddle heads
+    (the output's column-by-column loop), in a grid of one block an
+    instance and of several an SM (the reuse layout)."""
+    _check_cross(cuda, b, k, te, h, heads, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cross_attend_at_the_b1024_shape(cuda, dtype):
+    """The B=1024 decode's 5120 rows: all eight heads a block (1024 blocks)."""
+    _check_cross(cuda, 1024, 5, 16, 512, 8, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cross_attend_with_each_head_group(cuda, groups, dtype):
+    """Instances for which ``cross_groups`` plans each group on this card:
+    the fewest whose grid gives every SM a block in groups of g (at g = 1,
+    one instance short of that for all eight heads)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    b = max(1, (sms - 1) // 8) if groups == 1 else -(-sms * groups // 8)
+    assert cross_groups(b, 5, 16, 512, 8, torch.empty((), dtype=dtype).element_size(),
+                        sms)[0] == groups
+    _check_cross(cuda, b, 5, 16, 512, 8, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k,te,h,heads", [
+    (64, 5, 16, 512, 8), (1024, 5, 13, 512, 8), (7, 1, 8, 256, 4), (4, 32, 16, 512, 16),
+    (12, 3, 16, 120, 8)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cross_attend_in_each_group_and_layout_matches_plain(cuda, b, k, te, h, heads, dtype):
+    """Every head group the kernel takes, in both thread layouts, through its
+    C entry (the wrapper takes ``cross_groups``' plan): a group of 15-wide
+    heads straddles column pairs, beam 32 fills MAX_BEAM."""
+    g = _gen(b * k + te)
+    q = torch.randn(b * k, h, generator=g).to(cuda)
+    ke = torch.randn(b, te, h, generator=g).to(cuda, dtype)
+    ve = torch.randn(b, te, h, generator=g).to(cuda, dtype)
+    want = cross_attend_plain(q, ke, ve, heads)
+    lib = _build.load("beam_attend", beam_attend._SIGNATURES)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    isz = ke.element_size()
+    tried = 0
+    for gg in range(1, heads + 1):
+        for reuse in (0, 1) if cross_group_ok(gg, k, te, h, heads, isz) else ():
+            att = torch.full_like(q, float("nan"))
+            _build.check(lib, lib.navc_cross_attend(
+                q.data_ptr(), ke.data_ptr(), ve.data_ptr(), att.data_ptr(), b * k, k, te, h,
+                heads, 1.0 / math.sqrt(h // heads), int(dtype == torch.float32), gg, reuse,
+                stream), "cross_attend")
+            torch.cuda.synchronize()
+            assert (att - want).abs().max().item() <= ATT_TOL, (gg, reuse)
+            tried += 1
+    assert tried >= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k,te", [(64, 5, 1), (64, 5, 13), (16, 1, 16), (4, 32, 16),
+                                    (1024, 1, 13), (3, 32, 1)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cross_attend_at_edge_positions_and_beams(cuda, b, k, te, dtype):
+    """One encoder position, a count that is no multiple of the warp's
+    lanes, beam 1 and beam 32 (the most rows an instance may have)."""
+    _check_cross(cuda, b, k, te, 512, 8, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [64, 1024])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cross_attend_repeats_bitwise(cuda, b, dtype):
+    q, ke, ve, att = _check_cross(cuda, b, 5, 16, 512, 8, dtype)
+    assert torch.equal(cross_attend(q, ke, ve, 8), att)
+
+
+@pytest.mark.cuda
+def test_cross_attend_refuses_what_the_kernel_does_not_take(cuda):
+    g = _gen(2)
+    q = torch.randn(320, 512, generator=g).to(cuda)
+    ke = torch.randn(64, 16, 512, generator=g).to(cuda, torch.bfloat16)
+    with pytest.raises(ValueError):                  # 3 does not divide 512
+        cross_attend(q, ke, ke, 3)
+    flat = torch.zeros(64 * 16 * 512 + 1, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):  # contiguous, 2 bytes off
+        cross_attend(q, flat[1:].view(64, 16, 512), ke, 8)
+    with pytest.raises(ValueError):                  # rows no multiple of the instances
+        cross_attend(q[:319], ke, ke, 8)
 
 
 @pytest.mark.cuda
@@ -1444,14 +1542,7 @@ def test_vocab_ce_train_copies_a_misaligned_view(cuda):
     _close(g, want, CE_TOL, "g", rms_tol=CE_RMS_TOL)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("causal", [False, True], ids=["nar", "causal"])
-@pytest.mark.parametrize("shape", [(384, 32, 16, 512, 2048), (7, 13, 5, 256, 1024)],
-                         ids=lambda s: "x".join(map(str, s)))
-def test_fused_layer_unfolded_matches_plain(cuda, shape, causal):
-    from navc_tpu_torch.ops.fused_layer import (fused_layer_unfolded,
-                                                fused_layer_unfolded_plain)
-
+def _unfolded_inputs(shape, cuda):
     n, l, le, h, inter = shape
     g = _gen(sum(shape))
     w = _weights(h, inter, g, cuda)
@@ -1460,6 +1551,20 @@ def test_fused_layer_unfolded_matches_plain(cuda, shape, causal):
     kp = (torch.arange(l)[None] >= lengths[:, None]).to(cuda)
     x = torch.randn(n, l, h, generator=g).to(cuda)
     enc = torch.randn(n, le, h, generator=g).to(cuda)
+    return x, enc, kp, w
+
+
+UNFOLDED_SHAPES = [(384, 32, 16, 512, 2048), (7, 13, 5, 256, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True], ids=["nar", "causal"])
+@pytest.mark.parametrize("shape", UNFOLDED_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_fused_layer_unfolded_matches_plain(cuda, shape, causal):
+    from navc_tpu_torch.ops.fused_layer import (fused_layer_unfolded,
+                                                fused_layer_unfolded_plain)
+
+    x, enc, kp, w = _unfolded_inputs(shape, cuda)
     before = _build.LAUNCHES["fused_layer_unfolded"]
     out = fused_layer_unfolded(x, enc, kp, w, n_head=8, causal=causal,
                                out_dtype=torch.bfloat16)
@@ -1468,3 +1573,26 @@ def test_fused_layer_unfolded_matches_plain(cuda, shape, causal):
     _close(out, want, TRAIN_TOL, "out", rms_tol=TRAIN_RMS_TOL)
     assert torch.all(out[kp] == 0)
     assert _build.LAUNCHES["fused_layer_unfolded"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True], ids=["nar", "causal"])
+@pytest.mark.parametrize("shape", UNFOLDED_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_fused_layer_unfolded_f32_repeats_bitwise_and_is_k11_at_p0(cuda, shape, causal):
+    """A float32 output; two calls give the same bits, and they are K11's
+    (train_fwd at p = p_input = 0: the same launches)."""
+    from navc_tpu_torch.ops import fused_layer_train as FT
+    from navc_tpu_torch.ops.fused_layer import (_train_dict, fused_layer_unfolded,
+                                                fused_layer_unfolded_plain)
+
+    x, enc, kp, w = _unfolded_inputs(shape, cuda)
+    out = fused_layer_unfolded(x, enc, kp, w, 8, causal, torch.float32)
+    want = fused_layer_unfolded_plain(x, enc, kp, w, 8, causal, torch.float32)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32
+    _close(out, want, TRAIN_TOL, "out", rms_tol=TRAIN_RMS_TOL)
+    assert torch.all(out[kp] == 0)
+    assert torch.equal(fused_layer_unfolded(x, enc, kp, w, 8, causal, torch.float32), out)
+    k11, _ = FT.train_fwd(x, enc, kp, _train_dict(w), 12345, n_head=8, causal=causal, p=0.0,
+                          p_input=0.0, out_dtype=torch.float32)
+    assert torch.equal(k11, out)

@@ -1,9 +1,13 @@
 """Host-side plans of the port's serving kernels, checked without a card.
 
 K6 (``beam_attend_step``) splits each instance's positions [0, tpos] into
-runs, a block each, planned in Python by ``attend_runs``; K1 and K2 (the
-serving walk of ``fused_layer`` / ``fused_layer_qsub``) take scratch sized
-by ``walk_scratch`` and refuse operands by ``check_layer``. The kernels run
+runs, a block each, planned in Python by ``attend_runs``; K7
+(``cross_attend``) takes a block per instance and group of heads, the group
+planned by ``cross_groups``; K1 and K2 (the serving walk of ``fused_layer``
+/ ``fused_layer_qsub``) take scratch sized by ``walk_scratch`` and refuse
+operands by ``check_layer``; K11 and K1u (``train_fwd``,
+``fused_layer_unfolded``) take the forward's scratch sized by
+``fwd_scratch``. The kernels run
 only on the card (tests/test_torch_port_cuda.py); what they are handed is
 decided here, in plain Python that the CPU reaches.
 """
@@ -14,9 +18,12 @@ import pytest
 import torch
 
 from navc_tpu_torch.ops.beam_attend import (RUN_MAX, STAGE_BYTES, STAGE_MAX,
-                                            attend_runs, stage_bytes)
+                                            attend_runs, cross_group_ok,
+                                            cross_groups, cross_stage_bytes,
+                                            stage_bytes)
 from navc_tpu_torch.ops.fused_layer import (LayerWeights, check_layer,
                                             walk_scratch)
+from navc_tpu_torch.ops.fused_layer_train import fwd_scratch
 
 TPOS = (0, 1, 2, 14, 15, 28, 29, 31, 63)
 
@@ -64,6 +71,105 @@ def test_attend_run_plan_at_the_serving_shapes():
 def test_attend_run_plan_refuses_a_position_beyond_the_stage():
     with pytest.raises(ValueError, match="stage"):
         attend_runs(16, 32, 3, 4096, 64, 4, 132)
+
+
+@pytest.mark.parametrize("itemsize", [2, 4], ids=["bf16", "f32"])
+@pytest.mark.parametrize("b", [1, 3, 16, 60, 64, 1024, 4096])
+def test_cross_group_plan_covers_each_head_once(b, itemsize):
+    """K7's head group g divides the heads, so the nh / g blocks of an
+    instance cover each head exactly once; a group's slice of a position is
+    whole 16-byte vectors; its stage fits STAGE_MAX; and the grid gives
+    every SM a block whenever one head a block would, at beam 1 to 32, 2 to
+    16 heads, Te 1 to 32."""
+    for k in (1, 5, 32):
+        for h, nh in ((128, 2), (256, 4), (512, 8), (512, 16), (1024, 16)):
+            dh = h // nh
+            for te in (1, 13, 16, 32):
+                for sms in (8, 132):
+                    g, _ = cross_groups(b, k, te, h, nh, itemsize, sms)
+                    case = (b, k, h, nh, te, sms)
+                    assert nh % g == 0, case
+                    assert g * dh * itemsize % 16 == 0, case
+                    assert cross_stage_bytes(k, te, h, nh, itemsize, g) <= STAGE_MAX, case
+                    if b * nh >= sms and cross_group_ok(1, k, te, h, nh, itemsize):
+                        assert b * (nh // g) >= sms, case
+
+
+@pytest.mark.parametrize("b,k,te,h,nh,itemsize,sms,plan", [
+    (16, 5, 16, 512, 8, 2, 132, (1, False)),    # 128 blocks even at one head
+    (33, 5, 16, 512, 8, 2, 132, (2, False)),
+    (64, 5, 16, 512, 8, 2, 132, (2, False)),    # the 64-video request
+    (66, 5, 16, 512, 8, 2, 132, (4, False)),
+    (128, 5, 16, 512, 8, 2, 132, (4, False)),
+    (132, 5, 16, 512, 8, 2, 132, (8, True)),    # 512 columns: 256 pairs fill a block
+    (256, 5, 16, 512, 8, 2, 132, (8, True)),
+    (1024, 5, 16, 512, 8, 2, 132, (8, True)),   # the B=1024 decode
+    (1024, 1, 16, 512, 8, 4, 132, (8, True)),
+    (64, 5, 16, 256, 4, 2, 132, (1, False)),
+    (1024, 5, 16, 256, 4, 2, 132, (4, True)),   # 1024 blocks: more than four an SM
+    (4096, 5, 16, 128, 2, 2, 132, (2, True)),
+    (3, 5, 16, 512, 8, 2, 8, (2, False)),
+    (60, 5, 16, 512, 8, 2, 8, (8, True)),
+    (16, 32, 16, 512, 16, 2, 132, (1, False)),
+])
+def test_cross_group_plan_by_hand(b, k, te, h, nh, itemsize, sms, plan):
+    """(g, reuse) worked out by hand: the largest group whose grid gives
+    every SM a block (else one head), and the reuse layout where the
+    group's column pairs fill a block or the grid gives each SM more than
+    four blocks."""
+    assert cross_groups(b, k, te, h, nh, itemsize, sms) == plan
+
+
+def test_cross_group_plan_at_the_serving_shapes():
+    """The ARB decode's shapes (beam 5, Te 16, H 512, 8 heads, bf16, 132
+    SMs): at 64 videos two heads a block (256 blocks: four would leave SMs
+    idle), at B=1024 all eight (1024 blocks of 47,984 bytes: 16 KB of K and
+    of V, 10 KB of queries, the exponentials); a float32 K/V at B=1024 the same;
+    beam 32 at 16 videos, 16 heads, one head a block (256 blocks)."""
+    assert cross_groups(64, 5, 16, 512, 8, 2, 132) == (2, False)
+    assert cross_groups(1024, 5, 16, 512, 8, 2, 132) == (8, True)
+    assert cross_groups(1024, 5, 16, 512, 8, 4, 132) == (8, True)
+    assert cross_groups(16, 32, 16, 512, 16, 2, 132) == (1, False)
+    assert cross_stage_bytes(5, 16, 512, 8, 2, 8) == (2 * 16 * 1040 + 5 * 516 * 4
+                                                      + 8 * (16 * 8 + 4) * 4 + 40 * 4)
+    assert cross_stage_bytes(5, 16, 512, 8, 2, 8) == 47984
+
+
+def test_cross_group_plan_refuses_what_the_kernel_does_not_take():
+    """A group whose slice of a position is not whole 16-byte vectors (one
+    head of 4 bf16), or no group at all within STAGE_MAX (Te 2000, H 1024,
+    one head), is refused."""
+    assert not cross_group_ok(1, 5, 16, 128, 32, 2)
+    assert cross_group_ok(2, 5, 16, 128, 32, 2)
+    assert not cross_group_ok(3, 5, 16, 512, 8, 2)  # does not divide the heads
+    assert cross_groups(1024, 5, 16, 128, 32, 2, 132)[0] == 32
+    with pytest.raises(ValueError, match="stage"):
+        cross_groups(4, 5, 2000, 1024, 1, 2, 132)
+
+
+@pytest.mark.parametrize("n,l,le,h,inter", [(384, 32, 16, 512, 2048), (2048, 30, 16, 512, 2048),
+                                            (7, 13, 5, 256, 1024), (1, 8, 32, 128, 272)])
+def test_fwd_scratch_sizes_and_alignment(n, l, le, h, inter):
+    """The forward on the row walk (K11; K1u runs the same launches, so one
+    planner sizes both) takes N * Lp decoder rows and N * Lep encoder rows,
+    L and Le rounded up to 16; five tenants of the decoder rows, three of
+    the encoder rows, the FFN activations, the float32 residual stream and
+    r2. Every (rows, H) slice starts 16-byte aligned (TMA reads it)."""
+    lp, lep = math.ceil(l / 16) * 16, math.ceil(le / 16) * 16
+    bf = torch.bfloat16
+    assert fwd_scratch(n, l, le, h, inter) == {
+        "rows": ((5, n * lp, h), bf), "enc_rows": ((3, n * lep, h), bf),
+        "g": ((n * lp, inter), bf), "res": ((n * lp, h), torch.float32),
+        "r2": ((n, lp, h), bf)}
+    if (n, l, le) == (384, 32, 16):  # K1u at K1's shape: 12288 rows, 6144 encoder rows
+        total = sum(math.prod(s) * torch.empty((), dtype=dt).element_size()
+                    for s, dt in fwd_scratch(n, l, le, h, inter).values())
+        assert total == 12288 * (5 * 512 * 2 + 2048 * 2 + 512 * 4 + 512 * 2) + 6144 * 3 * 512 * 2
+    if n * lp * h < 1 << 22:
+        for name in ("rows", "enc_rows"):
+            shape, dt = fwd_scratch(n, l, le, h, inter)[name]
+            for t in torch.empty(shape, dtype=dt).unbind(0):
+                assert t.data_ptr() % 16 == 0
 
 
 def _layer_operands(n, l, le, h, heads, inter):
