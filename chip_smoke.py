@@ -59,8 +59,15 @@ NAR and causal, bit for bit the same in two calls, and timed beside bf16
 torch.matmul of its products and the parent's K1u in turns. The entry point:
 train_network_all at full width on a synthetic 320-video corpus, ARB for
 one epoch, then NACF for two with that teacher (validation decodes through
-K1-K7, steps through K9-K12). It exits non-zero on any failure, without a
-CUDA device, and outside a checkout. Imports nothing of JAX or navc_tpu.
+K1-K7, steps through K9-K12). The inference entry points: an NACF and an
+ARB model saved as .ckpt files, the 64-video test split of that corpus
+captioned and scored through cli.translate's body on the card (mp + CT
+with the ARB teacher and --record, l2r, ef, mp with -collect, ARB beam 5;
+the launches of each, no <mask> in a caption, the collect pickle's last
+iteration the caption), CaptionPipeline against Evaluator.decode_batch,
+l2r and ef on 8 videos against the CPU plain path, and each decode timed.
+It exits non-zero on any failure, without a CUDA device, and outside a
+checkout. Imports nothing of JAX or navc_tpu.
 
 Standard output ends with two JSON lines: {"kernels": [...]} and
 {"ok": true, "device": {...}}.
@@ -2044,6 +2051,204 @@ def entry_point_phase():
             die("entry point: the NACF run never launched %s" % name)
 
 
+INFER_RUNS = (  # (name, translate options after the checkpoints, kernels it must launch)
+    ("mp", ["-use_ct", "--record"],
+     ("fused_layer", "fused_layer_qsub", "project_argmax", "project_gather_prob")),
+    ("l2r", ["-paradigm", "l2r", "-use_ct", "-q", "1", "-qi", "1"],
+     ("fused_layer", "project_argmax", "project_gather_prob")),
+    ("ef", ["-paradigm", "ef", "-q", "1"],
+     ("fused_layer", "project_argmax", "project_gather_prob")),
+    ("mp collect", ["-use_ct", "-collect"],
+     ("fused_layer", "project_argmax", "project_gather_prob")),
+    ("ARB", ["-bs", "5"], ("project_topk", "beam_attend_step", "cross_attend")),
+)
+
+
+def inference_phase(card):
+    """The inference entry points at full width (MSRVTT, d=512, vocab
+    10048, bf16, random weights from seeds 0 and 1): an NACF and an ARB
+    model saved as .ckpt files, the 64-video test split of the entry
+    point's synthetic corpus captioned and scored through cli.translate's
+    body (`translate`, in-memory features, batch 64, on the card) as mp + CT
+    with the ARB teacher (--record), l2r + CT (q 1, one refinement), ef
+    (q 1), mp + CT with -collect, and ARB (beam 5), each with its launch
+    counts; CaptionPipeline.from_checkpoints on both checkpoints against
+    Evaluator.decode_batch; l2r and ef on 8 videos against the CPU plain
+    path; 64-video decode times and launches per decode."""
+    import contextlib
+    import csv
+    import io
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from navc_tpu_torch import constants as C
+    from navc_tpu_torch.api import CaptionPipeline
+    from navc_tpu_torch.cli.translate import build_parser, translate
+    from navc_tpu_torch.config import default_config
+    from navc_tpu_torch.data.loader import get_loader
+    from navc_tpu_torch.data.synthetic import make_synthetic_corpus, make_synthetic_feats
+    from navc_tpu_torch.models import build_model
+    from navc_tpu_torch.ops import _build
+    from navc_tpu_torch.runtime.checkpoint import load_model_and_config, save_checkpoint
+    from navc_tpu_torch.runtime.evaluate import Evaluator
+
+    over = dict(OVER, batch_size=N_VIDEOS)
+    cfgs = {"NACF": default_config("NACF", **over), "ARB": default_config("ARB", **over)}
+    corpus, refs = make_synthetic_corpus(cfgs["ARB"], n_videos=ENTRY_VIDEOS,
+                                         n_caps=ENTRY_CAPS, vocab_size=OVER["vocab_size"])
+    feats = make_synthetic_feats(cfgs["ARB"], n_videos=ENTRY_VIDEOS,
+                                 n_total_frames=ENTRY_FRAMES)
+    n_test = len(corpus["info"]["split"]["test"])
+    with tempfile.TemporaryDirectory() as root:
+        corpus_path = os.path.join(root, "info_corpus.pkl")
+        with open(corpus_path, "wb") as f:
+            pickle.dump(corpus, f)
+        paths = {}
+        for seed, (name, cfg) in enumerate(cfgs.items()):
+            model = build_model(cfg, device="cuda",
+                                generator=torch.Generator().manual_seed(seed))
+            cfg = cfg.replace(info_corpus=corpus_path,
+                              checkpoint_path=os.path.join(root, name))
+            paths[name] = save_checkpoint({"model": model, "settings": cfg}, root,
+                                          name + ".ckpt")
+            del model
+
+        # -- translate runs, each from fresh counts ---------------------------
+        seconds, launches, captions, results = {}, {}, {}, {}
+        peak = 0.0
+        for name, extra, kernels in INFER_RUNS:
+            model_args = (["--model_path", paths["ARB"]] if name == "ARB" else
+                          ["--model_path", paths["NACF"], "--teacher_path", paths["ARB"]])
+            opt = build_parser().parse_args(
+                model_args + extra + ["-batch_size", str(N_VIDEOS), "-em", "test",
+                                      "-print_sent", "-collect_path",
+                                      os.path.join(root, "collect")])
+            out = io.StringIO()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                res = translate(opt, device="cuda", info_corpus=corpus,
+                                in_memory_feats=feats, references=refs)["test"]
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+            launches[name] = {k: c for k, c in _build.LAUNCHES.items() if c}
+            peak = max(peak, torch.cuda.max_memory_allocated() / 1e9)
+            results[name] = res
+            for k in kernels:
+                if not launches[name].get(k):
+                    die("inference: translate %s never launched %s (launches %s)"
+                        % (name, k, launches[name]))
+            if name in ("l2r", "ef", "mp collect") and launches[name].get("fused_layer_qsub"):
+                die("inference: translate %s launched K2, which only mp's sparse steps take"
+                    % name)
+            sents = dict(line.split(": ", 1) for line in out.getvalue().splitlines()
+                         if line.startswith("video") and ": " in line)
+            if len(sents) != n_test:
+                die("inference: translate %s printed %d captions for %d test videos"
+                    % (name, len(sents), n_test))
+            if any(C.MASK_WORD in s.split() for s in sents.values()):
+                die("inference: a %s caption holds %s: %s" % (
+                    name, C.MASK_WORD,
+                    [s for s in sents.values() if C.MASK_WORD in s.split()][:3]))
+            if not all(np.isfinite(res[k]) for k in ("Bleu_4", "METEOR", "ROUGE_L", "CIDEr")):
+                die("inference: translate %s gave metrics %s" % (name, res))
+            captions[name] = sents
+        for k, per in PER_DECODE.items():
+            if launches["mp"].get(k, 0) != per:
+                die("inference: mp launched %s %d times in its one 64-video decode, "
+                    "expected %d" % (k, launches["mp"].get(k, 0), per))
+        record = os.path.join(root, "NACF", "testing_record.csv")
+        with open(record) as f:
+            rows = list(csv.DictReader(f))
+        if len(rows) != 1 or abs(float(rows[0]["CIDEr"]) - results["mp"]["CIDEr"]) > 1e-9:
+            die("inference: --record wrote %s" % rows)
+        (pkl,) = os.listdir(os.path.join(root, "collect"))
+        with open(os.path.join(root, "collect", pkl), "rb") as f:
+            iter_sents, iter_probs = pickle.load(f)
+        t_iter = cfgs["NACF"].iterations + 1
+        if len(iter_sents) != n_test or any(len(s) != t_iter for s in iter_sents.values()):
+            die("inference: the collect pickle holds %s sentences per video, expected %d"
+                % (sorted({len(s) for s in iter_sents.values()}), t_iter))
+        last = {v: s[-1] for v, s in iter_sents.items()}
+        if last != captions["mp collect"]:
+            bad = [v for v in last if last[v] != captions["mp collect"].get(v)]
+            die("inference: the last collected iteration is not the caption for %d "
+                "videos, e.g. %s" % (len(bad), bad[:2]))
+
+        # -- CaptionPipeline against Evaluator.decode_batch -------------------
+        pipe = CaptionPipeline.from_checkpoints(paths["NACF"], teacher=paths["ARB"])
+        loader = get_loader(pipe.cfg, "test", info_corpus=corpus, in_memory_feats=feats,
+                            batch_size=N_VIDEOS, prefetch=0)
+        batch = next(iter(loader))
+        fb = {"feats_%s" % ch: batch["feats_%s" % ch] for ch in pipe.cfg.modality.lower()}
+        ids = pipe.caption_ids(fb, batch["category"])
+        ev = pipe.evaluator
+        direct = Evaluator(pipe.cfg, ev.model, ev.teacher_model.cfg, ev.teacher_model)
+        want = direct.decode_batch(batch)[0]
+        if ids.shape != (N_VIDEOS, pipe.cfg.max_len) or not np.array_equal(ids, want):
+            die("inference: CaptionPipeline ids differ from Evaluator.decode_batch's "
+                "(agreement %.4f)" % float((ids == want).mean()))
+        if any(C.MASK_WORD in s.split() for s in pipe.caption(fb, batch["category"])):
+            die("inference: a CaptionPipeline caption holds %s" % C.MASK_WORD)
+
+        # -- decode times, launches per decode, agreement with the CPU ------
+        tmodel, tcfg = ev.teacher_model, ev.teacher_model.cfg
+        arb_model, arb_cfg, _ = load_model_and_config(paths["ARB"], device="cuda")
+        cpu_nacf, _, _ = load_model_and_config(paths["NACF"], device="cpu")
+        cpu_arb, _, _ = load_model_and_config(paths["ARB"], device="cpu")
+        small = {k: (v[:CPU_VIDEOS] if isinstance(v, np.ndarray) else v)
+                 for k, v in batch.items()}
+        # l2r without CT as well: with random weights the CT pass leaves no
+        # slot at <mask>, so l2r + CT reveals nothing and only the reveal
+        # rounds of l2r without CT exercise its loop
+        variants = {"mp": dict(), "l2r": dict(paradigm="l2r", q=1, q_iterations=1),
+                    "l2r no CT": dict(paradigm="l2r", q=1, q_iterations=1, use_ct=False),
+                    "ef": dict(paradigm="ef", q=1, q_iterations=1, use_ct=False)}
+        decode_ms, per_decode, agree = {}, {}, {}
+        for name, kw in list(variants.items()) + [("ARB", None)]:
+            if kw is None:
+                dev_ev = Evaluator(arb_cfg.replace(beam_size=5), arb_model)
+            else:
+                c = pipe.cfg.replace(**dict(dict(use_ct=True), **kw))
+                dev_ev = Evaluator(c, ev.model, tcfg, tmodel)
+            dev_ev.decode_batch(batch)
+            _build.reset_launches()
+            dev_ev.decode_batch(batch)
+            per_decode[name] = {k: n for k, n in _build.LAUNCHES.items() if n}
+            decode_ms[name] = float(np.median([dev_ev.decode_batch(batch)[-1] * 1e3
+                                               for _ in range(5)]))
+            if name.startswith(("l2r", "ef")):
+                cpu_ev = Evaluator(c, cpu_nacf, tcfg, cpu_arb)
+                agree[name] = float((cpu_ev.decode_batch(small)[0]
+                                     == dev_ev.decode_batch(small)[0]).mean())
+    log("inference entry points [%s]: translate on the card, %d-video test split of %d "
+        "synthetic videos, batch %d, d=512, vocab 10048, random weights; seconds per "
+        "translate call (host clock, ends in a synchronise) %s; metrics %s" % (
+            card, n_test, ENTRY_VIDEOS, N_VIDEOS,
+            {k: round(v, 3) for k, v in seconds.items()},
+            {k: {m: round(r[m], 4) for m in ("Bleu_4", "METEOR", "CIDEr")}
+             for k, r in results.items()}))
+    log("inference launches per translate call [%s]: %s" % (card, launches))
+    log("inference decode of %d videos [%s]: ms per decode (median of 5, host clock, "
+        "ends in the tokens' copy) %s; launches per decode %s; peak memory of a translate "
+        "call %.3f GB; CPU plain path agreement on %d videos %s" % (
+            N_VIDEOS, card, {k: round(v, 3) for k, v in decode_ms.items()},
+            {k: per_decode[k] for k in agree}, peak, CPU_VIDEOS,
+            {k: round(v, 4) for k, v in agree.items()}))
+    if per_decode["l2r no CT"].get("fused_layer", 0) <= 3:
+        die("inference: l2r without CT ran no reveal round (launches %s)"
+            % per_decode["l2r no CT"])
+    for name, a in agree.items():
+        if a < 0.99:
+            die("inference: %s token agreement with the CPU plain path %.4f < 0.99"
+                % (name, a))
+
+
 def main():
     import argparse
 
@@ -2558,7 +2763,12 @@ def main():
     entry_point_phase()
     log("entry point phase: %.1f s" % (time.perf_counter() - t0))
 
-    # -- 8. results -----------------------------------------------------------
+    # -- 8. the inference entry points: translate, CaptionPipeline ------------
+    t0 = time.perf_counter()
+    inference_phase(card)
+    log("inference phase: %.1f s" % (time.perf_counter() - t0))
+
+    # -- 9. results -----------------------------------------------------------
     def entry(name, source, replaces, rec, counts=launches):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=counts[name], **rec)

@@ -131,7 +131,8 @@ class VideoDataset:
 
     def __init__(self, cfg: Config, mode: str,
                  info_corpus: Optional[Dict] = None,
-                 in_memory_feats: Optional[Dict] = None):
+                 in_memory_feats: Optional[Dict] = None,
+                 specific: int = -1):
         assert mode in ("train", "validate", "test")
         self.cfg = cfg
         self.mode = mode
@@ -156,6 +157,8 @@ class VideoDataset:
         self.itop = info.get("itop")
         self.length_info = info.get("length_info")
         self.splits = info["split"]
+        self.split_category = info.get("split_category")
+        self.specific = specific
 
         self.random = np.random.RandomState(cfg.seed)
         self.sources = open_feature_sources(cfg, in_memory_feats)
@@ -187,7 +190,13 @@ class VideoDataset:
     def _make_infoset(self) -> List[Dict]:
         cfg = self.cfg
         infoset = []
-        for ix in (int(i) for i in self.splits[self.mode]):
+        # ``specific`` >= 0 keeps one category's videos of the split
+        # (reference dataloader.py:126-130)
+        if self.specific != -1:
+            ix_set = self.split_category[self.mode][self.specific]
+        else:
+            ix_set = self.splits[self.mode]
+        for ix in (int(i) for i in ix_set):
             vid = "video%d" % ix
             category = self.itoc[ix] if self.itoc is not None else 0
             captions = self.captions[vid]

@@ -123,13 +123,15 @@ class BatchLoader:
 
 
 def get_loader(cfg, mode: str, info_corpus=None, in_memory_feats=None,
+               batch_size: Optional[int] = None, specific: int = -1,
                prefetch: Optional[int] = None) -> BatchLoader:
-    """Reference misc/run.py:89-96 ``get_loader``."""
+    """Reference misc/run.py:89-96 ``get_loader``; ``batch_size`` overrides
+    the config's, ``specific`` >= 0 keeps one category's videos."""
     ds = VideoDataset(cfg, mode, info_corpus=info_corpus,
-                      in_memory_feats=in_memory_feats)
+                      in_memory_feats=in_memory_feats, specific=specific)
     return BatchLoader(
         ds,
-        batch_size=cfg.batch_size,
+        batch_size=batch_size or cfg.batch_size,
         shuffle=(mode == "train"),
         prefetch=cfg.prefetch_depth if prefetch is None else prefetch,
     )

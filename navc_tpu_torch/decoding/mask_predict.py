@@ -1,8 +1,8 @@
-"""Non-autoregressive mask-predict decoding.
+"""Non-autoregressive refinement decoding.
 
-Port of the 'mp' paradigm of navc_tpu/decoding/mask_predict.py (reference
-decoding/algorithms.py MaskPredict and decoding/na_generate.py). Semantics
-kept exactly:
+Port of navc_tpu/decoding/mask_predict.py (reference decoding/algorithms.py
+MaskPredict, Left2Right and EasyFirst, and decoding/na_generate.py).
+Semantics kept exactly:
   * the CT first pass replaces <mask> with <vis>, predicts once, and zeroes
     the probs of slots still predicted <mask> (algorithms.py:136-141); the
     loop then runs one extra iteration whose first step re-masks exactly the
@@ -27,7 +27,15 @@ an index tensor (N, K) names their canvas positions (−1 = unused) and the
 results are scattered back — the JAX package's one-hot selection and
 multiply-sum merge were a TPU workaround (mask_predict.py:397-402).
 
-The l2r and ef paradigms and the collect modes are not ported yet.
+The l2r and ef paradigms (algorithms.py:275-417) reveal q masks per round
+— the leftmost, or the most confident — then refine q_iterations times;
+they call the same ``predict`` and teacher as mp (dense K1 + K3, the
+teacher's causal K1 + K4), never the sparse step. l2r runs exactly the
+rounds that reveal something, from one host read of the largest mask
+count; ef reads the batch's remaining mask count each round, for the
+reference's stop rule. The collect modes keep every iteration's tokens and
+probs (all steps dense) and, with ``collect_attentions``, layer 0's maps
+from the plain decoder on the unaligned canvas.
 """
 
 from __future__ import annotations
@@ -45,7 +53,7 @@ from ..ops.eligibility import (fused_decode_eligible, fused_layer_eligible,
                                fused_vocab_eligible)
 from ..ops.fused_layer import (LayerWeights, fused_layer, fused_layer_qsub,
                                hoist_cross_kv, layer_weights)
-from ..ops.select import rank_mask_smallest
+from ..ops.select import rank_mask_largest, rank_mask_smallest
 from ..ops.vocab_fused import (project_argmax, project_gather_prob,
                                projection_weights)
 from .length_beam import (build_canvas, enlarge, predict_length_beam,
@@ -118,11 +126,24 @@ class KernelOperands:
 
 
 def _predict_fn(cfg: Config, model, ops: Optional[KernelOperands], proj,
-                ctx: NARContext, canvas_len: int, enc_unique: torch.Tensor):
+                ctx: NARContext, canvas_len: int, enc_unique: torch.Tensor,
+                want_attentions: bool = False):
     """One NAR decoder forward: tokens (N, L) -> (argmax ids, max probs)
     (reference algorithms.py:7-15, 143-167), the pad overwrite left to the
     caller. ``predict.predict_sub`` is the sparse-query forward when the
-    kernels cover the configuration."""
+    kernels cover the configuration. ``want_attentions`` (the plain route)
+    returns layer 0's (self, cross) attention maps third, each
+    (N, n_head, L, L_k)."""
+    if want_attentions:
+        def predict(tokens):
+            logprobs, _, attns = model.decode_logprobs(
+                tokens, ctx.enc_output, ctx.category, "NARFormer",
+                output_attentions=True)
+            probs = torch.exp(logprobs)
+            return (probs.argmax(dim=-1).to(torch.int32), probs.amax(dim=-1),
+                    (attns[0][0], attns[0][-1]))
+        return predict
+
     if ops is not None:  # every stage in the kernels
         n_rows = ctx.enc_output.shape[0]
         static = ops.static(n_rows, canvas_len, ctx.category,
@@ -242,20 +263,42 @@ def _scatter_rows(base: torch.Tensor, qidx: torch.Tensor, vals: torch.Tensor):
     return ext.scatter_(1, col, vals.to(base.dtype))[:, :l]
 
 
+def _final_lprobs(teacher_score, tokens, token_probs, pad_mask, cfg: Config):
+    """log p, times the teacher's p for the final candidate decision
+    (algorithms.py:175-204)."""
+    if teacher_score is not None and not cfg.no_candidate_decision:
+        token_probs = token_probs * teacher_score(tokens, pad_mask)
+    return torch.log(token_probs)
+
+
 def _mask_predict(predict, teacher_score, tokens, pad_mask, lengths,
-                  cfg: Config):
-    """Mask-predict refinement (algorithms.py:218-270) -> (tokens, lprobs)."""
+                  cfg: Config, collect: bool = False,
+                  collect_attentions: bool = False):
+    """Mask-predict refinement (algorithms.py:218-270) -> (tokens, lprobs).
+
+    ``collect`` also returns the per-iteration (tokens, probs) stacks,
+    iteration 0 first, (T, N, L) each — the reference's
+    collect_best_candidate_iterative_results (algorithms.py:55-75); every
+    step is then dense. ``collect_attentions`` appends the layer-0 (self,
+    cross) attention maps of each iteration, from a ``predict`` that
+    returns them third."""
     use_ct = cfg.use_ct
     T = cfg.iterations + 1 if use_ct else cfg.iterations
     seq_lens = lengths.to(torch.float32)
 
+    def call(toks):
+        out = predict(toks)
+        return out if collect_attentions else (out[0], out[1], ())
+
     if use_ct:
         # coarse-grained templates (algorithms.py:136-141)
-        ids, probs = _apply_pad(*predict(torch.where(tokens == C.MASK, C.VIS,
-                                                     tokens)), pad_mask)
+        ids, probs, attns = call(torch.where(tokens == C.MASK, C.VIS, tokens))
+        ids, probs = _apply_pad(ids, probs, pad_mask)
         tokens, token_probs = ids, torch.where(ids == C.MASK, 0.0, probs)
     else:
-        tokens, token_probs = _apply_pad(*predict(tokens), pad_mask)
+        ids, probs, attns = call(tokens)
+        tokens, token_probs = _apply_pad(ids, probs, pad_mask)
+    stacks = [(tokens, token_probs) + tuple(attns)] if collect else None
 
     def select_worst_set(toks, probs, ratio):
         """Re-mask set of one step (algorithms.py:255-257, teacher gate
@@ -269,22 +312,25 @@ def _mask_predict(predict, teacher_score, tokens, pad_mask, lengths,
     def dense_substep(toks, probs, mask_ind):
         """Re-mask + full-width re-predict + merge (algorithms.py:258-265)."""
         masked = torch.where(mask_ind, C.MASK, toks).to(torch.int32)
-        new_ids, new_probs = _apply_pad(*predict(masked), pad_mask)
+        new_ids, new_probs, new_attns = call(masked)
+        new_ids, new_probs = _apply_pad(new_ids, new_probs, pad_mask)
         return (torch.where(mask_ind, new_ids, masked),
-                torch.where(mask_ind, new_probs, probs))
+                torch.where(mask_ind, new_probs, probs), new_attns)
 
-    predict_sub = getattr(predict, "predict_sub", None)
+    predict_sub = None if collect else getattr(predict, "predict_sub", None)
     L = tokens.shape[1]
     for c in range(1, T):
         ratio = float(np.float32(1.0 - c / T))
         if use_ct and c == 1:
             # the first loop step completes the CT canvas (algorithms.py:250-254)
-            tokens, token_probs = dense_substep(tokens, token_probs,
-                                                tokens == C.MASK)
-            continue
-        mask_ind = select_worst_set(tokens, token_probs, ratio)
-        if predict_sub is None:
-            tokens, token_probs = dense_substep(tokens, token_probs, mask_ind)
+            mask_ind = tokens == C.MASK
+        else:
+            mask_ind = select_worst_set(tokens, token_probs, ratio)
+        if predict_sub is None or (use_ct and c == 1):
+            tokens, token_probs, attns = dense_substep(tokens, token_probs,
+                                                       mask_ind)
+            if collect:
+                stacks.append((tokens, token_probs) + tuple(attns))
             continue
         # sparse step: re-predict only the re-masked slots. The query bound
         # must use the same f32 arithmetic as num_mask above (f32 can round
@@ -299,9 +345,109 @@ def _mask_predict(predict, teacher_score, tokens, pad_mask, lengths,
         token_probs = _scatter_rows(token_probs, qidx, probs_q)
         tokens, token_probs = _apply_pad(tokens, token_probs, pad_mask)
 
-    if teacher_score is not None and not cfg.no_candidate_decision:
-        token_probs = token_probs * teacher_score(tokens, pad_mask)
-    return tokens, torch.log(token_probs)
+    lprobs = _final_lprobs(teacher_score, tokens, token_probs, pad_mask, cfg)
+    if collect:
+        return tokens, lprobs, tuple(torch.stack(s) for s in zip(*stacks))
+    return tokens, lprobs
+
+
+def _refinement_tail(predict, tokens, token_probs, pad_mask, seq_lens,
+                     cfg: Config, visual_mask):
+    """Shared L2R/EF refinement rounds (algorithms.py:326-339, 400-413); the
+    ratio is the f32 cast of the host's f64 0.4 (1 - i/T), as in mp."""
+    T = cfg.q_iterations
+    for i in range(T):
+        if i == 0 and cfg.use_ct:
+            mask_ind = visual_mask
+        else:
+            ratio = float(np.float32(0.4 * (1.0 - i / T)))
+            num_mask = (seq_lens * ratio).to(torch.int32)
+            mask_ind = rank_mask_smallest(token_probs, num_mask.clamp(min=1))
+        masked = torch.where(mask_ind, C.MASK, tokens).to(torch.int32)
+        new_ids, new_probs = _apply_pad(*predict(masked), pad_mask)
+        tokens = torch.where(mask_ind, new_ids, masked)
+        token_probs = torch.where(mask_ind, new_probs, token_probs)
+    return tokens, token_probs
+
+
+def _ct_or_blank(predict, tokens, pad_mask, cfg: Config):
+    """Shared L2R/EF initialization (algorithms.py:288-293, 360-365):
+    (tokens, probs, the CT pass's visual-word mask or None)."""
+    if cfg.use_ct:
+        ids, probs = _apply_pad(*predict(torch.where(tokens == C.MASK, C.VIS,
+                                                     tokens)), pad_mask)
+        probs = torch.where(ids == C.MASK, 0.0, probs)
+        return ids, probs, (ids != C.MASK) & (ids != C.PAD)
+    return tokens, torch.where(pad_mask, 1.0, 0.0), None
+
+
+def _left2right(predict, teacher_score, tokens, pad_mask, lengths,
+                cfg: Config):
+    """Reveal the q leftmost masks per round, then refine
+    (algorithms.py:275-344)."""
+    seq_lens = lengths.to(torch.float32)
+    tokens, token_probs, visual_mask = _ct_or_blank(predict, tokens, pad_mask,
+                                                    cfg)
+    # the initial masked set in left-to-right order (algorithms.py:297-311);
+    # round s reveals ordinals [s q, (s + 1) q), so it has work only while
+    # some row has more than s q masks. navc_tpu skips the forward of an
+    # empty round; one read of the largest count runs exactly the rounds
+    # with work, with no sync per round.
+    init_mask = tokens == C.MASK
+    ordinal = init_mask.to(torch.int32).cumsum(1) - 1
+    q = cfg.q
+    for s in range(-(-int(init_mask.sum(1).max()) // q)):
+        sel = init_mask & (ordinal >= s * q) & (ordinal < (s + 1) * q)
+        masked = torch.where(sel, C.MASK, tokens).to(torch.int32)
+        new_ids, new_probs = _apply_pad(*predict(masked), pad_mask)
+        tokens = torch.where(sel, new_ids, masked)
+        token_probs = torch.where(sel, new_probs, token_probs)
+
+    tokens, token_probs = _refinement_tail(
+        predict, tokens, token_probs, pad_mask, seq_lens, cfg, visual_mask)
+    return tokens, _final_lprobs(teacher_score, tokens, token_probs, pad_mask,
+                                 cfg)
+
+
+def _easy_first(predict, teacher_score, tokens, pad_mask, lengths,
+                cfg: Config):
+    """Reveal the q most confident masks of each row per round
+    (algorithms.py:347-417)."""
+    seq_lens = lengths.to(torch.float32)
+    tokens, token_probs, visual_mask = _ct_or_blank(predict, tokens, pad_mask,
+                                                    cfg)
+    # the rounds run until no mask is left or the batch-global count stops
+    # falling (the dead-loop guard, algorithms.py:382-389: a model that
+    # predicts <mask> into a revealed slot keeps it masked), so the count
+    # is read on the host each round
+    pre = 0
+    while True:
+        mask_ind = tokens == C.MASK
+        remain = mask_ind.sum(-1)
+        total = int(remain.sum())
+        if total == 0 or total == pre:
+            break
+        pre = total
+        new_ids, new_probs = _apply_pad(*predict(tokens), pad_mask)
+        confid = torch.where(mask_ind, new_probs, 0.0)
+        best = rank_mask_largest(confid, remain.clamp(max=cfg.q))
+        tokens = torch.where(best, new_ids, tokens)
+        token_probs = torch.where(best, new_probs, token_probs)
+
+    tokens, token_probs = _refinement_tail(
+        predict, tokens, token_probs, pad_mask, seq_lens, cfg, visual_mask)
+    return tokens, _final_lprobs(teacher_score, tokens, token_probs, pad_mask,
+                                 cfg)
+
+
+ALGORITHMS = {"mp": _mask_predict, "l2r": _left2right, "ef": _easy_first}
+
+
+def _gather_best(arr: torch.Tensor, best_idx: torch.Tensor, bsz: int,
+                 lbs: int) -> torch.Tensor:
+    """(T, B*lbs, *rest) -> (B, T, *rest) at each video's best length beam."""
+    a = arr.reshape((arr.shape[0], bsz, lbs) + tuple(arr.shape[2:]))
+    return a[:, torch.arange(bsz, device=a.device), best_idx].transpose(0, 1)
 
 
 def make_nar_generator(cfg: Config, model, teacher_model=None,
@@ -310,33 +456,44 @@ def make_nar_generator(cfg: Config, model, teacher_model=None,
 
     Returns ``generate(enc_results, category=None, teacher_enc_results=None,
     dict_mapping=None) -> hypotheses (B, max_len) int32``. ``enc_results``
-    carries 'enc_output' and 'pred_length' (``Seq2Seq.encode``). The kernel
-    operands (bf16 weights) are made here from the models' current weights,
-    once; build a new generator after loading other weights.
+    carries 'enc_output' and 'pred_length' (``Seq2Seq.encode``). With
+    ``collect`` (mask-predict only) it returns ``(hypotheses, (iter_tokens
+    (B, T, max_len), iter_probs (B, T, max_len)))`` at the best length beam
+    (na_generate.py:80-90); ``collect_attentions`` (implies collect) adds
+    ``[self_attn, cross_attn]``, each (B, T, n_head, max_len, L_k), the
+    layer-0 maps of each iteration from the plain decoder on the max_len
+    canvas (na_generate.py:92-106). The kernel operands (bf16 weights) are
+    made here from the models' current weights, once; build a new
+    generator after loading other weights.
     """
-    if cfg.paradigm != "mp":
-        raise NotImplementedError(
-            "paradigm %r is not ported yet (only 'mp')" % cfg.paradigm)
-    if collect or collect_attentions:
-        raise NotImplementedError("the collect modes are not ported yet")
+    if cfg.paradigm not in ALGORITHMS:
+        raise ValueError("paradigm must be one of %s" % list(ALGORITHMS))
+    collect = collect or collect_attentions
+    if collect and cfg.paradigm != "mp":
+        raise NotImplementedError("iterative collection is mask-predict only")
+    algorithm = ALGORITHMS[cfg.paradigm]
     lbs = cfg.length_beam_size
     use_teacher = teacher_model is not None and (
         cfg.masking_decision or not cfg.no_candidate_decision)
     tcfg = teacher_model.cfg if use_teacher else None
-    aligned = fused_decode_eligible(cfg, tcfg)
+    # the attention maps come from the plain decoder, on the unaligned
+    # canvas (navc_tpu mask_predict.py:645)
+    student_kernels = not collect_attentions
+    aligned = student_kernels and fused_decode_eligible(cfg, tcfg)
     run_len = -(-cfg.max_len // 8) * 8 if aligned else cfg.max_len
     ops = (KernelOperands.of(model)
-           if fused_layer_eligible(cfg, causal=False) and fused_vocab_eligible(cfg)
-           else None)
+           if student_kernels and fused_layer_eligible(cfg, causal=False)
+           and fused_vocab_eligible(cfg) else None)
     proj = (projection_weights(model)
-            if ops is None and fused_vocab_eligible(cfg) else None)
+            if student_kernels and ops is None and fused_vocab_eligible(cfg)
+            else None)
     tops = (KernelOperands.of(teacher_model)
             if use_teacher and fused_teacher_eligible(cfg, tcfg) else None)
 
     @torch.no_grad()
     def generate(enc_results: Dict[str, torch.Tensor], category=None,
                  teacher_enc_results: Optional[Dict[str, torch.Tensor]] = None,
-                 dict_mapping: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 dict_mapping: Optional[torch.Tensor] = None):
         pred_length = enc_results["pred_length"]
         bsz = pred_length.shape[0]
         beam = predict_length_beam(pred_length, lbs, cfg.length_bias,
@@ -352,15 +509,28 @@ def make_nar_generator(cfg: Config, model, teacher_model=None,
             teacher_category=cat,
             dict_mapping=dict_mapping)
         predict = _predict_fn(cfg, model, ops, proj, ctx, run_len,
-                              enc_results["enc_output"])
+                              enc_results["enc_output"], collect_attentions)
         teacher_score = None
         if ctx.teacher_enc_output is not None:
             teacher_score = _teacher_score_fn(
                 teacher_model, tops, ctx, teacher_enc_results["enc_output"], lbs)
-        hyp, lprobs = _mask_predict(predict, teacher_score, tokens, pad_mask,
+        if collect:
+            hyp, lprobs, collected = algorithm(
+                predict, teacher_score, tokens, pad_mask, lengths, cfg,
+                collect=True, collect_attentions=collect_attentions)
+        else:
+            hyp, lprobs = algorithm(predict, teacher_score, tokens, pad_mask,
                                     lengths, cfg)
-        best, _ = select_best_length_beam(hyp, lprobs, lengths, bsz, lbs,
-                                          cfg.beam_alpha)
-        return best[:, :cfg.max_len]  # drop the aligned-canvas PAD tail
+        best, best_idx = select_best_length_beam(hyp, lprobs, lengths, bsz, lbs,
+                                                 cfg.beam_alpha)
+        best = best[:, :cfg.max_len]  # drop the aligned-canvas PAD tail
+        if not collect:
+            return best
+        toks, probs = (_gather_best(s, best_idx, bsz, lbs)[..., :cfg.max_len]
+                       for s in collected[:2])
+        if collect_attentions:
+            return best, (toks, probs), [_gather_best(a, best_idx, bsz, lbs)
+                                         for a in collected[2:]]
+        return best, (toks, probs)
 
     return generate

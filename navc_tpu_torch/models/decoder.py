@@ -52,8 +52,11 @@ class BertDecoder(nn.Module):
             for _ in range(num_hidden_layers)])
 
     def forward(self, tgt_seq, enc_output, category=None,
-                decoding_type: Optional[str] = None, generator=None):
-        """Returns (last hidden states (B, L, H) f32, embs (B, H))."""
+                decoding_type: Optional[str] = None, generator=None,
+                output_attentions: bool = False):
+        """Returns (last hidden states (B, L, H) f32, embs (B, H)); with
+        ``output_attentions`` also each layer's attention probabilities, a
+        tuple per layer as ``BertLayer`` gives them."""
         decoding_type = decoding_type or self.decoding_type
         b, l = tgt_seq.shape
         kp = M.key_pad_mask(tgt_seq, l)
@@ -84,7 +87,12 @@ class BertDecoder(nn.Module):
                                     generator)
 
         embs = None
+        attentions = []
         for layer in self.layers:
-            hidden, embs = layer(hidden, npm, slf_attn_mask, enc_output,
-                                 position_embeddings, generator)
+            out = layer(hidden, npm, slf_attn_mask, enc_output,
+                        position_embeddings, generator, output_attentions)
+            hidden, embs = out[:2]
+            attentions.extend(out[2:])
+        if output_attentions:
+            return hidden, embs, tuple(attentions)
         return hidden, embs

@@ -25,7 +25,7 @@ ulps.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -312,23 +312,30 @@ class BertLayer(nn.Module):
                                  layer_norm_eps, dtype, hidden_dropout_prob)
 
     def forward(self, hidden_states, non_pad_mask, attention_mask, enc_output,
-                position_embeddings=None, generator=None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        att, _ = self.attention(hidden_states, hidden_states, hidden_states,
-                                attention_mask, generator)
+                position_embeddings=None, generator=None,
+                output_attentions: bool = False):
+        """(layer_output, embs); with ``output_attentions`` also the
+        attention probabilities (self, [pos], cross), each (B, nh, L, L_k)."""
+        att, p_self = self.attention(hidden_states, hidden_states,
+                                     hidden_states, attention_mask, generator)
+        probs = [p_self]
         att = att * non_pad_mask
         if self.pos_attention is not None:
-            att, _ = self.pos_attention(position_embeddings,
-                                        position_embeddings, att,
-                                        attention_mask, generator)
+            att, p_pos = self.pos_attention(position_embeddings,
+                                            position_embeddings, att,
+                                            attention_mask, generator)
+            probs.append(p_pos)
             att = att * non_pad_mask
         # the encoder output is never masked (reference Decoder.py:127-128)
-        att, _ = self.attend_to_enc_output(att, enc_output, enc_output, None,
-                                           generator)
+        att, p_cross = self.attend_to_enc_output(att, enc_output, enc_output,
+                                                 None, generator)
+        probs.append(p_cross)
         att = att * non_pad_mask
         layer_output = self.output(self.intermediate(att), att,
                                    generator) * non_pad_mask
         embs = layer_output.sum(1) / non_pad_mask.sum(1)
+        if output_attentions:
+            return layer_output, embs, tuple(probs)
         return layer_output, embs
 
 

@@ -90,9 +90,10 @@ class Seq2Seq(nn.Module):
         return results
 
     def decode(self, tgt_seq, enc_output, category=None,
-               decoding_type: Optional[str] = None, generator=None):
+               decoding_type: Optional[str] = None, generator=None,
+               output_attentions: bool = False):
         return self.decoder(tgt_seq, enc_output, category, decoding_type,
-                            generator)
+                            generator, output_attentions)
 
     def ar_embed(self, tgt_seq, category=None):
         """AR pre-layer stage: the embeddings only, deterministic."""
@@ -131,10 +132,15 @@ class Seq2Seq(nn.Module):
         return out if raw else out.to(torch.float32)
 
     def decode_logprobs(self, tgt_seq, enc_output, category=None,
-                        decoding_type: Optional[str] = None):
-        hidden, embs = self.decode(tgt_seq, enc_output, category,
-                                   decoding_type)
-        return torch.log_softmax(self.project(hidden), dim=-1), embs
+                        decoding_type: Optional[str] = None,
+                        output_attentions: bool = False):
+        """(logprobs, embs), and with ``output_attentions`` the per-layer
+        attention probabilities third."""
+        hidden, embs, *attns = self.decode(tgt_seq, enc_output, category,
+                                           decoding_type,
+                                           output_attentions=output_attentions)
+        logprobs = torch.log_softmax(self.project(hidden), dim=-1)
+        return (logprobs, embs, *attns)
 
     def forward(self, feats: Sequence[torch.Tensor], tgt_tokens,
                 category=None, train: bool = False,

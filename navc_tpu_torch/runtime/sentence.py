@@ -1,8 +1,8 @@
 """Sentence utilities: id->text, n-gram dedup, diversity analysis.
 
-Capability parity with reference misc/utils.py:21-30 (to_sentence), 66-98
-(duplicate / remove_repeat_n_grame) and 101-146 (novel/unique/vocab-usage
-analysis).
+Capability parity with reference misc/utils.py:21-30 (to_sentence), 33-51
+(get_dict_mapping), 66-98 (duplicate / remove_repeat_n_grame), 101-146
+(novel/unique/vocab-usage analysis) and 149-155 (POS-tag word sets).
 
 A copy of navc_tpu/runtime/sentence.py: the port imports nothing of
 navc_tpu.
@@ -13,6 +13,28 @@ from __future__ import annotations
 from typing import Dict, List, Sequence, Tuple
 
 from .. import constants as C
+
+
+def get_dict_mapping(cfg, teacher_cfg, info_corpus, teacher_info):
+    """Student->teacher vocab id map (reference misc/utils.py:33-51).
+
+    Returns None when the vocabularies already agree; otherwise an
+    (vocab_size,) int array mapping each student id to the teacher id of
+    the same word (UNK when absent). Shared by cli/translate.py and
+    api.CaptionPipeline."""
+    import numpy as np
+
+    if teacher_cfg is None or teacher_cfg.vocab_size == cfg.vocab_size:
+        return None
+    itow = info_corpus["info"]["itow"]
+    t_itow = teacher_info["info"]["itow"]
+    if itow == t_itow:
+        return None
+    t_wtoi = {w: i for i, w in t_itow.items()}
+    arr = np.arange(cfg.vocab_size)
+    for i, w in itow.items():
+        arr[int(i)] = int(t_wtoi.get(w, C.UNK))
+    return arr
 
 
 def to_sentence(hyp: Sequence[int], vocab: Dict[int, str],
@@ -95,6 +117,19 @@ def _pred_ngrams(pred: Dict[str, list], n: int):
                 g = " ".join(cap[j:j + n])
                 gram_count[g] = gram_count.get(g, 0) + 1
     return gram_count, sents, ave_length / max(count, 1), count
+
+
+def get_words_with_specified_tags(word_to_ix, seq: str, index_set,
+                                  demand=("NOUN", "VERB"),
+                                  ignore_words=("is", "are", "<mask>")) -> None:
+    """Collect vocab ids of words in ``seq`` whose POS tag is demanded
+    (reference misc/utils.py:149-155; requires nltk)."""
+    import nltk
+
+    assert isinstance(index_set, set)
+    for w, t in nltk.pos_tag(seq.split(" ")):
+        if C.pos_tag_mapping.get(t) in demand and w not in ignore_words:
+            index_set.add(word_to_ix[w])
 
 
 def analyze_length_novel_unique(gt_captions, pred, vocab, splits, n: int = 1):

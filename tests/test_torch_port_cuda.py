@@ -27,7 +27,9 @@ on integer operands and bit for bit between two calls.
 
 import ctypes
 import math
+import pickle
 
+import numpy as np
 import pytest
 import torch
 
@@ -1596,3 +1598,105 @@ def test_fused_layer_unfolded_f32_repeats_bitwise_and_is_k11_at_p0(cuda, shape, 
     k11, _ = FT.train_fwd(x, enc, kp, _train_dict(w), 12345, n_head=8, causal=causal, p=0.0,
                           p_input=0.0, out_dtype=torch.float32)
     assert torch.equal(k11, out)
+
+
+# -- the inference entry points on the card ------------------------------------
+# The NACF paradigms and collect mode at the serving width (MSRVTT, d 512,
+# 8 heads, vocab 10048, bf16, random weights from seeds) through K1-K4,
+# against the CPU plain path on the same 8 videos: tokens agree on >= 99% of
+# positions, chip_smoke.py's gate.
+
+SERVE = dict(dataset="MSRVTT", vocab_size=10048, use_pallas=True)
+
+
+def _serving_models(device, **kw):
+    from navc_tpu_torch.config import default_config
+    from navc_tpu_torch.models import build_model
+
+    cfg = default_config("NACF", **SERVE).replace(**kw)
+    tcfg = default_config("ARB", **SERVE)
+    return (cfg, build_model(cfg, device=device, generator=_gen(0)),
+            tcfg, build_model(tcfg, device=device, generator=_gen(1)))
+
+
+def _decode(device, videos=8, collect=False, **kw):
+    from navc_tpu_torch.decoding import make_nar_generator
+
+    cfg, model, tcfg, teacher = _serving_models(device, **kw)
+    g = _gen(5)
+    feats = [torch.randn(videos, cfg.n_frames, d, generator=g).to(device)
+             for d in cfg.modality_dims]
+    cat = torch.randint(0, cfg.num_category, (videos, 1), generator=g).to(device)
+    with torch.no_grad():
+        out = make_nar_generator(cfg, model, teacher, collect=collect)(
+            model.encode(feats), cat, teacher.encode(feats))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(paradigm="l2r", use_ct=True, q=1, q_iterations=1),
+                                dict(paradigm="l2r", use_ct=False, q=1, q_iterations=1),
+                                dict(paradigm="ef", use_ct=False, q=1, q_iterations=1)],
+                         ids=["l2r-ct", "l2r", "ef"])
+def test_paradigms_on_the_card_agree_with_the_cpu_plain_path(cuda, kw):
+    _build.reset_launches()
+    got = _decode("cuda", **kw).cpu()
+    for name in ("fused_layer", "project_argmax", "project_gather_prob"):
+        assert _build.LAUNCHES[name] > 0, name
+    assert _build.LAUNCHES["fused_layer_qsub"] == 0
+    want = _decode("cpu", **kw)
+    agree = float((got == want).float().mean())
+    assert agree >= 0.99, "token agreement %.4f" % agree
+
+
+@pytest.mark.cuda
+def test_collect_on_the_card_agrees_with_the_cpu_plain_path(cuda):
+    _build.reset_launches()
+    best, (toks, probs) = _decode("cuda", collect=True)
+    assert _build.LAUNCHES["fused_layer_qsub"] == 0 and _build.LAUNCHES["fused_layer"] > 0
+    assert toks.shape == (8, 6, 30) and torch.equal(toks[:, -1], best)
+    assert torch.isfinite(probs).all()
+    wbest, (wtoks, _) = _decode("cpu", collect=True)
+    agree = float((toks.cpu() == wtoks).float().mean())
+    assert agree >= 0.99, "iteration token agreement %.4f" % agree
+
+
+@pytest.mark.cuda
+def test_caption_pipeline_and_translate_on_the_card(cuda, tmp_path, monkeypatch):
+    from navc_tpu_torch import constants as C
+    from navc_tpu_torch.api import CaptionPipeline
+    from navc_tpu_torch.cli.translate import build_parser, translate
+    from navc_tpu_torch.data.synthetic import make_synthetic_corpus, make_synthetic_feats
+    from navc_tpu_torch.runtime.checkpoint import save_checkpoint
+    from navc_tpu_torch.runtime.evaluate import Evaluator
+
+    cfg, model, tcfg, teacher = _serving_models("cuda")
+    corpus, refs = make_synthetic_corpus(cfg, n_videos=20, n_caps=2, vocab_size=10048)
+    feats = make_synthetic_feats(cfg, n_videos=20, n_total_frames=12)
+    cp = str(tmp_path / "corpus.pkl")
+    with open(cp, "wb") as f:
+        pickle.dump(corpus, f)
+    paths = {}
+    for name, c, m in (("nacf", cfg, model), ("arb", tcfg, teacher)):
+        c = c.replace(info_corpus=cp, checkpoint_path=str(tmp_path / name))
+        paths[name] = save_checkpoint({"model": m, "settings": c}, str(tmp_path), name + ".ckpt")
+    pipe = CaptionPipeline.from_checkpoints(paths["nacf"], teacher=paths["arb"])
+    batch = {"feats_%s" % ch: np.stack([feats["feats_%s" % ch]["video%d" % i][:cfg.n_frames]
+                                        for i in range(8)]) for ch in "im"}
+    cat = np.arange(8) % cfg.num_category
+    ids = pipe.caption_ids(batch, cat)
+    ev = Evaluator(cfg, model, tcfg, teacher)
+    want = ev.decode_batch(dict(batch, category=cat.reshape(8, 1).astype(np.int32)))[0]
+    np.testing.assert_array_equal(ids, want)
+    assert all(C.MASK_WORD not in s.split() for s in pipe.caption(batch, cat))
+
+    opt = build_parser().parse_args(["--model_path", paths["nacf"], "--teacher_path",
+                                     paths["arb"], "-batch_size", "8", "-em", "test"])
+    res = translate(opt, device="cuda", info_corpus=corpus, in_memory_feats=feats,
+                    references=refs)
+    assert np.isfinite(res["test"]["CIDEr"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        translate(build_parser().parse_args(["--model_path", paths["arb"]]), device="cuda",
+                  info_corpus=corpus, in_memory_feats=feats, references=refs)
+

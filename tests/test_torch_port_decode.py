@@ -197,13 +197,21 @@ def test_query_index_is_the_one_hot_selection():
 
 
 def test_unported_paradigms_raise():
+    """Every paradigm is ported; the refusals left are navc_tpu's own: an
+    unknown paradigm (ValueError) and collection with l2r or ef, which is
+    mask-predict only (NotImplementedError)."""
     cfg = default_config("NACF", dataset="MSRVTT", **TOY)
     model = build_model(cfg, device="cpu")
-    for bad in (dict(paradigm="l2r"), dict(paradigm="ef")):
-        with pytest.raises(NotImplementedError):
-            make_nar_generator(cfg.replace(**bad), model)
-    with pytest.raises(NotImplementedError):
-        make_nar_generator(cfg, model, collect=True)
+    for bad in ("bogus", "MP", ""):
+        with pytest.raises(ValueError):
+            make_nar_generator(cfg.replace(paradigm=bad), model)
+    for paradigm in ("l2r", "ef"):
+        for kw in (dict(collect=True), dict(collect_attentions=True)):
+            with pytest.raises(NotImplementedError):
+                make_nar_generator(cfg.replace(paradigm=paradigm), model, **kw)
+    for paradigm in ("mp", "l2r", "ef"):  # each builds without a refusal
+        make_nar_generator(cfg.replace(paradigm=paradigm), model)
+    make_nar_generator(cfg, model, collect=True)
 
 
 def test_port_imports_no_jax():
@@ -217,7 +225,8 @@ def test_port_imports_no_jax():
         "assert not bad, bad\n"
         "train = ('ops.fused_layer_train', 'runtime.train_step', 'runtime.loop',"
         " 'runtime.crit', 'runtime.optim', 'runtime.logger', 'ops.vocab_ce',"
-        " 'runtime.evaluate', 'data.loader', 'metrics.scorer', 'cli.train')\n"
+        " 'runtime.evaluate', 'data.loader', 'metrics.scorer', 'cli.train',"
+        " 'api', 'cli.translate', 'cli.convert', 'runtime.torch_convert')\n"
         "missing = [m for m in train if 'navc_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "import builtins, os\n"
