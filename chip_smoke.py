@@ -66,8 +66,17 @@ with the ARB teacher and --record, l2r, ef, mp with -collect, ARB beam 5;
 the launches of each, no <mask> in a caption, the collect pickle's last
 iteration the caption), CaptionPipeline against Evaluator.decode_batch,
 l2r and ef on 8 videos against the CPU plain path, and each decode timed.
-It exits non-zero on any failure, without a CUDA device, and outside a
-checkout. Imports nothing of JAX or navc_tpu.
+The serving paths, the translate runs and CaptionPipeline replay CUDA
+graphs (jit=True, navc_tpu's jax.jit; first use captures); the main path
+lines print the eager route (jit=False) beside the replayed one and die
+unless their tokens are equal. The graphs phase: NACF with the ARB
+teacher at 64 videos and ARB at 64 (K6/K7), 60 (K8) and 1024 videos, each
+decode eager and replayed (tokens bit for bit equal on two requests,
+launches of a replayed decode against PER_DECODE or the beam steps, ms
+per decode on both routes in turns, the first call's and the capture's
+seconds, the graph pool's bytes, and both routes profiled: idle share
+and where it falls). It exits non-zero on any failure, without a CUDA
+device, and outside a checkout. Imports nothing of JAX or navc_tpu.
 
 Standard output ends with two JSON lines: {"kernels": [...]} and
 {"ok": true, "device": {...}}.
@@ -493,9 +502,11 @@ def layer_bytes(n, l, le, h, inter, rows_out, extra=0):
 
 def device_breakdown(run, tries=3):
     """Profile ``run`` with torch.profiler: (window ms, device-busy ms,
-    {kernel name: [device ms, launches]}), or None if the profiler saw no
-    device activity in ``tries`` profiles of it (one profile beside a
-    worker process's came back empty once)."""
+    {kernel name: [device ms, launches]}, {"lead": ms from the window's
+    start to the first device event, "gaps": idle ms between the first
+    and the last, "tail": ms after the last, "events": device events}), or
+    None if the profiler saw no device activity in ``tries`` profiles of it
+    (one profile beside a worker process's came back empty once)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -516,20 +527,23 @@ def device_breakdown(run, tries=3):
         return None
     spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
     busy, (lo, hi) = 0.0, spans[0]
+    first, last = spans[0][0], max(e for _, e in spans)
     for s, e in spans[1:]:
         if s > hi:
             busy, lo, hi = busy + hi - lo, s, e
         else:
             hi = max(hi, e)
     busy += hi - lo
-    window = (max(e.time_range.end for e in events)
-              - min(e.time_range.start for e in events))
+    start = min(e.time_range.start for e in events)
+    end = max(e.time_range.end for e in events)
     by_name = {}
     for e in kern:
         acc = by_name.setdefault(e.name, [0.0, 0])
         acc[0] += e.time_range.elapsed_us() / 1e3
         acc[1] += 1
-    return window / 1e3, busy / 1e3, by_name
+    timeline = {"lead": (first - start) / 1e3, "gaps": (last - first - busy) / 1e3,
+                "tail": (end - last) / 1e3, "events": len(kern)}
+    return (end - start) / 1e3, busy / 1e3, by_name, timeline
 
 
 def host_ops(run):
@@ -556,9 +570,12 @@ def print_profile(prof, what="request"):
     if prof is None:
         log("profiler: no device activity recorded (breakdown not measured)")
         return
-    window, busy, by_name = prof
+    window, busy, by_name, tl = prof
     log("profile of one %s: window %.3f ms, device busy %.3f ms, "
-        "idle share %.3f" % (what, window, busy, 1.0 - busy / window))
+        "idle share %.3f (before the first device event %.3f ms, between device "
+        "events %.3f, after the last %.3f; %d device events)" % (
+            what, window, busy, 1.0 - busy / window, tl["lead"], tl["gaps"], tl["tail"],
+            tl["events"]))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     for name, (ms, count) in top[:14]:
         log("  %8.3f ms %4d x  %s" % (ms, count, name[:90]))
@@ -636,6 +653,7 @@ def arb_phases(cfg, model, cpu_model, record, parent):
     import torch.nn.functional as F
 
     from navc_tpu_torch import constants as C
+    from navc_tpu_torch.decoding import make_ar_generator
     from navc_tpu_torch.ops import _build
     from navc_tpu_torch.ops.beam_attend import (beam_attend_step,
                                                 beam_attend_step_plain,
@@ -918,15 +936,22 @@ def arb_phases(cfg, model, cpu_model, record, parent):
     list(cap.map_stream([request(b), request(ARB_RAGGED)]))  # first use
     torch.cuda.synchronize()
     reqs = [request(b) for _ in range(N_REQUESTS)]
+    eager_cap = StreamingCaptioner(cfg, model, depth=2, jit=False)
+    list(eager_cap.map_stream([reqs[0]]))
+    eager_outs, eager_request = eager_cap.timed_stream(reqs)
+    del eager_cap
     steps0 = cap.generate.steps_run
     _build.reset_launches()
     outs, per_request = cap.timed_stream(reqs)
     launches = {name: _build.LAUNCHES[name] for name in ARB_KERNELS}
     steps = cap.generate.steps_run - steps0
     log("ARB main path: %d requests x %d videos, %.2f ms per request (%.1f "
-        "captions/s, host clock, depth 2); %d beam steps (%.2f per decode); "
-        "launches %s" % (N_REQUESTS, b, per_request * 1e3, b / per_request,
-                         steps, steps / N_REQUESTS, launches))
+        "captions/s, host clock, depth 2; replayed CUDA graphs, eager route %.2f ms); "
+        "%d beam steps (%.2f per decode); launches %s" % (
+            N_REQUESTS, b, per_request * 1e3, b / per_request, eager_request * 1e3,
+            steps, steps / N_REQUESTS, launches))
+    if not all(np.array_equal(x, y) for x, y in zip(outs, eager_outs)):
+        die("ARB main path: the replayed requests' tokens differ from the eager route's")
     for name, want in (("project_topk", steps), ("beam_attend_step", steps),
                        ("cross_attend", steps), ("permute_beam_caches", 0)):
         if launches[name] != want:
@@ -956,17 +981,27 @@ def arb_phases(cfg, model, cpu_model, record, parent):
         enc = model.encode([torch.as_tensor(f).to(dev) for f in big[0]])
     cat = torch.as_tensor(big[1]).to(dev)
     cap.generate(enc, cat)[0].cpu()
+    eager = make_ar_generator(cfg, model, jit=False)
+    eager(enc, cat)[0].cpu()
     iters = 3
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        eager_hyp = eager(enc, cat)[0].cpu()
+    eager_dt = time.perf_counter() - t0
+    del eager
     steps0 = cap.generate.steps_run
     t0 = time.perf_counter()
     for _ in range(iters):
         hyp = cap.generate(enc, cat)[0].cpu()
     dt = time.perf_counter() - t0
     log("ARB decode at B=%d (bench.py protocol, %d decodes, %.1f beam steps "
-        "each): %.2f ms per decode, %.1f captions/s, peak memory %.2f GB" % (
+        "each): %.2f ms per decode, %.1f captions/s (replayed CUDA graphs; eager route "
+        "%.2f ms, %.1f captions/s), peak memory %.2f GB" % (
             ARB_BENCH, iters, (cap.generate.steps_run - steps0) / iters,
-            dt / iters * 1e3, ARB_BENCH * iters / dt,
-            torch.cuda.max_memory_allocated() / 1e9))
+            dt / iters * 1e3, ARB_BENCH * iters / dt, eager_dt / iters * 1e3,
+            ARB_BENCH * iters / eager_dt, torch.cuda.max_memory_allocated() / 1e9))
+    if not torch.equal(hyp, eager_hyp):
+        die("ARB decode at B=%d: the replayed tokens differ from the eager route's" % ARB_BENCH)
     check_captions(hyp.numpy(), ARB_BENCH, l, v, C.EOS, C.PAD)
     if parent is not None:
         # the parent commit's decode (its own model from the same seed, its
@@ -1033,6 +1068,110 @@ def arb_phases(cfg, model, cpu_model, record, parent):
     if agree < 0.99:
         die("ARB token agreement with the CPU plain path %.4f < 0.99" % agree)
     return recs, launches
+
+
+GRAPH_ROUNDS = 5  # rounds of (eager, replayed, replayed, eager) decodes per case
+
+
+def captured_graphs(gen):
+    """The ``runtime.graphs.Graph``s a generator captured: one per
+    signature (the NACF decode), or one per block (the beam search)."""
+    return [g for c in gen.graphs.values() for g in getattr(c, "blocks", [getattr(c, "graph", None)])]
+
+
+def graphs_phase(cfg, model, tcfg, teacher, card):
+    """The captured decodes (jit=True) against the eager route (jit=False)
+    at full width: NACF with the ARB teacher at 64 videos, ARB at 64 (K6 +
+    K7), 60 (K8) and 1024 videos. For each: the replayed tokens (and ARB's
+    scores) bit for bit the eager ones, on the capture's request and on a
+    second one; ms per decode on both routes (median of 2 x GRAPH_ROUNDS
+    each, in turns, host clock, each ending in the tokens' copy); the first
+    call's seconds (the eager warm-up and the capture), the capture's
+    seconds and the bytes its pool holds; the launches of one replayed
+    decode against PER_DECODE or the beam steps; the device idle share of
+    one profiled decode on each route. Returns {case: figures}."""
+    import numpy as np
+    import torch
+
+    from navc_tpu_torch.decoding import make_ar_generator, make_nar_generator
+    from navc_tpu_torch.ops import _build
+
+    rng = np.random.RandomState(29)
+    results = {}
+    for method, videos in [("NACF", N_VIDEOS), ("ARB", ARB_VIDEOS), ("ARB", ARB_RAGGED),
+                           ("ARB", ARB_BENCH)]:
+        name = "%s %d videos" % (method, videos)
+        c = cfg if method == "NACF" else tcfg
+        reqs = []
+        for _ in range(2):
+            feats = [torch.as_tensor(rng.randn(videos, c.n_frames, d).astype(np.float32)).cuda()
+                     for d in c.modality_dims]
+            cat = torch.as_tensor(rng.randint(0, c.num_category, (videos, 1))).cuda()
+            with torch.no_grad():
+                reqs.append((model.encode(feats), cat, teacher.encode(feats))
+                            if method == "NACF" else (teacher.encode(feats), cat))
+        if method == "NACF":
+            gens = {jit: make_nar_generator(cfg, model, teacher, jit) for jit in (False, True)}
+        else:
+            gens = {jit: make_ar_generator(tcfg, teacher, jit) for jit in (False, True)}
+        if not gens[True].graphed:
+            die("graphs: the %s generator takes no captured route" % name)
+        eager, replay = gens[False], gens[True]
+        flat = (lambda out: [out]) if method == "NACF" else list  # noqa: E731
+        want = [flat(eager(*r)) for r in reqs]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = [flat(replay(*reqs[0]))]  # the first call: warm-up and capture
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        graphs = captured_graphs(replay)
+        got += [flat(replay(*r)) for r in reqs + reqs[:1]]
+        for g, w in zip(got, [want[0], want[0], want[1], want[0]]):
+            if not all(torch.equal(x, y) for x, y in zip(g, w)):
+                die("graphs: %s: replayed tokens differ from the eager route's" % name)
+        steps0 = getattr(replay, "steps_run", 0)
+        _build.reset_launches()
+        replay(*reqs[1])
+        launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+        steps = getattr(replay, "steps_run", 0) - steps0
+        if method == "NACF":
+            expect = dict(PER_DECODE)
+        elif videos % 16 == 0:
+            expect = dict(project_topk=steps, beam_attend_step=steps, cross_attend=steps)
+        else:
+            expect = dict(project_topk=steps, permute_beam_caches=steps)
+        if launches != expect:
+            die("graphs: %s: a replayed decode launched %s, expected %s"
+                % (name, launches, expect))
+        run = {jit: (lambda g=g: flat(g(*reqs[1]))[0].cpu()) for jit, g in gens.items()}
+        ms = {False: [], True: []}
+        for _ in range(GRAPH_ROUNDS):
+            for jit in (False, True, True, False):
+                ms[jit].append(host_ms(run[jit], iters=1))
+        idle = {}
+        for jit in (False, True):
+            prof = device_breakdown(run[jit])
+            idle[jit] = None if prof is None else 1.0 - prof[1] / prof[0]
+            print_profile(prof, "%s decode, %s" % (name, "replayed" if jit else "eager"))
+        results[name] = dict(
+            eager_ms=float(np.median(ms[False])), replay_ms=float(np.median(ms[True])),
+            first_call_s=first_s, capture_s=sum(g.capture_s for g in graphs),
+            graphs=len(graphs), pool_mb=sum(g.pool_bytes for g in graphs) / 2 ** 20,
+            launches=launches, steps=steps or None, eager_idle=idle[False],
+            replay_idle=idle[True])
+        r = results[name]
+        log("graphs: %s [%s]: eager %.3f ms, replayed %.3f ms per decode (median of %d, "
+            "host clock, ends in the tokens' copy; %.2fx); tokens bit for bit the eager "
+            "route's; first call %.3f s (warm-up + capture of %d graph(s): %.3f s), pool "
+            "%.1f MiB; launches per replayed decode %s; idle share eager %s, replayed %s" % (
+                name, card, r["eager_ms"], r["replay_ms"], 2 * GRAPH_ROUNDS,
+                r["eager_ms"] / r["replay_ms"], first_s, len(graphs), r["capture_s"],
+                r["pool_mb"], launches,
+                *("%.3f" % x if x is not None else "not measured" for x in (
+                    idle[False], idle[True]))))
+        del gens, eager, replay, run, reqs, got, want
+        torch.cuda.empty_cache()
+    return results
 
 
 TRAIN_B, TRAIN_STEPS, TRAIN_BENCH, TRAIN_BENCH_ITERS, TRAIN_CPU = 64, 5, 2048, 5, 16
@@ -2678,15 +2817,21 @@ def main():
     warm = request()
     reqs = [request() for _ in range(N_REQUESTS)]
     cap = StreamingCaptioner(cfg, model, (tcfg, teacher), depth=2)
-    list(cap.map_stream([warm]))  # first use: cuBLAS handles, allocator
+    list(cap.map_stream([warm]))  # first use: the encodes' and the decode's capture
+    eager_cap = StreamingCaptioner(cfg, model, (tcfg, teacher), depth=2, jit=False)
+    list(eager_cap.map_stream([warm]))  # first use: cuBLAS handles, allocator
     torch.cuda.synchronize()
+    eager_outs, eager_request = eager_cap.timed_stream(reqs)
     _build.reset_launches()
     outs, per_request = cap.timed_stream(reqs)
     launches = dict(_build.LAUNCHES)
     log("main path: %d requests x %d videos, %.2f ms per request (%.1f "
-        "captions/s, host clock, depth 2); launches %s" % (
-            N_REQUESTS, N_VIDEOS, per_request * 1e3,
-            N_VIDEOS / per_request, launches))
+        "captions/s, host clock, depth 2; replayed CUDA graphs, eager route %.2f ms); "
+        "launches %s" % (N_REQUESTS, N_VIDEOS, per_request * 1e3,
+                         N_VIDEOS / per_request, eager_request * 1e3, launches))
+    if not all(np.array_equal(a, b) for a, b in zip(outs, eager_outs)):
+        die("main path: the replayed requests' tokens differ from the eager route's")
+    del eager_cap
     for name, per in PER_DECODE.items():
         if launches[name] != per * N_REQUESTS:
             die("%s launched %d times, expected %d (%d per decode)"
@@ -2752,6 +2897,11 @@ def main():
 
     # -- 5. ARB beam search ----------------------------------------------------
     arb_recs, arb_launches = arb_phases(tcfg, teacher, cpu_teacher, record, parent)
+
+    # -- 5b. the captured decodes against the eager route -----------------------
+    t0 = time.perf_counter()
+    graph_results = graphs_phase(cfg, model, tcfg, teacher, card)
+    log("graphs phase: %.1f s; %s" % (time.perf_counter() - t0, json.dumps(graph_results)))
 
     # -- 6. the training step ----------------------------------------------------
     t0 = time.perf_counter()

@@ -27,12 +27,16 @@ navc_tpu's XLA route computes them (bf16 softmax weights in bf16 mode). The
 dense projections stay ``torch.matmul``.
 
 The JAX package stops its ``while_loop`` once every instance is done. Here
-the host reads that flag without stalling the card: each step queues a copy
-of it to pinned memory, and step t waits only for the flag of step
-t - DONE_LAG (the card still has the steps in between queued). Steps after
-every instance is done change nothing — done instances are frozen — so the
-tokens are those of the exact early exit; on the CPU the lag is 0. The
-generator counts the steps it ran in ``generate.steps_run``.
+the host reads that flag without stalling the card. With ``jit=True`` (the
+default, navc_tpu's ``jax.jit``) the steps run in blocks of DONE_LAG, each
+a CUDA graph on the card, and block j's flag is read after block j + 1 is
+queued (``run_blocks``, eager on the CPU). With ``jit=False`` each step is
+issued from the host and queues a copy of the flag to pinned memory, and
+step t waits only for the flag of step t - DONE_LAG (the card still has the
+steps in between queued); on the CPU the lag is 0. Steps after every
+instance is done change nothing — done instances are frozen — so the
+tokens are those of the exact early exit. The generator counts the steps
+it ran in ``generate.steps_run``.
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ from __future__ import annotations
 import collections
 import math
 from dataclasses import dataclass
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -54,6 +58,7 @@ from ..ops.eligibility import fused_vocab_eligible, kv_cached_beam_eligible
 from ..ops.fused_layer import LayerWeights, layer_weights
 from ..ops.select import top_k_stable
 from ..ops.vocab_fused import MAX_D, MAX_K, project_topk, projection_weights
+from ..runtime import graphs
 from .length_beam import enlarge
 
 NEG_BIG = -1e20
@@ -246,7 +251,93 @@ class _DoneWatch:
         return bool(self.flags[t])
 
 
-def make_ar_generator(cfg: Config, model):
+def block_spans(max_len: int, block: int) -> List[Tuple[int, int]]:
+    """Steps 1 .. max_len - 1 cut into blocks of ``block`` steps: [(first,
+    end)]."""
+    return [(t0, min(t0 + block, max_len)) for t0 in range(1, max_len, block)]
+
+
+def run_blocks(run_block: Callable[[int, int, int], Callable[[], bool]],
+               spans: List[Tuple[int, int]]) -> int:
+    """The blocked stop rule, on every device: ``run_block(j, first, end)``
+    runs block j and returns a reader of its all-done flag; block j's flag
+    is read only after block j + 1 has been issued, and the decode stops
+    after block j + 1 when it says every instance was done (the card then
+    has block j + 1 queued while the host waits; steps after that change
+    nothing). Returns the steps run."""
+    steps, pending = 0, None
+    for j, (t0, t1) in enumerate(spans):
+        done = run_block(j, t0, t1)
+        steps += t1 - t0
+        if pending is not None and pending():
+            break
+        pending = done
+    return steps
+
+
+class _BlockGraphs:
+    """The captured beam search of one request signature (width, dtypes,
+    whether a category is given): block j of ``spans`` is a CUDA graph of
+    its steps, block 0 with the decode's set-up (the cross K/V, the start
+    state), each block reading the carry the block before it left. All
+    blocks share one pool and are captured in order, so they are replayed
+    as a prefix of that order. After replay j the all-done flag goes to
+    pinned memory behind an event (``_DoneWatch``'s device half, outside
+    the capture: no pinned allocation or event can be made inside one)."""
+
+    def __init__(self, start, spans, enc_output, category):
+        self.static = [enc_output.clone(), None if category is None else category.clone()]
+        self.spans = spans
+
+        def whole():
+            step, carry = start(*self.static)
+            for t in range(1, spans[-1][1]):
+                carry = step(carry, t)
+            return carry[0]
+
+        # the first call's result: every step, eagerly, on a side stream
+        self.first = graphs.warm_up(whole), spans[-1][1] - 1
+        pool = torch.cuda.graph_pool_handle()
+        step = carry = None
+        self.blocks = []
+        with graphs.collector_off():  # one collection for all the blocks
+            for t0, t1 in spans:
+                def body(t0=t0, t1=t1):
+                    nonlocal step, carry
+                    if step is None:
+                        step, carry = start(*self.static)
+                    for t in range(t0, t1):
+                        carry = step(carry, t)
+                    return carry[0], carry[0].done.all()
+                self.blocks.append(graphs.Graph(body, pool))
+        self.flags = torch.zeros(len(spans), dtype=torch.bool, pin_memory=True)
+
+    def __call__(self, enc_output, category):
+        """Replay the blocks up to the stop rule: (the last block's state,
+        steps run)."""
+        self.static[0].copy_(enc_output)
+        if category is not None:
+            self.static[1].copy_(category)
+        state = None
+
+        def run_block(j, t0, t1):
+            nonlocal state
+            state, done = self.blocks[j].replay()
+            self.flags[j:j + 1].copy_(done.reshape(1), non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+
+            def read():
+                event.synchronize()
+                return bool(self.flags[j])
+            return read
+
+        steps = run_blocks(run_block, self.spans)
+        return state, steps
+
+
+def make_ar_generator(cfg: Config, model, jit: bool = True, *,
+                      block: int = DONE_LAG):
     """Build the batched beam-search decode (Translator.translate_batch).
 
     Returns ``generate(enc_results, category=None) -> (hypotheses, scores)``:
@@ -254,6 +345,16 @@ def make_ar_generator(cfg: Config, model):
     (B, topk, max_len - 1) and (B, topk). ``enc_results`` carries
     'enc_output' (``Seq2Seq.encode``). Kernel operands are made here from
     the model's current weights, once.
+
+    ``jit`` (navc_tpu's ``jax.jit`` around its ``while_loop``): the steps
+    run in blocks of ``block`` under ``run_blocks``'s stop rule. On the card
+    each block is a CUDA graph (``_BlockGraphs``, one set per request
+    signature, the K6 and K8 routes apart by width) and the ranking of the
+    finished hypotheses runs eagerly on the last block's state; on the CPU
+    the blocks run eagerly. ``jit=False`` issues every step from the host,
+    reading the all-done flag ``DONE_LAG`` steps late. ``generate.graphed``
+    says whether calls on the card replay graphs, ``generate.steps_run``
+    counts the steps run and ``generate.graphs`` holds the captured sets.
     """
     k = cfg.beam_size
     max_len = cfg.max_len
@@ -273,6 +374,7 @@ def make_ar_generator(cfg: Config, model):
     use_topk = (use_cache and fused_vocab_eligible(cfg) and k <= MAX_K
                 and h % 16 == 0 and h <= MAX_D)  # K5's shape limits
     proj = projection_weights(model) if use_topk else None
+    spans = block_spans(max_len, block)
 
     def decode_step(seqs_flat, enc_tiled, cat_tiled, t):
         """Full-prefix route: the ARFormer forward over the whole prefix,
@@ -282,11 +384,10 @@ def make_ar_generator(cfg: Config, model):
         shifted = logits - logits.amax(-1, keepdim=True)
         return shifted - torch.log(torch.exp(shifted).sum(-1, keepdim=True))
 
-    @torch.no_grad()
-    def generate(enc_results: Dict[str, torch.Tensor],
-                 category: Optional[torch.Tensor] = None
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        enc_output = enc_results["enc_output"]
+    def start(enc_output: torch.Tensor, category: Optional[torch.Tensor]):
+        """A request's beam step and its carry before step 1: ``step(carry,
+        t) -> carry``, carry = (BeamState, last tokens, K cache, V cache,
+        pending ancestry)."""
         dev = enc_output.device
         b = enc_output.shape[0]
         n = b * k
@@ -321,7 +422,8 @@ def make_ar_generator(cfg: Config, model):
         last = torch.full((b, k), C.BOS, **i32)
         slot = torch.arange(k, **i32)[None, None, :]
 
-        def step(state: BeamState, last, kc, vc, pk, t):
+        def step(carry, t):
+            state, last, kc, vc, pk = carry
             if use_cache:
                 out, kc, vc = cached_step(state.seqs.reshape(n, max_len),
                                           last.reshape(n), kc, vc, pk, t)
@@ -380,15 +482,12 @@ def make_ar_generator(cfg: Config, model):
             st = st._replace(done=st.done | newly_done)
             return st, next_word, kc, vc, pk
 
-        watch = _DoneWatch(dev, max_len)
-        for t in range(1, max_len):
-            if watch.finished():
-                break
-            state, last, kc, vc, pk = step(state, last, kc, vc, pk, t)
-            generate.steps_run += 1
-            watch.push(t, state.done)
+        return step, (state, last, kc, vc, pk)
 
-        # sort_finished (Beam.py:123-130)
+    def finish(state: BeamState):
+        """sort_finished (Beam.py:123-130)."""
+        b = state.fin_count.shape[0]
+        dev = state.fin_count.device
         valid = (torch.arange(specific, device=dev)[None, :]
                  < state.fin_count[:, None])
         norm = state.fin_scores / torch.pow(
@@ -403,5 +502,49 @@ def make_ar_generator(cfg: Config, model):
                                 top_idx[:, :, None].expand(-1, -1, max_len))
         return top_seqs[:, :, 1:], top_scores
 
+    def eager(enc_output, category):
+        step, carry = start(enc_output, category)
+        watch = _DoneWatch(enc_output.device, max_len)
+        for t in range(1, max_len):
+            if watch.finished():
+                break
+            carry = step(carry, t)
+            generate.steps_run += 1
+            watch.push(t, carry[0].done)
+        return carry[0]
+
+    def blocked(enc_output, category):
+        if enc_output.device.type == "cuda":
+            key, _ = graphs.signature((enc_output, category))
+            captured = generate.graphs.get(key)
+            if captured is None:
+                captured = _BlockGraphs(start, spans, enc_output, category)
+                generate.graphs[key] = captured
+                (state, steps), captured.first = captured.first, None
+            else:
+                state, steps = captured(enc_output, category)
+            generate.steps_run += steps
+            return state
+        step, carry = start(enc_output, category)
+
+        def run_block(j, t0, t1):
+            nonlocal carry
+            for t in range(t0, t1):
+                carry = step(carry, t)
+            done = bool(carry[0].done.all())
+            return lambda: done
+
+        generate.steps_run += run_blocks(run_block, spans)
+        return carry[0]
+
+    @torch.no_grad()
+    def generate(enc_results: Dict[str, torch.Tensor],
+                 category: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        run = blocked if jit else eager
+        return finish(run(enc_results["enc_output"], category))
+
     generate.steps_run = 0
+    generate.graphed = jit
+    generate.graphs = {}
     return generate

@@ -56,6 +56,7 @@ from ..ops.fused_layer import (LayerWeights, fused_layer, fused_layer_qsub,
 from ..ops.select import rank_mask_largest, rank_mask_smallest
 from ..ops.vocab_fused import (project_argmax, project_gather_prob,
                                projection_weights)
+from ..runtime import graphs
 from .length_beam import (build_canvas, enlarge, predict_length_beam,
                           select_best_length_beam)
 
@@ -451,7 +452,8 @@ def _gather_best(arr: torch.Tensor, best_idx: torch.Tensor, bsz: int,
 
 
 def make_nar_generator(cfg: Config, model, teacher_model=None,
-                       collect: bool = False, collect_attentions: bool = False):
+                       jit: bool = True, collect: bool = False,
+                       collect_attentions: bool = False):
     """Build the NAR decode (reference na_generate.py:14-113).
 
     Returns ``generate(enc_results, category=None, teacher_enc_results=None,
@@ -465,6 +467,14 @@ def make_nar_generator(cfg: Config, model, teacher_model=None,
     canvas (na_generate.py:92-106). The kernel operands (bf16 weights) are
     made here from the models' current weights, once; build a new
     generator after loading other weights.
+
+    ``jit`` (navc_tpu's ``jax.jit`` of the decode): on the card the mp
+    decode, collect modes included, is a CUDA graph per signature
+    (``runtime/graphs.py``: request width, dtypes, which optional inputs
+    are None), captured at the first call and replayed after; l2r and ef
+    read their round counts on the host and run eagerly.
+    ``generate.graphed`` says whether calls on the card replay graphs. On
+    the CPU every route runs eagerly.
     """
     if cfg.paradigm not in ALGORITHMS:
         raise ValueError("paradigm must be one of %s" % list(ALGORITHMS))
@@ -533,4 +543,7 @@ def make_nar_generator(cfg: Config, model, teacher_model=None,
                                          for a in collected[2:]]
         return best, (toks, probs)
 
+    if jit and cfg.paradigm == "mp":
+        return graphs.Jitted(generate)
+    generate.graphed = False
     return generate

@@ -15,11 +15,16 @@ launch, which ``check`` turns into an exception. ``build`` starts one
 
 ``LAUNCHES`` counts kernel launches by wrapper name. A wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that the
-main path went through the kernels.
+main path went through the kernels. While a CUDA graph is captured
+(``runtime/graphs.py``) the wrappers queue launches that do not run:
+``capture_launches`` takes their counts back out and keeps them with the
+graph, and every replay adds them (``add_launches``), so the counts stay
+launches per decode.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -27,7 +32,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Iterator, Optional
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -53,6 +58,28 @@ _lock = threading.Lock()
 def reset_launches() -> None:
     for key in LAUNCHES:
         LAUNCHES[key] = 0
+
+
+@contextlib.contextmanager
+def capture_launches() -> Iterator[Dict[str, int]]:
+    """Around a CUDA graph's capture: yields a dict that, once the block
+    ends, holds {wrapper: launches} the capture counted, and leaves
+    ``LAUNCHES`` as it was before the block."""
+    before = dict(LAUNCHES)
+    counts: Dict[str, int] = {}
+    try:
+        yield counts
+    finally:
+        for key, n in before.items():
+            if LAUNCHES[key] != n:
+                counts[key] = LAUNCHES[key] - n
+            LAUNCHES[key] = n
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """A replay of a graph launches what its capture counted."""
+    for key, n in counts.items():
+        LAUNCHES[key] += n
 
 
 def nvcc() -> str:

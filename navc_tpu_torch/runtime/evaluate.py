@@ -45,19 +45,23 @@ class Evaluator:
                  collect: bool = False):
         self.cfg = cfg
         self.model = model
+        self.teacher_cfg = teacher_cfg or cfg
         self.teacher_model = teacher_model
         self.collect = collect
         self.device = next(model.parameters()).device
         self.dict_mapping = (None if dict_mapping is None else
                              torch.as_tensor(np.asarray(dict_mapping), dtype=torch.int64,
                                              device=self.device))
-        self.encode = make_encode_fn(cfg, model)
-        self.teacher_encode = (make_encode_fn(teacher_cfg or cfg, teacher_model)
-                               if teacher_model is not None else None)
-        self.generate = None
+        self.encode = self.teacher_encode = self.generate = None
 
     def refresh(self) -> None:
-        """Build the decode from the models' current weights."""
+        """Build the encodes and the decode from the models' current
+        weights. On the card each is captured per batch signature at its
+        first call (``jit=True``, as navc_tpu's); the old ones' graphs go
+        with them, so no graph replays the addresses of stale weights."""
+        self.encode = make_encode_fn(self.cfg, self.model)
+        self.teacher_encode = (make_encode_fn(self.teacher_cfg, self.teacher_model)
+                               if self.teacher_model is not None else None)
         if self.cfg.decoding_type == "NARFormer":
             self.generate = make_nar_generator(self.cfg, self.model, self.teacher_model,
                                                collect=self.collect)

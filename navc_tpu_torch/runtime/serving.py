@@ -10,7 +10,10 @@ in submission order. ``depth=0`` is the reference's sequential protocol
 
 NAR models decode by mask-predict (optionally with an AR teacher's
 rescoring), AR models (ARB, ARB2) by beam search; a request's result is the
-(B, max_len) or (B, max_len - 1) token ids of one caption per video.
+(B, max_len) or (B, max_len - 1) token ids of one caption per video. On the
+card the encodes and the decode replay CUDA graphs (``jit=True``,
+``runtime/graphs.py``), and each request's features reach the card through
+page-locked buffers, one set per request in flight, copied asynchronously.
 """
 
 from __future__ import annotations
@@ -25,16 +28,51 @@ import torch
 from ..config import Config
 from ..decoding import make_ar_generator, make_nar_generator
 from ..device import resolve_device
+from . import graphs
 
 
-def make_encode_fn(cfg: Config, model):
-    """Encode-only forward for decoding (reference run.py:59 only_data)."""
+def make_encode_fn(cfg: Config, model, jit: bool = True):
+    """Encode-only forward for decoding (reference run.py:59 only_data).
+    ``jit``: on the card a CUDA graph per feature signature, as navc_tpu's
+    encode is ``jax.jit``-ed (``runtime/graphs.py``); it reads the model's
+    weights where they lie, so an update in place reaches it."""
 
     @torch.no_grad()
     def encode(feats):
         return model.encode(feats)
 
-    return encode
+    return graphs.Jitted(encode) if jit else encode
+
+
+class _PinnedSlots:
+    """Page-locked host buffers for the requests in flight, one set per
+    pipeline slot: request i's arrays go through slot i % n, whose copy to
+    the card is asynchronous; the host waits for the slot's previous copy
+    (its event) before it overwrites the buffers."""
+
+    def __init__(self, n: int):
+        self.slots: list = [None] * n
+        self.next = 0
+
+    def to_device(self, arrays: List[np.ndarray], device) -> List[torch.Tensor]:
+        i = self.next
+        self.next = (i + 1) % len(self.slots)
+        slot = self.slots[i]
+        if slot is not None:
+            slot[1].synchronize()
+        if slot is None or [(b.shape, b.numpy().dtype) for b in slot[0]] != [
+                (a.shape, a.dtype) for a in arrays]:
+            bufs = [torch.empty(a.shape, dtype=torch.from_numpy(np.empty(0, a.dtype)).dtype,
+                                pin_memory=True) for a in arrays]
+        else:
+            bufs = slot[0]
+        for buf, a in zip(bufs, arrays):
+            np.copyto(buf.numpy(), a)
+        out = [buf.to(device, non_blocking=True) for buf in bufs]
+        event = torch.cuda.Event()
+        event.record()
+        self.slots[i] = (bufs, event)
+        return out
 
 
 class StreamingCaptioner:
@@ -47,11 +85,13 @@ class StreamingCaptioner:
     depth: max requests in flight before ``submit`` waits on the oldest.
     device: where the models live and the requests run; "cuda" unless the
         caller asks for the CPU.
+    jit: the encodes and the decode as CUDA graphs on the card (False: the
+        eager route, every op issued from the host).
     """
 
     def __init__(self, cfg: Config, model, teacher: Optional[tuple] = None,
                  dict_mapping: Optional[np.ndarray] = None, depth: int = 2,
-                 device="cuda"):
+                 device="cuda", jit: bool = True):
         self.device = resolve_device(device)
         self.ar = cfg.decoding_type != "NARFormer"
         if self.ar:
@@ -63,25 +103,32 @@ class StreamingCaptioner:
                                  % (dev, self.device))
         self.cfg = cfg
         self.depth = max(0, int(depth))
-        self._encode = make_encode_fn(cfg, model)
+        self._encode = make_encode_fn(cfg, model, jit)
         self._teacher_encode = (None if teacher is None
-                                else make_encode_fn(teacher[0], teacher[1]))
+                                else make_encode_fn(teacher[0], teacher[1], jit))
         self._dict_mapping = (None if dict_mapping is None else
                               torch.as_tensor(dict_mapping, device=self.device))
         # the decode; its ``steps_run`` counts an AR decode's beam steps
-        self.generate = (make_ar_generator(cfg, model) if self.ar else
+        self.generate = (make_ar_generator(cfg, model, jit) if self.ar else
                          make_nar_generator(
-                             cfg, model, None if teacher is None else teacher[1]))
+                             cfg, model, None if teacher is None else teacher[1], jit))
+        self._staging = (_PinnedSlots(self.depth + 1)
+                         if self.device.type == "cuda" else None)
         self._inflight = collections.deque()  # (ticket, device hyp)
         self._next_ticket = 0
 
     # -- pipeline core ----------------------------------------------------
 
     def _dispatch(self, feats, category):
-        feats = [torch.as_tensor(f, dtype=torch.float32).to(self.device)
-                 for f in feats]
-        cat = (torch.as_tensor(category).to(self.device)
-               if self.cfg.with_category and category is not None else None)
+        with_cat = self.cfg.with_category and category is not None
+        if self._staging is None:
+            feats = [torch.as_tensor(f, dtype=torch.float32) for f in feats]
+            cat = torch.as_tensor(category) if with_cat else None
+        else:
+            arrays = [np.asarray(f, dtype=np.float32) for f in feats]
+            arrays += [np.asarray(category)] if with_cat else []
+            staged = self._staging.to_device(arrays, self.device)
+            feats, cat = staged[:len(feats)], (staged[-1] if with_cat else None)
         enc = self._encode(feats)
         # device tensors, not synced: they stay in flight
         if self.ar:

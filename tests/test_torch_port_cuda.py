@@ -10,7 +10,11 @@ with an identity ancestry and with runs of positions that do not divide
 tpos, K7 at 5120 rows, in each head group, at Te 1 and 13 and beam 1 and
 32, K1u with a float32 output — plus the wrappers' refusals and launch
 counts, and that K1, K6, K7 and K1u give the same bits in two calls (K1u
-K11's at p = 0). Run them on a machine with a card:
+K11's at p = 0); and the decodes' CUDA graphs (``test_graphs_*``: replayed
+tokens bit for bit the eager route's, refilled static inputs, cloned
+outputs, launches per replay, ``refresh`` after a weight change, old
+graphs in reference cycles outliving a capture, a failed capture raising).
+Run them on a machine with a card:
 
     python3 -m pytest tests/test_torch_port_cuda.py -q --noconftest
 
@@ -1700,3 +1704,196 @@ def test_caption_pipeline_and_translate_on_the_card(cuda, tmp_path, monkeypatch)
         translate(build_parser().parse_args(["--model_path", paths["arb"]]), device="cuda",
                   info_corpus=corpus, in_memory_feats=feats, references=refs)
 
+
+
+# -- the captured decodes (jit=True, runtime/graphs.py) ------------------------
+# At the serving width, against the eager route (jit=False) on the same
+# inputs: tokens and scores bit for bit the same (the same kernels on the
+# same operands, in the same order); a second signature-equal call with other
+# features returns its own eager tokens (the static inputs are refilled);
+# outputs held across a later replay keep their values (they are clones);
+# launches counted per replay.
+
+
+def _request_on(cfg, videos, seed, device="cuda"):
+    g = _gen(seed)
+    feats = [torch.randn(videos, cfg.n_frames, d, generator=g).to(device)
+             for d in cfg.modality_dims]
+    return feats, torch.randint(0, cfg.num_category, (videos, 1), generator=g).to(device)
+
+
+def _flat(out):
+    if isinstance(out, (tuple, list)):
+        return [t for part in out for t in _flat(part)]
+    return [out]
+
+
+def _same(a, b):
+    a, b = _flat(a), _flat(b)
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["teacher", "dict_mapping", "collect"])
+def test_graphs_nacf_replays_eager_tokens(cuda, case):
+    from navc_tpu_torch import constants as C
+    from navc_tpu_torch.decoding import make_nar_generator
+
+    cfg, model, tcfg, teacher = _serving_models("cuda")
+    dm = None
+    if case == "dict_mapping":
+        perm = torch.randperm(cfg.vocab_size - C.NUM_SPECIAL_TOKENS, generator=_gen(3))
+        dm = torch.cat([torch.arange(C.NUM_SPECIAL_TOKENS),
+                        perm + C.NUM_SPECIAL_TOKENS]).to(cuda)
+    kw = dict(collect=case == "collect")
+    eager = make_nar_generator(cfg, model, teacher, jit=False, **kw)
+    replay = make_nar_generator(cfg, model, teacher, jit=True, **kw)
+    assert replay.graphed and not eager.graphed
+    reqs = [_request_on(cfg, 16, seed) for seed in (11, 12)]
+    with torch.no_grad():
+        encs = [(model.encode(f), c, teacher.encode(f)) for f, c in reqs]
+    want = []
+    for enc, cat, tenc in encs:
+        _build.reset_launches()
+        want.append(eager(enc, cat, tenc, dm))
+        per_decode = {k: v for k, v in _build.LAUNCHES.items() if v}
+    assert per_decode["fused_layer_qsub" if case != "collect" else "fused_layer"] > 0
+    got = [replay(enc, cat, tenc, dm) for enc, cat, tenc in encs]  # capture, replay
+    assert len(replay.graphs) == 1
+    _build.reset_launches()
+    got += [replay(*encs[0], dm), replay(*encs[1], dm), replay(*encs[0], dm)]
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
+        k: 3 * v for k, v in per_decode.items()}
+    for out, ref in zip(got, want + want + want[:1]):
+        assert _same(out, ref)
+    assert not _same(want[0], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("videos", [64, 60], ids=["b64-K6", "b60-K8"])
+def test_graphs_arb_replays_eager_tokens(cuda, videos):
+    from navc_tpu_torch.decoding import make_ar_generator
+
+    _, _, cfg, model = _serving_models("cuda")
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    eager = make_ar_generator(cfg, model, jit=False)
+    replay = make_ar_generator(cfg, model)
+    reqs = [_request_on(cfg, videos, seed) for seed in (13, 14)]
+    with torch.no_grad():
+        encs = [(model.encode(f), c) for f, c in reqs]
+    want = [eager(*e) for e in encs]
+    got = [replay(*e) for e in encs]
+    steps0 = replay.steps_run
+    _build.reset_launches()
+    got += [replay(*encs[1]), replay(*encs[0])]
+    steps = replay.steps_run - steps0
+    assert steps > 0 and len(replay.graphs) == 1
+    k6 = videos % 16 == 0
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == dict(
+        project_topk=steps, **(dict(beam_attend_step=steps, cross_attend=steps) if k6
+                               else dict(permute_beam_caches=steps)))
+    for out, ref in zip(got, want + want[::-1]):
+        assert _same(out, ref)
+    assert not _same(want[0], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["nacf", "arb"])
+def test_graphs_streaming_captioner_keeps_each_request(cuda, method):
+    from navc_tpu_torch.decoding import make_ar_generator, make_nar_generator
+    from navc_tpu_torch.runtime.serving import StreamingCaptioner
+
+    cfg, model, tcfg, teacher = _serving_models("cuda")
+    if method == "arb":
+        cfg, model, teacher = tcfg, teacher, None
+    cap = StreamingCaptioner(cfg, model, None if teacher is None else (tcfg, teacher), depth=2)
+    eager = (make_ar_generator(cfg, model, jit=False) if teacher is None
+             else make_nar_generator(cfg, model, teacher, jit=False))
+    reqs = [_request_on(cfg, 16, seed, "cpu") for seed in (15, 16, 17)]
+    want = []
+    for feats, cat in reqs:
+        f = [x.to(cuda) for x in feats]
+        with torch.no_grad():
+            args = (model.encode(f), cat.to(cuda)) + (
+                () if teacher is None else (teacher.encode(f),))
+        out = eager(*args)
+        want.append((out[0] if teacher is None else out).cpu().numpy())
+    done = []
+    for feats, cat in reqs:
+        done += cap.submit([x.numpy() for x in feats], cat.numpy())[1]
+    assert [t for t, _ in done] == [0]  # read after requests 1 and 2 ran
+    done += cap.flush()
+    got = dict(done)
+    for t, ref in enumerate(want):
+        np.testing.assert_array_equal(got[t], ref)
+
+
+@pytest.mark.cuda
+def test_graphs_refresh_replays_new_weights(cuda):
+    from navc_tpu_torch.runtime.evaluate import Evaluator
+
+    cfg, model, tcfg, teacher = _serving_models("cuda")
+    feats, cat = _request_on(cfg, 16, 18, "cpu")
+    batch = {"feats_%s" % ch: f.numpy() for ch, f in zip(cfg.modality.lower(), feats)}
+    batch["category"] = cat.numpy().astype(np.int32)
+    ev = Evaluator(cfg, model, tcfg, teacher)
+    ev.refresh()
+    before = ev.decode_batch(batch)[0]
+    with torch.no_grad():
+        for i, p in enumerate(model.parameters()):
+            p.add_(torch.randn(p.shape, generator=_gen(100 + i)).to(cuda) * 0.5)
+    ev.refresh()
+    after = ev.decode_batch(batch)[0]
+    fresh = Evaluator(cfg, model, tcfg, teacher)
+    fresh.refresh()
+    np.testing.assert_array_equal(after, fresh.decode_batch(batch)[0])
+    assert not np.array_equal(after, before)
+
+
+@pytest.mark.cuda
+def test_graphs_capture_outlives_old_graphs_in_reference_cycles(cuda):
+    """An old graph that only the cycle collector frees must not be freed
+    inside a later capture (CUDA refuses to destroy a graph while a stream
+    captures). The captured function collects itself, while capturing, as
+    an allocation could make the collector do at any point."""
+    import gc
+
+    from navc_tpu_torch.runtime import graphs
+
+    x = torch.ones(8, device=cuda)
+    thresholds = gc.get_threshold()
+    gc.set_threshold(10 ** 9)  # no collections but the ones made here and by the capture
+    try:
+        old = graphs.Jitted(lambda t: t * 2)
+        old(x)
+        old.cycle = old
+        del old
+
+        def fn(t):
+            if torch.cuda.is_current_stream_capturing():
+                gc.collect()
+            return t + 1
+
+        new = graphs.Jitted(fn)
+        new(x)
+        assert torch.equal(new(x), x + 1)
+    finally:
+        gc.set_threshold(*thresholds)
+
+
+@pytest.mark.cuda
+def test_graphs_failed_capture_raises(cuda):
+    from navc_tpu_torch.runtime import graphs
+
+    calls = []
+
+    def fn(x):
+        calls.append(torch.cuda.is_current_stream_capturing())
+        if calls[-1]:
+            raise RuntimeError("refused while capturing")
+        return x * 2
+
+    f = graphs.Jitted(fn)
+    with pytest.raises(RuntimeError):
+        f(torch.ones(4, device=cuda))
+    assert calls == [False, True] and not f.graphs  # warm-up, capture: no eager retry
