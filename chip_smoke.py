@@ -53,7 +53,18 @@ peak memory, one step profiled); bench.py's train protocol at B=2048
 (profiled: K9/K10's share; with --parent, in turns with the parent's own
 step: synchronised ms, idle share, peak memory); one bf16 step of
 16 videos against the CPU plain path; 20 steps on one batch at dropout 0.1
-must lower the loss. K1u (the unfolded eval layer, which no path calls;
+must lower the loss; these steps, the B=64 epochs and the B=2048 protocol
+are the compiled step (make_train_step's default jit=True: one CUDA graph
+per batch signature, navc_tpu's jitted step), the kernels taking their
+dropout seed as a (1,) int32 on the card. The train graphs phase: the
+NACF step at B=64 and B=2048, dropout 0.5, replayed against the eager
+route (jit=False) from the same weights, batches and CPU generator state
+(loss and every gradient bit for bit, B=64 over 5 steps under a warm-up
+lr, then every parameter and buffer; at lr 0 two replays' losses differ,
+each the eager step's with the same draws), ms per step on both routes
+(median of 10 epochs, in turns), first call and capture seconds, pool
+MiB, peak GB, launches per replayed step, idle share of one profiled
+step on each route. K1u (the unfolded eval layer, which no path calls;
 K11's launches at p = 0) is held against its plain version at K1's shape,
 NAR and causal, bit for bit the same in two calls, and timed beside bf16
 torch.matmul of its products and the parent's K1u in turns. The entry point:
@@ -1654,7 +1665,10 @@ def train_phases(record, seeded, parent):
     w = {k: v.detach() for k, v in w.items()}
     recs, errs = {}, {k: 0.0 for k in LAYER_KERNELS}
     rms_ratio = {k: (0.0, "") for k in LAYER_KERNELS}
-    seed = 1234567
+    # the dropout seed as the kernels take it, a (1,) int32 on the card (the
+    # plain versions read it; the parent's kernels take the int)
+    seed_int = 1234567
+    seed = torch.tensor([seed_int], dtype=torch.int32, device=dev)
     for causal in (False, True):
         l = cfg.max_len - 1 if causal else cfg.max_len
         lengths = torch.randint(5, l + 1, (TRAIN_B,), generator=g)
@@ -1777,7 +1791,8 @@ def train_phases(record, seeded, parent):
     if parent is not None:  # K11 beside the parent's through its own wrappers, in turns
         k11 = lambda: FT.train_fwd(x, enc, kp, w, seed, out_dtype=torch.bfloat16,  # noqa: E731
                                    **kw)
-        theirs = parent.load("train_fwd", dict(x=x, enc=enc, kp=kp, w=w), seed=seed, kw=kw)
+        theirs = parent.load("train_fwd", dict(x=x, enc=enc, kp=kp, w=w), seed=seed_int,
+                             kw=kw)
         for key, mine in zip(("out", "r2"), k11()):
             err, scale, rms_err, rms = scaled_err(mine, theirs[key])
             if not (err <= TRAIN_TOL * scale and rms_err <= TRAIN_RMS_TOL * rms):
@@ -1805,7 +1820,7 @@ def train_phases(record, seeded, parent):
             recs[name]["host_us"] = host_us(run)
             continue
         for side in (parent, fresh):
-            side.load(kind, ops, seed=seed, kw=kw)
+            side.load(kind, ops, seed=seed_int, kw=kw)
         p1, f1, k1, k2, f2, p2 = (parent.time("host_us"), fresh.time("host_us"), host_us(run),
                                   host_us(run), fresh.time("host_us"), parent.time("host_us"))
         recs[name].update(host_us=(k1 + k2) / 2, fresh_host_us=(f1 + f2) / 2,
@@ -1903,7 +1918,7 @@ def train_phases(record, seeded, parent):
         if parent is None:
             t["ms"] = TIMERS["cuda5"](run)
         else:
-            theirs = parent.load(kind, ops, seed=seed, kw=kw2)["out"]
+            theirs = parent.load(kind, ops, seed=seed_int, kw=kw2)["out"]
             err, scale, rms_err, rms = scaled_err(mine, theirs)
             if not (err <= TRAIN_TOL * scale and rms_err <= TRAIN_RMS_TOL * rms):
                 die("%s at B=%d disagrees with the parent's kernel" % (name, n2))
@@ -2102,6 +2117,182 @@ def train_phases(record, seeded, parent):
     return recs, launches
 
 
+TRAIN_GRAPH_ROUNDS = 5  # rounds of (eager, replayed, replayed, eager) epochs: 10 each
+
+
+def train_graphs_phase(card):
+    """The compiled training step (make_train_step(..., jit=True), navc_tpu's
+    jitted step: a CUDA graph per batch signature) against the eager one
+    (jit=False) at full width, NACF with its dropout on (0.5), at B=64
+    (nacf_epoch's batches) and B=2048 (bench_train_step's batch). Two models
+    from one seed, the same batches and CPU generator state: each step's
+    loss and every gradient bit for bit the same on both routes (B=64: 5
+    steps under a warm-up lr schedule, then every parameter and buffer;
+    B=2048: 2 steps); at lr 0 on one batch two replays give different
+    losses, each the eager step's with the same draws. Then ms per step on
+    both routes (median of 2 x TRAIN_GRAPH_ROUNDS epochs of 5 steps through
+    run_train_epoch, in turns, host clock, the epoch's metrics read at its
+    end), the first call's seconds (a real step, then the capture), the
+    capture's seconds, the pool's MiB, peak GB (the first call; one step
+    on each route), the launches of one replayed step and the idle share
+    of one profiled step and of one profiled epoch on each route. Returns
+    {case: figures}."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from navc_tpu_torch.config import default_config
+    from navc_tpu_torch.models import build_model
+    from navc_tpu_torch.ops import _build
+    from navc_tpu_torch.runtime.loop import run_train_epoch
+    from navc_tpu_torch.runtime.optim import LrSchedule, set_learning_rate
+    from navc_tpu_torch.runtime.train_step import create_train_state, make_train_step
+
+    def trainer(b, jit):
+        cfg = default_config("NACF", batch_size=b, **OVER)
+        model = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0),
+                            train=True)
+        state = create_train_state(cfg, model)
+        return cfg, model, state, make_train_step(cfg, model, state.optimizer, jit=jit)
+
+    def same_step(sides, batch, gens, what):
+        """One step on each route; dies unless the loss and every gradient
+        agree bit for bit. Returns the jit route's (loss, seconds)."""
+        out = {}
+        for jit, (_, model, _, step) in sides.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = float(step(batch, gens[jit])["total_loss"])
+            out[jit] = (loss, time.perf_counter() - t0,
+                        {k: p.grad.clone() for k, p in model.named_parameters()})
+        if out[True][0] != out[False][0]:
+            die("train graphs: %s: replayed loss %r, eager %r" % (what, out[True][0],
+                                                                out[False][0]))
+        bad = [k for k, g in out[True][2].items() if not torch.equal(g, out[False][2][k])]
+        if bad:
+            die("train graphs: %s: %d gradients differ from the eager step's (%s)"
+                % (what, len(bad), bad[:3]))
+        return out[True][0], out[True][1], len(out[True][2])
+
+    results = {}
+    for b in (TRAIN_B, TRAIN_BENCH):
+        name = "NACF step B=%d" % b
+        sides = {jit: trainer(b, jit) for jit in (False, True)}
+        cfg = sides[True][0]
+        if b == TRAIN_B:
+            rng = np.random.RandomState(5)  # nacf_epoch's batches
+            batches = [train_batch(cfg, b, rng) for _ in range(TRAIN_STEPS)]
+        else:
+            batches = [train_batch(cfg, b, np.random.RandomState(0))] * TRAIN_BENCH_ITERS
+        # -- replayed against eager: the first call (a real step, then the
+        #    capture), then replays under a warm-up lr schedule
+        gens = {jit: torch.Generator().manual_seed(0) for jit in sides}
+        scheds = {jit: LrSchedule(cfg.learning_rate, cfg.minimum_learning_rate, cfg.decay,
+                                  n_warmup_steps=3) for jit in sides}
+        n_checked = TRAIN_STEPS if b == TRAIN_B else 2
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        for i in range(n_checked):
+            for jit, (_, _, state, _) in sides.items():
+                set_learning_rate(state.optimizer, scheds[jit].step_lr())
+            loss, sec, n_grads = same_step(sides, batches[i], gens, "%s, step %d" % (name, i))
+            if i == 0:
+                first_s = sec
+                first_peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+        params_same = None
+        if b == TRAIN_B:
+            want = sides[False][1].state_dict()
+            bad = [k for k, t in sides[True][1].state_dict().items() if not torch.equal(t, want[k])]
+            if bad:
+                die("train graphs: %s: after %d steps %d parameters or buffers differ from "
+                    "the eager route's (%s)" % (name, n_checked, len(bad), bad[:3]))
+            params_same = len(want)
+            # -- lr 0, one batch: fresh masks per replay, each the eager step's
+            for _, _, state, _ in sides.values():
+                set_learning_rate(state.optimizer, 0.0)
+            g = torch.Generator().manual_seed(11)
+            lr0 = []
+            for _ in range(2):
+                draws = g.get_state()
+                got = float(sides[True][3](batches[0], g)["total_loss"])
+                eager = float(sides[False][3](batches[0], torch.Generator().set_state(draws))[
+                    "total_loss"])
+                if got != eager:
+                    die("train graphs: at lr 0 a replay's loss %r is not the eager step's %r "
+                        "with the same draws" % (got, eager))
+                lr0.append(got)
+            if lr0[0] == lr0[1]:
+                die("train graphs: two replays at lr 0 gave the same loss %r: the masks "
+                    "did not change" % lr0[0])
+        jitted = sides[True][3].jitted
+        if jitted is None or len(jitted.graphs) != 1:
+            die("train graphs: %s: %s graphs captured, expected 1" % (
+                name, None if jitted is None else len(jitted.graphs)))
+        graph = next(iter(jitted.graphs.values())).graph
+        # -- launches of one replayed step
+        _build.reset_launches()
+        sides[True][3](batches[0], gens[True])
+        torch.cuda.synchronize()
+        launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+        want_launches = {"train_fwd": 2, "train_ffn_bwd": 2, "train_attn_bwd": 2,
+                         "train_wgrad": 4, "ce_fwd": 2, "ce_bwd_dh": 2, "ce_bwd_dw": 2}
+        if launches != want_launches:
+            die("train graphs: %s: a replayed step launched %s, expected %s"
+                % (name, launches, want_launches))
+        # -- ms per step, in turns
+        epoch = {jit: (lambda s=s, g=gens[jit]: run_train_epoch(
+            s[0], s[3], s[2], batches, LrSchedule.from_config(s[0]), g))
+                 for jit, s in sides.items()}
+        ms = {False: [], True: []}
+        for _ in range(TRAIN_GRAPH_ROUNDS):
+            for jit in (False, True, True, False):
+                ms[jit].append(host_ms(epoch[jit], iters=1) / len(batches))
+        one = {jit: (lambda s=s, jit=jit: float(s[3](batches[0], gens[jit])["total_loss"]))
+               for jit, s in sides.items()}
+        peak = {jit: peak_gb(one[jit]) for jit in sides}
+        idle, epoch_idle = {}, {}
+        for jit in (False, True):
+            prof = device_breakdown(one[jit])
+            idle[jit] = None if prof is None else 1.0 - prof[1] / prof[0]
+            print_profile(prof, "%s, %s" % (name, "replayed" if jit else "eager"))
+            prof = device_breakdown(epoch[jit])
+            epoch_idle[jit] = None if prof is None else 1.0 - prof[1] / prof[0]
+        r = results[name] = dict(
+            eager_ms=float(np.median(ms[False])), replay_ms=float(np.median(ms[True])),
+            eager_ms_all=[round(x, 3) for x in ms[False]],
+            replay_ms_all=[round(x, 3) for x in ms[True]],
+            first_call_s=first_s, capture_s=graph.capture_s,
+            pool_mb=graph.pool_bytes / 2 ** 20, first_call_peak_gb=first_peak,
+            eager_peak_gb=peak[False], replay_peak_gb=peak[True], launches=launches,
+            eager_idle=idle[False], replay_idle=idle[True],
+            eager_epoch_idle=epoch_idle[False], replay_epoch_idle=epoch_idle[True],
+            checked_steps=n_checked,
+            lr0_losses=lr0 if b == TRAIN_B else None)
+        log("train graphs: %s [%s]: eager %.3f ms, replayed %.3f ms per step (median of %d "
+            "epochs of %d steps through run_train_epoch each, in turns, host clock, the "
+            "epoch's metrics read at its end; %.2fx); replayed steps bit for bit the eager "
+            "ones (loss and %d gradients, %d steps under a warm-up lr%s)%s; first call %.3f s "
+            "(a real step, then the capture: %.3f s), pool %.1f MiB; peak GB above what the "
+            "process held: first call %.2f, eager step %.2f, replayed step %.2f; launches "
+            "per replayed step %s; idle share of one profiled step eager %s, replayed %s; of "
+            "one profiled epoch eager %s, replayed %s" % (
+                name, card, r["eager_ms"], r["replay_ms"], 2 * TRAIN_GRAPH_ROUNDS, len(batches),
+                r["eager_ms"] / r["replay_ms"], n_grads, n_checked,
+                "; then %d parameters and buffers" % params_same if params_same else "",
+                "; lr 0, one batch: two replays' losses %r, %r, each the eager step's with "
+                "the same draws" % tuple(lr0) if b == TRAIN_B else "",
+                first_s, graph.capture_s, r["pool_mb"], first_peak, peak[False], peak[True],
+                launches, *("%.3f" % x if x is not None else "not measured"
+                            for x in (idle[False], idle[True], epoch_idle[False],
+                                      epoch_idle[True]))))
+        del sides, epoch, one, jitted, graph
+        gc.collect()  # a step's graphs sit in a reference cycle (its optimizer's hook)
+        torch.cuda.empty_cache()
+    return results
+
+
 ENTRY_VIDEOS, ENTRY_CAPS, ENTRY_FRAMES = 320, 5, 16
 
 
@@ -2111,7 +2302,8 @@ def entry_point_phase():
     videos (192 / 64 / 64), 5 captions each, batch 64. ARB for 1 epoch, then
     NACF for 2 with that best.ckpt as teacher. Validation decodes go through
     K1-K4 (NACF, with the ARB teacher's rescoring) and K5-K7 (ARB), every
-    step through K9-K12."""
+    step through K9-K12 on the compiled step (each run's first step a real
+    step and the capture, the others replays of its CUDA graph)."""
     import tempfile
 
     import numpy as np
@@ -2907,6 +3099,12 @@ def main():
     t0 = time.perf_counter()
     train_recs, train_launches = train_phases(record, seeded, parent)
     log("training phases: %.1f s" % (time.perf_counter() - t0))
+
+    # -- 6b. the compiled training step against the eager one -----------------
+    t0 = time.perf_counter()
+    train_graph_results = train_graphs_phase(card)
+    log("train graphs phase: %.1f s; %s" % (time.perf_counter() - t0,
+                                            json.dumps(train_graph_results)))
 
     # -- 7. the entry point: train_network_all at full width -------------------
     t0 = time.perf_counter()

@@ -10,7 +10,10 @@
 // JAX kernels' counter hash (murmur3 fmix over (seed, tile, site, row,
 // column)) on the JAX lattice — sequence s, position j is row (s % 8) *
 // round_up(L, 8) + j of tile s / 8 — so forward and backward, and the
-// port's plain versions, see the same masks bit for bit.
+// port's plain versions, see the same masks bit for bit. The seed is a (1,)
+// int32 on the card (TrainArgs::seed, the JAX kernels' seed_ref operand),
+// read by each thread that draws a mask: a captured launch reads the value
+// the stream left there, so a replayed step draws fresh masks.
 //
 // What bounds them on the H100: the products. Per sequence of L = 30 rows
 // at H = 512, FFN 2048, the forward does ~0.25 GFLOP of matmuls against ~8
@@ -678,6 +681,7 @@ int fwd_to_q2(const TrainArgs& a, float* res, cudaStream_t st) {
 // holds the residual stream, r1 then r2.
 NAVC_EXPORT int navc_train_fwd(const TrainArgs* args, float* res, void* stream) {
   const TrainArgs& a = *args;
+  if (!a.seed) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   row_prep_kernel<<<dim3(a.n, (a.H + 127) / 128), 128, 0, st>>>(a, PREP_FWD);
   int e = (int)cudaGetLastError();
@@ -708,6 +712,7 @@ NAVC_EXPORT int navc_fused_layer_unfolded(const TrainArgs* args, float* res, voi
 // dr2 = dt + da Wi (K = FFN).
 NAVC_EXPORT int navc_train_ffn_bwd(const TrainArgs* args, void* stream) {
   const TrainArgs& a = *args;
+  if (!a.seed) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   row_prep_kernel<<<dim3(a.n, (a.H + 127) / 128), 128, 0, st>>>(a, PREP_FFN);
   int e = (int)cudaGetLastError();
@@ -726,6 +731,7 @@ NAVC_EXPORT int navc_train_ffn_bwd(const TrainArgs* args, void* stream) {
 // dx. dc (N * Lp, H) bf16 holds dC2, then dC1.
 NAVC_EXPORT int navc_train_attn_bwd(const TrainArgs* args, bf16* dc, void* stream) {
   const TrainArgs& a = *args;
+  if (!a.seed) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int H = a.H;
   const bf16* const* w = a.w;

@@ -185,6 +185,7 @@ struct TrainArgs {
   const float* x;           // (N, L, H) post-embedding rows
   const float* enc;         // (N, Le, H) encoder output
   const unsigned char* kp;  // (N, L) 1 at PAD
+  const int* seed;          // (1,) the dropout stream's seed, read on the card
   const bf16* w[8];         // wq_s wk_s wv_s wo_s wq_c wk_c wv_c wo_c: (H, H)
   const float* b[8];
   const bf16* wi;           // (I, H)
@@ -201,7 +202,7 @@ struct TrainArgs {
   float* part[10];          // per-sequence bias column sums (N, H or I), P_*
   bf16* scr[6];             // K11 / K12b scratch: Q/K/V of both attentions, S_*
   int out_bf16, n, L, Le, H, I, n_head, causal, Lp, Lep, on_hidden, on_input;
-  unsigned seed, th_hidden, th_input;
+  unsigned th_hidden, th_input;
   float keep_hidden, keep_input, scale;
 };
 
@@ -237,7 +238,7 @@ struct Drop {
 
 __device__ Drop make_drop(const TrainArgs& a, int n) {
   Drop d;
-  d.seed = a.seed;
+  d.seed = (unsigned)__ldg(a.seed);
   d.tile = (unsigned)(n / 8);
   d.rbase = (unsigned)((n % 8) * ((a.L + 7) / 8 * 8));
   d.th_h = a.th_hidden;

@@ -4,9 +4,9 @@ Port of navc_tpu/data/loader.py (reference misc/run.py:89-96): items are
 collated into fixed-shape NumPy batches, the final partial batch padded and
 flagged by ``valid_mask``, and an optional background thread keeps a
 prefetch queue full so the step never waits on feature reads. The
-host-to-device copy is the train step's (pinned, non-blocking:
-``runtime.train_step.to_device``); navc_tpu's multi-host sharding is not
-ported.
+host-to-device copy is the train step's (through page-locked slots,
+non-blocking: ``runtime.graphs.PinnedSlots``); navc_tpu's multi-host
+sharding is not ported.
 """
 
 from __future__ import annotations

@@ -400,11 +400,13 @@ def fused_layer_unfolded(x, enc, kp, w: LayerWeights, n_head: int,
     w: ``layer_weights``. On CUDA x and enc must be float32 (navc_tpu's
     kernel reads x as float32). Returns (N, L, H) in ``out_dtype``. On the
     card, K11's launch sequence (``fwd_call``) at p = p_input = 0, its
-    residual stream, r2 and operand rows scratch of the call."""
+    residual stream, r2 and operand rows scratch of the call, and a zero
+    seed on the card (the kernels read it; no mask is drawn at p = 0)."""
     if x.device.type == "cpu":
         return fused_layer_unfolded_plain(x, enc, kp, w, n_head, causal, out_dtype)
     out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
-    fwd_call("navc_fused_layer_unfolded", x, enc, kp, _train_dict(w), 0, n_head, causal,
+    fwd_call("navc_fused_layer_unfolded", x, enc, kp, _train_dict(w),
+             torch.zeros(1, dtype=torch.int32, device=x.device), n_head, causal,
              0.0, 0.0, out)
     if x.shape[0]:
         _build.LAUNCHES["fused_layer_unfolded"] += 1

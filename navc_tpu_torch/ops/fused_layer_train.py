@@ -36,6 +36,13 @@ kernel's: sequence ``s``, position ``j``, column ``c`` sit at lattice row
 ``(s % 8) * round_up(L, 8) + j`` of tile ``s // 8`` (the JAX wrapper's tile
 of 8 sequences), whatever the CUDA block shape. Matrices are in
 ``nn.Linear``'s (out, in) layout throughout.
+
+The seed is an int or, as navc_tpu's kernels take it, a (1,) int32 tensor.
+On the card the kernels read it where it lies (``device_seed``): the
+wrappers pass its address and never read its value on the host, so a step
+captured as a CUDA graph draws the masks of whatever seed the stream wrote
+there before the replay. The plain versions read it on the host
+(``seed_value``).
 """
 
 from __future__ import annotations
@@ -79,11 +86,32 @@ def _round_up(x: int, m: int) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _hash(seed: int, tile, site: int, r, c) -> torch.Tensor:
+def seed_value(seed) -> int:
+    """The seed as a host int: an int, or the element of a one-element
+    tensor (a read that waits for the card when it lies there)."""
+    return int(seed.reshape(-1)[0]) if torch.is_tensor(seed) else int(seed)
+
+
+def device_seed(seed, device) -> torch.Tensor:
+    """The seed as the kernels read it: a (1,) int32 tensor on ``device``.
+    A tensor must already be one (it is passed on as it is, unread); an int
+    becomes one by a fill on the card, no copy from the host."""
+    if torch.is_tensor(seed):
+        if seed.dtype != torch.int32 or seed.numel() != 1 or seed.device != device:
+            raise ValueError("a tensor seed must be a (1,) int32 on %s, got %s %s on %s"
+                             % (device, seed.dtype, tuple(seed.shape), seed.device))
+        return seed
+    s = int(seed) & _M32
+    return torch.full((1,), s - (1 << 32) if s >> 31 else s, dtype=torch.int32,
+                      device=device)
+
+
+def _hash(seed, tile, site: int, r, c) -> torch.Tensor:
     """murmur3 fmix of ``r * MC1 + c * MC2 + key`` in uint32 arithmetic,
     held in int64: every product stays below 2^63 and is cut to 32 bits, and
-    ``>>`` of a value in [0, 2^32) is the logical shift."""
-    key = (int(seed) + (tile * 11 + site) * _MC3) & _M32
+    ``>>`` of a value in [0, 2^32) is the logical shift. ``seed`` an int or
+    a one-element tensor, read on the host."""
+    key = (seed_value(seed) + (tile * 11 + site) * _MC3) & _M32
     x = (r * _MC1 + c * _MC2 + key) & _M32
     x = x ^ (x >> 16)
     x = (x * _MM1) & _M32
@@ -93,7 +121,7 @@ def _hash(seed: int, tile, site: int, r, c) -> torch.Tensor:
     return x & 0x00FFFFFF
 
 
-def hash24(seed: int, tile: int, site: int, rows: int, cols: int,
+def hash24(seed, tile: int, site: int, rows: int, cols: int,
            device=None) -> torch.Tensor:
     """Uniform 24-bit integers (int64) on a (rows, cols) lattice, as
     navc_tpu's ``_hash24``."""
@@ -102,7 +130,7 @@ def hash24(seed: int, tile: int, site: int, rows: int, cols: int,
     return _hash(seed, tile, site, r, c)
 
 
-def lattice_bits(seed: int, site: int, n: int, l: int, h: int,
+def lattice_bits(seed, site: int, n: int, l: int, h: int,
                  device=None) -> torch.Tensor:
     """(N, L, H) hash bits of one dropout site for N sequences of L rows."""
     s = torch.arange(n, dtype=torch.int64, device=device)[:, None, None]
@@ -111,7 +139,7 @@ def lattice_bits(seed: int, site: int, n: int, l: int, h: int,
     return _hash(seed, s // TB, site, (s % TB) * _round_up(l, 8) + j, c)
 
 
-def dropmul(v: torch.Tensor, seed: int, site: int, p: float) -> torch.Tensor:
+def dropmul(v: torch.Tensor, seed, site: int, p: float) -> torch.Tensor:
     """Dropout(p) of float32 (N, L, H) ``v`` with the lattice mask: keep
     where bits >= round(p * 2^24), scaled by 1 / (1 - p)."""
     if p <= 0.0:
@@ -357,7 +385,7 @@ MAX_PRODUCTS = 8
 class TrainArgs(ctypes.Structure):
     """Mirror of ``struct TrainArgs`` in csrc/layer_common.cuh."""
     _fields_ = ([("x", ctypes.c_void_p), ("enc", ctypes.c_void_p),
-                 ("kp", ctypes.c_void_p),
+                 ("kp", ctypes.c_void_p), ("seed", ctypes.c_void_p),
                  ("w", ctypes.c_void_p * 8), ("b", ctypes.c_void_p * 8)]
                 + [(f, ctypes.c_void_p) for f in (
                     "wi", "bi", "wo2", "bo2", "out", "r2", "dy", "dr2", "dx",
@@ -367,7 +395,7 @@ class TrainArgs(ctypes.Structure):
                 + [(f, ctypes.c_int) for f in (
                     "out_bf16", "n", "L", "Le", "H", "I", "n_head", "causal",
                     "Lp", "Lep", "on_hidden", "on_input")]
-                + [("seed", ctypes.c_uint), ("th_hidden", ctypes.c_uint),
+                + [("th_hidden", ctypes.c_uint),
                    ("th_input", ctypes.c_uint), ("keep_hidden", ctypes.c_float),
                    ("keep_input", ctypes.c_float), ("scale", ctypes.c_float)])
 
@@ -480,19 +508,21 @@ def check_aligned(what, *tensors):
 
 
 def kernel_args(x, enc, kp, w, seed, n_head, causal, p, p_input, **ptrs):
+    """The TrainArgs of a launch; ``seed`` the ``device_seed`` tensor, which
+    the caller keeps alive until the launch is queued."""
     n, l, h = x.shape
     le = enc.shape[1]
     on, th, keep = _threshold(p)
     on_in, th_in, keep_in = _threshold(p_input)
     a = TrainArgs(
-        x=_p(x), enc=_p(enc), kp=_p(kp),
+        x=_p(x), enc=_p(enc), kp=_p(kp), seed=_p(seed),
         w=(ctypes.c_void_p * 8)(*[_p(w[k]) for k in MATS]),
         b=(ctypes.c_void_p * 8)(*[_p(w[k]) for k in BIASES]),
         wi=_p(w["wi"]), bi=_p(w["bi"]), wo2=_p(w["wo2"]), bo2=_p(w["bo2"]),
         n=n, L=l, Le=le, H=h, I=w["wi"].shape[0], n_head=n_head,
         causal=int(causal), Lp=_round_up(l, ROW_TILE), Lep=_round_up(le, ROW_TILE),
         on_hidden=on, on_input=on_in,
-        seed=int(seed) & _M32, th_hidden=th, th_input=th_in, keep_hidden=keep,
+        th_hidden=th, th_input=th_in, keep_hidden=keep,
         keep_input=keep_in, scale=1.0 / math.sqrt(h // n_head))
     for name, val in ptrs.items():
         if name in ("ws", "part", "scr"):
@@ -532,6 +562,7 @@ def fwd_call(entry, x, enc, kp, w, seed, n_head, causal, p, p_input, out,
     if out.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError("out_dtype must be bfloat16 or float32")
     check_aligned("the layer's matrices", *[w[k] for k in MATS + ("wi", "wo2")])
+    seed = device_seed(seed, x.device)
     n, l, h = x.shape
     # in fwd_scratch's order; the tenants of rows and enc_rows by address
     rows, enc_rows, gel, res, r2 = (
@@ -555,7 +586,8 @@ def train_fwd(x, enc, kp, w, seed, *, n_head, causal=False, p=0.5, p_input=0.0,
               compute_dtype=torch.bfloat16, out_dtype=torch.float32):
     """K11: the layer forward. x (N, L, H) float32 post-embedding states; enc
     (N, Le, H) float32; kp (N, L) bool, True at PAD; w ``kernel_weights``;
-    seed an int. Returns (out (N, L, H) in ``out_dtype``, r2 (N, Lp, H) in the
+    seed an int or a (1,) int32 tensor on x's device. Returns (out (N, L, H)
+    in ``out_dtype``, r2 (N, Lp, H) in the
     compute dtype, Lp = round_up(L, 16), zero rows after L)."""
     if x.device.type == "cpu":
         return train_fwd_plain(x, enc, kp, w, seed, n_head=n_head, causal=causal,
@@ -582,6 +614,7 @@ def ffn_bwd_operands(r2, dy, kp, w, seed, *, p=0.5, compute_dtype=torch.bfloat16
             or not r2.is_contiguous():
         raise ValueError("r2 must be train_fwd's contiguous bf16 (N, Lp, H)")
     check_aligned("r2, wi and wo2", r2, w["wi"], w["wo2"])
+    seed = device_seed(seed, dy.device)
     inter = w["wi"].shape[0]
     dev = dy.device
     dr2 = torch.empty((n, l, h), dtype=torch.float32, device=dev)
@@ -619,6 +652,7 @@ def attn_bwd_operands(x, enc, dr2, kp, w, seed, *, n_head, causal=False, p=0.5,
     if dr2.dtype != torch.float32 or dr2.shape != x.shape or not dr2.is_contiguous():
         raise ValueError("dr2 must be contiguous float32 (N, L, H)")
     check_aligned("the attention weights", *[w[k] for k in MATS])
+    seed = device_seed(seed, x.device)
     n, l, h = x.shape
     le = enc.shape[1]
     lp, lep = _round_up(l, ROW_TILE), _round_up(le, ROW_TILE)
@@ -779,12 +813,12 @@ def fused_bert_layer_train(x, enc, kp_mask, weights: Dict[str, torch.Tensor],
 
     x: (N, L, H) post-embedding states; enc: (N, Le, H) encoder output;
     kp_mask: (N, L) bool, True at PAD; weights: WEIGHT_KEYS -> tensors in
-    nn.Linear's layout (``layer_train_weights``); seed: an int (or a
-    one-element CPU tensor), the dropout stream's seed, which the caller
-    varies per step and pass. ``causal=True`` gives the ARFormer variant.
-    Returns (N, L, H) in ``out_dtype``; gradients flow to x, enc and every
-    weight."""
-    seed = int(seed.reshape(-1)[0]) if torch.is_tensor(seed) else int(seed)
+    nn.Linear's layout (``layer_train_weights``); seed: the dropout
+    stream's seed, which the caller varies per step and pass: an int or a
+    (1,) int32 tensor (on the card, on x's device: the kernels read it
+    there, forward and backward, and the host never does). ``causal=True``
+    gives the ARFormer variant. Returns (N, L, H) in ``out_dtype``;
+    gradients flow to x, enc and every weight."""
     opts = _Opts(int(n_head), bool(causal), float(p_hidden), float(p_input),
                  compute_dtype, out_dtype)
     kp = kp_mask if kp_mask.dtype == torch.bool else kp_mask > 0.5

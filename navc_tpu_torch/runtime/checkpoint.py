@@ -11,7 +11,10 @@ defined it. The port writes the same format (``save_checkpoint``): its
 model's weights go through ``convert.export_flax_variables``, so navc_tpu's
 ``load_model_and_config`` reads a port checkpoint; ``opt_state`` holds the
 torch optimizer's ``state_dict`` as numpy arrays and builtins, for resume
-within the port. The orbax format is not ported.
+within the port: a card optimizer's step counts and tensor lr are written
+as numpy and read back as CPU tensors, which its ``load_state_dict`` puts
+back on the card (``optim.make_optimizer``). The orbax format is not
+ported.
 
 Unpickling runs code named by the file, so load only checkpoints that this
 project's trainer wrote.

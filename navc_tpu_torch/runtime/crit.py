@@ -19,7 +19,8 @@ zero at PAD labels and dropped rows). The kernel's argmax may differ from
 the logits' on bf16 near-ties (word accuracy only). A
 ``valid_mask`` (B,) drops padded rows of a final partial batch and divides
 by the valid-row count. Every value stays a tensor on its device: nothing
-here waits for the card.
+here waits for the card or copies from the host, so the step that calls it
+can be captured as a CUDA graph.
 """
 
 from __future__ import annotations
@@ -88,7 +89,8 @@ def compute_losses(cfg: Config, results: Dict,
     if valid_mask is not None:
         batch_denom = valid_mask.sum().clamp(min=1.0)
     else:
-        batch_denom = torch.tensor(float(first.shape[0]), device=dev)
+        batch_denom = torch.full((), float(first.shape[0]), dtype=torch.float32,
+                                 device=dev)  # a fill on the card, no host copy
 
     lang_loss = torch.zeros((), dtype=torch.float32, device=dev)
     for i, (w, lp, lab) in enumerate(zip(weights, logprob_sets, label_sets)):

@@ -32,6 +32,25 @@ queue them; a capture's counts are kept with its graph and added by each
 replay, so a call counts the launches of one decode whether it warmed up
 and captured or replayed.
 
+A training step (``runtime/train_step.py``, navc_tpu's jitted
+``make_train_step``) is a function that updates state in place: the
+parameters, their ``.grad``, the optimizer's state and lr, the BatchNorm
+running statistics. The graph reads and writes them by address, so they
+must keep their addresses for the graph's life (``zero_grad(set_to_none=
+False)``; an optimizer's ``load_state_dict`` replaces its state, and the
+step drops its graphs then), and only the returned metrics are cloned. The
+rule that keeps a step from being applied twice: the first call of a
+signature is one real step, the warm-up, and the capture after it only
+records (nothing runs while a stream captures); every later call is one
+replay. Random draws from a generator other than the default one need it
+registered with the capture (``generators``): a replay then draws from the
+generator's seed and offset at that moment, so reseeding it before each call
+gives each replay the masks an eager step seeded alike draws. With
+``static_inputs`` the caller's tensors are the graph's inputs themselves
+(the train step stages each batch straight into them from page-locked
+memory, ``PinnedSlots``): nothing is copied, and every call must pass the
+tensors the capture read.
+
 On CPU tensors the function runs as it is, as ``jax.jit`` on the CPU gives
 the same numbers. A capture or a replay that fails raises: nothing retries
 eagerly.
@@ -42,8 +61,9 @@ from __future__ import annotations
 import contextlib
 import gc
 import time
-from typing import Any, Callable, Dict, Hashable, List, Tuple
+from typing import Any, Callable, Dict, Hashable, List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..ops import _build
@@ -127,10 +147,15 @@ def warm_up(fn: Callable[[], Any]):
 class Graph:
     """One captured call of ``fn()`` from ``pool``: its graph, its outputs
     (in the pool), the launches a replay makes ({wrapper: count}), the
-    seconds the capture took and the bytes it added to the pool."""
+    seconds the capture took and the bytes it added to the pool.
+    ``generators``: the device generators other than the default one that
+    ``fn`` draws from, registered with the capture."""
 
-    def __init__(self, fn: Callable[[], Any], pool):
+    def __init__(self, fn: Callable[[], Any], pool,
+                 generators: Sequence[torch.Generator] = ()):
         self.graph = torch.cuda.CUDAGraph()
+        for gen in generators:
+            self.graph.register_generator_state(gen)
         with collector_off():
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
@@ -153,36 +178,48 @@ class Graph:
 
 
 class Captured:
-    """``fn`` captured for one signature: the static input buffers and the
-    graph that reads them; ``first``, the warm-up's outputs, is the first
-    call's result."""
+    """``fn`` captured for one signature: the static input buffers (the
+    call's own tensors with ``static_inputs``) and the graph that reads
+    them; ``first``, the warm-up's outputs, is the first call's result."""
 
-    def __init__(self, fn: Callable, spec, leaves: List[Any]):
-        self.static = [x.clone() if isinstance(x, torch.Tensor) else x for x in leaves]
+    def __init__(self, fn: Callable, spec, leaves: List[Any],
+                 generators: Sequence[torch.Generator] = (), static_inputs: bool = False):
+        self.static_inputs = static_inputs
+        self.static = [x.clone() if isinstance(x, torch.Tensor) and not static_inputs
+                       else x for x in leaves]
 
         def call():
             args, kwargs = _unflatten(spec, iter(self.static))
             return fn(*args, **kwargs)
 
         self.first = warm_up(call)
-        self.graph = Graph(call, torch.cuda.graph_pool_handle())
+        self.graph = Graph(call, torch.cuda.graph_pool_handle(), generators)
 
     def __call__(self, leaves: List[Any]):
         for buf, x in zip(self.static, leaves):
-            if isinstance(buf, torch.Tensor):
+            if not isinstance(buf, torch.Tensor):
+                continue
+            if not self.static_inputs:
                 buf.copy_(x)
+            elif x is not buf:
+                raise ValueError("static inputs: a call must pass the tensors the "
+                                 "capture read")
         return clone_tensors(self.graph.replay())
 
 
 class Jitted:
     """``fn`` captured and replayed per signature on the card, run as it is
     on the CPU. ``graphs`` maps each signature to its ``Captured`` (capture
-    seconds and pool bytes in ``.graph``)."""
+    seconds and pool bytes in ``.graph``); clearing it drops them.
+    ``generators`` and ``static_inputs``: see the module docstring."""
 
     graphed = True  # calls on the card replay graphs
 
-    def __init__(self, fn: Callable):
+    def __init__(self, fn: Callable, generators: Sequence[torch.Generator] = (),
+                 static_inputs: bool = False):
         self.fn = fn
+        self.generators = tuple(generators)
+        self.static_inputs = static_inputs
         self.graphs: Dict[Hashable, Captured] = {}
 
     def __call__(self, *args, **kwargs):
@@ -191,8 +228,46 @@ class Jitted:
             return self.fn(*args, **kwargs)
         entry = self.graphs.get(key)
         if entry is None:
-            entry = Captured(self.fn, key[0], leaves)
+            entry = Captured(self.fn, key[0], leaves, self.generators, self.static_inputs)
             self.graphs[key] = entry
             first, entry.first = entry.first, None
             return first
         return entry(leaves)
+
+
+class PinnedSlots:
+    """Page-locked host buffers for the calls in flight, one set per slot:
+    call i's arrays go through slot i % n, whose copy to the card is
+    asynchronous; the host waits for the slot's previous copy (its event)
+    before it overwrites the buffers."""
+
+    def __init__(self, n: int):
+        self.slots: list = [None] * n
+        self.next = 0
+
+    def to_device(self, arrays: List[np.ndarray], device,
+                  out: Sequence[torch.Tensor] = ()) -> List[torch.Tensor]:
+        """The arrays on ``device``: copied into ``out`` (tensors of their
+        shapes and dtypes there, e.g. a graph's static inputs) when given,
+        else into new tensors."""
+        i = self.next
+        self.next = (i + 1) % len(self.slots)
+        slot = self.slots[i]
+        if slot is not None:
+            slot[1].synchronize()
+        if slot is None or [(b.shape, b.numpy().dtype) for b in slot[0]] != [
+                (a.shape, a.dtype) for a in arrays]:
+            bufs = [torch.empty(a.shape, dtype=torch.from_numpy(np.empty(0, a.dtype)).dtype,
+                                pin_memory=True) for a in arrays]
+        else:
+            bufs = slot[0]
+        for buf, a in zip(bufs, arrays):  # torch's copy runs on the intra-op threads
+            buf.copy_(torch.from_numpy(a))
+        if out:
+            res = [o.copy_(buf, non_blocking=True) for o, buf in zip(out, bufs)]
+        else:
+            res = [buf.to(device, non_blocking=True) for buf in bufs]
+        event = torch.cuda.Event()
+        event.record()
+        self.slots[i] = (bufs, event)
+        return res

@@ -1,9 +1,10 @@
 """Training orchestration (port of navc_tpu/runtime/loop.py, reference
 misc/run.py train_network_all :272-359 and run_train :249-269).
 
-``run_train_epoch``: the lr is set per step from the schedule; the metrics
-of every step stay on the device until the epoch ends and are read in one
-copy, so the host queues step n + 1 while the card runs step n.
+``run_train_epoch``: the lr is set per step from the schedule (on the card
+a fill of the optimizer's lr tensor, which the captured step reads); the
+metrics of every step stay on the device until the epoch ends and are read
+in one copy, so the host queues step n + 1 while the card runs step n.
 
 ``train_network_all``: pretrained and teacher warm starts, the rescoring
 teacher, per-epoch shuffle -> train -> lr decay -> validation decode and
@@ -13,6 +14,9 @@ the best checkpoint; ``resume`` continues from the rolling
 cfg.seed)``, dropout from a generator seeded with ``cfg.seed + 1``. The
 rolling checkpoint also keeps the train data's numpy RNG and the dropout
 generator's state, so a resumed run continues the straight run's streams.
+The step is the compiled one (``make_train_step(..., jit=True)``: a CUDA
+graph per batch signature on the card); every weight and optimizer state is
+loaded (warm starts, ``resume``) before its first call, which captures it.
 """
 
 from __future__ import annotations
@@ -126,7 +130,6 @@ def train_network_all(cfg: Config, workdir: Optional[str] = None,
         teacher_model, teacher_cfg, _ = load_model_and_config(cfg.teacher_path, device=dev)
 
     state = create_train_state(cfg, model)
-    train_step = make_train_step(cfg, model, state.optimizer)
     lr_schedule = LrSchedule.from_config(cfg)
 
     loader_kw = dict(info_corpus=info_corpus, in_memory_feats=in_memory_feats)
@@ -161,6 +164,8 @@ def train_network_all(cfg: Config, workdir: Optional[str] = None,
                 print("resumed from %s at epoch %d (lr=%g)"
                       % (resume_path, start_epoch, lr_schedule.learning_rate))
 
+    # after every load: its first call captures the step
+    train_step = make_train_step(cfg, model, state.optimizer)
     logger = CsvLogger(filepath=workdir, filename="trainning_record.csv",
                        fieldsnames=["epoch", "train_loss"] + METRIC_FIELDS)
     best_model = KBestQueue(k_best_model=cfg.k_best_model,

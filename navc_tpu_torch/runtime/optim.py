@@ -15,6 +15,18 @@ parameter a zero gradient first.
 ``LrSchedule`` mirrors ScheduledOptim's bookkeeping on the host: linear
 warmup per step, decay per epoch; ``set_learning_rate`` writes the lr into
 the optimizer's parameter groups.
+
+The lr is a float32 0-d tensor on the parameters' device, one per
+parameter group for the optimizer's life: ``set_learning_rate`` fills it in
+place, so a training step captured as a CUDA graph (``train_step``) reads
+each step's lr where it lies. On the card the optimizer is also
+``capturable`` (its step counts are tensors on the card, and its update
+never reads a value back to the host); on the CPU it is not. Either way
+torch takes the step size in float32 from the lr tensor (from a float lr
+it would take it in double). ``load_state_dict`` keeps the lr tensor (its
+value becomes the loaded lr, a tensor's or a float's) and the step counts
+where this optimizer needs them. The eager step on the card takes the same
+optimizer, so both routes do the same arithmetic.
 """
 
 from __future__ import annotations
@@ -27,17 +39,45 @@ import torch
 from ..config import Config
 
 
-def make_optimizer(cfg: Config, params: Iterable[torch.nn.Parameter]
-                   ) -> torch.optim.Optimizer:
+def make_optimizer(cfg: Config, params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
+    """Adam or RMSprop over ``params``, its lr a float32 0-d tensor on their
+    device; ``capturable`` on the card."""
     params = list(params)
+    dev = params[0].device
+    capturable = dev.type == "cuda"
+    lr = torch.full((), cfg.learning_rate, dtype=torch.float32, device=dev)
     name = cfg.optim.lower()
     if name == "adam":
-        return torch.optim.Adam(params, lr=cfg.learning_rate, betas=(0.9, 0.999),
-                                eps=1e-8, weight_decay=cfg.weight_decay)
-    if name == "rmsprop":
-        return torch.optim.RMSprop(params, lr=cfg.learning_rate, alpha=0.99,
-                                   eps=1e-8, weight_decay=cfg.weight_decay)
-    raise ValueError("optim must be adam or rmsprop, got %r" % cfg.optim)
+        opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                               weight_decay=cfg.weight_decay, capturable=capturable)
+    elif name == "rmsprop":
+        opt = torch.optim.RMSprop(params, lr=lr, alpha=0.99, eps=1e-8,
+                                  weight_decay=cfg.weight_decay, capturable=capturable)
+    else:
+        raise ValueError("optim must be adam or rmsprop, got %r" % cfg.optim)
+    lrs = [group["lr"] for group in opt.param_groups]
+    opt.register_load_state_dict_post_hook(lambda o: _keep_state_policy(o, lrs, capturable))
+    return opt
+
+
+def _keep_state_policy(opt: torch.optim.Optimizer, lrs, capturable: bool) -> None:
+    """After ``load_state_dict``, whatever optimizer saved the state (on the
+    card or not, its lr a tensor or a float): each group's lr tensor is put
+    back in place, filled with the loaded value; the groups keep this
+    optimizer's ``capturable``, and every step count lies where it then must
+    (a float32 on its parameter's device when capturable, else on the
+    CPU)."""
+    for group, lr in zip(opt.param_groups, lrs):
+        loaded = group["lr"]
+        if loaded is not lr:
+            lr.fill_(float(loaded))
+            group["lr"] = lr
+        group["capturable"] = capturable
+        for p in group["params"]:
+            st = opt.state.get(p)
+            if st and torch.is_tensor(st.get("step")):
+                st["step"] = st["step"].to(device=p.device if capturable else "cpu",
+                                           dtype=torch.float32)
 
 
 def step(cfg: Config, opt: torch.optim.Optimizer) -> None:
@@ -84,5 +124,7 @@ class LrSchedule:
 
 
 def set_learning_rate(opt: torch.optim.Optimizer, lr: float) -> None:
+    """``lr`` into every parameter group's lr tensor, filled in place (a
+    fill queued on the card, no copy from the host), never rebound."""
     for group in opt.param_groups:
-        group["lr"] = lr
+        group["lr"].fill_(lr)

@@ -44,37 +44,6 @@ def make_encode_fn(cfg: Config, model, jit: bool = True):
     return graphs.Jitted(encode) if jit else encode
 
 
-class _PinnedSlots:
-    """Page-locked host buffers for the requests in flight, one set per
-    pipeline slot: request i's arrays go through slot i % n, whose copy to
-    the card is asynchronous; the host waits for the slot's previous copy
-    (its event) before it overwrites the buffers."""
-
-    def __init__(self, n: int):
-        self.slots: list = [None] * n
-        self.next = 0
-
-    def to_device(self, arrays: List[np.ndarray], device) -> List[torch.Tensor]:
-        i = self.next
-        self.next = (i + 1) % len(self.slots)
-        slot = self.slots[i]
-        if slot is not None:
-            slot[1].synchronize()
-        if slot is None or [(b.shape, b.numpy().dtype) for b in slot[0]] != [
-                (a.shape, a.dtype) for a in arrays]:
-            bufs = [torch.empty(a.shape, dtype=torch.from_numpy(np.empty(0, a.dtype)).dtype,
-                                pin_memory=True) for a in arrays]
-        else:
-            bufs = slot[0]
-        for buf, a in zip(bufs, arrays):
-            np.copyto(buf.numpy(), a)
-        out = [buf.to(device, non_blocking=True) for buf in bufs]
-        event = torch.cuda.Event()
-        event.record()
-        self.slots[i] = (bufs, event)
-        return out
-
-
 class StreamingCaptioner:
     """Bounded-depth pipelined captioning over a stream of requests.
 
@@ -112,7 +81,7 @@ class StreamingCaptioner:
         self.generate = (make_ar_generator(cfg, model, jit) if self.ar else
                          make_nar_generator(
                              cfg, model, None if teacher is None else teacher[1], jit))
-        self._staging = (_PinnedSlots(self.depth + 1)
+        self._staging = (graphs.PinnedSlots(self.depth + 1)
                          if self.device.type == "cuda" else None)
         self._inflight = collections.deque()  # (ticket, device hyp)
         self._next_ticket = 0

@@ -4,13 +4,27 @@ Port of navc_tpu/runtime/train_step.py: forward, losses, backward, value
 clip, optimizer update and the BatchNorm running-statistic update, per
 batch. ``make_train_step`` returns ``step(batch, generator) -> metrics``:
 
-  * the batch (numpy arrays or tensors) goes to the model's device, through
-    pinned memory on the card;
-  * ``generator`` is a CPU ``torch.Generator``; each step draws from it a
-    seed for the device generator of the dropout masks and one seed per
-    decoder pass for the fused layer's hash dropout. navc_tpu draws these
-    from threefry, so dropout-on steps of the two packages agree in
+  * the batch (numpy arrays or tensors) goes to the model's device: numpy
+    arrays through page-locked slots on the card, tensors by a copy from
+    where they lie;
+  * ``generator`` is a CPU ``torch.Generator``; each step draws from it
+    ``n_pass + 1`` seeds: the first reseeds the step's one device generator
+    (the encoder and embedding dropout), the others are the fused layer's
+    hash-dropout seeds, one per decoder pass, which go to the device as a
+    (n_pass + 1,) int32 tensor that the kernels read there. navc_tpu draws
+    these from threefry, so dropout-on steps of the two packages agree in
     distribution only;
+  * ``jit`` (default True, navc_tpu's ``jax.jit``): on the card the step's
+    device part, a function of the batch's tensors and the seed tensor
+    (forward, losses, backward, clip, optimizer update), is one CUDA graph
+    per batch signature (``runtime/graphs.py``). The first call of a
+    signature is a real step and then the capture; later calls stage the
+    batch and the seeds straight into the graph's inputs, reseed the
+    registered device generator and replay. The optimizer's lr is a tensor
+    on the card that ``set_learning_rate`` fills (``runtime/optim.py``); an
+    optimizer ``load_state_dict`` drops the graphs (the next call captures
+    anew). On the CPU, and with ``jit=False``, the same function runs
+    eagerly;
   * with ``fused_train_eligible`` the decoder layer runs as the fused
     training layer (ops/fused_layer_train: K11 forward, K12a/K12b + the
     weight-gradient reduction backward) on the live parameters of
@@ -30,6 +44,7 @@ needs, and the module route keeps its activations.
 
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass
 from typing import Any, Dict, List
 
@@ -42,7 +57,7 @@ from ..models.seq2seq import Seq2Seq, compute_dtype
 from ..ops.eligibility import fused_train_eligible, fused_vocab_ce_eligible
 from ..ops.fused_layer_train import fused_bert_layer_train, layer_train_weights
 from ..ops.vocab_ce import vocab_ce_train
-from . import optim
+from . import graphs, optim
 from .crit import compute_losses
 
 
@@ -63,22 +78,8 @@ def _device(model: Seq2Seq) -> torch.device:
     return next(model.parameters()).device
 
 
-def to_device(batch: Dict[str, Any], dev: torch.device) -> Dict[str, torch.Tensor]:
-    """The batch's arrays as tensors on ``dev`` (pinned, non-blocking copies
-    to the card)."""
-    out = {}
-    for k, v in batch.items():
-        if isinstance(v, np.ndarray):
-            v = torch.from_numpy(v)
-            if dev.type == "cuda":
-                v = v.pin_memory()
-        if torch.is_tensor(v):
-            out[k] = v.to(dev, non_blocking=True)
-    return out
-
-
 def _fused_train_apply(cfg: Config, model: Seq2Seq, feats, token_sets, label_sets,
-                       category, generator, seeds: List[int]) -> Dict:
+                       category, generator, seeds: List[torch.Tensor]) -> Dict:
     """The train forward with the decoder layer as the fused training layer
     and, where eligible, the projection fused with the loss (navc_tpu
     ``_fused_train_apply``)."""
@@ -135,37 +136,120 @@ def _forward_results(cfg: Config, model: Seq2Seq, batch: Dict, train: bool,
     return results
 
 
-def make_train_step(cfg: Config, model: Seq2Seq, opt: torch.optim.Optimizer):
-    """``step(batch, generator) -> metrics``: one optimizer step on
-    ``model`` (see the module docstring)."""
-    n_pass = 2 if cfg.visual_word_generation else 1
+def _batch_inputs(batch: Dict[str, Any]) -> Dict[str, Any]:
+    """The batch's numpy arrays and tensors, other entries dropped."""
+    return {k: v for k, v in batch.items() if isinstance(v, np.ndarray) or torch.is_tensor(v)}
 
-    def train_step(batch: Dict, generator: torch.Generator) -> Dict[str, torch.Tensor]:
-        dev = _device(model)
-        batch = to_device(batch, dev)
-        draws = torch.randint(0, 2 ** 31 - 1, (n_pass + 1,), generator=generator)
-        dropout_gen = torch.Generator(device=dev)
-        dropout_gen.manual_seed(int(draws[0]))
+
+def _torch_dtype(v) -> torch.dtype:
+    return v.dtype if torch.is_tensor(v) else torch.from_numpy(np.empty(0, v.dtype)).dtype
+
+
+class _Inputs:
+    """The device part's tensor inputs. On the CPU the arrays themselves
+    (tensors as they are). On the card numpy arrays go through page-locked
+    slots and tensors are copied as they lie (one already on the card with
+    a device copy), into one set of tensors per signature when a graph reads
+    them there (``persistent``), else into new ones."""
+
+    def __init__(self, dev: torch.device, persistent: bool):
+        self.dev = dev
+        self.persistent = persistent
+        self.slots = graphs.PinnedSlots(2) if dev.type == "cuda" else None
+        self.buffers: Dict[Any, Dict[str, torch.Tensor]] = {}
+
+    def __call__(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        if self.slots is None:
+            return {k: v.to(self.dev) if torch.is_tensor(v) else torch.from_numpy(v)
+                    for k, v in batch.items()}
+        out: Dict[str, torch.Tensor] = {}
+        if self.persistent:
+            key = tuple((k, tuple(v.shape), _torch_dtype(v)) for k, v in batch.items())
+            out = self.buffers.get(key)
+            if out is None:
+                out = self.buffers[key] = {
+                    k: torch.empty(tuple(v.shape), dtype=_torch_dtype(v), device=self.dev)
+                    for k, v in batch.items()}
+        arrays = [k for k, v in batch.items() if not torch.is_tensor(v)]
+        staged = dict(zip(arrays, self.slots.to_device(
+            [batch[k] for k in arrays], self.dev, [out[k] for k in arrays] if out else ())))
+        for k, v in batch.items():
+            if torch.is_tensor(v):
+                staged[k] = (out[k].copy_(v, non_blocking=True) if out
+                             else v.to(self.dev, non_blocking=True))
+        return {k: staged[k] for k in batch}
+
+
+def _drop_graphs_on_reload(opt: torch.optim.Optimizer, jitted: graphs.Jitted) -> None:
+    """An optimizer reload replaces its state tensors, which ``jitted``'s
+    graphs read by address: the reload clears them. The hook holds
+    ``jitted`` weakly and is removed when ``jitted`` is freed."""
+    ref = weakref.ref(jitted)
+
+    def hook(_):
+        live = ref()
+        if live is not None:
+            live.graphs.clear()
+
+    weakref.finalize(jitted, opt.register_load_state_dict_post_hook(hook).remove)
+
+
+def make_train_step(cfg: Config, model: Seq2Seq, opt: torch.optim.Optimizer, *,
+                    jit: bool = True):
+    """``step(batch, generator) -> metrics``: one optimizer step on
+    ``model`` (see the module docstring). The step's ``jitted`` is its
+    ``graphs.Jitted`` (None on the eager route)."""
+    n_pass = 2 if cfg.visual_word_generation else 1
+    dev = _device(model)
+    dropout_gen = torch.Generator(device=dev)
+
+    def device_step(batch: Dict[str, torch.Tensor], seeds: torch.Tensor
+                    ) -> Dict[str, torch.Tensor]:
         opt.zero_grad(set_to_none=False)
         results = _forward_results(cfg, model, batch, True, dropout_gen,
-                                   [int(s) for s in draws[1:]])
+                                   [seeds[i:i + 1] for i in range(1, n_pass + 1)])
         loss, metrics = compute_losses(cfg, results, batch.get("valid_mask"))
         loss.backward()
         optim.step(cfg, opt)
         return metrics
 
+    jitted = None
+    if jit and dev.type == "cuda":
+        jitted = graphs.Jitted(device_step, generators=(dropout_gen,), static_inputs=True)
+        _drop_graphs_on_reload(opt, jitted)
+    inputs = _Inputs(dev, jitted is not None)
+
+    def train_step(batch: Dict, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        draws = torch.randint(0, 2 ** 31 - 1, (n_pass + 1,), generator=generator)
+        dropout_gen.manual_seed(int(draws[0]))
+        arrays = _batch_inputs(batch)
+        arrays["_seeds"] = draws.numpy().astype(np.int32)
+        staged = inputs(arrays)
+        seeds = staged.pop("_seeds")
+        return (jitted or device_step)(staged, seeds)
+
+    train_step.jitted = jitted
     return train_step
 
 
-def make_eval_loss_step(cfg: Config, model: Seq2Seq):
+def make_eval_loss_step(cfg: Config, model: Seq2Seq, *, jit: bool = True):
     """``eval_step(batch) -> metrics``: the losses of a deterministic
     forward (running BatchNorm statistics, no dropout), for validation
-    curves."""
+    curves. ``jit``: one CUDA graph per batch signature on the card, as
+    ``make_train_step``'s (``eval_step.jitted``)."""
+    dev = _device(model)
+
+    @torch.no_grad()
+    def device_eval(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        results = _forward_results(cfg, model, batch, False)
+        return compute_losses(cfg, results, batch.get("valid_mask"))[1]
+
+    jitted = (graphs.Jitted(device_eval, static_inputs=True)
+              if jit and dev.type == "cuda" else None)
+    inputs = _Inputs(dev, jitted is not None)
 
     def eval_step(batch: Dict) -> Dict[str, torch.Tensor]:
-        with torch.no_grad():
-            results = _forward_results(cfg, model, to_device(batch, _device(model)),
-                                       False)
-            return compute_losses(cfg, results, batch.get("valid_mask"))[1]
+        return (jitted or device_eval)(inputs(_batch_inputs(batch)))
 
+    eval_step.jitted = jitted
     return eval_step

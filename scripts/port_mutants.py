@@ -1,20 +1,26 @@
 #!/usr/bin/env python3
 """Mutation check of the redesigned kernels (K11, K12a, K12b, K2, K1, K6,
-K7, K1u) and of the decodes' CUDA graphs (runtime/graphs.py, the beam's
-blocks) on a card.
+K7, K1u), of the decodes' CUDA graphs (runtime/graphs.py, the beam's
+blocks) and of the captured training step (runtime/train_step.py, its seed,
+lr and generator) on a card.
 
 Each mutant is one exact edit of a file of navc_tpu_torch, made in a copy of
 the package under a temporary directory (never in the checkout); the
 `cuda` tests of tests/test_torch_port_cuda.py that cover it (the
-training tests, K2's, K1's walk tests, K6's, K7's, K1u's or the graphs')
-then run against the copy, all mutants at once, one process each. A mutant
-that no test fails is reported as surviving and the script exits 1. Run
+training tests, K2's, K1's walk tests, K6's, K7's, K1u's, the graphs' or
+the captured step's) then run against the copy, one process each, at most
+JOBS (4) at once. The kernels are built once in the checkout first and each
+copy starts from that build, so a copy rebuilds only a source its edit
+changed. Beside the mutants, one unedited copy per group of tests (the
+control) runs the same tests under the same load: a control that does not
+pass them all voids the run. A mutant that no test fails is reported as
+surviving. The script exits 1 if a control fails or a mutant survives. Run
 from the repo root on a machine with an NVIDIA card:
 
     python3 scripts/port_mutants.py [TESTS ...]
 
-where TESTS (e.g. ``graphs``) keeps only the mutants whose tests are named
-so.
+where TESTS (e.g. ``graphs``, ``train_graphs``) keeps only the mutants
+whose tests are named so.
 """
 
 import os
@@ -23,6 +29,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MUTANTS = {  # name: (file under navc_tpu_torch, text, its replacement, tests)
@@ -85,49 +92,103 @@ MUTANTS = {  # name: (file under navc_tpu_torch, text, its replacement, tests)
         "runtime/graphs.py", "    gc.collect()\n", "", "graphs"),
     "graphs: the beam's features not copied into its static input": (
         "decoding/beam.py", "self.static[0].copy_(enc_output)", "pass", "graphs"),
+    "train graphs: the fused layer's seed read on the host": (
+        "ops/fused_layer_train.py", "    opts = _Opts(int(n_head),",
+        "    seed = seed_value(seed)\n    opts = _Opts(int(n_head),", "train_graphs"),
+    "train graphs: the lr baked in as a float": (
+        "runtime/optim.py", 'group["lr"].fill_(lr)', 'group["lr"] = lr', "train_graphs"),
+    "train graphs: the device generator not reseeded": (
+        "runtime/train_step.py", "        dropout_gen.manual_seed(int(draws[0]))\n", "",
+        "train_graphs"),
+    "train graphs: a graph kept after optimizer.load_state_dict": (
+        "runtime/train_step.py", "        _drop_graphs_on_reload(opt, jitted)\n", "",
+        "train_graphs"),
+    "train graphs: the dropout generator not registered with the capture": (
+        "runtime/graphs.py", "self.graph.register_generator_state(gen)", "pass",
+        "train_graphs"),
 }
+
+
+CONTROL = "control (no edit)"
+JOBS = 4  # test processes at once: the card and its host cores are shared by them all
+
+
+def copy_tree(work, k, edit=None):
+    """A copy of the package (its kernel build included) and the tests
+    under ``work``, with ``edit`` = (file, text, replacement) made."""
+    root = os.path.join(work, "m%d" % k)
+    shutil.copytree(os.path.join(ROOT, "navc_tpu_torch"), os.path.join(root, "navc_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copytree(os.path.join(ROOT, "tests"), os.path.join(root, "tests"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    if edit:
+        src, old, new = edit
+        path = os.path.join(root, "navc_tpu_torch", src)
+        text = open(path).read()
+        if text.count(old) != 1:
+            sys.exit("mutant: %r is not in %s exactly once" % (old, src))
+        with open(path, "w") as f:
+            f.write(text.replace(old, new))
+    return root
 
 
 def main():
     keep = sys.argv[1:]
+    sys.path.insert(0, ROOT)
+    from navc_tpu_torch.ops import _build
+
+    _build.build()
     work = tempfile.mkdtemp(prefix="port_mutants_")
-    procs = {}
+    chosen = [(name, m) for name, m in MUTANTS.items() if not keep or m[3] in keep]
+    groups = sorted({m[3] for _, m in chosen})
+    queue = [("%s: %s" % (CONTROL, g), None, g) for g in groups] + [
+        (name, (src, old, new), tests) for name, (src, old, new, tests) in chosen]
+    running, tails = {}, {}
     try:
-        for k, (name, (src, old, new, tests)) in enumerate(MUTANTS.items()):
-            if keep and tests not in keep:
-                continue
-            root = os.path.join(work, "m%d" % k)
-            shutil.copytree(os.path.join(ROOT, "navc_tpu_torch"),
-                            os.path.join(root, "navc_tpu_torch"),
-                            ignore=shutil.ignore_patterns("build", "__pycache__"))
-            shutil.copytree(os.path.join(ROOT, "tests"), os.path.join(root, "tests"),
-                            ignore=shutil.ignore_patterns("__pycache__"))
-            path = os.path.join(root, "navc_tpu_torch", src)
-            text = open(path).read()
-            if text.count(old) != 1:
-                sys.exit("mutant %r: its text is not in %s exactly once" % (name, src))
-            with open(path, "w") as f:
-                f.write(text.replace(old, new))
+        for k, (name, edit, tests) in enumerate(queue):
+            while len(running) >= JOBS:
+                wait_one(running, tails)
+            root = copy_tree(work, k, edit)
             cmd = [sys.executable, "-m", "pytest", "tests/test_torch_port_cuda.py", "-q",
                    "--noconftest", "-p", "no:cacheprovider", "-k", tests]
-            procs[name] = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
-                                           stderr=subprocess.STDOUT, text=True,
-                                           env=dict(os.environ, PYTHONPATH=root))
-        survived = []
-        for name, proc in procs.items():
-            out, _ = proc.communicate()
-            tail = out.strip().splitlines()[-1] if out.strip() else "(no output)"
-            failed = re.search(r"(\d+) failed", tail)
-            print("%-48s %s" % (name, tail), flush=True)
-            if not failed:
+            with open(os.path.join(root, "pytest.out"), "w") as out:
+                running[name] = subprocess.Popen(cmd, cwd=root, stdout=out,
+                                                 stderr=subprocess.STDOUT,
+                                                 env=dict(os.environ, PYTHONPATH=root))
+                running[name].out = out.name
+        while running:
+            wait_one(running, tails)
+        void, survived = [], []
+        for name, _, _ in queue:
+            tail = tails[name]
+            print("%-66s %s" % (name, tail), flush=True)
+            failed = re.search(r"(\d+) (failed|error)", tail)
+            if name.startswith(CONTROL):
+                if failed or not re.search(r"\d+ passed", tail):
+                    void.append(name)
+            elif not failed:
                 survived.append(name)
+        if void:
+            sys.exit("controls that did not pass (the run is void): %s" % void)
         if survived:
             sys.exit("mutants no test failed: %s" % survived)
     finally:
-        for proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
+        for proc in running.values():
+            proc.kill()
         shutil.rmtree(work, ignore_errors=True)
+
+
+def wait_one(running, tails):
+    """Wait for one of the running processes and keep its last line."""
+    while True:
+        for name, proc in list(running.items()):
+            if proc.poll() is not None:
+                with open(proc.out) as f:
+                    out = f.read().strip()
+                tails[name] = out.splitlines()[-1] if out else "(no output)"
+                del running[name]
+                return
+        time.sleep(1)
 
 
 if __name__ == "__main__":

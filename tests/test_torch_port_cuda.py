@@ -13,7 +13,13 @@ counts, and that K1, K6, K7 and K1u give the same bits in two calls (K1u
 K11's at p = 0); and the decodes' CUDA graphs (``test_graphs_*``: replayed
 tokens bit for bit the eager route's, refilled static inputs, cloned
 outputs, launches per replay, ``refresh`` after a weight change, old
-graphs in reference cycles outliving a capture, a failed capture raising).
+graphs in reference cycles outliving a capture, a failed capture raising);
+and the compiled training step (``test_train_graphs_*``: the replayed NACF
+step bit for bit the eager one, fresh masks per replay, the lr tensor
+followed, the card's capturable optimizer replayed against torch's CPU
+optimizer with a float lr, graphs dropped after an optimizer reload, a
+batch already on the card, the eval-loss step, no sync in an eager step)
+and K11/K12a/K12b with a device seed.
 Run them on a machine with a card:
 
     python3 -m pytest tests/test_torch_port_cuda.py -q --noconftest
@@ -29,6 +35,7 @@ vocab cross-entropy backward (K10) as the training kernels below, exactly
 on integer operands and bit for bit between two calls.
 """
 
+import copy
 import ctypes
 import math
 import pickle
@@ -912,14 +919,14 @@ def _close(got, want, tol, what, like=None, rms_tol=None):
         assert err <= rms_tol * scale, "%s: rms err %.3e, rms %.3e" % (what, err, scale)
 
 
-def _check_train_kernels(cuda, case, bias_scale=1.0):
+def _check_train_kernels(cuda, case, bias_scale=1.0, seed=2 ** 31 - 17):
+    """``seed``: an int, or a (1,) int32 tensor on the card."""
     from navc_tpu_torch.ops import fused_layer_train as FT
 
     h, inter, n, l, le, causal, p = case
     g = _gen(sum(case[:5]))
     x, enc, kp, w = _train_inputs(h, inter, n, l, le, g, cuda, bias_scale)
     kw = dict(n_head=8, causal=causal, p=p, p_input=p)
-    seed = 2 ** 31 - 17
     counts = {k: _build.LAUNCHES[k] for k in ("train_fwd", "train_ffn_bwd",
                                                "train_attn_bwd", "train_wgrad")}
     tol = dict(tol=TRAIN_TOL, rms_tol=TRAIN_RMS_TOL)
@@ -1897,3 +1904,360 @@ def test_graphs_failed_capture_raises(cuda):
     with pytest.raises(RuntimeError):
         f(torch.ones(4, device=cuda))
     assert calls == [False, True] and not f.graphs  # warm-up, capture: no eager retry
+
+
+# -- the compiled training step (make_train_step(..., jit=True)) ---------------
+# The NACF step at the serving width (MSRVTT, d=512, vocab 10048, bf16, the
+# fused layer K11/K12 and the fused CE K9/K10) at B=64 with its dropout on
+# (hidden and encoder 0.5), replayed as a CUDA graph, against the eager
+# route (jit=False) from the same weights (the same init seed), batches and
+# CPU generator state: metrics, every gradient, every parameter and
+# BatchNorm statistic, and the optimizer's state bit for bit the same.
+
+TRAIN_B = 64
+
+
+def _train_batch(cfg, b, seed):
+    """A synthetic NACF batch (chip_smoke.py's ``train_batch``)."""
+    from navc_tpu_torch import constants as C
+
+    rng = np.random.RandomState(seed)
+    lengths = rng.randint(5, cfg.max_len - 1, size=b)
+    tokens = np.full((b, cfg.max_len), C.PAD, np.int32)
+    labels = np.full((b, cfg.max_len), C.PAD, np.int32)
+    for i in range(b):
+        n = lengths[i]
+        tokens[i, :n] = rng.randint(6, cfg.vocab_size, size=n)
+        tokens[i, :n // 2] = C.MASK
+        labels[i, :n // 2] = rng.randint(6, cfg.vocab_size, size=n // 2)
+    lt = rng.rand(b, cfg.max_len).astype(np.float32)
+    lt /= lt.sum(-1, keepdims=True)
+    batch = {
+        "tokens": tokens, "labels": labels,
+        "tokens_1": np.full((b, cfg.max_len), C.VIS, np.int32),
+        "labels_1": np.where(rng.rand(b, cfg.max_len) < 0.3, C.MASK, labels).astype(np.int32),
+        "length_target": lt,
+        "category": rng.randint(0, cfg.num_category, (b, 1)).astype(np.int32),
+        "valid_mask": np.ones(b, np.float32),
+    }
+    for ch in cfg.modality.lower():
+        batch["feats_%s" % ch] = rng.randn(
+            b, cfg.n_frames, getattr(cfg, "dim_%s" % ch)).astype(np.float32)
+    return batch
+
+
+def _trainer(jit, **kw):
+    """(cfg, model, optimizer, step) of the NACF step at the serving width,
+    weights from seed 0."""
+    from navc_tpu_torch.config import default_config
+    from navc_tpu_torch.models import build_model
+    from navc_tpu_torch.runtime.train_step import create_train_state, make_train_step
+
+    cfg = default_config("NACF", batch_size=TRAIN_B, **SERVE).replace(**kw)
+    model = build_model(cfg, device="cuda", generator=_gen(0), train=True)
+    state = create_train_state(cfg, model)
+    return cfg, model, state.optimizer, make_train_step(cfg, model, state.optimizer, jit=jit)
+
+
+def _train_state(model, opt):
+    """Every gradient, parameter and buffer, and the optimizer's state, as
+    {name: tensor} copies."""
+    out = {"grad " + k: p.grad.clone() for k, p in model.named_parameters()}
+    out.update({k: t.clone() for k, t in model.state_dict().items()})
+    for i, p in enumerate(p for g in opt.param_groups for p in g["params"]):
+        out.update({"opt %d %s" % (i, k): v.clone() for k, v in opt.state[p].items()})
+    return out
+
+
+def _assert_same(got, want, what):
+    assert set(got) == set(want), what
+    for k in want:
+        assert torch.equal(got[k], want[k]), "%s: %s differs" % (what, k)
+
+
+@pytest.mark.cuda
+def test_train_graphs_replay_matches_eager(cuda):
+    """6 steps (the first the warm-up and capture, then 5 replays) under a
+    warm-up lr schedule, the batches in turns: each step's metrics,
+    gradients, parameters, BatchNorm statistics and optimizer state equal
+    the eager step's bit for bit, and each replay launches what an eager
+    step does."""
+    from navc_tpu_torch.runtime.optim import LrSchedule, set_learning_rate
+
+    sides = {jit: _trainer(jit, n_warmup_steps=3) for jit in (False, True)}
+    cfg = sides[True][0]
+    assert cfg.hidden_dropout_prob > 0 and cfg.encoder_dropout > 0
+    batches = [_train_batch(cfg, TRAIN_B, s) for s in range(3)]
+    gens = {jit: _gen(7) for jit in sides}
+    scheds = {jit: LrSchedule.from_config(c) for jit, (c, *_) in sides.items()}
+    for i in range(6):
+        got = {}
+        for jit, (_, model, opt, step) in sides.items():
+            set_learning_rate(opt, scheds[jit].step_lr())
+            _build.reset_launches()
+            metrics = step(batches[i % 3], gens[jit])
+            got[jit] = ({k: v.clone() for k, v in metrics.items()},
+                        {k: v for k, v in _build.LAUNCHES.items() if v},
+                        _train_state(model, opt))
+        _assert_same(got[True][0], got[False][0], "metrics, step %d" % i)
+        assert got[True][1] == got[False][1], (i, got[True][1], got[False][1])
+        assert got[True][1]["train_fwd"] == 2 and got[True][1]["ce_bwd_dw"] == 2
+        _assert_same(got[True][2], got[False][2], "state, step %d" % i)
+    step = sides[True][3]
+    assert step.jitted is not None and len(step.jitted.graphs) == 1
+    assert sides[False][3].jitted is None
+
+
+@pytest.mark.cuda
+def test_train_graphs_draw_fresh_masks_per_replay(cuda):
+    """At lr 0 (the weights stay) on one batch: two replays give different
+    losses; a replay from a CPU generator state gives the loss of an eager
+    step made afresh (a new device generator) from that state, and the
+    same loss when replayed again from it."""
+    from navc_tpu_torch.runtime.optim import set_learning_rate
+    from navc_tpu_torch.runtime.train_step import make_train_step
+
+    cfg, model, opt, step = _trainer(True)
+    _, emodel, eopt, _ = _trainer(False)
+    for o in (opt, eopt):
+        set_learning_rate(o, 0.0)
+    batch = _train_batch(cfg, TRAIN_B, 1)
+    gen = _gen(9)
+    step(batch, gen)  # the warm-up and capture
+    losses, states = [], []
+    for _ in range(3):
+        states.append(gen.get_state())
+        losses.append(float(step(batch, gen)["total_loss"]))
+    assert len(set(losses)) == 3, losses
+    for state, loss in zip(states, losses):
+        eager = make_train_step(cfg, emodel, eopt, jit=False)
+        want = float(eager(batch, torch.Generator().set_state(state))["total_loss"])
+        assert loss == want, (loss, want)
+        again = float(step(batch, torch.Generator().set_state(state))["total_loss"])
+        assert again == loss, (again, loss)
+
+
+@pytest.mark.cuda
+def test_train_graphs_follow_the_lr(cuda):
+    """The replayed step reads the lr tensor that set_learning_rate fills:
+    at lr 0 a replay leaves every parameter as it was; through a warm-up
+    and a decay of the schedule the parameters equal the eager step's."""
+    from navc_tpu_torch.runtime.optim import LrSchedule, set_learning_rate
+
+    sides = {jit: _trainer(jit, n_warmup_steps=2, decay=0.5) for jit in (False, True)}
+    cfg, model, opt, step = sides[True]
+    lr_t = opt.param_groups[0]["lr"]
+    assert torch.is_tensor(lr_t) and lr_t.device.type == "cuda" and lr_t.dtype == torch.float32
+    batch = _train_batch(cfg, TRAIN_B, 2)
+    step(batch, _gen(1))  # the warm-up and capture
+    set_learning_rate(opt, 0.0)
+    before = {k: p.clone() for k, p in model.named_parameters()}
+    step(batch, _gen(2))
+    for k, p in model.named_parameters():
+        assert torch.equal(p, before[k]), k
+    # both sides from here on: the same weights (the eager side catches up)
+    eager_model, eager_opt, eager_step = sides[False][1:]
+    with torch.no_grad():
+        for q, p in zip(eager_model.parameters(), model.parameters()):
+            q.copy_(p)
+        for q, p in zip(eager_model.buffers(), model.buffers()):
+            q.copy_(p)
+    eager_opt.load_state_dict(copy.deepcopy(opt.state_dict()))  # (it would alias)
+    scheds = {jit: LrSchedule.from_config(cfg) for jit in sides}
+    gens = {jit: _gen(3) for jit in sides}
+    for i in range(5):
+        for jit, (_, m, o, s) in sides.items():
+            set_learning_rate(o, scheds[jit].step_lr())
+            s(batch, gens[jit])
+            if i == 2:
+                scheds[jit].epoch_update()
+        _assert_same({k: p for k, p in model.named_parameters()},
+                     {k: p for k, p in eager_model.named_parameters()}, "step %d" % i)
+    assert opt.param_groups[0]["lr"] is lr_t and len(step.jitted.graphs) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["adam", "rmsprop"])
+def test_train_graphs_card_optimizer_matches_the_cpu_float_lr_one(cuda, name):
+    """make_optimizer's optimizer on the card (capturable, its lr a float32
+    tensor there), its update captured in a CUDA graph after one eager step
+    and replayed with the lr that set_learning_rate fills through
+    LrSchedule's warm-up and decay, against torch's CPU optimizer with a
+    float lr from the same parameters and gradients (clip by value, weight
+    decay): the same step counts, and the moments and parameters within
+    rtol 1e-6 and atol 1e-6 (a few float32 steps at the parameters'
+    magnitude, up to 4: the two updates take their step size, bias
+    corrections and eps in another order, so a sum rounds a step apart;
+    the clipped gradients and the moments lie within 1), against
+    parameter updates of more than 1e-3."""
+    from navc_tpu_torch.config import Config
+    from navc_tpu_torch.runtime import optim
+
+    cfg = Config(optim=name, learning_rate=1e-2, minimum_learning_rate=1e-4, decay=0.5,
+                 n_warmup_steps=3, weight_decay=5e-4, grad_clip=1.0)
+    rng = np.random.RandomState(0)
+    init = [rng.randn(*s).astype(np.float32) for s in ((64, 48), (48,), (7,))]
+    grads = [[rng.randn(*a.shape).astype(np.float32) * 2 for a in init] for _ in range(8)]
+    card = [torch.nn.Parameter(torch.from_numpy(a.copy()).to(cuda)) for a in init]
+    host = [torch.nn.Parameter(torch.from_numpy(a.copy())) for a in init]
+    opt = optim.make_optimizer(cfg, card)
+    assert opt.param_groups[0]["capturable"] and opt.param_groups[0]["lr"].is_cuda
+    ref = (torch.optim.Adam(host, lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=cfg.weight_decay) if name == "adam" else
+           torch.optim.RMSprop(host, lr=cfg.learning_rate, alpha=0.99, eps=1e-8,
+                               weight_decay=cfg.weight_decay))
+    for p in card:
+        p.grad = torch.zeros_like(p)
+    sched = optim.LrSchedule.from_config(cfg)
+    graph = None
+    for i, gs in enumerate(grads):
+        lr = sched.step_lr()
+        optim.set_learning_rate(opt, lr)
+        ref.param_groups[0]["lr"] = lr
+        for p, q, g in zip(card, host, gs):
+            p.grad.copy_(torch.from_numpy(g))
+            q.grad = torch.from_numpy(g.copy())
+        if graph is None:
+            optim.step(cfg, opt)  # the eager first step makes the state
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                optim.step(cfg, opt)
+        else:
+            graph.replay()
+        torch.nn.utils.clip_grad_value_(host, cfg.grad_clip)
+        ref.step()
+        if i == 4:
+            sched.epoch_update()
+    torch.cuda.synchronize()
+    assert sched.learning_rate == cfg.learning_rate / 2
+    for p, q, p0 in zip(card, host, init):
+        got, want = opt.state[p], ref.state[q]
+        assert set(got) == set(want) and len(got) >= 2
+        for k in want:
+            if k == "step":
+                assert float(got[k]) == float(want[k]) == len(grads)
+            else:
+                np.testing.assert_allclose(got[k].cpu().numpy(), want[k].numpy(),
+                                           rtol=1e-6, atol=1e-6, err_msg=k)
+        got, want = p.detach().cpu().numpy(), q.detach().numpy()
+        assert np.abs(want - p0).max() > 1e-3  # the updates are far above the tolerance
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_train_graphs_dropped_after_an_optimizer_reload(cuda):
+    """load_state_dict replaces the optimizer's state tensors, which a
+    captured step reads by address: the step drops its graphs and captures
+    anew, and a run that reloads an earlier state continues as the eager
+    route's does (parameters and optimizer state bit for bit)."""
+    sides = {jit: _trainer(jit) for jit in (False, True)}
+    cfg = sides[True][0]
+    batches = [_train_batch(cfg, TRAIN_B, s) for s in range(2)]
+    gens = {jit: _gen(4) for jit in sides}
+    saved = {}
+    for i in range(5):
+        if i == 3:
+            for jit, (_, _, opt, step) in sides.items():
+                opt.load_state_dict(saved[jit])
+            assert not sides[True][3].jitted.graphs
+            assert torch.is_tensor(sides[True][2].param_groups[0]["lr"])
+        for jit, (_, _, _, step) in sides.items():
+            step(batches[i % 2], gens[jit])
+        if i == 0:
+            saved = {jit: copy.deepcopy(opt.state_dict())
+                     for jit, (_, _, opt, _) in sides.items()}
+        _assert_same(_train_state(*sides[True][1:3]), _train_state(*sides[False][1:3]),
+                     "step %d" % i)
+    assert len(sides[True][3].jitted.graphs) == 1
+
+
+@pytest.mark.cuda
+def test_train_graphs_step_takes_a_batch_on_the_card(cuda):
+    """A batch of tensors already on the card (copied there into the
+    graph's inputs) gives the replayed step, over 3 steps, the metrics and
+    state the same batch as numpy arrays gives."""
+    sides = {on_card: _trainer(True) for on_card in (False, True)}
+    cfg = sides[True][0]
+    batches = [_train_batch(cfg, TRAIN_B, s) for s in range(2)]
+    gens = {on_card: _gen(6) for on_card in sides}
+    for i in range(3):
+        got = {}
+        for on_card, (_, model, opt, step) in sides.items():
+            b = batches[i % 2]
+            if on_card:
+                b = {k: torch.from_numpy(v).to(cuda) for k, v in b.items()}
+            got[on_card] = ({k: v.clone() for k, v in step(b, gens[on_card]).items()},
+                            _train_state(model, opt))
+        _assert_same(got[True][0], got[False][0], "metrics, step %d" % i)
+        _assert_same(got[True][1], got[False][1], "state, step %d" % i)
+    assert len(sides[True][3].jitted.graphs) == 1
+
+
+@pytest.mark.cuda
+def test_train_graphs_eval_loss_step_replays_eager(cuda):
+    from navc_tpu_torch.runtime.train_step import make_eval_loss_step
+
+    cfg, model, _, _ = _trainer(True)
+    eager, replay = (make_eval_loss_step(cfg, model, jit=jit) for jit in (False, True))
+    batches = [_train_batch(cfg, TRAIN_B, s) for s in range(2)]
+    got = [replay(b) for b in batches + batches]
+    assert len(replay.jitted.graphs) == 1
+    for g, b in zip(got, batches + batches):
+        _assert_same(g, eager(b), "eval metrics")
+
+
+@pytest.mark.cuda
+def test_train_graphs_eager_step_never_syncs(cuda):
+    """One eager step on the card (after the first, which makes the
+    optimizer's state) under torch's sync debug mode "error": nothing in
+    the step waits for the card, which a capture needs."""
+    cfg, _, _, step = _trainer(False)
+    batch = _train_batch(cfg, TRAIN_B, 0)
+    gen = _gen(5)
+    step(batch, gen)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(batch, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [TRAIN_CASES[0], TRAIN_CASES[1]],
+                         ids=lambda c: "x".join(map(str, c)))
+def test_train_kernels_take_a_device_seed(cuda, case):
+    """K11, K12a and K12b with the seed a (1,) int32 on the card, navc_tpu's
+    seed operand: within the tolerances of their plain versions (which read
+    it), bit for bit what an int seed gives, and, captured in a graph, the
+    masks of the value the seed holds at each replay."""
+    from navc_tpu_torch.ops import fused_layer_train as FT
+
+    seed = torch.tensor([2 ** 31 - 17], dtype=torch.int32, device=cuda)
+    _check_train_kernels(cuda, case, seed=seed)
+    h, inter, n, l, le, causal, p = case
+    x, enc, kp, w = _train_inputs(h, inter, n, l, le, _gen(3), cuda)
+    dy = torch.randn(n, l, h, generator=_gen(4)).to(cuda)
+    kw = dict(n_head=8, causal=causal, p=p, p_input=p)
+
+    def run(s):
+        out, r2 = FT.train_fwd(x, enc, kp, w, s, **kw)
+        dr2, fp = FT.ffn_bwd_operands(r2, dy, kp, w, s, p=p)
+        dx, denc, ap = FT.attn_bwd_operands(x, enc, dr2, kp, w, s, **kw)
+        return [out, r2, dr2, dx, denc] + [t for pr in fp + ap for t in (pr.P, pr.Q, pr.part)]
+
+    want = {v: run(v) for v in (11, -3)}
+    assert all(torch.equal(a, b) for a, b in zip(run(torch.full_like(seed, 11)), want[11]))
+    seed.fill_(11)
+    graph = torch.cuda.CUDAGraph()
+    run(seed)  # the one-time host calls before the capture
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        outs = run(seed)
+    for v in (-3, 11):
+        seed.fill_(v)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(outs, want[v])), v
+

@@ -172,7 +172,7 @@ def test_run_train_epoch_keys_schedule_and_averages():
     step = make_train_step(cfg, model, state.optimizer)
 
     def spy(batch, gen):
-        seen.append(state.optimizer.param_groups[0]["lr"])
+        seen.append(float(state.optimizer.param_groups[0]["lr"]))
         return step(batch, gen)
 
     state, info = run_train_epoch(cfg, spy, state, batches,
