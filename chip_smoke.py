@@ -80,13 +80,19 @@ l2r and ef on 8 videos against the CPU plain path, and each decode timed.
 The serving paths, the translate runs and CaptionPipeline replay CUDA
 graphs (jit=True, navc_tpu's jax.jit; first use captures); the main path
 lines print the eager route (jit=False) beside the replayed one and die
-unless their tokens are equal. The graphs phase: NACF with the ARB
-teacher at 64 videos and ARB at 64 (K6/K7), 60 (K8) and 1024 videos, each
-decode eager and replayed (tokens bit for bit equal on two requests,
-launches of a replayed decode against PER_DECODE or the beam steps, ms
-per decode on both routes in turns, the first call's and the capture's
+unless their tokens are equal; translate's and the Evaluator's l2r and ef
+decodes replay graphs too. The graphs phase: NACF with the ARB teacher at
+64 videos (mp + CT; l2r without and with CT and ef, q 1, their rounds
+under CUDA graph IF nodes, ef in blocks of 4 rounds ended by a lagged
+flag read), ARB at 64 (K6/K7), 60 (K8) and 1024 videos, and ARB's
+full-prefix step (navc_tpu's NAVC_NO_KVCACHE switch: K1 causal once a
+step) at 64 videos, each decode eager and replayed (tokens bit for bit
+equal on two requests, launches of a replayed decode against PER_DECODE,
+the beam steps or the eager decode's, ef's blocks and flag reads, ms per
+decode on both routes in turns, the first call's and the capture's
 seconds, the graph pool's bytes, and both routes profiled: idle share
-and where it falls). It exits non-zero on any failure, without a CUDA
+and where it falls; the full-prefix route also against the CPU plain
+path on 16 videos). It exits non-zero on any failure, without a CUDA
 device, and outside a checkout. Imports nothing of JAX or navc_tpu.
 
 Standard output ends with two JSON lines: {"kernels": [...]} and
@@ -94,6 +100,7 @@ Standard output ends with two JSON lines: {"kernels": [...]} and
 """
 
 import atexit
+import contextlib
 import json
 import os
 import subprocess
@@ -1084,23 +1091,205 @@ def arb_phases(cfg, model, cpu_model, record, parent):
 GRAPH_ROUNDS = 5  # rounds of (eager, replayed, replayed, eager) decodes per case
 
 
+@contextlib.contextmanager
+def swapped(owner, attr, value):
+    """``owner.attr`` replaced by ``value`` inside the block."""
+    before = getattr(owner, attr)
+    setattr(owner, attr, value)
+    try:
+        yield
+    finally:
+        setattr(owner, attr, before)
+
+
 def captured_graphs(gen):
     """The ``runtime.graphs.Graph``s a generator captured: one per
-    signature (the NACF decode), or one per block (the beam search)."""
-    return [g for c in gen.graphs.values() for g in getattr(c, "blocks", [getattr(c, "graph", None)])]
+    signature (the mp and l2r decodes), or a loop's head, block(s) and
+    tail per signature (the beam search's, ef's)."""
+    out = []
+    for c in gen.graphs.values():
+        out += c.parts() if hasattr(c, "parts") else [c.graph]
+    return out
 
 
-def graphs_phase(cfg, model, tcfg, teacher, card):
+@contextlib.contextmanager
+def no_kvcache():
+    """navc_tpu's NAVC_NO_KVCACHE switch on around a beam generator's
+    construction (the full-prefix step), then as it was."""
+    before = os.environ.get("NAVC_NO_KVCACHE")
+    os.environ["NAVC_NO_KVCACHE"] = "1"
+    try:
+        yield
+    finally:
+        if before is None:
+            del os.environ["NAVC_NO_KVCACHE"]
+        else:
+            os.environ["NAVC_NO_KVCACHE"] = before
+
+
+# the graphs phase's cases: (name, method, videos, config replacements); the
+# l2r case without CT, since random weights leave nothing masked after CT,
+# so only it runs l2r's reveal rounds
+GRAPH_CASES = (
+    ("NACF 64 videos", "NACF", N_VIDEOS, {}),
+    ("NACF l2r 64 videos", "NACF", N_VIDEOS,
+     dict(paradigm="l2r", use_ct=False, q=1, q_iterations=1)),
+    ("NACF l2r + CT 64 videos", "NACF", N_VIDEOS,
+     dict(paradigm="l2r", use_ct=True, q=1, q_iterations=1)),
+    ("NACF ef 64 videos", "NACF", N_VIDEOS,
+     dict(paradigm="ef", use_ct=False, q=1, q_iterations=1)),
+    ("ARB 64 videos", "ARB", ARB_VIDEOS, {}),
+    ("ARB 60 videos", "ARB", ARB_RAGGED, {}),
+    ("ARB 1024 videos", "ARB", ARB_BENCH, {}),
+    ("ARB full prefix 64 videos", "ARB", ARB_VIDEOS, None),  # NAVC_NO_KVCACHE
+)
+COND_KERNELS = ("fused_layer", "project_argmax", "project_gather_prob")  # l2r / ef
+
+
+PREFIX_LOGP_TOL = 5e-2  # K1's bf16 roundings against the forward's, through the projection
+
+
+def teacher_forced_logp(cfg, model, enc, cat, seqs, ops=None):
+    """Log-probs (N, L, V) at every prefix position of ``seqs`` (N = videos
+    x beam), the full-prefix beam step's arithmetic: K1 over the whole
+    prefix with ``static=`` (``prefix_hidden``, operands ``ops``) or, with
+    ``ops`` None, the model's own forward; then the projection and the
+    log-softmax."""
+    import torch
+
+    from navc_tpu_torch.decoding.beam import prefix_hidden, prefix_static
+    from navc_tpu_torch.decoding.length_beam import enlarge
+
+    k = seqs.shape[0] // enc.shape[0]
+    cat_tiled = enlarge(cat, k)
+    with torch.no_grad():
+        if ops is None:
+            hidden, _ = model.decode(seqs, enlarge(enc, k), cat_tiled, "ARFormer")
+        else:
+            static = prefix_static(ops, seqs.shape[0], seqs.shape[1],
+                                   cat_tiled if cfg.with_category else None)
+            hidden = prefix_hidden(ops, seqs, static, *ops.cross_kv(enc, k))
+        return torch.log_softmax(model.project(hidden).float(), -1)
+
+
+def k1_plain_decode(cfg, model):
+    """A stand-in for ``model.decode`` in the full-prefix beam step on the
+    CPU: the layer through K1's plain version (the card route's
+    arithmetic) instead of the model's own forward."""
+    from navc_tpu_torch.decoding.beam import prefix_hidden, prefix_static
+    from navc_tpu_torch.decoding.operands import KernelOperands
+
+    ops = KernelOperands.of(model)
+
+    def decode(seqs, enc_tiled, cat_tiled, mode):
+        static = prefix_static(ops, seqs.shape[0], seqs.shape[1],
+                               cat_tiled if cfg.with_category else None)
+        return prefix_hidden(ops, seqs, static, *ops.cross_kv(enc_tiled, 1)), None
+    return decode
+
+
+def full_prefix_checks(tcfg, teacher, cpu_teacher, req, replay):
+    """The full-prefix ARB route (NAVC_NO_KVCACHE) against the model's own
+    forward on the CPU, navc_tpu's CPU route.
+
+    Gated: (1) teacher-forced, on one prefix set at ARB_VIDEOS videos x
+    beam (each video's replayed hypothesis and beam - 1 random prefixes,
+    PAD after a random length): the card's K1 log-probs within
+    PREFIX_LOGP_TOL of the CPU forward's at every position a beam step
+    projects, and K1 with its static lacking the position rows, or the
+    category rows, beyond it; (2) beam tokens on ARB_CPU videos: the card
+    replay against the CPU beam with the layer through K1's plain version
+    (``k1_plain_decode``), >= 0.99. Printed, ungated: the card replay's
+    agreement with the CPU beam through the forward, and the CPU's own
+    full-prefix and KV-cached beams' agreement (random-weight beams turn on
+    rounding points), and the median gap between the forward's two most
+    likely words."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from navc_tpu_torch import constants as C
+    from navc_tpu_torch.decoding import make_ar_generator
+    from navc_tpu_torch.decoding.operands import KernelOperands
+
+    enc, cat = req
+    enc_cpu, cat_cpu = {k: v.cpu() for k, v in enc.items()}, cat.cpu()
+    hyp = replay(enc, cat)[0].cpu()
+    k, l = tcfg.beam_size, tcfg.max_len
+    rng = np.random.RandomState(37)
+    seqs = np.full((hyp.shape[0] * k, l), C.PAD, np.int32)
+    seqs[:, 1:] = rng.randint(C.NUM_SPECIAL_TOKENS, tcfg.vocab_size, (len(seqs), l - 1))
+    seqs[::k, 1:] = hyp.numpy()
+    seqs[:, 0] = C.BOS
+    seqs[np.arange(l)[None, :] >= rng.randint(2, l + 1, len(seqs))[:, None]] = C.PAD
+    seqs = torch.from_numpy(seqs)
+    valid = seqs != C.PAD  # the positions a beam step projects
+    forward = teacher_forced_logp(tcfg, cpu_teacher, enc_cpu["enc_output"], cat_cpu, seqs)
+    ops = KernelOperands.of(teacher)
+
+    def gap(**edit):
+        got = teacher_forced_logp(tcfg, teacher, enc["enc_output"], cat, seqs.cuda(),
+                                  dataclasses.replace(ops, **edit)).cpu()
+        return float((got - forward).abs()[valid].max())
+    out = dict(logp_gap=gap(),
+               logp_gap_no_positions=gap(pos_table=torch.zeros_like(ops.pos_table)))
+    if tcfg.with_category:
+        out["logp_gap_no_category"] = gap(cat_table=torch.zeros_like(ops.cat_table))
+    top2 = forward[valid].topk(2, -1).values
+    out["median_top2_margin"] = float((top2[:, 0] - top2[:, 1]).median())
+    log("graphs: full prefix, teacher-forced at %d videos x beam %d, %d positions: max "
+        "|log p| of K1 on the card against the CPU forward %.5f (limit %.3f), with static "
+        "lacking the position rows %.5f%s; median top-2 margin of the forward %.4f" % (
+            hyp.shape[0], k, int(valid.sum()), out["logp_gap"], PREFIX_LOGP_TOL,
+            out["logp_gap_no_positions"],
+            ", lacking the category rows %.5f" % out["logp_gap_no_category"]
+            if "logp_gap_no_category" in out else "", out["median_top2_margin"]))
+    if out["logp_gap"] > PREFIX_LOGP_TOL:
+        die("graphs: full prefix: K1's log-probs %.5f from the CPU forward's > %.3f"
+            % (out["logp_gap"], PREFIX_LOGP_TOL))
+    broken = {key: v for key, v in out.items() if key.startswith("logp_gap_no")}
+    if min(broken.values()) <= PREFIX_LOGP_TOL:
+        die("graphs: full prefix: a broken static stays within the limit: %s" % broken)
+
+    small = ({key: v[:ARB_CPU] for key, v in enc_cpu.items()}, cat_cpu[:ARB_CPU])
+    dev_hyp = replay({key: v[:ARB_CPU] for key, v in enc.items()}, cat[:ARB_CPU])[0].cpu()
+    with no_kvcache():
+        cpu_gen = make_ar_generator(tcfg, cpu_teacher)
+    cached_hyp = make_ar_generator(tcfg, cpu_teacher)(*small)[0]
+    forward_hyp = cpu_gen(*small)[0]
+    with swapped(cpu_teacher, "decode", k1_plain_decode(tcfg, cpu_teacher)):
+        plain_hyp = cpu_gen(*small)[0]
+    del cpu_teacher.decode  # swapped set an instance attribute: back to the class's
+    same = lambda a, b: float((a == b).float().mean())  # noqa: E731
+    out.update(agree_k1_plain=same(plain_hyp, dev_hyp), agree_forward=same(forward_hyp, dev_hyp),
+               cpu_full_prefix_vs_cached=same(forward_hyp, cached_hyp))
+    log("graphs: full prefix, beam tokens on %d videos: the card replay against the CPU "
+        "beam through K1's plain version %.4f (gate 0.99), through the model's own forward "
+        "%.4f (no gate); the CPU's full-prefix and KV-cached beams %.4f (no gate)" % (
+            ARB_CPU, out["agree_k1_plain"], out["agree_forward"],
+            out["cpu_full_prefix_vs_cached"]))
+    if out["agree_k1_plain"] < 0.99:
+        die("graphs: full prefix: token agreement with the CPU plain path %.4f < 0.99"
+            % out["agree_k1_plain"])
+    return out
+
+
+def graphs_phase(cfg, model, tcfg, teacher, cpu_teacher, card):
     """The captured decodes (jit=True) against the eager route (jit=False)
-    at full width: NACF with the ARB teacher at 64 videos, ARB at 64 (K6 +
-    K7), 60 (K8) and 1024 videos. For each: the replayed tokens (and ARB's
-    scores) bit for bit the eager ones, on the capture's request and on a
-    second one; ms per decode on both routes (median of 2 x GRAPH_ROUNDS
-    each, in turns, host clock, each ending in the tokens' copy); the first
-    call's seconds (the eager warm-up and the capture), the capture's
-    seconds and the bytes its pool holds; the launches of one replayed
-    decode against PER_DECODE or the beam steps; the device idle share of
-    one profiled decode on each route. Returns {case: figures}."""
+    at full width: NACF with the ARB teacher at 64 videos (mp + CT, l2r
+    without and with CT, ef; q 1), ARB at 64 (K6 + K7), 60 (K8) and 1024
+    videos, and ARB's full-prefix step (NAVC_NO_KVCACHE: K1 causal a
+    step) at 64. For each: the replayed tokens (and ARB's scores) bit for
+    bit the eager ones, on the capture's request and on a second one; ms
+    per decode on both routes (median of 2 x GRAPH_ROUNDS each, in turns,
+    host clock, each ending in the tokens' copy); the first call's seconds
+    (the eager warm-up and the capture), the captures' seconds and the
+    bytes their pools hold; the launches of one replayed decode against
+    PER_DECODE, the beam steps or the eager decode's (l2r, ef: the rounds
+    that ran), ef's blocks and flag reads in it; the device idle share of
+    one profiled decode on each route. The full-prefix route also against
+    the CPU (``full_prefix_checks``). Returns {case: figures}."""
     import numpy as np
     import torch
 
@@ -1109,10 +1298,8 @@ def graphs_phase(cfg, model, tcfg, teacher, card):
 
     rng = np.random.RandomState(29)
     results = {}
-    for method, videos in [("NACF", N_VIDEOS), ("ARB", ARB_VIDEOS), ("ARB", ARB_RAGGED),
-                           ("ARB", ARB_BENCH)]:
-        name = "%s %d videos" % (method, videos)
-        c = cfg if method == "NACF" else tcfg
+    for name, method, videos, over in GRAPH_CASES:
+        c = cfg.replace(**over) if method == "NACF" else tcfg
         reqs = []
         for _ in range(2):
             feats = [torch.as_tensor(rng.randn(videos, c.n_frames, d).astype(np.float32)).cuda()
@@ -1122,14 +1309,21 @@ def graphs_phase(cfg, model, tcfg, teacher, card):
                 reqs.append((model.encode(feats), cat, teacher.encode(feats))
                             if method == "NACF" else (teacher.encode(feats), cat))
         if method == "NACF":
-            gens = {jit: make_nar_generator(cfg, model, teacher, jit) for jit in (False, True)}
+            gens = {jit: make_nar_generator(c, model, teacher, jit) for jit in (False, True)}
+        elif over is None:
+            with no_kvcache():
+                gens = {jit: make_ar_generator(tcfg, teacher, jit) for jit in (False, True)}
         else:
             gens = {jit: make_ar_generator(tcfg, teacher, jit) for jit in (False, True)}
         if not gens[True].graphed:
             die("graphs: the %s generator takes no captured route" % name)
         eager, replay = gens[False], gens[True]
         flat = (lambda out: [out]) if method == "NACF" else list  # noqa: E731
-        want = [flat(eager(*r)) for r in reqs]
+        want = []
+        for r in reqs:
+            _build.reset_launches()
+            want.append(flat(eager(*r)))
+            eager_launches = {k: n for k, n in _build.LAUNCHES.items() if n}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         got = [flat(replay(*reqs[0]))]  # the first call: warm-up and capture
@@ -1141,12 +1335,25 @@ def graphs_phase(cfg, model, tcfg, teacher, card):
             if not all(torch.equal(x, y) for x, y in zip(g, w)):
                 die("graphs: %s: replayed tokens differ from the eager route's" % name)
         steps0 = getattr(replay, "steps_run", 0)
+        blocks0, reads0 = getattr(replay, "blocks_run", 0), getattr(replay, "flag_reads", 0)
         _build.reset_launches()
         replay(*reqs[1])
         launches = {k: n for k, n in _build.LAUNCHES.items() if n}
         steps = getattr(replay, "steps_run", 0) - steps0
-        if method == "NACF":
+        ef = dict(blocks=replay.blocks_run - blocks0, flag_reads=replay.flag_reads - reads0,
+                  rounds=int(replay.rounds)) if hasattr(replay, "blocks_run") else None
+        if name == "NACF 64 videos":
             expect = dict(PER_DECODE)
+        elif method == "NACF":
+            expect = eager_launches
+            if any(not launches.get(k) for k in COND_KERNELS):
+                die("graphs: %s: a replayed decode launched %s, not each of %s"
+                    % (name, launches, COND_KERNELS))
+        elif over is None:
+            expect = dict(fused_layer=steps)
+            if eager_launches != expect:
+                die("graphs: %s: an eager decode launched %s, expected %s"
+                    % (name, eager_launches, expect))
         elif videos % 16 == 0:
             expect = dict(project_topk=steps, beam_attend_step=steps, cross_attend=steps)
         else:
@@ -1154,6 +1361,9 @@ def graphs_phase(cfg, model, tcfg, teacher, card):
         if launches != expect:
             die("graphs: %s: a replayed decode launched %s, expected %s"
                 % (name, launches, expect))
+        if ef is not None and ef["flag_reads"] != ef["blocks"] - 1:
+            die("graphs: %s: %d flag reads for %d blocks" % (name, ef["flag_reads"],
+                                                              ef["blocks"]))
         run = {jit: (lambda g=g: flat(g(*reqs[1]))[0].cpu()) for jit, g in gens.items()}
         ms = {False: [], True: []}
         for _ in range(GRAPH_ROUNDS):
@@ -1164,20 +1374,29 @@ def graphs_phase(cfg, model, tcfg, teacher, card):
             prof = device_breakdown(run[jit])
             idle[jit] = None if prof is None else 1.0 - prof[1] / prof[0]
             print_profile(prof, "%s decode, %s" % (name, "replayed" if jit else "eager"))
+        agree = prefix = None
+        if over is None:
+            prefix = full_prefix_checks(tcfg, teacher, cpu_teacher, reqs[1], replay)
+            agree = prefix["agree_k1_plain"]
         results[name] = dict(
             eager_ms=float(np.median(ms[False])), replay_ms=float(np.median(ms[True])),
             first_call_s=first_s, capture_s=sum(g.capture_s for g in graphs),
             graphs=len(graphs), pool_mb=sum(g.pool_bytes for g in graphs) / 2 ** 20,
-            launches=launches, steps=steps or None, eager_idle=idle[False],
-            replay_idle=idle[True])
+            launches=launches, steps=steps or None, ef=ef, cpu_agreement=agree,
+            full_prefix=prefix, eager_idle=idle[False], replay_idle=idle[True])
         r = results[name]
         log("graphs: %s [%s]: eager %.3f ms, replayed %.3f ms per decode (median of %d, "
             "host clock, ends in the tokens' copy; %.2fx); tokens bit for bit the eager "
             "route's; first call %.3f s (warm-up + capture of %d graph(s): %.3f s), pool "
-            "%.1f MiB; launches per replayed decode %s; idle share eager %s, replayed %s" % (
+            "%.1f MiB; launches per replayed decode %s (the eager decode's %s)%s%s; idle "
+            "share eager %s, replayed %s" % (
                 name, card, r["eager_ms"], r["replay_ms"], 2 * GRAPH_ROUNDS,
                 r["eager_ms"] / r["replay_ms"], first_s, len(graphs), r["capture_s"],
-                r["pool_mb"], launches,
+                r["pool_mb"], launches, eager_launches,
+                "" if ef is None else "; ef: %d reveal rounds, %d blocks, %d flag reads" % (
+                    ef["rounds"], ef["blocks"], ef["flag_reads"]),
+                "" if agree is None else "; CPU plain path agreement on %d videos %.4f" % (
+                    ARB_CPU, agree),
                 *("%.3f" % x if x is not None else "not measured" for x in (
                     idle[False], idle[True]))))
         del gens, eager, replay, run, reqs, got, want
@@ -2461,12 +2680,19 @@ def inference_phase(card):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             _build.reset_launches()
+            built = []  # the decodes translate's evaluator builds
+
+            def recording(self, refresh=Evaluator.refresh):
+                refresh(self)
+                built.append(self.generate)
             t0 = time.perf_counter()
-            with contextlib.redirect_stdout(out):
+            with contextlib.redirect_stdout(out), swapped(Evaluator, "refresh", recording):
                 res = translate(opt, device="cuda", info_corpus=corpus,
                                 in_memory_feats=feats, references=refs)["test"]
             torch.cuda.synchronize()
             seconds[name] = time.perf_counter() - t0
+            if not built or not all(g.graphed and g.graphs for g in built):
+                die("inference: translate %s decoded without replaying a graph" % name)
             launches[name] = {k: c for k, c in _build.LAUNCHES.items() if c}
             peak = max(peak, torch.cuda.max_memory_allocated() / 1e9)
             results[name] = res
@@ -2548,6 +2774,8 @@ def inference_phase(card):
                 c = pipe.cfg.replace(**dict(dict(use_ct=True), **kw))
                 dev_ev = Evaluator(c, ev.model, tcfg, tmodel)
             dev_ev.decode_batch(batch)
+            if not dev_ev.generate.graphed:
+                die("inference: the %s decode takes no captured route" % name)
             _build.reset_launches()
             dev_ev.decode_batch(batch)
             per_decode[name] = {k: n for k, n in _build.LAUNCHES.items() if n}
@@ -3092,7 +3320,7 @@ def main():
 
     # -- 5b. the captured decodes against the eager route -----------------------
     t0 = time.perf_counter()
-    graph_results = graphs_phase(cfg, model, tcfg, teacher, card)
+    graph_results = graphs_phase(cfg, model, tcfg, teacher, cpu_teacher, card)
     log("graphs phase: %.1f s; %s" % (time.perf_counter() - t0, json.dumps(graph_results)))
 
     # -- 6. the training step ----------------------------------------------------

@@ -16,8 +16,13 @@ models/Translator.py). Semantics kept exactly:
 Every ``lax.top_k`` of the JAX package is a stable descending sort here.
 
 Configurations inside ``kv_cached_beam_eligible`` decode one new position
-per step from a K/V cache (``_make_cached_step``); the others recompute the
-whole prefix with the model's own ARFormer forward. With ``cfg.use_pallas``
+per step from a K/V cache (``_make_cached_step``); the others (and every
+configuration under navc_tpu's ``NAVC_NO_KVCACHE`` switch) recompute the
+whole prefix each step: on the card through the fused layer (K1, causal,
+``static=`` the position + category rows, the cross K/V hoisted once per
+decode) where ``fused_layer_eligible(cfg, causal=True)``, as navc_tpu's
+full-prefix step runs it on the device (``prefix_hidden``), else, and on
+the CPU, with the model's own ARFormer forward. With ``cfg.use_pallas``
 the cached step runs the hand-written kernels, on navc_tpu's routes: the
 projection + top-k (K5) every step; when the batch is a multiple of 16 and
 the width of 128 (the structural terms of navc_tpu's gate), the fused
@@ -30,21 +35,22 @@ The JAX package stops its ``while_loop`` once every instance is done. Here
 the host reads that flag without stalling the card. With ``jit=True`` (the
 default, navc_tpu's ``jax.jit``) the steps run in blocks of DONE_LAG, each
 a CUDA graph on the card, and block j's flag is read after block j + 1 is
-queued (``run_blocks``, eager on the CPU). With ``jit=False`` each step is
-issued from the host and queues a copy of the flag to pinned memory, and
-step t waits only for the flag of step t - DONE_LAG (the card still has the
-steps in between queued); on the CPU the lag is 0. Steps after every
-instance is done change nothing — done instances are frozen — so the
-tokens are those of the exact early exit. The generator counts the steps
+queued (``graphs.lagged_blocks``, eager on the CPU). With ``jit=False`` each
+step is issued from the host and queues a copy of the flag to pinned
+memory, and step t waits only for the flag of step t - DONE_LAG (the card
+still has the steps in between queued); on the CPU the lag is 0. Steps
+after every instance is done change nothing — done instances are frozen —
+so the tokens are those of the exact early exit. The generator counts the steps
 it ran in ``generate.steps_run``.
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -54,12 +60,14 @@ from ..models.layers import ACT2FN, MASK_FILL
 from ..ops.beam_attend import (beam_attend_eligible, beam_attend_step,
                                cross_attend, kernel_shape_ok)
 from ..ops.beam_permute import permute_beam_caches, permute_beam_caches_plain
-from ..ops.eligibility import fused_vocab_eligible, kv_cached_beam_eligible
-from ..ops.fused_layer import LayerWeights, layer_weights
+from ..ops.eligibility import (fused_layer_eligible, fused_vocab_eligible,
+                               kv_cached_beam_eligible)
+from ..ops.fused_layer import LayerWeights, fused_layer, layer_weights
 from ..ops.select import top_k_stable
 from ..ops.vocab_fused import MAX_D, MAX_K, project_topk, projection_weights
 from ..runtime import graphs
 from .length_beam import enlarge
+from .operands import KernelOperands
 
 NEG_BIG = -1e20
 DONE_LAG = 4  # steps between queuing the all-done flag and reading it
@@ -257,83 +265,57 @@ def block_spans(max_len: int, block: int) -> List[Tuple[int, int]]:
     return [(t0, min(t0 + block, max_len)) for t0 in range(1, max_len, block)]
 
 
-def run_blocks(run_block: Callable[[int, int, int], Callable[[], bool]],
-               spans: List[Tuple[int, int]]) -> int:
-    """The blocked stop rule, on every device: ``run_block(j, first, end)``
-    runs block j and returns a reader of its all-done flag; block j's flag
-    is read only after block j + 1 has been issued, and the decode stops
-    after block j + 1 when it says every instance was done (the card then
-    has block j + 1 queued while the host waits; steps after that change
-    nothing). Returns the steps run."""
-    steps, pending = 0, None
-    for j, (t0, t1) in enumerate(spans):
-        done = run_block(j, t0, t1)
-        steps += t1 - t0
-        if pending is not None and pending():
-            break
-        pending = done
-    return steps
+def prefix_static(ops: KernelOperands, n: int, l: int,
+                  category: Optional[torch.Tensor]) -> torch.Tensor:
+    """K1's ``static`` on a full-prefix beam step, bf16 (N, L, H): the
+    position rows, plus the category's row when a category is given
+    (navc_tpu beam.py:323-331)."""
+    if category is None:
+        ops = dataclasses.replace(ops, cat_table=None)
+    return ops.static(n, l, category)
 
 
-class _BlockGraphs:
-    """The captured beam search of one request signature (width, dtypes,
-    whether a category is given): block j of ``spans`` is a CUDA graph of
-    its steps, block 0 with the decode's set-up (the cross K/V, the start
-    state), each block reading the carry the block before it left. All
-    blocks share one pool and are captured in order, so they are replayed
-    as a prefix of that order. After replay j the all-done flag goes to
-    pinned memory behind an event (``_DoneWatch``'s device half, outside
-    the capture: no pinned allocation or event can be made inside one)."""
+def prefix_hidden(ops: KernelOperands, seqs_flat: torch.Tensor, static: torch.Tensor,
+                  ke: torch.Tensor, ve: torch.Tensor) -> torch.Tensor:
+    """The full-prefix step's decoder layer through K1, causal, over the
+    whole (N, L) prefix: the raw bf16 word rows, ``static`` (``prefix_static``),
+    PAD keys masked and the hoisted cross K/V (N, Le, H); float32 (N, L, H)
+    hidden states, as navc_tpu's ``fused_nar_decoder_layer(..., causal=True,
+    static=...)`` returns them (beam.py:332-337). On CPU tensors, K1's
+    plain version."""
+    return fused_layer(ops.word16[seqs_flat.long()], static, seqs_flat == C.PAD, ke, ve,
+                       ops.layer, ops.ln_scale, ops.ln_bias, n_head=ops.n_head,
+                       causal=True, ln_eps=ops.ln_eps, out_dtype=torch.float32)
 
-    def __init__(self, start, spans, enc_output, category):
-        self.static = [enc_output.clone(), None if category is None else category.clone()]
-        self.spans = spans
 
-        def whole():
-            step, carry = start(*self.static)
-            for t in range(1, spans[-1][1]):
-                carry = step(carry, t)
-            return carry[0]
+class _BeamLoop(graphs.Loop):
+    """One request's blocked beam search as a ``graphs.Loop``: ``head()``
+    makes the step and its carry (the cross K/V, the start state);
+    ``block(j)`` runs the steps of ``spans[j]``, writes the beam state back
+    in place (the tail reads it whichever block ran last) and returns the
+    all-done flag; ``tail()`` ranks the finished hypotheses. The caches
+    pass from block to block as the previous block's outputs."""
 
-        # the first call's result: every step, eagerly, on a side stream
-        self.first = graphs.warm_up(whole), spans[-1][1] - 1
-        pool = torch.cuda.graph_pool_handle()
-        step = carry = None
-        self.blocks = []
-        with graphs.collector_off():  # one collection for all the blocks
-            for t0, t1 in spans:
-                def body(t0=t0, t1=t1):
-                    nonlocal step, carry
-                    if step is None:
-                        step, carry = start(*self.static)
-                    for t in range(t0, t1):
-                        carry = step(carry, t)
-                    return carry[0], carry[0].done.all()
-                self.blocks.append(graphs.Graph(body, pool))
-        self.flags = torch.zeros(len(spans), dtype=torch.bool, pin_memory=True)
+    def __init__(self, start, finish, spans, enc_output, category):
+        self.start, self.finish, self.spans = start, finish, spans
+        self.enc_output, self.category = enc_output, category
+        self.n_blocks = len(spans)
 
-    def __call__(self, enc_output, category):
-        """Replay the blocks up to the stop rule: (the last block's state,
-        steps run)."""
-        self.static[0].copy_(enc_output)
-        if category is not None:
-            self.static[1].copy_(category)
-        state = None
+    def head(self):
+        self.step, self.carry = self.start(self.enc_output, self.category)
+        self.state = self.carry[0]
 
-        def run_block(j, t0, t1):
-            nonlocal state
-            state, done = self.blocks[j].replay()
-            self.flags[j:j + 1].copy_(done.reshape(1), non_blocking=True)
-            event = torch.cuda.Event()
-            event.record()
+    def block(self, j: int) -> torch.Tensor:
+        carry = self.carry
+        for t in range(*self.spans[j]):
+            carry = self.step(carry, t)
+        for old, new in zip(self.state, carry[0]):
+            old.copy_(new)
+        self.carry = (self.state,) + carry[1:]
+        return self.state.done.all()
 
-            def read():
-                event.synchronize()
-                return bool(self.flags[j])
-            return read
-
-        steps = run_blocks(run_block, self.spans)
-        return state, steps
+    def tail(self):
+        return self.finish(self.state)
 
 
 def make_ar_generator(cfg: Config, model, jit: bool = True, *,
@@ -347,14 +329,19 @@ def make_ar_generator(cfg: Config, model, jit: bool = True, *,
     the model's current weights, once.
 
     ``jit`` (navc_tpu's ``jax.jit`` around its ``while_loop``): the steps
-    run in blocks of ``block`` under ``run_blocks``'s stop rule. On the card
-    each block is a CUDA graph (``_BlockGraphs``, one set per request
-    signature, the K6 and K8 routes apart by width) and the ranking of the
-    finished hypotheses runs eagerly on the last block's state; on the CPU
-    the blocks run eagerly. ``jit=False`` issues every step from the host,
-    reading the all-done flag ``DONE_LAG`` steps late. ``generate.graphed``
-    says whether calls on the card replay graphs, ``generate.steps_run``
-    counts the steps run and ``generate.graphs`` holds the captured sets.
+    run in blocks of ``block`` under ``graphs.lagged_blocks``'s stop rule
+    (``_BeamLoop``). On the card the set-up, each block and the ranking of
+    the finished hypotheses are CUDA graphs (``graphs.JittedLoop``, one set
+    per request signature, the K6 and K8 routes apart by width); on the
+    CPU the phases run eagerly. ``jit=False`` issues every step from the
+    host, reading the all-done flag ``DONE_LAG`` steps late.
+    ``generate.graphed`` says whether calls on the card replay graphs,
+    ``generate.steps_run`` counts the steps run and ``generate.graphs``
+    holds the captured sets.
+
+    The full-prefix route runs its layer through K1 on the card where
+    ``fused_layer_eligible(cfg, causal=True)``, and the model's own forward
+    on the CPU, as navc_tpu does.
     """
     k = cfg.beam_size
     max_len = cfg.max_len
@@ -374,12 +361,19 @@ def make_ar_generator(cfg: Config, model, jit: bool = True, *,
     use_topk = (use_cache and fused_vocab_eligible(cfg) and k <= MAX_K
                 and h % 16 == 0 and h <= MAX_D)  # K5's shape limits
     proj = projection_weights(model) if use_topk else None
+    prefix_ops = (KernelOperands.of(model) if not use_cache
+                  and fused_layer_eligible(cfg, causal=True) else None)
     spans = block_spans(max_len, block)
 
-    def decode_step(seqs_flat, enc_tiled, cat_tiled, t):
-        """Full-prefix route: the ARFormer forward over the whole prefix,
-        projected at position t-1 only; log_softmax as jax.nn.log_softmax."""
-        hidden, _ = model.decode(seqs_flat, enc_tiled, cat_tiled, "ARFormer")
+    def decode_step(seqs_flat, enc_tiled, cat_tiled, t, prefix):
+        """Full-prefix route: the layer over the whole prefix (K1 with
+        ``prefix`` = (static, ke, ve), else the ARFormer forward),
+        projected at position t-1 only; log_softmax as
+        jax.nn.log_softmax."""
+        if prefix is not None:
+            hidden = prefix_hidden(prefix_ops, seqs_flat, *prefix)
+        else:
+            hidden, _ = model.decode(seqs_flat, enc_tiled, cat_tiled, "ARFormer")
         logits = model.project(hidden[:, t - 1])
         shifted = logits - logits.amax(-1, keepdim=True)
         return shifted - torch.log(torch.exp(shifted).sum(-1, keepdim=True))
@@ -402,6 +396,13 @@ def make_ar_generator(cfg: Config, model, jit: bool = True, *,
                                             enc_output, cat_tiled, k, routes)
         else:
             enc_tiled = enlarge(enc_output, k)
+            prefix = None
+            if prefix_ops is not None and dev.type == "cuda":
+                # navc_tpu runs the fused layer only on the device
+                # (beam.py:315-318); the cross K/V are step-invariant
+                cat = cat_tiled if cfg.with_category else None
+                prefix = ((prefix_static(prefix_ops, n, max_len, cat),)
+                          + prefix_ops.cross_kv(enc_output, k))
 
         i32 = dict(dtype=torch.int32, device=dev)
         seqs = torch.zeros((b, k, max_len), **i32)
@@ -447,7 +448,7 @@ def make_ar_generator(cfg: Config, model, jit: bool = True, *,
                 next_word = torch.gather(ids_top.reshape(b, k * k), 1, best_flat)
             else:
                 wp = decode_step(state.seqs.reshape(n, max_len), enc_tiled,
-                                 cat_tiled, t).view(b, k, -1)
+                                 cat_tiled, t, prefix).view(b, k, -1)
                 v = wp.shape[-1]
                 beam_lk = torch.where((last == C.EOS)[:, :, None], NEG_BIG,
                                       wp + state.scores[:, :, None])
@@ -513,38 +514,20 @@ def make_ar_generator(cfg: Config, model, jit: bool = True, *,
             watch.push(t, carry[0].done)
         return carry[0]
 
-    def blocked(enc_output, category):
-        if enc_output.device.type == "cuda":
-            key, _ = graphs.signature((enc_output, category))
-            captured = generate.graphs.get(key)
-            if captured is None:
-                captured = _BlockGraphs(start, spans, enc_output, category)
-                generate.graphs[key] = captured
-                (state, steps), captured.first = captured.first, None
-            else:
-                state, steps = captured(enc_output, category)
-            generate.steps_run += steps
-            return state
-        step, carry = start(enc_output, category)
-
-        def run_block(j, t0, t1):
-            nonlocal carry
-            for t in range(t0, t1):
-                carry = step(carry, t)
-            done = bool(carry[0].done.all())
-            return lambda: done
-
-        generate.steps_run += run_blocks(run_block, spans)
-        return carry[0]
+    jitted = graphs.JittedLoop(
+        lambda enc_output, category: _BeamLoop(start, finish, spans, enc_output, category))
 
     @torch.no_grad()
     def generate(enc_results: Dict[str, torch.Tensor],
                  category: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-        run = blocked if jit else eager
-        return finish(run(enc_results["enc_output"], category))
+        if not jit:
+            return finish(eager(enc_results["enc_output"], category))
+        out, blocks, _ = jitted(enc_results["enc_output"], category)
+        generate.steps_run += sum(t1 - t0 for t0, t1 in spans[:blocks])
+        return out
 
     generate.steps_run = 0
     generate.graphed = jit
-    generate.graphs = {}
+    generate.graphs = jitted.graphs
     return generate

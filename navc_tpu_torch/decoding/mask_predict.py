@@ -30,17 +30,20 @@ multiply-sum merge were a TPU workaround (mask_predict.py:397-402).
 The l2r and ef paradigms (algorithms.py:275-417) reveal q masks per round
 — the leftmost, or the most confident — then refine q_iterations times;
 they call the same ``predict`` and teacher as mp (dense K1 + K3, the
-teacher's causal K1 + K4), never the sparse step. l2r runs exactly the
-rounds that reveal something, from one host read of the largest mask
-count; ef reads the batch's remaining mask count each round, for the
-reference's stop rule. The collect modes keep every iteration's tokens and
+teacher's causal K1 + K4), never the sparse step. Compiled (``jit``), as
+navc_tpu compiles them, their rounds are decided on the device: l2r's
+ceil(L / q) rounds each under an IF node on whether it reveals anything,
+ef's rounds in blocks, each round under an IF node on the reference's
+stop rule, the blocks ended by a lagged flag read (``make_nar_generator``).
+Eagerly, l2r runs exactly the rounds that reveal something, from one host
+read of the largest mask count, and ef reads the batch's remaining mask
+count each round. The collect modes keep every iteration's tokens and
 probs (all steps dense) and, with ``collect_attentions``, layer 0's maps
 from the plain decoder on the unaligned canvas.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
@@ -51,14 +54,14 @@ from ..config import Config
 from ..ops.eligibility import (fused_decode_eligible, fused_layer_eligible,
                                fused_sparse_eligible, fused_teacher_eligible,
                                fused_vocab_eligible)
-from ..ops.fused_layer import (LayerWeights, fused_layer, fused_layer_qsub,
-                               hoist_cross_kv, layer_weights)
+from ..ops.fused_layer import fused_layer, fused_layer_qsub
 from ..ops.select import rank_mask_largest, rank_mask_smallest
 from ..ops.vocab_fused import (project_argmax, project_gather_prob,
                                projection_weights)
 from ..runtime import graphs
 from .length_beam import (build_canvas, enlarge, predict_length_beam,
                           select_best_length_beam)
+from .operands import KernelOperands
 
 
 class NARContext(NamedTuple):
@@ -68,62 +71,6 @@ class NARContext(NamedTuple):
     teacher_enc_output: Optional[torch.Tensor]
     teacher_category: Optional[torch.Tensor]
     dict_mapping: Optional[torch.Tensor]       # (vocab,) student->teacher ids
-
-
-@dataclass
-class KernelOperands:
-    """A model's kernel operands, made once per generator: bf16 layer
-    weights and word table, float32 embedding LN, position and category
-    tables, and the (V, D) bf16 projection."""
-    layer: LayerWeights
-    word16: torch.Tensor
-    ln_scale: torch.Tensor
-    ln_bias: torch.Tensor
-    pos_table: torch.Tensor
-    cat_table: Optional[torch.Tensor]
-    proj_w: torch.Tensor
-    proj_b: Optional[torch.Tensor]
-    n_head: int
-    ln_eps: float
-
-    @classmethod
-    def of(cls, model) -> "KernelOperands":
-        emb = model.decoder.embedding
-        cat = getattr(emb, "category_embeddings", None)
-        w, b = projection_weights(model)
-        return cls(
-            layer=layer_weights(model.decoder.layers[0]),
-            word16=emb.word_embeddings.weight.detach().to(torch.bfloat16),
-            ln_scale=emb.LayerNorm.weight.detach().float().contiguous(),
-            ln_bias=emb.LayerNorm.bias.detach().float().contiguous(),
-            pos_table=emb.position_embeddings.weight.detach().float(),
-            cat_table=None if cat is None else cat.weight.detach().float(),
-            proj_w=w, proj_b=b, n_head=model.cfg.num_attention_heads,
-            ln_eps=model.cfg.layer_norm_eps)
-
-    def static(self, n_rows: int, l: int, category=None, enc_output=None):
-        """Iteration-invariant embedding parts as bf16 (N, l, H): position
-        rows (zeros past the table end — the 8-aligned canvas tail, always
-        PAD) + category + the mean-pooled enc_output (enhance_input 2)."""
-        h = self.pos_table.shape[1]
-        pos = self.pos_table[:l]
-        if l > pos.shape[0]:
-            pos = torch.cat([pos, pos.new_zeros(l - pos.shape[0], h)])
-        static = pos[None].expand(n_rows, l, h)
-        if self.cat_table is not None:
-            if category is None:
-                raise ValueError("with_category model requires category ids")
-            cat = self.cat_table[category.reshape(n_rows, -1)[:, 0].long()]
-            static = static + cat[:, None, :]
-        if enc_output is not None:
-            static = static + enc_output.mean(dim=1, keepdim=True)
-        return static.to(torch.bfloat16).contiguous()
-
-    def cross_kv(self, enc_unique: torch.Tensor, lbs: int):
-        """Hoisted cross K/V, projected once per video and tiled over the
-        length beams."""
-        ke, ve = hoist_cross_kv(enc_unique, self.layer)
-        return enlarge(ke, lbs).contiguous(), enlarge(ve, lbs).contiguous()
 
 
 def _predict_fn(cfg: Config, model, ops: Optional[KernelOperands], proj,
@@ -383,26 +330,42 @@ def _ct_or_blank(predict, tokens, pad_mask, cfg: Config):
 
 
 def _left2right(predict, teacher_score, tokens, pad_mask, lengths,
-                cfg: Config):
+                cfg: Config, jit: bool = False):
     """Reveal the q leftmost masks per round, then refine
-    (algorithms.py:275-344)."""
+    (algorithms.py:275-344).
+
+    ``jit``: navc_tpu's compiled form, a scan of ceil(L / q) rounds, each
+    under ``lax.cond(any(sel))`` (``graphs.when``: an IF node in a capture,
+    a merge elsewhere), with no host read. Else exactly the rounds with
+    work, from one host read of the largest mask count."""
     seq_lens = lengths.to(torch.float32)
     tokens, token_probs, visual_mask = _ct_or_blank(predict, tokens, pad_mask,
                                                     cfg)
     # the initial masked set in left-to-right order (algorithms.py:297-311);
     # round s reveals ordinals [s q, (s + 1) q), so it has work only while
-    # some row has more than s q masks. navc_tpu skips the forward of an
-    # empty round; one read of the largest count runs exactly the rounds
-    # with work, with no sync per round.
+    # some row has more than s q masks
     init_mask = tokens == C.MASK
     ordinal = init_mask.to(torch.int32).cumsum(1) - 1
     q = cfg.q
-    for s in range(-(-int(init_mask.sum(1).max()) // q)):
-        sel = init_mask & (ordinal >= s * q) & (ordinal < (s + 1) * q)
-        masked = torch.where(sel, C.MASK, tokens).to(torch.int32)
-        new_ids, new_probs = _apply_pad(*predict(masked), pad_mask)
-        tokens = torch.where(sel, new_ids, masked)
-        token_probs = torch.where(sel, new_probs, token_probs)
+    if jit:
+        n_rounds = -(-tokens.shape[1] // q)
+        stage = torch.where(init_mask, ordinal // q, -1)  # the round revealing each mask
+        # any(sel) of round s: the stages are 0 .. ceil(count / q) - 1 in every row
+        live = torch.arange(n_rounds, device=tokens.device) <= stage.amax()
+        for s in range(n_rounds):
+            def reveal(toks, probs, s=s):
+                sel = stage == s
+                masked = torch.where(sel, C.MASK, toks).to(torch.int32)
+                new_ids, new_probs = _apply_pad(*predict(masked), pad_mask)
+                return torch.where(sel, new_ids, masked), torch.where(sel, new_probs, probs)
+            tokens, token_probs = graphs.when(live[s], reveal, (tokens, token_probs))
+    else:
+        for s in range(-(-int(init_mask.sum(1).max()) // q)):
+            sel = init_mask & (ordinal >= s * q) & (ordinal < (s + 1) * q)
+            masked = torch.where(sel, C.MASK, tokens).to(torch.int32)
+            new_ids, new_probs = _apply_pad(*predict(masked), pad_mask)
+            tokens = torch.where(sel, new_ids, masked)
+            token_probs = torch.where(sel, new_probs, token_probs)
 
     tokens, token_probs = _refinement_tail(
         predict, tokens, token_probs, pad_mask, seq_lens, cfg, visual_mask)
@@ -411,17 +374,18 @@ def _left2right(predict, teacher_score, tokens, pad_mask, lengths,
 
 
 def _easy_first(predict, teacher_score, tokens, pad_mask, lengths,
-                cfg: Config):
+                cfg: Config, stats: Optional[dict] = None):
     """Reveal the q most confident masks of each row per round
-    (algorithms.py:347-417)."""
+    (algorithms.py:347-417), reading the batch's remaining mask count on
+    the host each round (``jit=False``; ``_EasyFirst`` is the compiled
+    form). ``stats["rounds"]``: the reveal rounds run."""
     seq_lens = lengths.to(torch.float32)
     tokens, token_probs, visual_mask = _ct_or_blank(predict, tokens, pad_mask,
                                                     cfg)
     # the rounds run until no mask is left or the batch-global count stops
     # falling (the dead-loop guard, algorithms.py:382-389: a model that
-    # predicts <mask> into a revealed slot keeps it masked), so the count
-    # is read on the host each round
-    pre = 0
+    # predicts <mask> into a revealed slot keeps it masked)
+    pre, rounds = 0, 0
     while True:
         mask_ind = tokens == C.MASK
         remain = mask_ind.sum(-1)
@@ -429,16 +393,107 @@ def _easy_first(predict, teacher_score, tokens, pad_mask, lengths,
         if total == 0 or total == pre:
             break
         pre = total
+        rounds += 1
         new_ids, new_probs = _apply_pad(*predict(tokens), pad_mask)
         confid = torch.where(mask_ind, new_probs, 0.0)
         best = rank_mask_largest(confid, remain.clamp(max=cfg.q))
         tokens = torch.where(best, new_ids, tokens)
         token_probs = torch.where(best, new_probs, token_probs)
+    if stats is not None:
+        stats["rounds"] = rounds
 
     tokens, token_probs = _refinement_tail(
         predict, tokens, token_probs, pad_mask, seq_lens, cfg, visual_mask)
     return tokens, _final_lprobs(teacher_score, tokens, token_probs, pad_mask,
                                  cfg)
+
+
+def _ef_go(total: torch.Tensor, pre: torch.Tensor) -> torch.Tensor:
+    """navc_tpu's while-loop condition (mask_predict.py:565-568) on the
+    batch's mask count: some mask left and the count still falling since
+    the last round that ran (0-d bool)."""
+    return (total > 0) & (total != pre)
+
+
+def _ef_round(predict, pad_mask, cfg: Config, carry):
+    """One reveal round of the compiled ef under ``_ef_go``. Every round of
+    a block is guarded, not only the empty ones: after a stall one more
+    round would still reveal. carry = (tokens, probs, the count before the
+    last round that ran, the rounds run)."""
+    tokens = carry[0]
+    mask_ind = tokens == C.MASK
+    remain = mask_ind.sum(-1)
+    total = remain.sum()
+
+    def reveal(toks, probs, pre, rounds):
+        new_ids, new_probs = _apply_pad(*predict(toks), pad_mask)
+        confid = torch.where(mask_ind, new_probs, 0.0)
+        best = rank_mask_largest(confid, remain.clamp(max=cfg.q))
+        return (torch.where(best, new_ids, toks), torch.where(best, new_probs, probs),
+                total, rounds + 1)
+    return graphs.when(_ef_go(total, carry[2]), reveal, carry)
+
+
+def _ef_done(carry) -> torch.Tensor:
+    """Whether the loop condition fails on the carry (0-d bool)."""
+    return ~_ef_go((carry[0] == C.MASK).sum(), carry[2])
+
+
+def ef_block_cap(canvas_len: int, block: int) -> int:
+    """The most blocks of ``block`` rounds the compiled ef can run. A row
+    whose revealed slots all come back <mask> has unchanged tokens, so it
+    stalls for good; a row progresses at most once per mask it holds, so
+    the rounds that run are at most canvas_len + 1 (the last one finds
+    every row stalled), and the stop rule reads the last of their blocks
+    after one block more."""
+    return -(-(canvas_len + 1) // block) + 1
+
+
+class _EasyFirst(graphs.Loop):
+    """One request's compiled ef as a ``graphs.Loop``: ``head()`` builds
+    the canvas, the forwards' operands and the carry (the CT pass or the
+    blank canvas); ``block(j)`` runs ``rounds`` guarded reveal rounds
+    (``_ef_round``), writes the carry back in place and returns its done
+    flag; ``tail()`` refines, rescores with the teacher and picks each
+    video's best length beam: (hypotheses, the reveal rounds run).
+    ``setup`` maps the request to (predict, teacher_score, tokens,
+    pad_mask, lengths, bsz); ``finish`` maps (hyp, lprobs, lengths, bsz)
+    to (hypotheses, best length beam)."""
+
+    same_blocks = True
+    open_ended = True  # the stall guard lets the rounds exceed ceil(L / q)
+
+    def __init__(self, setup, finish, cfg: Config, rounds: int, args, kwargs):
+        self.setup, self.finish, self.cfg, self.rounds = setup, finish, cfg, rounds
+        self.args, self.kwargs = args, kwargs
+
+    def head(self):
+        (self.predict, self.teacher_score, tokens, self.pad_mask, self.lengths,
+         self.bsz) = self.setup(*self.args, **self.kwargs)
+        tokens, probs, self.visual_mask = _ct_or_blank(self.predict, tokens,
+                                                       self.pad_mask, self.cfg)
+        # the carry is written in place: it owns its tensors (without CT
+        # the tokens are the canvas itself)
+        self.carry = (tokens.clone(), probs,
+                      torch.zeros((), dtype=torch.int64, device=tokens.device),
+                      torch.zeros((), dtype=torch.int32, device=tokens.device))
+        self.n_blocks = ef_block_cap(tokens.shape[1], self.rounds)
+
+    def block(self, j: int) -> torch.Tensor:
+        carry = self.carry
+        for _ in range(self.rounds):
+            carry = _ef_round(self.predict, self.pad_mask, self.cfg, carry)
+        for c, new in zip(self.carry, carry):
+            c.copy_(new)
+        return _ef_done(self.carry)
+
+    def tail(self):
+        tokens, probs, _, rounds = self.carry
+        tokens, probs = _refinement_tail(self.predict, tokens, probs, self.pad_mask,
+                                         self.lengths.to(torch.float32), self.cfg,
+                                         self.visual_mask)
+        lprobs = _final_lprobs(self.teacher_score, tokens, probs, self.pad_mask, self.cfg)
+        return self.finish(tokens, lprobs, self.lengths, self.bsz)[0], rounds.clone()
 
 
 ALGORITHMS = {"mp": _mask_predict, "l2r": _left2right, "ef": _easy_first}
@@ -449,6 +504,9 @@ def _gather_best(arr: torch.Tensor, best_idx: torch.Tensor, bsz: int,
     """(T, B*lbs, *rest) -> (B, T, *rest) at each video's best length beam."""
     a = arr.reshape((arr.shape[0], bsz, lbs) + tuple(arr.shape[2:]))
     return a[:, torch.arange(bsz, device=a.device), best_idx].transpose(0, 1)
+
+
+EF_BLOCK = 4  # reveal rounds per captured ef block: one lagged flag read each
 
 
 def make_nar_generator(cfg: Config, model, teacher_model=None,
@@ -468,13 +526,22 @@ def make_nar_generator(cfg: Config, model, teacher_model=None,
     made here from the models' current weights, once; build a new
     generator after loading other weights.
 
-    ``jit`` (navc_tpu's ``jax.jit`` of the decode): on the card the mp
-    decode, collect modes included, is a CUDA graph per signature
-    (``runtime/graphs.py``: request width, dtypes, which optional inputs
-    are None), captured at the first call and replayed after; l2r and ef
-    read their round counts on the host and run eagerly.
-    ``generate.graphed`` says whether calls on the card replay graphs. On
-    the CPU every route runs eagerly.
+    ``jit`` (navc_tpu's ``jax.jit`` of the decode, which compiles all three
+    paradigms): on the card every decode replays CUDA graphs, captured per
+    signature (``runtime/graphs.py``: request width, dtypes, which
+    optional inputs are None) at the first call. mp (collect modes
+    included) and l2r are one graph each, l2r's ceil(L / q) reveal rounds
+    each under an IF node (``graphs.when``), with no host read. ef's
+    while-loop is a head graph, a block of ``EF_BLOCK`` rounds, each under
+    an IF node on navc_tpu's loop condition, replayed in place until the
+    lagged stop rule ends it (one flag read per block), and a tail graph
+    (``graphs.JittedLoop``). On the CPU the same formulation runs eagerly,
+    ``when`` merging. ``jit=False``: l2r reads its largest mask count once
+    on the host, ef its remaining count every round. ``generate.graphed``
+    says whether calls on the card replay graphs; for ef,
+    ``generate.blocks_run`` and ``generate.flag_reads`` count blocks and
+    flag reads, and ``generate.rounds`` is the last decode's reveal rounds
+    (a 0-d tensor with ``jit``, on the decode's device).
     """
     if cfg.paradigm not in ALGORITHMS:
         raise ValueError("paradigm must be one of %s" % list(ALGORITHMS))
@@ -500,10 +567,11 @@ def make_nar_generator(cfg: Config, model, teacher_model=None,
     tops = (KernelOperands.of(teacher_model)
             if use_teacher and fused_teacher_eligible(cfg, tcfg) else None)
 
-    @torch.no_grad()
-    def generate(enc_results: Dict[str, torch.Tensor], category=None,
-                 teacher_enc_results: Optional[Dict[str, torch.Tensor]] = None,
-                 dict_mapping: Optional[torch.Tensor] = None):
+    def setup(enc_results: Dict[str, torch.Tensor], category=None,
+              teacher_enc_results: Optional[Dict[str, torch.Tensor]] = None,
+              dict_mapping: Optional[torch.Tensor] = None):
+        """A request's canvas and forwards: (predict, teacher_score, tokens,
+        pad_mask, lengths, bsz)."""
         pred_length = enc_results["pred_length"]
         bsz = pred_length.shape[0]
         beam = predict_length_beam(pred_length, lbs, cfg.length_bias,
@@ -524,16 +592,33 @@ def make_nar_generator(cfg: Config, model, teacher_model=None,
         if ctx.teacher_enc_output is not None:
             teacher_score = _teacher_score_fn(
                 teacher_model, tops, ctx, teacher_enc_results["enc_output"], lbs)
+        return predict, teacher_score, tokens, pad_mask, lengths, bsz
+
+    def finish(hyp, lprobs, lengths, bsz):
+        """(each video's best hypothesis, its length beam)."""
+        best, best_idx = select_best_length_beam(hyp, lprobs, lengths, bsz, lbs,
+                                                 cfg.beam_alpha)
+        return best[:, :cfg.max_len], best_idx  # drop the aligned-canvas PAD tail
+
+    @torch.no_grad()
+    def generate(*args, **kwargs):
+        predict, teacher_score, tokens, pad_mask, lengths, bsz = setup(*args, **kwargs)
         if collect:
             hyp, lprobs, collected = algorithm(
                 predict, teacher_score, tokens, pad_mask, lengths, cfg,
                 collect=True, collect_attentions=collect_attentions)
+        elif cfg.paradigm == "l2r":
+            hyp, lprobs = algorithm(predict, teacher_score, tokens, pad_mask,
+                                    lengths, cfg, jit=jit)
+        elif cfg.paradigm == "ef":
+            stats = {}
+            hyp, lprobs = algorithm(predict, teacher_score, tokens, pad_mask,
+                                    lengths, cfg, stats=stats)
+            generate.rounds = stats["rounds"]
         else:
             hyp, lprobs = algorithm(predict, teacher_score, tokens, pad_mask,
                                     lengths, cfg)
-        best, best_idx = select_best_length_beam(hyp, lprobs, lengths, bsz, lbs,
-                                                 cfg.beam_alpha)
-        best = best[:, :cfg.max_len]  # drop the aligned-canvas PAD tail
+        best, best_idx = finish(hyp, lprobs, lengths, bsz)
         if not collect:
             return best
         toks, probs = (_gather_best(s, best_idx, bsz, lbs)[..., :cfg.max_len]
@@ -543,7 +628,29 @@ def make_nar_generator(cfg: Config, model, teacher_model=None,
                                          for a in collected[2:]]
         return best, (toks, probs)
 
-    if jit and cfg.paradigm == "mp":
+    if jit and cfg.paradigm == "ef":
+        return _ef_generator(setup, finish, cfg)
+    if jit:
         return graphs.Jitted(generate)
     generate.graphed = False
+    return generate
+
+
+def _ef_generator(setup, finish, cfg: Config):
+    """The compiled ef decode: ``_EasyFirst``'s phases captured per
+    signature on the card (``graphs.JittedLoop``), run eagerly on the CPU."""
+    jitted = graphs.JittedLoop(
+        lambda *args, **kwargs: _EasyFirst(setup, finish, cfg, EF_BLOCK, args, kwargs))
+
+    @torch.no_grad()
+    def generate(*args, **kwargs):
+        (hyp, generate.rounds), blocks, reads = jitted(*args, **kwargs)
+        generate.blocks_run += blocks
+        generate.flag_reads += reads
+        return hyp
+
+    generate.graphed = True
+    generate.graphs = jitted.graphs
+    generate.blocks_run = generate.flag_reads = 0
+    generate.rounds = None
     return generate

@@ -14,12 +14,21 @@ launch, which ``check`` turns into an exception. ``build`` starts one
 ``nvcc`` per source, all at once.
 
 ``LAUNCHES`` counts kernel launches by wrapper name. A wrapper adds one
-where it launches its kernel and nowhere else, so a run can show that the
-main path went through the kernels. While a CUDA graph is captured
-(``runtime/graphs.py``) the wrappers queue launches that do not run:
+(``LAUNCHES.count``) where it launches its kernel and nowhere else, so a
+run can show that the main path went through the kernels. While a CUDA
+graph is captured (``runtime/graphs.py``) the wrappers queue launches that
+do not run:
 ``capture_launches`` takes their counts back out and keeps them with the
 graph, and every replay adds them (``add_launches``), so the counts stay
-launches per decode.
+launches per decode. The launches of a body under one of a graph's IF
+nodes (``graphs.when``) run only when its predicate holds: a replay of such
+a graph leaves a settle function behind (``LAUNCHES.defer``) that adds
+them times the runs its device counters counted, and every read of
+``LAUNCHES`` settles first (``Launches``); counting does not, so a launch
+queued behind a replay does not wait for it.
+
+``graph_cond`` is no kernel of the decode: it adds those IF nodes to a
+capture (``runtime/graphs.py``).
 """
 
 from __future__ import annotations
@@ -32,24 +41,81 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable, Iterator, Optional
+from typing import Callable, Dict, Iterable, Iterator, Optional
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 SOURCES = ("vocab_fused", "fused_layer", "beam_attend", "beam_permute",
-           "fused_layer_train", "vocab_ce")
+           "fused_layer_train", "vocab_ce", "graph_cond")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES: Dict[str, int] = {"fused_layer": 0, "fused_layer_qsub": 0,
-                            "fused_layer_unfolded": 0,
-                            "project_argmax": 0, "project_gather_prob": 0,
-                            "project_topk": 0, "beam_attend_step": 0,
-                            "cross_attend": 0, "permute_beam_caches": 0,
-                            "train_fwd": 0, "train_ffn_bwd": 0,
-                            "train_attn_bwd": 0, "train_wgrad": 0,
-                            "ce_fwd": 0, "ce_bwd_dh": 0, "ce_bwd_dw": 0}
+
+class Launches(dict):
+    """{wrapper: launches}. A replay whose counts are known only once the
+    card has run it leaves ``defer(key, settle)``: ``settle()`` waits for
+    the replay (its event) and returns {wrapper: launches} to add; a later
+    deferral under the same key replaces the earlier one (its counts are
+    cumulative). Every read (an item, ``get``, iteration, ``keys``,
+    ``values``, ``items``, hence ``dict(LAUNCHES)``) settles what is
+    pending first, so a caller that has read the decode's outputs waits for
+    nothing more."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._pending: Dict[object, Callable[[], Dict[str, int]]] = {}
+
+    def defer(self, key, settle: Callable[[], Dict[str, int]]) -> None:
+        self._pending[key] = settle
+
+    def settle(self) -> None:
+        while self._pending:
+            self.add(self._pending.popitem()[1]())
+
+    def add(self, counts: Dict[str, int]) -> None:
+        """Add counts without settling (a replay must not wait for another)."""
+        for key, n in counts.items():
+            self.count(key, n)
+
+    def count(self, key: str, n: int = 1) -> None:
+        """A wrapper's launch, counted without settling: a launch queued
+        behind a replay must not wait for it."""
+        dict.__setitem__(self, key, dict.__getitem__(self, key) + n)
+
+    def __getitem__(self, key):
+        self.settle()
+        return dict.__getitem__(self, key)
+
+    def get(self, key, default=None):
+        self.settle()
+        return dict.get(self, key, default)
+
+    def __iter__(self):
+        self.settle()
+        return dict.__iter__(self)
+
+    def keys(self):
+        self.settle()
+        return dict.keys(self)
+
+    def values(self):
+        self.settle()
+        return dict.values(self)
+
+    def items(self):
+        self.settle()
+        return dict.items(self)
+
+
+LAUNCHES = Launches({"fused_layer": 0, "fused_layer_qsub": 0,
+                     "fused_layer_unfolded": 0,
+                     "project_argmax": 0, "project_gather_prob": 0,
+                     "project_topk": 0, "beam_attend_step": 0,
+                     "cross_attend": 0, "permute_beam_caches": 0,
+                     "train_fwd": 0, "train_ffn_bwd": 0,
+                     "train_attn_bwd": 0, "train_wgrad": 0,
+                     "ce_fwd": 0, "ce_bwd_dh": 0, "ce_bwd_dw": 0})
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -78,8 +144,7 @@ def capture_launches() -> Iterator[Dict[str, int]]:
 
 def add_launches(counts: Dict[str, int]) -> None:
     """A replay of a graph launches what its capture counted."""
-    for key, n in counts.items():
-        LAUNCHES[key] += n
+    LAUNCHES.add(counts)
 
 
 def nvcc() -> str:

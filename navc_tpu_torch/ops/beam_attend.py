@@ -250,7 +250,7 @@ def beam_attend_step(kc: torch.Tensor, vc: torch.Tensor, q: torch.Tensor,
         n_head, int(tpos), 1.0 / math.sqrt(h // n_head),
         int(kc.dtype == torch.float32), run, _stream(q))
     _build.check(lib, code, "beam_attend_step")
-    _build.LAUNCHES["beam_attend_step"] += 1
+    _build.LAUNCHES.count("beam_attend_step")
     return kc, vc, att
 
 
@@ -284,5 +284,5 @@ def cross_attend(q: torch.Tensor, ke: torch.Tensor, ve: torch.Tensor,
         1.0 / math.sqrt(h // n_head), int(ke.dtype == torch.float32), groups, int(reuse),
         _stream(q))
     _build.check(lib, code, "cross_attend")
-    _build.LAUNCHES["cross_attend"] += 1
+    _build.LAUNCHES.count("cross_attend")
     return att

@@ -75,5 +75,5 @@ def permute_beam_caches(kc: torch.Tensor, vc: torch.Tensor,
         ctypes.c_void_p(ovc.data_ptr()), n, prev_k.shape[1], row_bytes,
         ctypes.c_void_p(torch.cuda.current_stream(kc.device).cuda_stream))
     _build.check(lib, code, "permute_beam_caches")
-    _build.LAUNCHES["permute_beam_caches"] += 1
+    _build.LAUNCHES.count("permute_beam_caches")
     return okc, ovc

@@ -1,13 +1,16 @@
 """Single source of truth for the kernel gates.
 
 Port of navc_tpu/ops/eligibility.py with the same predicates, so the gates
-of the two packages cannot drift apart. The JAX package's ``NAVC_*``
-environment kill-switches are not carried over: the port's gates read the
-configuration only. ``cfg.use_pallas`` keeps its name and means "use the
-hand-written CUDA kernels".
+of the two packages cannot drift apart. Of the JAX package's ``NAVC_*``
+environment kill-switches only ``NAVC_NO_KVCACHE`` is carried over (the
+A/B of the beam search's KV-cached step against its full-prefix step);
+the other gates read the configuration only. ``cfg.use_pallas`` keeps its
+name and means "use the hand-written CUDA kernels".
 """
 
 from __future__ import annotations
+
+import os
 
 from ..config import Config
 
@@ -35,13 +38,16 @@ def kv_cached_beam_eligible(cfg: Config) -> bool:
     """Can AR beam search use the incremental KV-cached decode step? The
     configuration the fused causal layer covers (1 decoder layer, no
     pos-attention, no attention LayerNorm, gelu_new, no sigmoid attention,
-    watch == 0), with or without the kernels."""
+    watch == 0), with or without the kernels. A non-empty
+    ``NAVC_NO_KVCACHE`` in the environment turns it off (navc_tpu's A/B
+    switch): the beam then recomputes the whole prefix every step."""
     return (cfg.num_hidden_layers_decoder == 1
             and not cfg.pos_attention
             and not cfg.with_layernorm
             and not cfg.use_sigmoid_to_get_attprob
             and cfg.hidden_act == "gelu_new"
-            and cfg.watch == 0)
+            and cfg.watch == 0
+            and not os.environ.get("NAVC_NO_KVCACHE"))
 
 
 def fused_vocab_eligible(cfg: Config) -> bool:

@@ -339,7 +339,7 @@ def fused_layer(raw, static, kp, ke, ve, w: LayerWeights, ln_scale, ln_bias,
         _launch("navc_fused_layer", raw, static, kp, ke, ve, w, ln_scale, ln_bias,
                 n_head, causal, ln_eps, out, ws=(x, k1, v1, None, q, c), g=sc["g"],
                 res=sc["res"])
-        _build.LAUNCHES["fused_layer"] += 1
+        _build.LAUNCHES.count("fused_layer")
     return out
 
 
@@ -374,7 +374,7 @@ def fused_layer_qsub(qidx, mask_row, raw, static, kp, ke, ve, w: LayerWeights,
                 n_head, False, ln_eps, out, qidx=qidx, mask_row=mask_row,
                 ws=sc["canvas"].unbind(0) + sc["query"].unbind(0), g=sc["g"],
                 res=sc["res"])
-        _build.LAUNCHES["fused_layer_qsub"] += 1
+        _build.LAUNCHES.count("fused_layer_qsub")
     return out
 
 
@@ -409,5 +409,5 @@ def fused_layer_unfolded(x, enc, kp, w: LayerWeights, n_head: int,
              torch.zeros(1, dtype=torch.int32, device=x.device), n_head, causal,
              0.0, 0.0, out)
     if x.shape[0]:
-        _build.LAUNCHES["fused_layer_unfolded"] += 1
+        _build.LAUNCHES.count("fused_layer_unfolded")
     return out

@@ -597,7 +597,7 @@ def train_fwd(x, enc, kp, w, seed, *, n_head, causal=False, p=0.5, p_input=0.0,
     r2 = fwd_call("navc_train_fwd", x, enc, kp, w, seed, n_head, causal, p, p_input,
                   out, compute_dtype)
     if x.shape[0]:
-        _build.LAUNCHES["train_fwd"] += 1
+        _build.LAUNCHES.count("train_fwd")
     return out, r2
 
 
@@ -630,7 +630,7 @@ def ffn_bwd_operands(r2, dy, kp, w, seed, *, p=0.5, compute_dtype=torch.bfloat16
         lib = _lib()
         _build.check(lib, lib.navc_train_ffn_bwd(ctypes.byref(a), _stream(dy)),
                      "train_ffn_bwd")
-        _build.LAUNCHES["train_ffn_bwd"] += 1
+        _build.LAUNCHES.count("train_ffn_bwd")
     return dr2, [Product("wi", "bi", da, r2.view(n * lp, h), pbi),
                  Product("wo2", "bo2", dd, g, pbd)]
 
@@ -680,7 +680,7 @@ def attn_bwd_operands(x, enc, dr2, kp, w, seed, *, n_head, causal=False, p=0.5,
         lib = _lib()
         _build.check(lib, lib.navc_train_attn_bwd(ctypes.byref(a), dc, _stream(x)),
                      "train_attn_bwd")
-        _build.LAUNCHES["train_attn_bwd"] += 1
+        _build.LAUNCHES.count("train_attn_bwd")
     spec = (("wq_s", "bq_s", WS_DQ1, WS_X), ("wk_s", "bk_s", WS_DK1, WS_X),
             ("wv_s", "bv_s", WS_DV1, WS_X), ("wo_s", "bo_s", WS_DO1, WS_C1),
             ("wq_c", "bq_c", WS_DQ2, WS_R1), ("wk_c", "bk_c", WS_DK2, WS_ENC),
@@ -725,7 +725,7 @@ def weight_grads(prods: List[Product]) -> Dict[str, torch.Tensor]:
     lib = _lib()
     _build.check(lib, lib.navc_train_wgrad(ctypes.byref(args), _stream(prods[0].P)),
                  "train_wgrad")
-    _build.LAUNCHES["train_wgrad"] += 1
+    _build.LAUNCHES.count("train_wgrad")
     return out
 
 

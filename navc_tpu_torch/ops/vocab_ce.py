@@ -234,7 +234,7 @@ def vocab_ce_fwd(h, w, bias, labels, compute_dtype=torch.bfloat16):
         _build.check(lib, lib.navc_ce_fwd(
             *[_ptr(t) for t in (h, w, bias, labels, g, pred, z)], pm, ps, pa, pg,
             n, d, v, splits, per, _stream(h)), "ce_fwd")
-        _build.LAUNCHES["ce_fwd"] += 1
+        _build.LAUNCHES.count("ce_fwd")
     return g, pred, z
 
 
@@ -277,7 +277,7 @@ def vocab_ce_bwd(h, w, bias, labels, z, dg, compute_dtype=torch.bfloat16,
     _build.check(lib, lib.navc_ce_bwd_dh(
         *ops, order, _ptr(dh), int(dh_dtype == torch.bfloat16), _ptr(part), n,
         d, v, splits, per, _stream(h)), "ce_bwd_dh")
-    _build.LAUNCHES["ce_bwd_dh"] += 1
+    _build.LAUNCHES.count("ce_bwd_dh")
     splits = dw_plan(n, v, d, sms)
     part = dbpart = None
     if splits > 1:
@@ -287,7 +287,7 @@ def vocab_ce_bwd(h, w, bias, labels, z, dg, compute_dtype=torch.bfloat16,
     _build.check(lib, lib.navc_ce_bwd_dw(
         *ops, _ptr(dw), _ptr(db), _ptr(part), _ptr(dbpart), n, d, v, splits,
         _stream(h)), "ce_bwd_dw")
-    _build.LAUNCHES["ce_bwd_dw"] += 1
+    _build.LAUNCHES.count("ce_bwd_dw")
     return dh, dw, db
 
 

@@ -200,7 +200,7 @@ def project_argmax(h: torch.Tensor, w: torch.Tensor,
     lib, code = _launch_argmax("navc_project_argmax", h, w, bias, None,
                                [ids, maxp])
     _build.check(lib, code, "project_argmax")
-    _build.LAUNCHES["project_argmax"] += 1
+    _build.LAUNCHES.count("project_argmax")
     return ids, maxp
 
 
@@ -220,7 +220,7 @@ def project_gather_prob(h: torch.Tensor, w: torch.Tensor,
     lib, code = _launch_argmax("navc_project_gather_prob", h, w, bias, targets,
                                [prob])
     _build.check(lib, code, "project_gather_prob")
-    _build.LAUNCHES["project_gather_prob"] += 1
+    _build.LAUNCHES.count("project_gather_prob")
     return prob
 
 
@@ -254,7 +254,7 @@ def project_topk(h: torch.Tensor, w: torch.Tensor, k: int,
     code = lib.navc_project_topk(*[_ptr(t) for t in (h, w, bias, lp, ids, pm, ps, pv, pi)],
                                  rows, d, v, k, splits, per, _stream(h))
     _build.check(lib, code, "project_topk")
-    _build.LAUNCHES["project_topk"] += 1
+    _build.LAUNCHES.count("project_topk")
     return lp, ids
 
 

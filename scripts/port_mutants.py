@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Mutation check of the redesigned kernels (K11, K12a, K12b, K2, K1, K6,
 K7, K1u), of the decodes' CUDA graphs (runtime/graphs.py, the beam's
-blocks) and of the captured training step (runtime/train_step.py, its seed,
-lr and generator) on a card.
+blocks; the IF nodes of the compiled l2r and ef, csrc/graph_cond.cu, their
+counters, ef's loop condition and the lagged flag read) and of the
+captured training step (runtime/train_step.py, its seed, lr and generator)
+on a card.
 
 Each mutant is one exact edit of a file of navc_tpu_torch, made in a copy of
 the package under a temporary directory (never in the checkout); the
@@ -19,8 +21,8 @@ from the repo root on a machine with an NVIDIA card:
 
     python3 scripts/port_mutants.py [TESTS ...]
 
-where TESTS (e.g. ``graphs``, ``train_graphs``) keeps only the mutants
-whose tests are named so.
+where TESTS (e.g. ``graphs``, ``cond_graphs``, ``train_graphs``) keeps
+only the mutants whose tests are named so.
 """
 
 import os
@@ -90,8 +92,20 @@ MUTANTS = {  # name: (file under navc_tpu_torch, text, its replacement, tests)
         "runtime/graphs.py", "_build.add_launches(self.launches)", "pass", "graphs"),
     "graphs: no collection before the capture": (
         "runtime/graphs.py", "    gc.collect()\n", "", "graphs"),
-    "graphs: the beam's features not copied into its static input": (
-        "decoding/beam.py", "self.static[0].copy_(enc_output)", "pass", "graphs"),
+    "graphs: a loop's arguments (the beam's, ef's) not copied into its static inputs": (
+        "runtime/graphs.py", "static.copy_(x)", "pass", "graphs"),
+    "when: the IF node's predicate inverted": (
+        "csrc/graph_cond.cu", "cudaGraphSetConditional(handle, *pred ? 1u : 0u);",
+        "cudaGraphSetConditional(handle, *pred ? 0u : 1u);", "cond_graphs"),
+    "when: a body's runs not counted": (
+        "runtime/graphs.py", "                counter.add_(1)\n", "", "cond_graphs"),
+    "ef: the loop condition without its stall term": (
+        "decoding/mask_predict.py", "return (total > 0) & (total != pre)", "return total > 0",
+        "cond_graphs"),
+    "lagged_blocks: a block's flag read without its lag": (
+        "runtime/graphs.py",
+        "        if pending is not None:\n            reads += 1\n            if pending():\n",
+        "        if True:\n            reads += 1\n            if read():\n", "cond_graphs"),
     "train graphs: the fused layer's seed read on the host": (
         "ops/fused_layer_train.py", "    opts = _Opts(int(n_head),",
         "    seed = seed_value(seed)\n    opts = _Opts(int(n_head),", "train_graphs"),

@@ -13,7 +13,11 @@ counts, and that K1, K6, K7 and K1u give the same bits in two calls (K1u
 K11's at p = 0); and the decodes' CUDA graphs (``test_graphs_*``: replayed
 tokens bit for bit the eager route's, refilled static inputs, cloned
 outputs, launches per replay, ``refresh`` after a weight change, old
-graphs in reference cycles outliving a capture, a failed capture raising);
+graphs in reference cycles outliving a capture, a failed capture raising;
+``test_cond_graphs_*``: a body under an IF node skipped and counted, the
+replayed l2r and ef bit for bit and launch for launch the eager route's
+at 16 and 64 videos, no sync in a replayed l2r decode, ef's flags read one
+block late, ef's stall, the full-prefix beam through K1 once per step);
 and the compiled training step (``test_train_graphs_*``: the replayed NACF
 step bit for bit the eager one, fresh masks per replay, the lr tensor
 followed, the card's capturable optimizer replayed against torch's CPU
@@ -1904,6 +1908,222 @@ def test_graphs_failed_capture_raises(cuda):
     with pytest.raises(RuntimeError):
         f(torch.ones(4, device=cuda))
     assert calls == [False, True] and not f.graphs  # warm-up, capture: no eager retry
+
+
+# -- the captured l2r and ef (IF nodes, graphs.when) and the full-prefix ARB --
+# navc_tpu's compiled l2r (a scan of rounds under lax.cond) and ef (a
+# while_loop) replayed against the eager route (jit=False, which reads its
+# mask counts on the host) at the serving width: tokens bit for bit, the
+# launches of a replay those of an eager decode (the rounds that ran), no
+# sync inside a replayed l2r decode and one lagged flag read per ef block;
+# the beam's full-prefix step (NAVC_NO_KVCACHE) through K1 once per step.
+
+COND_CASES = {"l2r": dict(paradigm="l2r", use_ct=False, q=1, q_iterations=1),
+              "l2r-ct": dict(paradigm="l2r", use_ct=True, q=1, q_iterations=1),
+              "ef": dict(paradigm="ef", use_ct=False, q=1, q_iterations=1)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pred", [False, True])
+def test_cond_graphs_when_skips_its_body_and_counts_its_runs(cuda, pred):
+    """A body under an IF node: skipped (its K1 launch included) where the
+    predicate is false, its results where true, and its launches counted
+    once per run, settled when LAUNCHES is read."""
+    from navc_tpu_torch.runtime import graphs
+
+    g = _gen(31)
+    w = _weights(128, 256, g, cuda)
+    raw, static, kp, ke, ve, lns, lnb = _layer_inputs(4, 16, 8, 128, g, cuda)
+    flag = torch.zeros((), dtype=torch.bool, device=cuda)
+    base = torch.zeros(4, 16, 128, device=cuda)
+
+    def body(x):
+        return (fused_layer(raw, static, kp, ke, ve, w, lns, lnb, n_head=2) + x,)
+
+    graph = graphs.Graph(lambda: graphs.when(flag, body, (base,))[0],
+                         torch.cuda.graph_pool_handle())
+    assert len(graph.regions) == 1 and graph.launches == {}
+    want = fused_layer(raw, static, kp, ke, ve, w, lns, lnb, n_head=2)
+    for p in (pred, not pred, pred):
+        flag.fill_(p)
+        _build.reset_launches()
+        out = graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want if p else base)
+        assert _build.LAUNCHES["fused_layer"] == int(p)
+    # outside a capture: the body runs and merges
+    eager = graphs.when(flag, body, (base,))[0]
+    assert torch.equal(eager, want if pred else base)
+
+
+def _cond_encs(cfg, model, teacher, videos):
+    reqs = [_request_on(cfg, videos, seed) for seed in (41, 42)]
+    with torch.no_grad():
+        return [(model.encode(f), c, teacher.encode(f)) for f, c in reqs]
+
+
+def _nonzero_launches():
+    return {k: v for k, v in _build.LAUNCHES.items() if v}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("videos", [16, 64])
+@pytest.mark.parametrize("case", list(COND_CASES))
+def test_cond_graphs_l2r_ef_replay_eager_tokens_and_launches(cuda, case, videos):
+    from navc_tpu_torch.decoding import make_nar_generator
+
+    cfg, model, _, teacher = _serving_models("cuda", **COND_CASES[case])
+    eager = make_nar_generator(cfg, model, teacher, jit=False)
+    replay = make_nar_generator(cfg, model, teacher)
+    assert replay.graphed and not eager.graphed
+    encs = _cond_encs(cfg, model, teacher, videos)
+    want, per_decode = [], []
+    for e in encs:
+        _build.reset_launches()
+        want.append(eager(*e))
+        per_decode.append(_nonzero_launches())
+    got = [replay(*encs[0])]  # warm-up and capture
+    for e in (encs[1], encs[0]):
+        _build.reset_launches()
+        got.append(replay(*e))
+        assert _nonzero_launches() == per_decode[len(got) % 2], case
+    for out, ref in zip(got, [want[0], want[1], want[0]]):
+        assert torch.equal(out, ref), case
+    assert not torch.equal(want[0], want[1])
+    if case != "l2r-ct":  # random weights leave nothing masked after CT
+        assert per_decode[0]["fused_layer"] > 3
+
+
+@pytest.mark.cuda
+def test_cond_graphs_l2r_replay_never_syncs(cuda):
+    """Between the arguments' copy and the tokens' clone a replayed l2r
+    decode reads nothing on the host: no sync in torch's debug mode, no
+    event waited for."""
+    from navc_tpu_torch.decoding import make_nar_generator
+
+    cfg, model, _, teacher = _serving_models("cuda", **COND_CASES["l2r"])
+    gen = make_nar_generator(cfg, model, teacher)
+    encs = _cond_encs(cfg, model, teacher, 16)
+    want = gen(*encs[0])
+    waits = []
+    orig = torch.cuda.Event.synchronize
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        torch.cuda.Event.synchronize = lambda self: (waits.append(1), orig(self))[1]
+        got = gen(*encs[0])
+    finally:
+        torch.cuda.Event.synchronize = orig
+        torch.cuda.set_sync_debug_mode("default")
+    assert waits == [] and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cond_graphs_ef_reads_each_block_flag_one_block_late(cuda):
+    """A replayed ef decode waits only for its blocks' done flags, once
+    per block, each after the next block was queued."""
+    from navc_tpu_torch.decoding import make_nar_generator
+    from navc_tpu_torch.runtime import graphs
+
+    cfg, model, _, teacher = _serving_models("cuda", **COND_CASES["ef"])
+    gen = make_nar_generator(cfg, model, teacher)
+    encs = _cond_encs(cfg, model, teacher, 16)
+    want = gen(*encs[0])
+    (captured,) = gen.graphs.values()
+    log = []
+    orig_sync, orig_replay = torch.cuda.Event.synchronize, graphs.Graph.replay
+
+    def replay(self):
+        log.append("block" if self in captured.blocks else "graph")
+        return orig_replay(self)
+    blocks0, reads0 = gen.blocks_run, gen.flag_reads
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        torch.cuda.Event.synchronize = lambda self: (log.append("wait"), orig_sync(self))[1]
+        graphs.Graph.replay = replay
+        got = gen(*encs[0])
+    finally:
+        torch.cuda.Event.synchronize, graphs.Graph.replay = orig_sync, orig_replay
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, want)
+    blocks, reads = gen.blocks_run - blocks0, gen.flag_reads - reads0
+    assert log.count("block") == blocks and log.count("wait") == reads == blocks - 1
+    assert blocks >= 3 and int(gen.rounds) > 4
+    for i, at in enumerate(j for j, x in enumerate(log) if x == "wait"):
+        assert log[:at].count("block") == i + 2  # flag i read after block i + 1 queued
+    assert log[0] == log[-1] == "graph"  # the head and the tail
+
+
+@pytest.mark.cuda
+def test_cond_graphs_ef_stops_on_a_stall_like_eager(cuda):
+    """A student whose projection puts <mask> first everywhere: every
+    revealed slot comes back <mask>, so the batch's count stalls after one
+    round and navc_tpu's loop condition stops there; the replay stops at
+    the same round, within the first block."""
+    from navc_tpu_torch import constants as C
+    from navc_tpu_torch.decoding import make_nar_generator
+
+    cfg, model, _, teacher = _serving_models("cuda", tie_weights=True, **COND_CASES["ef"])
+    with torch.no_grad():
+        model.tgt_word_prj_bias[C.MASK] = 1e4
+    eager = make_nar_generator(cfg, model, teacher, jit=False)
+    replay = make_nar_generator(cfg, model, teacher)
+    encs = _cond_encs(cfg, model, teacher, 16)
+    want = [eager(*e) for e in encs]
+    assert eager.rounds == 1 and (want[0] == C.MASK).any()
+    got = [replay(*e) for e in encs + encs]
+    for out, ref in zip(got, want + want):
+        assert torch.equal(out, ref)
+    assert int(replay.rounds) == 1 and replay.blocks_run == 4 * 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("videos", [16, 64])
+def test_cond_graphs_full_prefix_beam_launches_k1_per_step(cuda, videos, monkeypatch):
+    from navc_tpu_torch.decoding import make_ar_generator
+
+    _, _, cfg, model = _serving_models("cuda")
+    monkeypatch.setenv("NAVC_NO_KVCACHE", "1")
+    eager = make_ar_generator(cfg, model, jit=False)
+    replay = make_ar_generator(cfg, model)
+    monkeypatch.delenv("NAVC_NO_KVCACHE")
+    reqs = [_request_on(cfg, videos, seed) for seed in (43, 44)]
+    with torch.no_grad():
+        encs = [(model.encode(f), c) for f, c in reqs]
+    want = []
+    for e in encs:
+        steps0 = eager.steps_run
+        _build.reset_launches()
+        want.append(eager(*e))
+        assert _nonzero_launches() == {"fused_layer": eager.steps_run - steps0}
+    got = [replay(*encs[0])]
+    for e in (encs[1], encs[0]):
+        steps0 = replay.steps_run
+        _build.reset_launches()
+        got.append(replay(*e))
+        steps = replay.steps_run - steps0
+        assert steps > 0 and _nonzero_launches() == {"fused_layer": steps}
+    for out, ref in zip(got, [want[0], want[1], want[0]]):
+        assert _same(out, ref)
+    assert not _same(want[0], want[1])
+    if videos == 16:  # the CPU plain path: the same route, K1's plain version
+        from navc_tpu_torch.decoding.beam import prefix_hidden, prefix_static
+        from navc_tpu_torch.decoding.operands import KernelOperands
+
+        _, _, _, cpu_model = _serving_models("cpu")
+        ops = KernelOperands.of(cpu_model)
+
+        def k1_plain_decode(seqs, enc_tiled, cat_tiled, mode):
+            static = prefix_static(ops, seqs.shape[0], seqs.shape[1], cat_tiled)
+            return prefix_hidden(ops, seqs, static, *ops.cross_kv(enc_tiled, 1)), None
+        monkeypatch.setattr(cpu_model, "decode", k1_plain_decode, raising=False)
+        monkeypatch.setenv("NAVC_NO_KVCACHE", "1")
+        cpu_gen = make_ar_generator(cfg, cpu_model)
+        enc, cat = encs[0]
+        cpu_hyp = cpu_gen({k: v.cpu() for k, v in enc.items()}, cat.cpu())[0]
+        agree = float((cpu_hyp == want[0][0].cpu()).float().mean())
+        assert agree >= 0.99, "token agreement %.4f" % agree
 
 
 # -- the compiled training step (make_train_step(..., jit=True)) ---------------

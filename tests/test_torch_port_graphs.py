@@ -5,7 +5,7 @@ search's blocks as CUDA graphs (``navc_tpu_torch/runtime/graphs.py``; the
 replays are tested in tests/test_torch_port_cuda.py). Here, on the CPU:
 
   * the factories carry ``jit`` where navc_tpu's do, with its default;
-  * the blocked beam schedule (``run_blocks``, which the card's graphs
+  * the blocked beam schedule (``graphs.lagged_blocks``, which the card's graphs
     follow too) stops one block late and gives float32 tokens IDENTICAL to
     navc_tpu's ``jax.jit`` decode, which stops its ``while_loop`` exactly,
     at block sizes 1 and DONE_LAG, on weights whose large EOS bias finishes
@@ -225,7 +225,7 @@ def test_jit_on_the_cpu_returns_the_eager_result(case):
         gens = [make_nar_generator(cfg, model, teacher, jit=j, collect=case == "collect")
                 for j in (True, False)]
         outs = [g(enc, cat, tenc) for g in gens]
-        assert gens[0].graphed is (case in ("mp", "collect")) and not gens[1].graphed
+        assert gens[0].graphed and not gens[1].graphed  # every paradigm is compiled
     flat = [[], []]
     for out, leaves in zip(outs, flat):
         graphs._flatten(out, leaves)
