@@ -86,14 +86,36 @@ decodes replay graphs too. The graphs phase: NACF with the ARB teacher at
 under CUDA graph IF nodes, ef in blocks of 4 rounds ended by a lagged
 flag read), ARB at 64 (K6/K7), 60 (K8) and 1024 videos, and ARB's
 full-prefix step (navc_tpu's NAVC_NO_KVCACHE switch: K1 causal once a
-step) at 64 videos, each decode eager and replayed (tokens bit for bit
-equal on two requests, launches of a replayed decode against PER_DECODE,
-the beam steps or the eager decode's, ef's blocks and flag reads, ms per
-decode on both routes in turns, the first call's and the capture's
-seconds, the graph pool's bytes, and both routes profiled: idle share
-and where it falls; the full-prefix route also against the CPU plain
-path on 16 videos). It exits non-zero on any failure, without a CUDA
-device, and outside a checkout. Imports nothing of JAX or navc_tpu.
+step) at 64 videos; then, through StreamingCaptioner on random weights,
+NAB (the ARB teacher's rescoring, no CT pass) in mp (K1-K4, the launches
+of mp without CT), l2r and ef at 64 videos, and ARB2's KV-cached beam at
+64 (K5, K6, K7) and 60 videos (K5, K8) and its full-prefix step (K1);
+each decode eager and replayed (tokens bit for bit equal on two
+requests, launches of a replayed decode the eager decode's and the
+case's own: PER_DECODE, mp's without CT, the beam steps or the rounds
+that ran, ef's blocks and flag reads, ms per decode on both routes in
+turns, the first call's and the capture's seconds, the graph pool's
+bytes, and both routes profiled: idle share and where it falls; the
+full-prefix routes also against the CPU on 16 videos and teacher-forced
+against K1's plain version, the NAB and ARB2 decodes against the CPU
+plain path). The methods phase: for NAB and ARB2, one bf16 step at p = 0
+of 16 videos against the CPU plain path and the compiled step at B=64
+replayed bit for bit the eager one (ARB2: two decoder passes a step, each
+with its own device seed), on batches from the data pipeline. The
+inference phase also translates from a NAB and an ARB2 .ckpt. The
+learning phase: make_flagship_synthetic at full width (256 videos of 32
+classes), ARB, then NACF and NAB with its best.ckpt as teacher, then ARB2
+trained through train_network_all (10 epochs of batch 64 each): the train
+loss falls and each test CIDEr clears its floor (LEARN_FLOOR); on the
+trained weights the ARB beam stops before step 29 on 64 held-out videos
+(replayed bit for bit, launches once a step that ran, >= 0.99 with the CPU
+plain path), NACF's l2r and ef (with and without CT) replay their eager
+decodes, mp keeps one graph for three requests, and the trained ARB's and
+ARB2's full-prefix routes hold K1's teacher-forced log-probs within 5e-2
+of its plain version's and their beams agree >= 0.99 with the CPU beam
+through K1's plain version and through the model's own forward. It exits
+non-zero on any failure, without a CUDA device, and outside a checkout.
+Imports nothing of JAX or navc_tpu.
 
 Standard output ends with two JSON lines: {"kernels": [...]} and
 {"ok": true, "device": {...}}.
@@ -1127,34 +1149,51 @@ def no_kvcache():
             os.environ["NAVC_NO_KVCACHE"] = before
 
 
-# the graphs phase's cases: (name, method, videos, config replacements); the
-# l2r case without CT, since random weights leave nothing masked after CT,
-# so only it runs l2r's reveal rounds
+# the graphs phase's cases: (name, method, videos, config replacements
+# (None: the full-prefix step, NAVC_NO_KVCACHE), served). The l2r case
+# without CT, since random weights leave nothing masked after CT, so only
+# it runs l2r's reveal rounds. NAB has no CT pass: every slot of its first
+# canvas starts masked. ``served``: the decode through StreamingCaptioner
+# (features staged, encoded inside the request), its tokens also against
+# the CPU plain path on the first videos of a request; else the generator
+# on encoded requests
 GRAPH_CASES = (
-    ("NACF 64 videos", "NACF", N_VIDEOS, {}),
+    ("NACF 64 videos", "NACF", N_VIDEOS, {}, False),
     ("NACF l2r 64 videos", "NACF", N_VIDEOS,
-     dict(paradigm="l2r", use_ct=False, q=1, q_iterations=1)),
+     dict(paradigm="l2r", use_ct=False, q=1, q_iterations=1), False),
     ("NACF l2r + CT 64 videos", "NACF", N_VIDEOS,
-     dict(paradigm="l2r", use_ct=True, q=1, q_iterations=1)),
+     dict(paradigm="l2r", use_ct=True, q=1, q_iterations=1), False),
     ("NACF ef 64 videos", "NACF", N_VIDEOS,
-     dict(paradigm="ef", use_ct=False, q=1, q_iterations=1)),
-    ("ARB 64 videos", "ARB", ARB_VIDEOS, {}),
-    ("ARB 60 videos", "ARB", ARB_RAGGED, {}),
-    ("ARB 1024 videos", "ARB", ARB_BENCH, {}),
-    ("ARB full prefix 64 videos", "ARB", ARB_VIDEOS, None),  # NAVC_NO_KVCACHE
+     dict(paradigm="ef", use_ct=False, q=1, q_iterations=1), False),
+    ("ARB 64 videos", "ARB", ARB_VIDEOS, {}, False),
+    ("ARB 60 videos", "ARB", ARB_RAGGED, {}, False),
+    ("ARB 1024 videos", "ARB", ARB_BENCH, {}, False),
+    ("ARB full prefix 64 videos", "ARB", ARB_VIDEOS, None, False),
+    ("NAB mp 64 videos", "NAB", N_VIDEOS, {}, True),
+    ("NAB l2r 64 videos", "NAB", N_VIDEOS, dict(paradigm="l2r", q=1, q_iterations=1), True),
+    ("NAB ef 64 videos", "NAB", N_VIDEOS, dict(paradigm="ef", q=1, q_iterations=1), True),
+    ("ARB2 64 videos", "ARB2", ARB_VIDEOS, {}, True),
+    ("ARB2 60 videos", "ARB2", ARB_RAGGED, {}, True),
+    ("ARB2 full prefix 64 videos", "ARB2", ARB_VIDEOS, None, True),
 )
+METHOD_SEEDS = {"NAB": 2, "ARB2": 3}  # the random weights' seeds (NACF 0, ARB 1)
+# mp without CT (NAB): one dense pass on the all-mask canvas and 4 sparse
+# refinements (PER_DECODE's CT pass and its dense completion step are gone),
+# then the teacher's causal K1 and K4
+MP_NO_CT = {"fused_layer": 2, "fused_layer_qsub": 4, "project_argmax": 5,
+            "project_gather_prob": 1}
 COND_KERNELS = ("fused_layer", "project_argmax", "project_gather_prob")  # l2r / ef
 
 
 PREFIX_LOGP_TOL = 5e-2  # K1's bf16 roundings against the forward's, through the projection
 
 
-def teacher_forced_logp(cfg, model, enc, cat, seqs, ops=None):
-    """Log-probs (N, L, V) at every prefix position of ``seqs`` (N = videos
-    x beam), the full-prefix beam step's arithmetic: K1 over the whole
-    prefix with ``static=`` (``prefix_hidden``, operands ``ops``) or, with
-    ``ops`` None, the model's own forward; then the projection and the
-    log-softmax."""
+def teacher_forced_hidden(cfg, model, enc, cat, seqs, ops=None):
+    """The decoder's hidden states (N, L, D) at every prefix position of
+    ``seqs`` (N = videos x beam), the full-prefix beam step's layer: K1
+    over the whole prefix with ``static=`` (``prefix_hidden``, operands
+    ``ops``: K1 on the card, its plain version on the CPU) or, with ``ops``
+    None, the model's own forward."""
     import torch
 
     from navc_tpu_torch.decoding.beam import prefix_hidden, prefix_static
@@ -1164,12 +1203,26 @@ def teacher_forced_logp(cfg, model, enc, cat, seqs, ops=None):
     cat_tiled = enlarge(cat, k)
     with torch.no_grad():
         if ops is None:
-            hidden, _ = model.decode(seqs, enlarge(enc, k), cat_tiled, "ARFormer")
-        else:
-            static = prefix_static(ops, seqs.shape[0], seqs.shape[1],
-                                   cat_tiled if cfg.with_category else None)
-            hidden = prefix_hidden(ops, seqs, static, *ops.cross_kv(enc, k))
-        return torch.log_softmax(model.project(hidden).float(), -1)
+            return model.decode(seqs, enlarge(enc, k), cat_tiled, "ARFormer")[0]
+        static = prefix_static(ops, seqs.shape[0], seqs.shape[1],
+                               cat_tiled if cfg.with_category else None)
+        return prefix_hidden(ops, seqs, static, *ops.cross_kv(enc, k))
+
+
+def prefix_logp(model, hidden, exact=False):
+    """Log-probs of ``hidden`` on the CPU: through the step's own
+    ``model.project`` (bf16 logits) or, ``exact``, float32 products of the
+    bf16 hidden and weights (the logits unrounded)."""
+    import torch
+
+    from navc_tpu_torch.ops.vocab_fused import projection_weights
+
+    with torch.no_grad():
+        if not exact:
+            return torch.log_softmax(model.project(hidden).float(), -1).cpu()
+        w, bias = projection_weights(model)
+        logits = hidden.to(torch.bfloat16).float() @ w.float().t()
+        return torch.log_softmax(logits if bias is None else logits + bias, -1).cpu()
 
 
 def k1_plain_decode(cfg, model):
@@ -1188,22 +1241,29 @@ def k1_plain_decode(cfg, model):
     return decode
 
 
-def full_prefix_checks(tcfg, teacher, cpu_teacher, req, replay):
-    """The full-prefix ARB route (NAVC_NO_KVCACHE) against the model's own
-    forward on the CPU, navc_tpu's CPU route.
+def full_prefix_checks(tcfg, teacher, cpu_teacher, req, replay, where, trained=False):
+    """The full-prefix ARB route (NAVC_NO_KVCACHE) on the card against the
+    CPU: K1's plain version (the same bf16 roundings) and the model's own
+    forward, navc_tpu's CPU route.
 
-    Gated: (1) teacher-forced, on one prefix set at ARB_VIDEOS videos x
-    beam (each video's replayed hypothesis and beam - 1 random prefixes,
-    PAD after a random length): the card's K1 log-probs within
-    PREFIX_LOGP_TOL of the CPU forward's at every position a beam step
-    projects, and K1 with its static lacking the position rows, or the
-    category rows, beyond it; (2) beam tokens on ARB_CPU videos: the card
-    replay against the CPU beam with the layer through K1's plain version
-    (``k1_plain_decode``), >= 0.99. Printed, ungated: the card replay's
-    agreement with the CPU beam through the forward, and the CPU's own
-    full-prefix and KV-cached beams' agreement (random-weight beams turn on
-    rounding points), and the median gap between the forward's two most
-    likely words."""
+    Teacher-forced, on one prefix set at the request's videos x beam (each
+    video's replayed hypothesis and beam - 1 random prefixes, PAD after a
+    random length), at every position a beam step projects: K1 on the card
+    against K1's plain version on the CPU, both through a float32
+    projection (``exact``), gated within PREFIX_LOGP_TOL, and K1 with its
+    static lacking the position rows, or the category rows, beyond it;
+    also, through the step's own bf16 logits, K1 on the card against the
+    CPU forward, gated within PREFIX_LOGP_TOL on random weights and printed
+    on ``trained`` ones (logits of tens of nats, where one bf16 step is
+    0.125-0.5: the step at the largest |logit| is printed beside it), and K1
+    on the card against K1's plain version. Beam tokens on ARB_CPU videos:
+    the card replay against the CPU beam with the layer through K1's plain
+    version (``k1_plain_decode``), >= 0.99, and, on ``trained`` weights,
+    against the CPU beam through the forward, >= 0.99 (ROADMAP Queue C;
+    printed on random weights, whose beams turn on rounding points, as the
+    CPU's own full-prefix and KV-cached beams' agreement and the forward's
+    median gap between its two most likely words are). ``where`` names the
+    phase in its lines."""
     import dataclasses
 
     import numpy as np
@@ -1225,32 +1285,51 @@ def full_prefix_checks(tcfg, teacher, cpu_teacher, req, replay):
     seqs[np.arange(l)[None, :] >= rng.randint(2, l + 1, len(seqs))[:, None]] = C.PAD
     seqs = torch.from_numpy(seqs)
     valid = seqs != C.PAD  # the positions a beam step projects
-    forward = teacher_forced_logp(tcfg, cpu_teacher, enc_cpu["enc_output"], cat_cpu, seqs)
+    enc_out = enc["enc_output"]
+    plain = teacher_forced_hidden(tcfg, cpu_teacher, enc_cpu["enc_output"], cat_cpu, seqs,
+                                  KernelOperands.of(cpu_teacher))
+    refs = {exact: prefix_logp(cpu_teacher, plain, exact) for exact in (True, False)}
+    forward = prefix_logp(cpu_teacher, teacher_forced_hidden(
+        tcfg, cpu_teacher, enc_cpu["enc_output"], cat_cpu, seqs))
     ops = KernelOperands.of(teacher)
 
-    def gap(**edit):
-        got = teacher_forced_logp(tcfg, teacher, enc["enc_output"], cat, seqs.cuda(),
-                                  dataclasses.replace(ops, **edit)).cpu()
-        return float((got - forward).abs()[valid].max())
-    out = dict(logp_gap=gap(),
-               logp_gap_no_positions=gap(pos_table=torch.zeros_like(ops.pos_table)))
+    def gap(ref, exact=True, **edit):
+        got = prefix_logp(teacher, teacher_forced_hidden(
+            tcfg, teacher, enc_out, cat, seqs.cuda(), dataclasses.replace(ops, **edit)), exact)
+        return float((got - ref).abs()[valid].max())
+    out = dict(logp_gap_plain=gap(refs[True]),
+               logp_gap_no_positions=gap(refs[True], pos_table=torch.zeros_like(ops.pos_table)))
     if tcfg.with_category:
-        out["logp_gap_no_category"] = gap(cat_table=torch.zeros_like(ops.cat_table))
+        out["logp_gap_no_category"] = gap(refs[True], cat_table=torch.zeros_like(ops.cat_table))
+    out.update(logp_gap=gap(forward, False), logp_gap_plain_bf16=gap(refs[False], False))
+    with torch.no_grad():
+        top_logit = float(cpu_teacher.project(plain[valid]).abs().max())
+    out["bf16_step_at_top_logit"] = float(2.0 ** (np.floor(np.log2(top_logit)) - 7))
     top2 = forward[valid].topk(2, -1).values
     out["median_top2_margin"] = float((top2[:, 0] - top2[:, 1]).median())
-    log("graphs: full prefix, teacher-forced at %d videos x beam %d, %d positions: max "
-        "|log p| of K1 on the card against the CPU forward %.5f (limit %.3f), with static "
-        "lacking the position rows %.5f%s; median top-2 margin of the forward %.4f" % (
-            hyp.shape[0], k, int(valid.sum()), out["logp_gap"], PREFIX_LOGP_TOL,
+    log(where + ": full prefix, teacher-forced at %d videos x beam %d, %d positions, max "
+        "|log p| of K1 on the card: against K1's plain version on the CPU, float32 logits "
+        "%.5f (limit %.3f), with static lacking the position rows %.5f%s (limit: beyond "
+        "%.3f); through the step's bf16 logits against K1's plain version %.5f, against "
+        "the CPU forward %.5f (%s; the bf16 step at the largest |logit|, %.3f: %.4f); "
+        "median top-2 margin of the forward %.4f" % (
+            hyp.shape[0], k, int(valid.sum()), out["logp_gap_plain"], PREFIX_LOGP_TOL,
             out["logp_gap_no_positions"],
             ", lacking the category rows %.5f" % out["logp_gap_no_category"]
-            if "logp_gap_no_category" in out else "", out["median_top2_margin"]))
-    if out["logp_gap"] > PREFIX_LOGP_TOL:
-        die("graphs: full prefix: K1's log-probs %.5f from the CPU forward's > %.3f"
+            if "logp_gap_no_category" in out else "", PREFIX_LOGP_TOL,
+            out["logp_gap_plain_bf16"], out["logp_gap"],
+            "no gate: trained weights" if trained else "limit %.3f" % PREFIX_LOGP_TOL,
+            top_logit, out["bf16_step_at_top_logit"], out["median_top2_margin"]))
+    if out["logp_gap_plain"] > PREFIX_LOGP_TOL:
+        die(where + ": full prefix: K1's log-probs %.5f from its plain version's > %.3f"
+            % (out["logp_gap_plain"], PREFIX_LOGP_TOL))
+    if not trained and out["logp_gap"] > PREFIX_LOGP_TOL:
+        die(where + ": full prefix: K1's log-probs %.5f from the CPU forward's > %.3f"
             % (out["logp_gap"], PREFIX_LOGP_TOL))
     broken = {key: v for key, v in out.items() if key.startswith("logp_gap_no")}
     if min(broken.values()) <= PREFIX_LOGP_TOL:
-        die("graphs: full prefix: a broken static stays within the limit: %s" % broken)
+        die(where + ": full prefix: a broken static stays within %.3f: %s"
+            % (PREFIX_LOGP_TOL, broken))
 
     small = ({key: v[:ARB_CPU] for key, v in enc_cpu.items()}, cat_cpu[:ARB_CPU])
     dev_hyp = replay({key: v[:ARB_CPU] for key, v in enc.items()}, cat[:ARB_CPU])[0].cpu()
@@ -1264,107 +1343,151 @@ def full_prefix_checks(tcfg, teacher, cpu_teacher, req, replay):
     same = lambda a, b: float((a == b).float().mean())  # noqa: E731
     out.update(agree_k1_plain=same(plain_hyp, dev_hyp), agree_forward=same(forward_hyp, dev_hyp),
                cpu_full_prefix_vs_cached=same(forward_hyp, cached_hyp))
-    log("graphs: full prefix, beam tokens on %d videos: the card replay against the CPU "
+    log(where + ": full prefix, beam tokens on %d videos: the card replay against the CPU "
         "beam through K1's plain version %.4f (gate 0.99), through the model's own forward "
-        "%.4f (no gate); the CPU's full-prefix and KV-cached beams %.4f (no gate)" % (
+        "%.4f (%s); the CPU's full-prefix and KV-cached beams %.4f (no gate)" % (
             ARB_CPU, out["agree_k1_plain"], out["agree_forward"],
-            out["cpu_full_prefix_vs_cached"]))
+            "gate 0.99" if trained else "no gate", out["cpu_full_prefix_vs_cached"]))
     if out["agree_k1_plain"] < 0.99:
-        die("graphs: full prefix: token agreement with the CPU plain path %.4f < 0.99"
+        die(where + ": full prefix: token agreement with the CPU plain path %.4f < 0.99"
             % out["agree_k1_plain"])
+    if trained and out["agree_forward"] < 0.99:
+        die(where + ": full prefix: token agreement with the CPU forward %.4f < 0.99"
+            % out["agree_forward"])
     return out
 
 
 def graphs_phase(cfg, model, tcfg, teacher, cpu_teacher, card):
     """The captured decodes (jit=True) against the eager route (jit=False)
-    at full width: NACF with the ARB teacher at 64 videos (mp + CT, l2r
-    without and with CT, ef; q 1), ARB at 64 (K6 + K7), 60 (K8) and 1024
-    videos, and ARB's full-prefix step (NAVC_NO_KVCACHE: K1 causal a
-    step) at 64. For each: the replayed tokens (and ARB's scores) bit for
-    bit the eager ones, on the capture's request and on a second one; ms
+    at full width, GRAPH_CASES: NACF with the ARB teacher at 64 videos (mp
+    + CT, l2r without and with CT, ef; q 1), ARB at 64 (K6 + K7), 60 (K8)
+    and 1024 videos and its full-prefix step (NAVC_NO_KVCACHE: K1 causal a
+    step) at 64; then, through StreamingCaptioner, NAB (random weights from
+    METHOD_SEEDS, the ARB teacher's rescoring, no CT pass) in mp (K1-K4),
+    l2r and ef (K1, K3, K4) and ARB2 at 64 (K5, K6, K7), 60 (K5, K8) and its
+    full-prefix step. For each: the replayed tokens (and the beam's scores)
+    bit for bit the eager ones, on the capture's request and on a second
+    one; the launches of one replayed decode the eager decode's and the
+    case's own: PER_DECODE (mp + CT), MP_NO_CT (mp without CT), each of
+    COND_KERNELS (l2r, ef: the rounds that ran), once a beam step; ef's
+    flag reads one fewer than its blocks; the hypotheses' shape and ids; ms
     per decode on both routes (median of 2 x GRAPH_ROUNDS each, in turns,
     host clock, each ending in the tokens' copy); the first call's seconds
     (the eager warm-up and the capture), the captures' seconds and the
-    bytes their pools hold; the launches of one replayed decode against
-    PER_DECODE, the beam steps or the eager decode's (l2r, ef: the rounds
-    that ran), ef's blocks and flag reads in it; the device idle share of
-    one profiled decode on each route. The full-prefix route also against
-    the CPU (``full_prefix_checks``). Returns {case: figures}."""
+    bytes their pools hold; the device idle share of one profiled decode on
+    each route. The full-prefix routes also against the CPU
+    (``full_prefix_checks``); the other served cases at a width the CPU
+    takes (a multiple of 16) against the CPU plain path on CPU_VIDEOS (NAR)
+    or ARB_CPU (beam) videos, >= 0.99. Returns {case: figures}."""
     import numpy as np
     import torch
 
+    from navc_tpu_torch import constants as C
+    from navc_tpu_torch.config import default_config
     from navc_tpu_torch.decoding import make_ar_generator, make_nar_generator
+    from navc_tpu_torch.models import build_model
     from navc_tpu_torch.ops import _build
+    from navc_tpu_torch.runtime.serving import StreamingCaptioner
 
-    rng = np.random.RandomState(29)
+    cfgs = dict(NACF=cfg, ARB=tcfg, **{m: default_config(m, **OVER) for m in METHOD_SEEDS})
+    if cfgs["NAB"].use_ct or cfgs["NAB"].visual_word_generation:
+        die("graphs: NAB's default config takes a CT pass")
+    models, cpu_models = dict(NACF=model, ARB=teacher), dict(ARB=cpu_teacher)
+    for m, seed in METHOD_SEEDS.items():
+        models[m], cpu_models[m] = (
+            build_model(cfgs[m], device=where, generator=torch.Generator().manual_seed(seed))
+            for where in ("cuda", "cpu"))
+    rngs = {False: np.random.RandomState(29), True: np.random.RandomState(43)}
     results = {}
-    for name, method, videos, over in GRAPH_CASES:
-        c = cfg.replace(**over) if method == "NACF" else tcfg
+    for name, method, videos, over, served in GRAPH_CASES:
+        c = cfgs[method].replace(**(over or {}))
+        m = models[method]
+        nar = c.decoding_type == "NARFormer"
+        rng = rngs[served]
         reqs = []
         for _ in range(2):
-            feats = [torch.as_tensor(rng.randn(videos, c.n_frames, d).astype(np.float32)).cuda()
+            feats = [rng.randn(videos, c.n_frames, d).astype(np.float32)
                      for d in c.modality_dims]
-            cat = torch.as_tensor(rng.randint(0, c.num_category, (videos, 1))).cuda()
-            with torch.no_grad():
-                reqs.append((model.encode(feats), cat, teacher.encode(feats))
-                            if method == "NACF" else (teacher.encode(feats), cat))
-        if method == "NACF":
-            gens = {jit: make_nar_generator(c, model, teacher, jit) for jit in (False, True)}
-        elif over is None:
-            with no_kvcache():
-                gens = {jit: make_ar_generator(tcfg, teacher, jit) for jit in (False, True)}
-        else:
-            gens = {jit: make_ar_generator(tcfg, teacher, jit) for jit in (False, True)}
-        if not gens[True].graphed:
-            die("graphs: the %s generator takes no captured route" % name)
-        eager, replay = gens[False], gens[True]
-        flat = (lambda out: [out]) if method == "NACF" else list  # noqa: E731
+            cat = rng.randint(0, c.num_category, (videos, 1)).astype(np.int64)
+            if not served:
+                feats, cat = [torch.as_tensor(f).cuda() for f in feats], \
+                    torch.as_tensor(cat).cuda()
+                with torch.no_grad():
+                    enc = m.encode(feats)
+                    reqs.append((enc, cat, teacher.encode(feats)) if nar else (enc, cat))
+            else:
+                reqs.append((feats, cat))
+        with no_kvcache() if over is None else contextlib.nullcontext():
+            if served:
+                routes = {jit: StreamingCaptioner(c, m, (tcfg, teacher) if nar else None,
+                                                  depth=0, jit=jit) for jit in (False, True)}
+            elif nar:
+                routes = {jit: make_nar_generator(c, m, teacher, jit) for jit in (False, True)}
+            else:
+                routes = {jit: make_ar_generator(c, m, jit) for jit in (False, True)}
+        replay = routes[True].generate if served else routes[True]
+        if not replay.graphed:
+            die("graphs: the %s decode takes no captured route" % name)
+
+        def call(route, req):
+            """The decode's outputs as a list of tensors: the tokens (and the
+            beam's scores, from a generator)."""
+            if served:
+                (hyp,) = route.map_stream([req])
+                return [torch.from_numpy(hyp)]
+            out = route(*req)
+            return [out] if nar else list(out)
+
         want = []
         for r in reqs:
             _build.reset_launches()
-            want.append(flat(eager(*r)))
+            want.append(call(routes[False], r))
             eager_launches = {k: n for k, n in _build.LAUNCHES.items() if n}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        got = [flat(replay(*reqs[0]))]  # the first call: warm-up and capture
+        got = [call(routes[True], reqs[0])]  # the first call: warm-up and capture
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         graphs = captured_graphs(replay)
-        got += [flat(replay(*r)) for r in reqs + reqs[:1]]
+        got += [call(routes[True], r) for r in reqs + reqs[:1]]
         for g, w in zip(got, [want[0], want[0], want[1], want[0]]):
             if not all(torch.equal(x, y) for x, y in zip(g, w)):
                 die("graphs: %s: replayed tokens differ from the eager route's" % name)
         steps0 = getattr(replay, "steps_run", 0)
         blocks0, reads0 = getattr(replay, "blocks_run", 0), getattr(replay, "flag_reads", 0)
         _build.reset_launches()
-        replay(*reqs[1])
+        call(routes[True], reqs[1])
         launches = {k: n for k, n in _build.LAUNCHES.items() if n}
         steps = getattr(replay, "steps_run", 0) - steps0
         ef = dict(blocks=replay.blocks_run - blocks0, flag_reads=replay.flag_reads - reads0,
                   rounds=int(replay.rounds)) if hasattr(replay, "blocks_run") else None
-        if name == "NACF 64 videos":
-            expect = dict(PER_DECODE)
-        elif method == "NACF":
+        if nar and c.paradigm == "mp":
+            expect = dict(PER_DECODE if c.use_ct else MP_NO_CT)
+        elif nar:
             expect = eager_launches
             if any(not launches.get(k) for k in COND_KERNELS):
                 die("graphs: %s: a replayed decode launched %s, not each of %s"
                     % (name, launches, COND_KERNELS))
         elif over is None:
             expect = dict(fused_layer=steps)
-            if eager_launches != expect:
-                die("graphs: %s: an eager decode launched %s, expected %s"
-                    % (name, eager_launches, expect))
         elif videos % 16 == 0:
             expect = dict(project_topk=steps, beam_attend_step=steps, cross_attend=steps)
         else:
             expect = dict(project_topk=steps, permute_beam_caches=steps)
-        if launches != expect:
-            die("graphs: %s: a replayed decode launched %s, expected %s"
-                % (name, launches, expect))
+        if launches != expect or eager_launches != expect:
+            die("graphs: %s: a replayed decode launched %s, the eager one %s, expected %s"
+                % (name, launches, eager_launches, expect))
         if ef is not None and ef["flag_reads"] != ef["blocks"] - 1:
             die("graphs: %s: %d flag reads for %d blocks" % (name, ef["flag_reads"],
                                                               ef["blocks"]))
-        run = {jit: (lambda g=g: flat(g(*reqs[1]))[0].cpu()) for jit, g in gens.items()}
+        for g in got:
+            hyp = g[0].cpu().numpy()
+            if not nar:
+                check_captions(hyp, videos, c.max_len, c.vocab_size, C.EOS, C.PAD)
+            elif hyp.shape != (videos, c.max_len) or hyp.min() < 0 or hyp.max() >= c.vocab_size:
+                die("graphs: %s: hypotheses of shape %s, ids %d..%d" % (
+                    name, hyp.shape, hyp.min(), hyp.max()))
+        run = {jit: (lambda r=r: call(r, reqs[1])[0].cpu()) for jit, r in routes.items()}
         ms = {False: [], True: []}
         for _ in range(GRAPH_ROUNDS):
             for jit in (False, True, True, False):
@@ -1375,9 +1498,26 @@ def graphs_phase(cfg, model, tcfg, teacher, cpu_teacher, card):
             idle[jit] = None if prof is None else 1.0 - prof[1] / prof[0]
             print_profile(prof, "%s decode, %s" % (name, "replayed" if jit else "eager"))
         agree = prefix = None
+        n_cpu = CPU_VIDEOS if nar else ARB_CPU
         if over is None:
-            prefix = full_prefix_checks(tcfg, teacher, cpu_teacher, reqs[1], replay)
-            agree = prefix["agree_k1_plain"]
+            enc, cat = reqs[1][:2]
+            if served:
+                with torch.no_grad():
+                    enc = m.encode([torch.as_tensor(f).cuda() for f in enc])
+                cat = torch.as_tensor(cat).cuda()
+            prefix = full_prefix_checks(c, m, cpu_models[method], (enc, cat), replay,
+                                        "graphs: " + name)
+            agree, n_cpu = prefix["agree_k1_plain"], ARB_CPU
+        elif served and videos % 16 == 0:  # the K8 width has no K6 / K7 at 16 videos
+            cpu_cap = StreamingCaptioner(c, cpu_models[method],
+                                         (tcfg, cpu_teacher) if nar else None, depth=0,
+                                         device="cpu")
+            small = ([f[:n_cpu] for f in reqs[0][0]], reqs[0][1][:n_cpu])
+            (cpu_hyp,) = cpu_cap.map_stream([small])
+            agree = float((cpu_hyp == want[0][0][:n_cpu].numpy()).mean())
+            if agree < 0.99:
+                die("graphs: %s: token agreement with the CPU plain path %.4f < 0.99"
+                    % (name, agree))
         results[name] = dict(
             eager_ms=float(np.median(ms[False])), replay_ms=float(np.median(ms[True])),
             first_call_s=first_s, capture_s=sum(g.capture_s for g in graphs),
@@ -1386,20 +1526,167 @@ def graphs_phase(cfg, model, tcfg, teacher, cpu_teacher, card):
             full_prefix=prefix, eager_idle=idle[False], replay_idle=idle[True])
         r = results[name]
         log("graphs: %s [%s]: eager %.3f ms, replayed %.3f ms per decode (median of %d, "
-            "host clock, ends in the tokens' copy; %.2fx); tokens bit for bit the eager "
+            "host clock, %sends in the tokens' copy; %.2fx); tokens bit for bit the eager "
             "route's; first call %.3f s (warm-up + capture of %d graph(s): %.3f s), pool "
-            "%.1f MiB; launches per replayed decode %s (the eager decode's %s)%s%s; idle "
+            "%.1f MiB; launches per replayed decode %s (the eager decode's)%s%s%s; idle "
             "share eager %s, replayed %s" % (
                 name, card, r["eager_ms"], r["replay_ms"], 2 * GRAPH_ROUNDS,
+                "a request through StreamingCaptioner at depth 0, " if served else "",
                 r["eager_ms"] / r["replay_ms"], first_s, len(graphs), r["capture_s"],
-                r["pool_mb"], launches, eager_launches,
+                r["pool_mb"], launches, "; %d beam steps" % steps if steps else "",
                 "" if ef is None else "; ef: %d reveal rounds, %d blocks, %d flag reads" % (
                     ef["rounds"], ef["blocks"], ef["flag_reads"]),
                 "" if agree is None else "; CPU plain path agreement on %d videos %.4f" % (
-                    ARB_CPU, agree),
+                    n_cpu, agree),
                 *("%.3f" % x if x is not None else "not measured" for x in (
                     idle[False], idle[True]))))
-        del gens, eager, replay, run, reqs, got, want
+        del routes, replay, run, reqs, got, want
+        torch.cuda.empty_cache()
+    return results
+
+
+def loader_batches(cfg, b, n, videos=160, seed=0):
+    """``n`` training batches of ``b`` videos from the data pipeline (the
+    loader of ``cfg``'s method: AR or NAR sources and targets, the
+    visual-word pass's tokens_1 / labels_1 from the POS tags) over a seeded
+    synthetic corpus at ``cfg``'s vocab, 2 captions a video."""
+    import numpy as np
+
+    from navc_tpu_torch.data.loader import get_loader
+    from navc_tpu_torch.data.synthetic import make_synthetic_corpus, make_synthetic_feats
+
+    corpus, _ = make_synthetic_corpus(cfg, n_videos=videos, n_caps=2,
+                                      vocab_size=cfg.vocab_size, seed=seed)
+    feats = make_synthetic_feats(cfg, n_videos=videos, n_total_frames=ENTRY_FRAMES,
+                                 seed=seed + 1)
+    loader = get_loader(cfg, "train", info_corpus=corpus, in_memory_feats=feats,
+                        batch_size=b, prefetch=0)
+    assert int(videos * 0.6) >= b, (videos, b)  # a full batch each epoch
+    out = []
+    while len(out) < n:  # the arrays of the full batches, as run_train_epoch passes them
+        out += [{k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
+                for batch in loader if batch["num_valid"] == b]
+    return out[:n]
+
+
+def cpu_step_check(cfg, batch, seed, what):
+    """One bf16 step at p = 0 of ``cfg``'s model (weights from ``seed``) on
+    the card against the same step on the CPU (the plain versions): the
+    loss within 1e-2 relative, every gradient within 5e-2 of the CPU's
+    norm. Dies past them; returns the figures."""
+    import numpy as np
+    import torch
+
+    from navc_tpu_torch.models import build_model
+    from navc_tpu_torch.runtime.train_step import create_train_state, make_train_step
+
+    sides = {}
+    for where in ("cuda", "cpu"):
+        m = build_model(cfg, device=where, generator=torch.Generator().manual_seed(seed),
+                        train=True)
+        st = create_train_state(cfg, m)
+        met = make_train_step(cfg, m, st.optimizer)(batch, torch.Generator().manual_seed(1))
+        sides[where] = (float(met["total_loss"]),
+                        {k: p.grad.detach().float().cpu() for k, p in m.named_parameters()})
+    (loss_g, grad_g), (loss_c, grad_c) = sides["cuda"], sides["cpu"]
+    loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+    key_bias = ("attention.self.key.bias", "attend_to_enc_output.self.key.bias")
+    rel = {k: float((grad_g[k] - v).norm() / max(float(v.norm()), 1e-12))
+           for k, v in grad_c.items() if not k.endswith(key_bias)}
+    worst = max(rel, key=rel.get)
+    log("%sbf16 step at p = 0, %d videos, card vs CPU plain path: loss %.5f vs %.5f "
+        "(relative %.2e, tolerance 1e-2); gradient norm-relative error worst %.2e "
+        "(%s), median %.2e over %d parameters (tolerance 5e-2; the two key biases, "
+        "zero in exact arithmetic, left out)" % (
+            what, batch["tokens"].shape[0], loss_g, loss_c, loss_rel, rel[worst], worst,
+            float(np.median(list(rel.values()))), len(rel)))
+    if not (loss_rel <= 1e-2 and rel[worst] <= 5e-2):
+        die("%sthe card's bf16 training step disagrees with the CPU plain path" % what)
+    return dict(loss_rel=loss_rel, worst_grad=rel[worst])
+
+
+def captured_step_check(cfg, batches, seed, what):
+    """The compiled step (jit=True: a CUDA graph) against the eager one
+    from the same weights (``seed``), batches and CPU generator state, at
+    ``cfg``'s dropout: each step's loss and every gradient bit for bit, a
+    replay's launches the eager step's (each decoder pass's K11, K12a,
+    K12b, K9 and K10 once, the reduction twice), then every parameter and
+    buffer. Returns the figures."""
+    import torch
+
+    from navc_tpu_torch.models import build_model
+    from navc_tpu_torch.ops import _build
+    from navc_tpu_torch.runtime.train_step import create_train_state, make_train_step
+
+    sides, gens = {}, {}
+    for jit in (False, True):
+        m = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(seed),
+                        train=True)
+        st = create_train_state(cfg, m)
+        sides[jit] = (m, make_train_step(cfg, m, st.optimizer, jit=jit))
+        gens[jit] = torch.Generator().manual_seed(0)
+    passes = 2 if cfg.visual_word_generation else 1
+    per_pass = len(sides[True][0].decoder.layers)
+    want = {k: passes * per_pass * (2 if k == "train_wgrad" else 1) for k in TRAIN_KERNELS}
+    losses = []
+    for i, batch in enumerate(batches):
+        out = {}
+        for jit, (m, step) in sides.items():
+            _build.reset_launches()
+            loss = float(step(batch, gens[jit])["total_loss"])
+            torch.cuda.synchronize()
+            out[jit] = (loss, {k: p.grad.clone() for k, p in m.named_parameters()},
+                        {k: n for k, n in _build.LAUNCHES.items() if n})
+        if out[True][0] != out[False][0]:
+            die("%scaptured step %d: replayed loss %r, eager %r"
+                % (what, i, out[True][0], out[False][0]))
+        bad = [k for k, g in out[True][1].items() if not torch.equal(g, out[False][1][k])]
+        if bad:
+            die("%scaptured step %d: %d gradients differ from the eager step's (%s)"
+                % (what, i, len(bad), bad[:3]))
+        if out[True][2] != out[False][2] or out[True][2] != want:
+            die("%scaptured step %d launched %s, the eager step %s, expected %s"
+                % (what, i, out[True][2], out[False][2], want))
+        losses.append(out[True][0])
+    ref = sides[False][0].state_dict()
+    bad = [k for k, t in sides[True][0].state_dict().items() if not torch.equal(t, ref[k])]
+    if bad:
+        die("%scaptured steps: %d parameters or buffers differ from the eager route's (%s)"
+            % (what, len(bad), bad[:3]))
+    jitted = sides[True][1].jitted
+    if jitted is None or len(jitted.graphs) != 1:
+        die("%scaptured steps: %s graphs, expected 1"
+            % (what, None if jitted is None else len(jitted.graphs)))
+    log("%scompiled step at B=%d, dropout %.2f: %d steps replayed bit for bit the eager ones "
+        "(loss and %d gradients, then %d parameters and buffers); launches per step %s "
+        "(%d decoder pass(es), each its own device seed); losses %s" % (
+            what, batches[0]["tokens"].shape[0], cfg.hidden_dropout_prob, len(batches),
+            len(out[True][1]), len(ref), want, passes, ["%.4f" % x for x in losses]))
+    return dict(steps=len(batches), launches=want)
+
+
+def methods_phase():
+    """NAB's and ARB2's training at full width on random weights (seeds
+    METHOD_SEEDS; their serving is in GRAPH_CASES): one bf16 step at p = 0
+    of TRAIN_CPU videos against the CPU plain path (``cpu_step_check``),
+    and the compiled step at B=TRAIN_B, 3 steps at dropout 0.5, replayed
+    bit for bit the eager one (``captured_step_check``: ARB2's two passes
+    each launch K11, K12a, K12b, K9 and K10 with a device seed of its own),
+    on batches from the data pipeline. Returns {check: figures}."""
+    import torch
+
+    from navc_tpu_torch.config import default_config
+
+    results = {}
+    for method, seed in METHOD_SEEDS.items():
+        c = default_config(method, **OVER)
+        ccfg = c.replace(batch_size=TRAIN_CPU, hidden_dropout_prob=0.0, encoder_dropout=0.0)
+        (small,) = loader_batches(ccfg, TRAIN_CPU, 1, seed=seed)
+        results["%s p = 0 step" % method] = cpu_step_check(ccfg, small, seed + 10,
+                                                           "%s: " % method)
+        bcfg = c.replace(batch_size=TRAIN_B)
+        results["%s compiled step" % method] = captured_step_check(
+            bcfg, loader_batches(bcfg, TRAIN_B, 3, seed=seed), seed + 20, "%s: " % method)
         torch.cuda.empty_cache()
     return results
 
@@ -2297,28 +2584,7 @@ def train_phases(record, seeded, parent):
     # -- (d) one bf16 step at p = 0 on the card against the CPU plain path --
     ccfg = default_config("NACF", batch_size=TRAIN_CPU, hidden_dropout_prob=0.0,
                           encoder_dropout=0.0, **over)
-    small = train_batch(ccfg, TRAIN_CPU, np.random.RandomState(9))
-    sides = {}
-    for where in ("cuda", "cpu"):
-        m = build_model(ccfg, device=where, generator=seeded(3), train=True)
-        st = create_train_state(ccfg, m)
-        met = make_train_step(ccfg, m, st.optimizer)(small, torch.Generator().manual_seed(1))
-        sides[where] = (float(met["total_loss"]),
-                        {k: p.grad.detach().float().cpu() for k, p in m.named_parameters()})
-    (loss_g, grad_g), (loss_c, grad_c) = sides["cuda"], sides["cpu"]
-    loss_rel = abs(loss_g - loss_c) / abs(loss_c)
-    key_bias = ("attention.self.key.bias", "attend_to_enc_output.self.key.bias")
-    rel = {k: float((grad_g[k] - v).norm() / max(float(v.norm()), 1e-12))
-           for k, v in grad_c.items() if not k.endswith(key_bias)}
-    worst = max(rel, key=rel.get)
-    log("bf16 step at p = 0, %d videos, card vs CPU plain path: loss %.5f vs %.5f "
-        "(relative %.2e, tolerance 1e-2); gradient norm-relative error worst %.2e "
-        "(%s), median %.2e over %d parameters (tolerance 5e-2; the two key biases, "
-        "zero in exact arithmetic, left out)" % (
-            TRAIN_CPU, loss_g, loss_c, loss_rel, rel[worst], worst,
-            float(np.median(list(rel.values()))), len(rel)))
-    if not (loss_rel <= 1e-2 and rel[worst] <= 5e-2):
-        die("the card's bf16 training step disagrees with the CPU plain path")
+    cpu_step_check(ccfg, train_batch(ccfg, TRAIN_CPU, np.random.RandomState(9)), 3, "")
 
     # -- (e) 20 steps on one batch at dropout 0.1 lower the loss -------------
     dcfg = default_config("NACF", batch_size=TRAIN_B, hidden_dropout_prob=0.1,
@@ -2611,18 +2877,21 @@ INFER_RUNS = (  # (name, translate options after the checkpoints, kernels it mus
     ("mp collect", ["-use_ct", "-collect"],
      ("fused_layer", "project_argmax", "project_gather_prob")),
     ("ARB", ["-bs", "5"], ("project_topk", "beam_attend_step", "cross_attend")),
+    ("NAB", [], ("fused_layer", "fused_layer_qsub", "project_argmax", "project_gather_prob")),
+    ("ARB2", ["-bs", "5"], ("project_topk", "beam_attend_step", "cross_attend")),
 )
 
 
 def inference_phase(card):
     """The inference entry points at full width (MSRVTT, d=512, vocab
-    10048, bf16, random weights from seeds 0 and 1): an NACF and an ARB
-    model saved as .ckpt files, the 64-video test split of the entry
-    point's synthetic corpus captioned and scored through cli.translate's
-    body (`translate`, in-memory features, batch 64, on the card) as mp + CT
-    with the ARB teacher (--record), l2r + CT (q 1, one refinement), ef
-    (q 1), mp + CT with -collect, and ARB (beam 5), each with its launch
-    counts; CaptionPipeline.from_checkpoints on both checkpoints against
+    10048, bf16, random weights from seeds 0-3): an NACF, an ARB, a NAB
+    and an ARB2 model saved as .ckpt files, the 64-video test split of the
+    entry point's synthetic corpus captioned and scored through
+    cli.translate's body (`translate`, in-memory features, batch 64, on the
+    card) as mp + CT with the ARB teacher (--record), l2r + CT (q 1, one
+    refinement), ef (q 1), mp + CT with -collect, ARB (beam 5), NAB's mp
+    with the ARB teacher and ARB2 (beam 5), each with its launch counts;
+    CaptionPipeline.from_checkpoints on the NACF and ARB checkpoints against
     Evaluator.decode_batch; l2r and ef on 8 videos against the CPU plain
     path; 64-video decode times and launches per decode."""
     import contextlib
@@ -2646,7 +2915,7 @@ def inference_phase(card):
     from navc_tpu_torch.runtime.evaluate import Evaluator
 
     over = dict(OVER, batch_size=N_VIDEOS)
-    cfgs = {"NACF": default_config("NACF", **over), "ARB": default_config("ARB", **over)}
+    cfgs = {m: default_config(m, **over) for m in ("NACF", "ARB", "NAB", "ARB2")}
     corpus, refs = make_synthetic_corpus(cfgs["ARB"], n_videos=ENTRY_VIDEOS,
                                          n_caps=ENTRY_CAPS, vocab_size=OVER["vocab_size"])
     feats = make_synthetic_feats(cfgs["ARB"], n_videos=ENTRY_VIDEOS,
@@ -2670,8 +2939,9 @@ def inference_phase(card):
         seconds, launches, captions, results = {}, {}, {}, {}
         peak = 0.0
         for name, extra, kernels in INFER_RUNS:
-            model_args = (["--model_path", paths["ARB"]] if name == "ARB" else
-                          ["--model_path", paths["NACF"], "--teacher_path", paths["ARB"]])
+            method = name if name in cfgs else "NACF"  # the paradigm runs are NACF's
+            model_args = ["--model_path", paths[method]] + (
+                ["--teacher_path", paths["ARB"]] if method in ("NACF", "NAB") else [])
             opt = build_parser().parse_args(
                 model_args + extra + ["-batch_size", str(N_VIDEOS), "-em", "test",
                                       "-print_sent", "-collect_path",
@@ -2806,6 +3076,226 @@ def inference_phase(card):
         if a < 0.99:
             die("inference: %s token agreement with the CPU plain path %.4f < 0.99"
                 % (name, a))
+
+
+# the learning phase: make_flagship_synthetic at full width, the four methods
+# trained through train_network_all in the order of the two-stage pipeline,
+# the CPU learning tests' hyperparameters (tests/test_torch_port_learning.py,
+# navc_tpu's tests/test_learning.py: lr 2e-3 down to 5e-4, no dropout)
+LEARN_VIDEOS, LEARN_CLASSES, LEARN_EPOCHS, LEARN_EVALS = 256, 32, 10, 2
+LEARN_OVER = dict(OVER, batch_size=TRAIN_B, learning_rate=2e-3,
+                  minimum_learning_rate=5e-4, hidden_dropout_prob=0.0, encoder_dropout=0.0)
+# the test-CIDEr floor of each method: half the lowest of the CPU
+# calibration on this corpus and schedule that was written down before the
+# first card run (d=128, 10 epochs: ARB 9.54, NACF 8.54, NAB 8.57, ARB2
+# 9.63; oracle 10.0, majority caption 0.19), so that a fault that halves a
+# method's quality fails
+LEARN_FLOOR = {"ARB": 5.0, "ARB2": 5.0, "NAB": 5.0, "NACF": 5.0}
+BEAM_STEPS = 29  # max_len - 1: a beam that never stops early
+
+
+def learning_phase(card):
+    """All four methods trained at full width on the card: the port's
+    make_flagship_synthetic (LEARN_VIDEOS videos of LEARN_CLASSES latent
+    classes, features clustered by class, one caption of 8-18 words from the
+    10048-word vocab a class; MSRVTT categories), train_network_all for
+    LEARN_EPOCHS epochs each (validation LEARN_EVALS times, the test split
+    on the best checkpoint): ARB, then NACF and NAB with that best.ckpt as
+    teacher (warm start and rescoring), then ARB2. Gated: each run's train
+    loss in its last epoch below its first, and its test CIDEr above
+    LEARN_FLOOR. On the trained weights: the ARB beam on a 64-video request
+    stops before BEAM_STEPS steps, eager and replayed (tokens and scores bit
+    for bit; launches once a step that ran on each route, the eager route
+    reading its flag DONE_LAG steps late), agrees >= 0.99 with the CPU plain
+    path, and its replay runs as many steps as the CPU's blocked schedule;
+    NACF's l2r and ef, with and without CT, eager and replayed (bit for bit,
+    the same launches; ef's blocks printed); 3
+    NACF requests of different videos through StreamingCaptioner capture
+    one graph; the ARB's and ARB2's full-prefix routes against the CPU
+    (``full_prefix_checks`` with ``trained``: K1's teacher-forced log-probs
+    against its plain version's, the forward's gap printed, the beam
+    against K1's plain version and against the model's own forward).
+    Returns the figures."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from navc_tpu_torch.config import default_config
+    from navc_tpu_torch.data.synthetic import make_flagship_synthetic
+    from navc_tpu_torch.runtime import loop
+
+    over = dict(LEARN_OVER, epochs=LEARN_EPOCHS,
+                save_checkpoint_every=LEARN_EPOCHS // LEARN_EVALS)
+    base = default_config("ARB", **over)
+    corpus, refs, feats = make_flagship_synthetic(
+        base, n_videos=LEARN_VIDEOS, n_classes=LEARN_CLASSES, vocab_size=base.vocab_size,
+        n_total_frames=ENTRY_FRAMES)
+    with tempfile.TemporaryDirectory(prefix="learning_") as root:
+        results = {}
+        for method in ("ARB", "NACF", "NAB", "ARB2"):
+            cfg = default_config(method, **over)
+            if cfg.decoding_type == "NARFormer":
+                cfg = cfg.replace(teacher_path=os.path.join(root, "ARB", "best.ckpt"))
+            t0 = time.perf_counter()
+            out = loop.train_network_all(cfg, workdir=os.path.join(root, method), verbose=False,
+                                         info_corpus=corpus, references=refs,
+                                         in_memory_feats=feats)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            with open(os.path.join(root, method, "trainval", "events.jsonl")) as f:
+                losses = [e["value"] for e in map(json.loads, f) if e["tag"] == "total_loss"]
+            r = results[method] = dict(
+                seconds=seconds, train_loss=losses,
+                val_cider=[h["CIDEr"] for h in out["history"]],
+                test={k: out["test_res"][k] for k in ("Bleu_4", "METEOR", "ROUGE_L", "CIDEr")})
+            del out
+            log("learning: %s [%s], %d videos of %d classes, batch %d, %d epochs: %.1f s; "
+                "train loss %s; validation CIDEr %s; test %s (floor: CIDEr > %.1f)" % (
+                    method, card, LEARN_VIDEOS, LEARN_CLASSES, cfg.batch_size, LEARN_EPOCHS,
+                    r["seconds"], ["%.3f" % x for x in r["train_loss"]],
+                    ["%.4f" % x for x in r["val_cider"]],
+                    {k: round(v, 4) for k, v in r["test"].items()}, LEARN_FLOOR[method]))
+            if not (len(losses) == LEARN_EPOCHS and np.isfinite(losses).all()
+                    and losses[-1] < losses[0]):
+                die("learning: %s's train loss did not fall: %s" % (method, losses))
+            if not r["test"]["CIDEr"] > LEARN_FLOOR[method]:
+                die("learning: %s's test CIDEr %.4f is not above its floor %.1f"
+                    % (method, r["test"]["CIDEr"], LEARN_FLOOR[method]))
+        results.update(trained_checks(root, corpus, feats, base, card))
+    return results
+
+
+def trained_checks(root, corpus, feats, base, card):
+    """The learning phase's checks on the weights trained under ``root``
+    (``learning_phase`` says which). Returns the figures."""
+    import numpy as np
+    import torch
+
+    from navc_tpu_torch import constants as C
+    from navc_tpu_torch.decoding import make_ar_generator, make_nar_generator
+    from navc_tpu_torch.decoding.beam import DONE_LAG
+    from navc_tpu_torch.ops import _build
+    from navc_tpu_torch.runtime.checkpoint import load_model_and_config
+    from navc_tpu_torch.runtime.serving import StreamingCaptioner
+
+    results = {}
+
+    def request_of(vids):
+        """(features, categories) of the corpus's videos ``vids``."""
+        return ([np.stack([feats["feats_%s" % ch]["video%d" % v][:base.n_frames]
+                           for v in vids]) for ch in base.modality.lower()],
+                np.array([[corpus["info"]["itoc"][v]] for v in vids], np.int64))
+
+    # -- a 64-video request of held-out videos (validation and test) -------
+    req_feats, req_cat = request_of(
+        (corpus["info"]["split"]["validate"] + corpus["info"]["split"]["test"])[:N_VIDEOS])
+    arb, acfg, _ = load_model_and_config(os.path.join(root, "ARB", "best.ckpt"), device="cuda")
+    cpu_arb, _, _ = load_model_and_config(os.path.join(root, "ARB", "best.ckpt"), device="cpu")
+    nacf, ncfg, _ = load_model_and_config(os.path.join(root, "NACF", "best.ckpt"),
+                                          device="cuda")
+    with torch.no_grad():
+        enc = arb.encode([torch.as_tensor(f).cuda() for f in req_feats])
+        nenc = nacf.encode([torch.as_tensor(f).cuda() for f in req_feats])
+    cat = torch.as_tensor(req_cat).cuda()
+
+    # -- the trained beam stops early, eager and replayed ---------------------
+    eager, replay = (make_ar_generator(acfg, arb, jit) for jit in (False, True))
+    _build.reset_launches()
+    want = eager(enc, cat)
+    eager_launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+    eager_steps = eager.steps_run
+    got = [replay(enc, cat)]  # warm-up and capture
+    steps0 = replay.steps_run
+    _build.reset_launches()
+    got.append(replay(enc, cat))
+    steps = replay.steps_run - steps0
+    launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+    for g in got:
+        if not all(torch.equal(x, y) for x, y in zip(g, want)):
+            die("learning: the trained ARB beam's replayed tokens or scores differ from "
+                "the eager route's")
+    kernels = ("project_topk", "beam_attend_step", "cross_attend")
+    if (launches != {k: steps for k in kernels}
+            or eager_launches != {k: eager_steps for k in kernels}):
+        die("learning: a replayed trained beam of %d steps launched %s (the eager route's %d "
+            "steps %s), expected %s once a step" % (steps, launches, eager_steps,
+                                                    eager_launches, kernels))
+    cpu_gen = make_ar_generator(acfg, cpu_arb)  # the blocked schedule, eager on the CPU
+    cpu_hyp = cpu_gen({k: v.cpu() for k, v in enc.items()}, cat.cpu())[0]
+    agree = float((cpu_hyp == want[0].cpu()).float().mean())
+    hyp = want[0].cpu().numpy()
+    ended = float((hyp == C.EOS).any(1).mean())
+    results["ARB early stop"] = dict(steps=steps, eager_steps=eager_steps,
+                                     cpu_steps=cpu_gen.steps_run, cpu_agreement=agree,
+                                     ended=ended, launches=launches)
+    log("learning: trained ARB beam on %d held-out videos [%s]: replayed %d steps of %d in "
+        "blocks of %d (the CPU's blocked schedule %d; the eager route, its flag read %d "
+        "steps late, %d), %.3f of the captions end in EOS; replayed tokens and scores bit for "
+        "bit the eager route's; launches per replayed decode %s; CPU plain path agreement "
+        "%.4f" % (N_VIDEOS, card, steps, BEAM_STEPS, DONE_LAG, cpu_gen.steps_run, DONE_LAG,
+                  eager_steps, ended, launches, agree))
+    if not steps < BEAM_STEPS or steps != cpu_gen.steps_run:
+        die("learning: the trained ARB beam's replay ran %d steps (the CPU's blocked schedule "
+            "%d), not fewer than %d and as many as the CPU's" % (
+                steps, cpu_gen.steps_run, BEAM_STEPS))
+    if agree < 0.99:
+        die("learning: the trained ARB beam agrees %.4f with the CPU plain path < 0.99" % agree)
+
+    # -- NACF's l2r and ef, with and without CT, on the trained weights ------
+    for name, kw in (("l2r + CT", dict(paradigm="l2r", use_ct=True, q=1, q_iterations=1)),
+                     ("ef + CT", dict(paradigm="ef", use_ct=True, q=1, q_iterations=1)),
+                     ("l2r", dict(paradigm="l2r", use_ct=False, q=1, q_iterations=1)),
+                     ("ef", dict(paradigm="ef", use_ct=False, q=1, q_iterations=1))):
+        c = ncfg.replace(**kw)
+        eager_n, replay_n = (make_nar_generator(c, nacf, arb, jit) for jit in (False, True))
+        _build.reset_launches()
+        want_n = eager_n(nenc, cat, enc)
+        eager_launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+        replay_n(nenc, cat, enc)  # warm-up and capture
+        blocks0 = getattr(replay_n, "blocks_run", 0)
+        reads0 = getattr(replay_n, "flag_reads", 0)
+        _build.reset_launches()
+        got_n = replay_n(nenc, cat, enc)
+        launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+        if not torch.equal(got_n, want_n) or launches != eager_launches:
+            die("learning: trained NACF %s: replayed tokens or launches %s differ from the "
+                "eager route's %s" % (name, launches, eager_launches))
+        stop = dict(launches=launches)
+        if hasattr(replay_n, "blocks_run"):
+            stop.update(rounds=int(replay_n.rounds), blocks=replay_n.blocks_run - blocks0,
+                        flag_reads=replay_n.flag_reads - reads0)
+        masks = float((got_n.cpu() == C.MASK).float().mean())
+        results["NACF " + name] = stop
+        log("learning: trained NACF %s on %d held-out videos: replayed bit for bit the eager "
+            "route; %s; <mask> share of the output %.4f" % (name, N_VIDEOS, stop, masks))
+
+    # -- mp keeps one graph across requests of trained, varying lengths -------
+    cap = StreamingCaptioner(ncfg, nacf, (acfg, arb), depth=2)
+    order = np.random.RandomState(3).permutation(LEARN_VIDEOS)
+    outs = list(cap.map_stream([request_of(part) for part in
+                                np.array_split(order[:3 * N_VIDEOS], 3)]))
+    lengths = [sorted(set((o != C.PAD).sum(1).tolist())) for o in outs]
+    n_graphs = len(cap.generate.graphs)
+    results["NACF graphs"] = n_graphs
+    log("learning: 3 trained NACF requests of %d videos: caption lengths %s; the mp "
+        "decode holds %d graph(s)" % (N_VIDEOS, lengths, n_graphs))
+    if n_graphs != 1:
+        die("learning: the mp decode captured %d graphs for 3 requests of one width" % n_graphs)
+
+    # -- the full-prefix beam against the CPU forward, trained ----------------
+    for method in ("ARB", "ARB2"):
+        path = os.path.join(root, method, "best.ckpt")
+        model, mcfg, _ = load_model_and_config(path, device="cuda")
+        cpu_model = load_model_and_config(path, device="cpu")[0]
+        with torch.no_grad():
+            menc = model.encode([torch.as_tensor(f).cuda() for f in req_feats])
+        with no_kvcache():
+            prefix = make_ar_generator(mcfg, model)
+        results["%s full prefix" % method] = full_prefix_checks(
+            mcfg, model, cpu_model, (menc, cat), prefix, "learning: trained " + method,
+            trained=True)
+    return results
 
 
 def main():
@@ -3323,6 +3813,11 @@ def main():
     graph_results = graphs_phase(cfg, model, tcfg, teacher, cpu_teacher, card)
     log("graphs phase: %.1f s; %s" % (time.perf_counter() - t0, json.dumps(graph_results)))
 
+    # -- 5c. NAB and ARB2: the p = 0 step, the compiled step ------------------
+    t0 = time.perf_counter()
+    method_results = methods_phase()
+    log("methods phase: %.1f s; %s" % (time.perf_counter() - t0, json.dumps(method_results)))
+
     # -- 6. the training step ----------------------------------------------------
     t0 = time.perf_counter()
     train_recs, train_launches = train_phases(record, seeded, parent)
@@ -3343,6 +3838,12 @@ def main():
     t0 = time.perf_counter()
     inference_phase(card)
     log("inference phase: %.1f s" % (time.perf_counter() - t0))
+
+    # -- 8b. the four methods trained at full width, checks on their weights --
+    t0 = time.perf_counter()
+    learning_results = learning_phase(card)
+    log("learning phase: %.1f s; %s" % (time.perf_counter() - t0,
+                                        json.dumps(learning_results)))
 
     # -- 9. results -----------------------------------------------------------
     def entry(name, source, replaces, rec, counts=launches):
@@ -3393,6 +3894,9 @@ def main():
              note="no path of navc_tpu reaches the unfolded form (its decodes pass "
              "static=, which selects :289); held against its plain version only"),
     ]
+    for k in kernels:  # launches on each decode of the graphs phase
+        k["launches_by_path"] = {case: graph_results[case]["launches"].get(k["name"], 0)
+                                 for case, *_ in GRAPH_CASES}
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

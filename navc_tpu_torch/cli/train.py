@@ -7,7 +7,9 @@
 ``--device`` (default ``cuda``) picks where the model trains; without a card
 ask for ``cpu``. ``--resume`` continues from the run directory's rolling
 ``checkpoint.ckpt``. navc_tpu's ``--distributed`` and its compile cache are
-not ported. HDF5 feature files need h5py.
+not ported. HDF5 feature files need h5py; ``main(argv, in_memory_feats=...)``
+takes the features from memory instead (as ``cli.translate.translate``
+does), for a host without it.
 """
 
 from __future__ import annotations
@@ -23,7 +25,10 @@ from ..runtime.loop import train_network_all
 from .opts import parse_config
 
 
-def main(argv=None):
+def main(argv=None, in_memory_feats=None):
+    """Train as the command line ``argv`` says; ``in_memory_feats`` maps
+    'feats_<ch>' to {video id: (frames, dim) array} in place of the feature
+    files. Returns ``train_network_all``'s result."""
     import sys
     pre = argparse.ArgumentParser(add_help=False)
     pre.add_argument("--device", default="cuda")
@@ -50,7 +55,8 @@ def main(argv=None):
           % (cfg.method, cfg.vocab_size, cfg.modality, cfg.max_len, cfg.seed, args.device))
 
     out = train_network_all(cfg, workdir=workdir, info_corpus=info_corpus,
-                            resume=args.resume, device=args.device)
+                            in_memory_feats=in_memory_feats, resume=args.resume,
+                            device=args.device)
     if "test_res" in out:
         print({k: v for k, v in out["test_res"].items()})
     return out

@@ -5,6 +5,12 @@
 // node of its own, so the node is made here from the runtime API (CUDA 12.4
 // or later).
 //
+// navc_stream_create(out): a non-blocking stream of the caller's own for the
+// bodies to capture on. PyTorch hands out the streams of its pool round
+// robin, 32 of them, so a stream taken from the pool is now and then the
+// very stream the graph is capturing on, and beginning the body's capture
+// there fails (cudaErrorIllegalState).
+//
 // navc_cond_begin(pred, capture, body): `capture` is a stream capturing a
 // graph. It queues on `capture` a one-thread kernel that sets a new
 // conditional handle from the bool at `pred`, adds an IF node after that
@@ -74,6 +80,10 @@ NAVC_EXPORT int navc_cond_begin(const void* pred, cudaStream_t capture, cudaStre
   if (e != cudaSuccess) return e;
   return cudaStreamBeginCaptureToGraph(body, params.conditional.phGraph_out[0], nullptr,
                                        nullptr, 0, cudaStreamCaptureModeThreadLocal);
+}
+
+NAVC_EXPORT int navc_stream_create(cudaStream_t* out) {
+  return cudaStreamCreateWithFlags(out, cudaStreamNonBlocking);
 }
 
 NAVC_EXPORT int navc_cond_end(cudaStream_t body) {

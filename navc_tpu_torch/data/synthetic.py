@@ -1,11 +1,15 @@
 """Synthetic corpus + feature fixtures for tests and the chip smoke run.
 
 Port of navc_tpu/data/synthetic.py (``make_synthetic_corpus``,
-``make_synthetic_feats``, ``write_hdf5_feats``): data in exactly the
+``make_synthetic_feats``, ``write_hdf5_feats`` and the learnable corpora
+``make_learnable_synthetic``, ``make_hard_synthetic`` and
+``make_flagship_synthetic``): data in exactly the
 ``info_corpus.pkl`` schema the reference produces (prepare_corpora.py:53-65:
 {'info': {...}, 'captions', 'pos_tags'}) plus in-memory feature dicts shaped
-like the HDF5 stores, drawn from the same numpy streams as navc_tpu's, so the
-train/eval pipeline runs end to end without external datasets.
+like the HDF5 stores, drawn from the same numpy streams in the same call
+order as navc_tpu's (one seed gives the same corpus, references, features
+and meta bit for bit), so the train/eval pipeline runs end to end without
+external datasets.
 """
 
 from __future__ import annotations
@@ -113,6 +117,309 @@ def make_synthetic_feats(cfg: Config, n_videos: int = 12, n_total_frames: int = 
     return feats
 
 
+def make_learnable_synthetic(cfg: Config, n_videos: int = 24, n_classes: int = 4,
+                             vocab_size: int = 40, n_total_frames: int = 10,
+                             seed: int = 0):
+    """A *learnable* fixture: each video belongs to a latent class; features
+    cluster by class and every video of a class shares the class caption.
+    A working model should reach near-perfect captions on held-out videos of
+    seen classes — used by the learning sanity test.
+
+    Returns (info_corpus, references, feats).
+    """
+    rng = np.random.RandomState(seed)
+    corpus, references = make_synthetic_corpus(
+        cfg, n_videos=n_videos, n_caps=1, vocab_size=vocab_size, seed=seed)
+    itow = corpus["info"]["itow"]
+
+    # one fixed caption per class
+    class_caps = []
+    for c in range(n_classes):
+        length = 5 + c % 3
+        word_ids = list(rng.randint(C.NUM_SPECIAL_TOKENS, vocab_size, size=length))
+        class_caps.append(word_ids)
+
+    length_info = {}
+    for v in range(n_videos):
+        vid = "video%d" % v
+        cls = v % n_classes
+        wid = class_caps[cls]
+        corpus["captions"][vid] = [[C.BOS] + wid + [C.EOS]]
+        corpus["pos_tags"][vid] = [[C.BOS] + [6] * len(wid) + [C.EOS]]
+        references[vid] = [{
+            "image_id": vid, "cap_id": 0,
+            "caption": " ".join(itow[w] for w in wid)}]
+        hist = [0] * 50
+        hist[len(wid)] = 1
+        length_info[vid] = hist
+    corpus["info"]["length_info"] = length_info
+
+    centers = {ch: rng.randn(n_classes, getattr(cfg, "dim_%s" % ch)) * 3.0
+               for ch in cfg.modality.lower()}
+    feats: Dict[str, Dict[str, np.ndarray]] = {}
+    for ch in cfg.modality.lower():
+        dim = getattr(cfg, "dim_%s" % ch)
+        feats["feats_%s" % ch] = {}
+        for v in range(n_videos):
+            cls = v % n_classes
+            base = centers[ch][cls][None, :]
+            feats["feats_%s" % ch]["video%d" % v] = (
+                base + 0.1 * rng.randn(n_total_frames, dim)).astype(np.float32)
+    return corpus, references, feats
+
+
+def make_hard_synthetic(cfg: Config, n_videos: int = 768, n_classes: int = 128,
+                        vocab_size: int = 10048, n_caps: int = 4,
+                        n_total_frames: int = 16, seed: int = 0,
+                        n_categories: int = 20,
+                        feat_noise: float = 0.35, video_offset: float = 0.25,
+                        distractor_p: float = 0.12, adj_pool: int = 2000,
+                        adv_pool: int = 500, adv_p: float = 0.25,
+                        role_features: bool = False,
+                        modifier_distractors: bool = False,
+                        return_meta: bool = False):
+    """A REGRESSION-SENSITIVE flagship fixture (VERDICT r3 #1): hard enough
+    that test scores land mid-range instead of saturating, and structured so
+    the method family's designed mechanisms have real signal:
+
+      * latent class = (subject, verb, object) concept triple; every concept
+        has 2-3 synonym surface forms and every caption realizes one of five
+        templates — so each video's references are PARAPHRASES of one
+        semantic event. Non-autoregressive conditional independence mixes
+        these modes (the NAB failure the paper targets); visual-word /
+        coarse-template passes (NACF) and AR-teacher rescoring
+        (reference decoding/algorithms.py:136-141, 175-204) counteract it.
+      * feature centers are COMPOSITIONAL (sum of slot embeddings), so
+        classes sharing two of three slots are genuinely confusable under
+        per-video offset + per-frame noise.
+      * Zipf-distributed adjectives/adverbs from large pools plus
+        distractor captions (one slot swapped) put unpredictable-but-
+        plausible tokens in the references, deflating the metric ceiling
+        the way real MSR-VTT references do.
+      * POS tags are exact by construction (DET/NOUN/VERB/ADP/ADJ/ADV), so
+        visual-word supervision (demand = NOUN/VERB) is clean.
+
+    Corpus v3 knobs (VERDICT r4 #1 — POS-aligned feature structure so the
+    2-pass visual-word training, reference models/Decoder.py:206-210 +
+    dataloader.py:383-425, has MEASURABLE signal to learn):
+
+      * ``role_features=True``: modality subspaces are keyed to semantic
+        roles the way real video features are — the motion stream ('m')
+        embeds the VERB latent only, the image stream ('i') embeds the
+        SUBJECT+OBJECT latents only (other modality chars keep the v2
+        all-three-slots sum). The feature->POS mapping is then clean:
+        demanded-POS tokens (NOUN/VERB) are predictable from the features
+        up to synonym choice, which scripts/flagship_quality.py's
+        vw-accuracy probe verifies as a number.
+      * ``modifier_distractors=True``: distractor noise swaps ONLY
+        modifier-level content (a uniformly-random adjective inserted
+        before the object noun) instead of corrupting an (s,v,o) slot —
+        references keep unpredictable tokens, but the visual-word targets
+        stay faithful to the features (v2's slot swaps made 12%% of vw
+        supervision actively wrong).
+      * ``return_meta=True``: additionally returns a meta dict (synonym
+        form tables, per-video class, word->POS map) for instrumentation.
+
+    Returns (info_corpus, references, feats[, meta]) in the byte-compatible
+    reference schema (prepare_corpora.py:53-65).
+    """
+    rng = np.random.RandomState(seed)
+    T = C.NUM_SPECIAL_TOKENS
+
+    # ---- vocabulary layout (ids >= 6) ----------------------------------
+    itow: Dict[int, str] = {tok: w for tok, w in C.SPECIAL_TOKEN_WORDS.items()}
+    next_id = T
+
+    def _alloc(word: str) -> int:
+        nonlocal next_id
+        i = next_id
+        itow[i] = word
+        next_id += 1
+        return i
+
+    the_id, a_id = _alloc("the"), _alloc("a")
+    is_id = _alloc("is")
+    preps = [_alloc(w) for w in ("in", "on", "at")]
+
+    n_subj, n_verb, n_obj, n_place = 24, 20, 28, 10
+
+    def _concept_forms(prefix: str, n: int, min_forms=2, max_forms=3):
+        out = []
+        for c in range(n):
+            k = int(rng.randint(min_forms, max_forms + 1))
+            out.append([_alloc("%s%d%s" % (prefix, c, "abc"[j]))
+                        for j in range(k)])
+        return out
+
+    subj_forms = _concept_forms("subj", n_subj)
+    verb_forms = _concept_forms("verb", n_verb)
+    obj_forms = _concept_forms("obj", n_obj)
+    place_forms = _concept_forms("place", n_place, 1, 2)
+    adjs = [_alloc("adj%d" % i) for i in range(adj_pool)]
+    advs = [_alloc("adv%d" % i) for i in range(adv_pool)]
+    assert next_id <= vocab_size, "grammar does not fit the vocab"
+    filler_start = next_id
+    for i in range(filler_start, vocab_size):
+        itow[i] = "rare%d" % i  # rare-tail words, never used in captions
+
+    # exact POS tag per word id (tags are itop ids >= 6, like the corpus-prep
+    # output, utils_corpora.py:184-210)
+    itop = {C.PAD: C.PAD_WORD, C.UNK: C.UNK_WORD, C.BOS: C.BOS_WORD,
+            C.EOS: C.EOS_WORD, C.MASK: C.MASK_WORD, C.VIS: C.VIS_WORD,
+            6: "NOUN", 7: "VERB", 8: "DET", 9: "ADJ", 10: "ADV", 11: "ADP"}
+    NOUN, VERB, DET, ADJ, ADV, ADP = 6, 7, 8, 9, 10, 11
+    pos_of: Dict[int, int] = {the_id: DET, a_id: DET, is_id: VERB}
+    for p in preps:
+        pos_of[p] = ADP
+    for forms in subj_forms + obj_forms + place_forms:
+        for w in forms:
+            pos_of[w] = NOUN
+    for forms in verb_forms:
+        for w in forms:
+            pos_of[w] = VERB
+    for w in adjs:
+        pos_of[w] = ADJ
+    for w in advs:
+        pos_of[w] = ADV
+
+    # ---- latent classes: distinct (s, v, o) triples ---------------------
+    triples = set()
+    while len(triples) < n_classes:
+        triples.add((int(rng.randint(n_subj)), int(rng.randint(n_verb)),
+                     int(rng.randint(n_obj))))
+    classes = sorted(triples)
+
+    def _zipf(pool):
+        ranks = np.arange(1, len(pool) + 1, dtype=np.float64)
+        p = 1.0 / (ranks + 2.0)
+        return pool[int(rng.choice(len(pool), p=p / p.sum()))]
+
+    def _realize(s: int, v: int, o: int):
+        """One caption realization (word ids + pos ids) of a class triple."""
+        S = subj_forms[s][rng.randint(len(subj_forms[s]))]
+        V = verb_forms[v][rng.randint(len(verb_forms[v]))]
+        O = obj_forms[o][rng.randint(len(obj_forms[o]))]
+        t = rng.randint(5)
+        if t == 0:
+            words = [the_id, S, V, the_id, O]
+        elif t == 1:
+            words = [a_id, S, is_id, V, a_id, O]
+        elif t == 2:
+            pl = place_forms[rng.randint(n_place)]
+            words = [a_id, S, is_id, V, a_id, O,
+                     preps[rng.randint(3)], the_id,
+                     pl[rng.randint(len(pl))]]
+        elif t == 3:
+            words = [the_id, S, V, a_id, _zipf(adjs), O]
+        else:
+            words = [S, V, O]
+        if rng.rand() < adv_p:
+            words = words + [_zipf(advs)]
+        return words, [pos_of[w] for w in words]
+
+    # ---- corpus ----------------------------------------------------------
+    n_train = max(2, int(n_videos * 0.6))
+    n_val = max(1, int(n_videos * 0.2))
+    split = {
+        "train": list(range(n_train)),
+        "validate": list(range(n_train, n_train + n_val)),
+        "test": list(range(n_train + n_val, n_videos)),
+    }
+    captions: Dict[str, list] = {}
+    pos_tags: Dict[str, list] = {}
+    references: Dict[str, list] = {}
+    length_info: Dict[str, list] = {}
+    itoc: Dict[int, int] = {}
+    video_class = [v % n_classes for v in range(n_videos)]  # train covers all
+    for v in range(n_videos):
+        vid = "video%d" % v
+        s, vb, o = classes[video_class[v]]
+        itoc[v] = s % n_categories  # category correlates with the subject
+        captions[vid], pos_tags[vid], references[vid] = [], [], []
+        hist = [0] * 50
+        for ci in range(n_caps):
+            ss, vv, oo = s, vb, o
+            distract = rng.rand() < distractor_p
+            if distract and not modifier_distractors:
+                # v2: one (s,v,o) slot swapped — label noise on the very
+                # tokens the visual-word pass is supervised on
+                slot = rng.randint(3)
+                if slot == 0:
+                    ss = int(rng.randint(n_subj))
+                elif slot == 1:
+                    vv = int(rng.randint(n_verb))
+                else:
+                    oo = int(rng.randint(n_obj))
+            words, tags = _realize(ss, vv, oo)
+            if distract and modifier_distractors:
+                # v3: unpredictable-but-plausible MODIFIER noise only — a
+                # uniformly-random adjective before the object noun; the
+                # (s,v,o) content words stay faithful to the features
+                oi = max(i for i, t in enumerate(tags) if t == NOUN)
+                adj = adjs[int(rng.randint(len(adjs)))]
+                words = words[:oi] + [adj] + words[oi:]
+                tags = tags[:oi] + [ADJ] + tags[oi:]
+            captions[vid].append([C.BOS] + words + [C.EOS])
+            pos_tags[vid].append([C.BOS] + tags + [C.EOS])
+            if len(words) < 50:
+                hist[len(words)] += 1
+            references[vid].append({
+                "image_id": vid, "cap_id": ci,
+                "caption": " ".join(itow[w] for w in words)})
+        length_info[vid] = hist
+
+    split_category = {
+        mode: {c: [v for v in vids if itoc[v] == c]
+               for c in range(n_categories)}
+        for mode, vids in split.items()}
+    info_corpus = {
+        "info": {"itow": itow, "itoc": itoc, "itop": itop,
+                 "length_info": length_info, "split": split,
+                 "split_category": split_category},
+        "captions": captions,
+        "pos_tags": pos_tags,
+    }
+
+    # ---- compositional features -----------------------------------------
+    # role_features keys each modality's subspace to semantic roles: motion
+    # ('m') embeds the verb latent, image ('i') the subject+object latents —
+    # slot embeddings are norm-matched (1/sqrt(n_slots)) so per-slot SNR
+    # against video_offset + feat_noise stays comparable to the v2 sum
+    roles_of = {"m": ("v",), "i": ("s", "o")}
+    feats: Dict[str, Dict[str, np.ndarray]] = {}
+    for ch in cfg.modality.lower():
+        dim = getattr(cfg, "dim_%s" % ch)
+        slots = (roles_of.get(ch, ("s", "v", "o")) if role_features
+                 else ("s", "v", "o"))
+        scale = 1.0 / np.sqrt(len(slots))
+        emb = {"s": rng.randn(n_subj, dim) * scale,
+               "v": rng.randn(n_verb, dim) * scale,
+               "o": rng.randn(n_obj, dim) * scale}
+        feats["feats_%s" % ch] = {}
+        for v in range(n_videos):
+            s, vb, o = classes[video_class[v]]
+            slot_idx = {"s": s, "v": vb, "o": o}
+            center = sum(emb[r][slot_idx[r]] for r in slots)
+            vid_off = video_offset * rng.randn(dim)
+            frames = (center[None, :] + vid_off[None, :]
+                      + feat_noise * rng.randn(n_total_frames, dim))
+            feats["feats_%s" % ch]["video%d" % v] = frames.astype(np.float32)
+    if return_meta:
+        meta = {
+            "classes": classes,
+            "video_class": video_class,
+            "subj_forms": subj_forms,
+            "verb_forms": verb_forms,
+            "obj_forms": obj_forms,
+            "place_forms": place_forms,
+            "pos_of": pos_of,
+            "role_features": role_features,
+            "modifier_distractors": modifier_distractors,
+        }
+        return info_corpus, references, feats, meta
+    return info_corpus, references, feats
+
+
 def write_hdf5_feats(path: str, feats_for_modality: Dict[str, np.ndarray]) -> None:
     """Persist one modality's synthetic features as an HDF5 store."""
     import h5py
@@ -120,3 +427,66 @@ def write_hdf5_feats(path: str, feats_for_modality: Dict[str, np.ndarray]) -> No
     with h5py.File(path, "w") as f:
         for vid, arr in feats_for_modality.items():
             f.create_dataset(vid, data=arr)
+
+
+def make_flagship_synthetic(cfg: Config, n_videos: int = 512,
+                            n_classes: int = 64, vocab_size: int = 10048,
+                            n_total_frames: int = 16, seed: int = 0,
+                            n_categories: int = 20):
+    """A learnable fixture at FLAGSHIP scale (d=512 / vocab ~10k models).
+
+    Same latent-class construction as ``make_learnable_synthetic`` — videos
+    cluster by class in feature space and share their class caption — but
+    with a reference-scale vocabulary, realistic caption lengths (8..18
+    words drawn from the full vocab), and MSRVTT-style categories, so the
+    full CLI pipeline (ARB teacher -> NACF student, --default presets) can
+    be exercised end-to-end on real hardware with a corpus the model can
+    actually drive to high CIDEr. Returns (info_corpus, references, feats).
+    """
+    rng = np.random.RandomState(seed)
+    corpus, references = make_synthetic_corpus(
+        cfg, n_videos=n_videos, n_caps=1, vocab_size=vocab_size, seed=seed,
+        n_categories=n_categories)
+    itow = corpus["info"]["itow"]
+
+    max_cap = min(18, cfg.max_len - 2)
+    class_caps = []
+    for c in range(n_classes):
+        length = int(rng.randint(8, max_cap + 1))
+        class_caps.append(
+            list(rng.randint(C.NUM_SPECIAL_TOKENS, vocab_size, size=length)))
+
+    length_info = {}
+    itoc = {}
+    for v in range(n_videos):
+        vid = "video%d" % v
+        cls = v % n_classes  # train split (first 60%) covers every class
+        wid = class_caps[cls]
+        corpus["captions"][vid] = [[C.BOS] + wid + [C.EOS]]
+        corpus["pos_tags"][vid] = [[C.BOS] + [6] * len(wid) + [C.EOS]]
+        references[vid] = [{
+            "image_id": vid, "cap_id": 0,
+            "caption": " ".join(itow[w] for w in wid)}]
+        hist = [0] * 50
+        hist[len(wid)] = 1
+        length_info[vid] = hist
+        itoc[v] = cls % n_categories  # category correlates with class
+    corpus["info"]["length_info"] = length_info
+    corpus["info"]["itoc"] = itoc
+    split = corpus["info"]["split"]
+    corpus["info"]["split_category"] = {
+        mode: {c: [v for v in vids if itoc[v] == c] for c in range(n_categories)}
+        for mode, vids in split.items()}
+
+    centers = {ch: rng.randn(n_classes, getattr(cfg, "dim_%s" % ch)) * 2.0
+               for ch in cfg.modality.lower()}
+    feats: Dict[str, Dict[str, np.ndarray]] = {}
+    for ch in cfg.modality.lower():
+        dim = getattr(cfg, "dim_%s" % ch)
+        feats["feats_%s" % ch] = {
+            "video%d" % v: (centers[ch][v % n_classes][None, :]
+                            + 0.3 * rng.randn(n_total_frames, dim)
+                            ).astype(np.float32)
+            for v in range(n_videos)
+        }
+    return corpus, references, feats

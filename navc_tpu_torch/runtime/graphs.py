@@ -173,7 +173,24 @@ _CAPTURING: List["Graph"] = []  # the graph whose capture is under way
 
 def _cond_lib():
     return _build.load("graph_cond", {
-        "navc_cond_begin": [ctypes.c_void_p] * 3, "navc_cond_end": [ctypes.c_void_p]})
+        "navc_cond_begin": [ctypes.c_void_p] * 3, "navc_cond_end": [ctypes.c_void_p],
+        "navc_stream_create": [ctypes.c_void_p]})
+
+
+_BODY_STREAMS: Dict[int, torch.cuda.ExternalStream] = {}
+
+
+def _body_stream(device: int) -> torch.cuda.ExternalStream:
+    """The stream IF-node bodies capture on, one per device for the
+    process, made by CUDA: PyTorch's pool hands its 32 streams out round
+    robin, so one taken from it is, now and then, the stream the graph
+    captures on, where the body's capture cannot begin."""
+    if device not in _BODY_STREAMS:
+        lib, raw = _cond_lib(), ctypes.c_void_p()
+        with torch.cuda.device(device):
+            _build.check(lib, lib.navc_stream_create(ctypes.byref(raw)), "stream_create")
+        _BODY_STREAMS[device] = torch.cuda.ExternalStream(raw.value, device=device)
+    return _BODY_STREAMS[device]
 
 
 def when(pred: torch.Tensor, body: Callable[..., Sequence[torch.Tensor]],
@@ -305,6 +322,7 @@ class Graph:
             self.graph.register_generator_state(gen)
         self.regions: List[Tuple[torch.Tensor, Dict[str, int]]] = []
         self._body = None  # the bodies' stream and pool, made at the first IF node
+        _body_stream(torch.cuda.current_device())  # made before any capture begins
         with collector_off():
             _build.LAUNCHES.settle()  # no wait for a replay inside the capture
             torch.cuda.synchronize()
@@ -343,7 +361,7 @@ class Graph:
             # the body's stream captures into a graph of its own, whose
             # allocations the capture's pool does not take: this thread's
             # go to a pool of the bodies, which lives as long as the graph
-            stream, pool = torch.cuda.Stream(), torch.cuda.graph_pool_handle()
+            stream, pool = _body_stream(pred.device.index), torch.cuda.graph_pool_handle()
             torch._C._cuda_beginAllocateCurrentThreadToPool(stream.device.index, pool)
             weakref.finalize(self, torch._C._cuda_releasePool, stream.device.index, pool)
             self._body = (stream, stream.device.index, pool)

@@ -106,6 +106,10 @@ MUTANTS = {  # name: (file under navc_tpu_torch, text, its replacement, tests)
         "runtime/graphs.py",
         "        if pending is not None:\n            reads += 1\n            if pending():\n",
         "        if True:\n            reads += 1\n            if read():\n", "cond_graphs"),
+    "when: the body captured on a stream of PyTorch's pool": (
+        "runtime/graphs.py",
+        "stream, pool = _body_stream(pred.device.index), torch.cuda.graph_pool_handle()",
+        "stream, pool = torch.cuda.Stream(), torch.cuda.graph_pool_handle()", "cond_graphs"),
     "train graphs: the fused layer's seed read on the host": (
         "ops/fused_layer_train.py", "    opts = _Opts(int(n_head),",
         "    seed = seed_value(seed)\n    opts = _Opts(int(n_head),", "train_graphs"),

@@ -1,7 +1,9 @@
 """``python -m navc_tpu_torch.cli.train --device cpu`` on a synthetic HDF5
 data tree, as tests/test_cli.py drives navc_tpu's CLI: an ARB run, then
 ``--resume`` of the same run for one more epoch. It must write
-opt_info.json, best.ckpt, the rolling checkpoint and the CSV record."""
+opt_info.json, best.ckpt, the rolling checkpoint and the CSV record. And
+``cli.train.main`` with the features in memory, on a tree without feature
+files (as scripts/torch_flagship.py runs it on a host without h5py)."""
 
 import csv
 import json
@@ -10,6 +12,7 @@ import pickle
 import subprocess
 import sys
 
+from navc_tpu_torch.cli.train import main as train_main
 from navc_tpu_torch.config import Config
 from navc_tpu_torch.data.synthetic import (make_synthetic_corpus, make_synthetic_feats,
                                            write_hdf5_feats)
@@ -59,3 +62,27 @@ def test_train_cli_on_the_cpu(tmp_path):
     with open(workdir / "trainning_record.csv") as f:
         rows = list(csv.DictReader(f))
     assert [r["epoch"] for r in rows] == ["0", "1"]
+
+
+def test_train_cli_main_takes_features_in_memory(tmp_path):
+    ddir = tmp_path / "data" / "Youtube2Text"
+    ddir.mkdir(parents=True)
+    cfg = Config(dataset="Youtube2Text", modality="i", dim_i=12, max_len=8,
+                 n_frames=4, n_total_frames=10)
+    corpus, refs = make_synthetic_corpus(cfg, n_videos=8, n_caps=2, vocab_size=40)
+    with open(ddir / "info_corpus.pkl", "wb") as f:
+        pickle.dump(corpus, f)
+    with open(ddir / "refs.pkl", "wb") as f:
+        pickle.dump(refs, f)
+    ckpt_root = tmp_path / "experiments"
+    out = train_main(["--device", "cpu", "--dataset", "MSVD", "--method", "ARB",
+                      "--scope", "t", "--modality", "i", "--dim_i", "12",
+                      "--dim_hidden", "16", "--num_attention_heads", "2",
+                      "--intermediate_size", "32", "--n_frames", "4", "--max_len", "8",
+                      "--batch_size", "4", "--epochs", "1", "--beam_size", "2",
+                      "--base_data_path", str(tmp_path / "data"),
+                      "--base_checkpoint_path", str(ckpt_root), "--compute_dtype", "float32"],
+                     in_memory_feats=make_synthetic_feats(cfg, n_videos=8, n_total_frames=10))
+    assert not (ddir / "feats").exists()
+    assert len(out["history"]) == 1 and "CIDEr" in out["test_res"]
+    assert (ckpt_root / "Youtube2Text" / "ARB" / "t" / "best.ckpt").exists()

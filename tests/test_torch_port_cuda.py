@@ -18,8 +18,9 @@ graphs in reference cycles outliving a capture, a failed capture raising;
 replayed l2r and ef bit for bit and launch for launch the eager route's
 at 16 and 64 videos, no sync in a replayed l2r decode, ef's flags read one
 block late, ef's stall, the full-prefix beam through K1 once per step);
-and the compiled training step (``test_train_graphs_*``: the replayed NACF
-step bit for bit the eager one, fresh masks per replay, the lr tensor
+NAB's and ARB2's requests through a replaying StreamingCaptioner; and the
+compiled training step (``test_train_graphs_*``: the replayed NACF, ARB2
+and NAB steps bit for bit the eager ones, fresh masks per replay, the lr tensor
 followed, the card's capturable optimizer replayed against torch's CPU
 optimizer with a float lr, graphs dropped after an optimizer reload, a
 batch already on the card, the eval-loss step, no sync in an eager step)
@@ -1624,11 +1625,11 @@ def test_fused_layer_unfolded_f32_repeats_bitwise_and_is_k11_at_p0(cuda, shape, 
 SERVE = dict(dataset="MSRVTT", vocab_size=10048, use_pallas=True)
 
 
-def _serving_models(device, **kw):
+def _serving_models(device, method="NACF", **kw):
     from navc_tpu_torch.config import default_config
     from navc_tpu_torch.models import build_model
 
-    cfg = default_config("NACF", **SERVE).replace(**kw)
+    cfg = default_config(method, **SERVE).replace(**kw)
     tcfg = default_config("ARB", **SERVE)
     return (cfg, build_model(cfg, device=device, generator=_gen(0)),
             tcfg, build_model(tcfg, device=device, generator=_gen(1)))
@@ -1809,14 +1810,21 @@ def test_graphs_arb_replays_eager_tokens(cuda, videos):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("method", ["nacf", "arb"])
+@pytest.mark.parametrize("method", ["nacf", "arb", "nab", "arb2"])
 def test_graphs_streaming_captioner_keeps_each_request(cuda, method):
+    """Three requests in flight through a replaying StreamingCaptioner, each
+    the eager decode's: NACF and NAB (mask-predict, no CT pass) with the ARB
+    teacher, ARB and ARB2 by beam search."""
     from navc_tpu_torch.decoding import make_ar_generator, make_nar_generator
     from navc_tpu_torch.runtime.serving import StreamingCaptioner
 
-    cfg, model, tcfg, teacher = _serving_models("cuda")
+    # ARB is _serving_models' teacher
+    cfg, model, tcfg, teacher = _serving_models("cuda", {"arb": "NACF"}.get(method,
+                                                                            method.upper()))
     if method == "arb":
         cfg, model, teacher = tcfg, teacher, None
+    elif method == "arb2":
+        teacher = None
     cap = StreamingCaptioner(cfg, model, None if teacher is None else (tcfg, teacher), depth=2)
     eager = (make_ar_generator(cfg, model, jit=False) if teacher is None
              else make_nar_generator(cfg, model, teacher, jit=False))
@@ -1964,6 +1972,22 @@ def _cond_encs(cfg, model, teacher, videos):
 
 def _nonzero_launches():
     return {k: v for k, v in _build.LAUNCHES.items() if v}
+
+
+@pytest.mark.cuda
+def test_cond_graphs_capture_whatever_stream_the_pool_hands_out(cuda):
+    """PyTorch's pool hands its 32 streams out round robin, so a body
+    capture on a stream taken from it begins, once in a while, on the very
+    stream the graph captures on, and fails (CUDA error 401 at cond_begin).
+    40 graphs with an IF node, the pool advanced by a stream between each:
+    each captures and replays."""
+    from navc_tpu_torch.runtime import graphs
+
+    x = torch.ones(4, device=cuda)
+    for _ in range(40):
+        torch.cuda.Stream()
+        f = graphs.Jitted(lambda t: graphs.when(t.sum() > 0, lambda u: (u + 1,), (t,))[0])
+        assert torch.equal(f(x), x + 1) and torch.equal(f(x), x + 1)
 
 
 @pytest.mark.cuda
@@ -2166,14 +2190,14 @@ def _train_batch(cfg, b, seed):
     return batch
 
 
-def _trainer(jit, **kw):
-    """(cfg, model, optimizer, step) of the NACF step at the serving width,
-    weights from seed 0."""
+def _trainer(jit, method="NACF", **kw):
+    """(cfg, model, optimizer, step) of ``method``'s step at the serving
+    width, weights from seed 0."""
     from navc_tpu_torch.config import default_config
     from navc_tpu_torch.models import build_model
     from navc_tpu_torch.runtime.train_step import create_train_state, make_train_step
 
-    cfg = default_config("NACF", batch_size=TRAIN_B, **SERVE).replace(**kw)
+    cfg = default_config(method, batch_size=TRAIN_B, **SERVE).replace(**kw)
     model = build_model(cfg, device="cuda", generator=_gen(0), train=True)
     state = create_train_state(cfg, model)
     return cfg, model, state.optimizer, make_train_step(cfg, model, state.optimizer, jit=jit)
@@ -2195,17 +2219,17 @@ def _assert_same(got, want, what):
         assert torch.equal(got[k], want[k]), "%s: %s differs" % (what, k)
 
 
-@pytest.mark.cuda
-def test_train_graphs_replay_matches_eager(cuda):
-    """6 steps (the first the warm-up and capture, then 5 replays) under a
-    warm-up lr schedule, the batches in turns: each step's metrics,
-    gradients, parameters, BatchNorm statistics and optimizer state equal
-    the eager step's bit for bit, and each replay launches what an eager
-    step does."""
+def _replay_matches_eager(method):
+    """6 steps of ``method`` (the first the warm-up and capture, then 5
+    replays) under a warm-up lr schedule, the batches in turns: each step's
+    metrics, gradients, parameters, BatchNorm statistics and optimizer state
+    equal the eager step's bit for bit, and each replay launches what an
+    eager step does: each decoder pass's K11 and K10 once."""
     from navc_tpu_torch.runtime.optim import LrSchedule, set_learning_rate
 
-    sides = {jit: _trainer(jit, n_warmup_steps=3) for jit in (False, True)}
+    sides = {jit: _trainer(jit, method, n_warmup_steps=3) for jit in (False, True)}
     cfg = sides[True][0]
+    passes = 2 if cfg.visual_word_generation else 1
     assert cfg.hidden_dropout_prob > 0 and cfg.encoder_dropout > 0
     batches = [_train_batch(cfg, TRAIN_B, s) for s in range(3)]
     gens = {jit: _gen(7) for jit in sides}
@@ -2221,11 +2245,27 @@ def test_train_graphs_replay_matches_eager(cuda):
                         _train_state(model, opt))
         _assert_same(got[True][0], got[False][0], "metrics, step %d" % i)
         assert got[True][1] == got[False][1], (i, got[True][1], got[False][1])
-        assert got[True][1]["train_fwd"] == 2 and got[True][1]["ce_bwd_dw"] == 2
+        assert got[True][1]["train_fwd"] == passes and got[True][1]["ce_bwd_dw"] == passes
         _assert_same(got[True][2], got[False][2], "state, step %d" % i)
     step = sides[True][3]
     assert step.jitted is not None and len(step.jitted.graphs) == 1
     assert sides[False][3].jitted is None
+
+
+@pytest.mark.cuda
+def test_train_graphs_replay_matches_eager(cuda):
+    """The NACF step (its visual-word and main passes): ``_replay_matches_eager``."""
+    _replay_matches_eager("NACF")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["ARB2", "NAB"])
+def test_train_graphs_method_replay_matches_eager(cuda, method):
+    """ARB2's step at B=64 (two causal decoder passes in one graph, each with
+    its own device seed and labels: K11, K12a, K12b, K9 and K10 twice) and
+    NAB's (one NAR pass), replayed bit for bit the eager step
+    (``_replay_matches_eager``)."""
+    _replay_matches_eager(method)
 
 
 @pytest.mark.cuda

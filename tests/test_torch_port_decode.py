@@ -220,6 +220,11 @@ def test_port_imports_no_jax():
         "import navc_tpu_torch\n"
         "for m in pkgutil.walk_packages(navc_tpu_torch.__path__, 'navc_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import importlib.util\n"
+        "for name, path in (('chip_smoke', 'chip_smoke.py'),"
+        " ('torch_flagship', 'scripts/torch_flagship.py')):\n"
+        "    spec = importlib.util.spec_from_file_location(name, path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in"
         " ('jax', 'jaxlib', 'flax', 'optax', 'navc_tpu'))\n"
         "assert not bad, bad\n"

@@ -4,8 +4,9 @@ Both packages train from the same initial weights: the port writes its
 seeded init as a ``.ckpt`` and both runs take it through
 ``cfg.pretrained_path``. Toy dims, float32, every dropout 0, the plain
 routes (``use_pallas=False``: the repo's f32 policy, decoded tokens equal).
-ARB trains for 2 epochs; NACF then trains for 2 epochs with the port's ARB
-``best.ckpt`` as its teacher on both sides (warm start + rescoring).
+ARB trains for 2 epochs; NACF and NAB then train for 2 epochs each with the
+port's ARB ``best.ckpt`` as their teacher on both sides (warm start +
+rescoring), and ARB2 (two decoder passes a step) for 2 epochs.
 
   * per-epoch ``train_loss`` within 1e-4 relative;
   * every validation and test metric (BLEU, METEOR, ROUGE-L, CIDEr, Sum and
@@ -83,22 +84,21 @@ def runs(tmp_path_factory):
     data = dict(info_corpus=corpus, references=refs,
                 in_memory_feats=make_synthetic_feats(cfg, n_videos=14, n_total_frames=10))
     out = {"data": data, "root": root}
-    teacher = None
-    for method in ("ARB", "NACF"):
+    teacher = str(root / "port" / "ARB" / "best.ckpt")
+    for method in ("ARB", "NACF", "NAB", "ARB2"):
         jcfg, cfg = configs(method, root)
         kw = dict(pretrained_path=seeded_init(cfg, str(root / ("init_%s.ckpt" % method))))
-        if teacher is not None:
+        if cfg.decoding_type == "NARFormer":
             kw["teacher_path"] = teacher
         jcfg, cfg = jcfg.replace(**kw), cfg.replace(**kw)
         got = train_network_all(cfg, workdir=str(root / "port" / method), verbose=False,
                                 device="cpu", **data)
         want = jax_train(jcfg, workdir=str(root / "jax" / method), verbose=False, **data)
         out[method] = (cfg, got, want)
-        teacher = str(root / "port" / method / "best.ckpt")
     return out
 
 
-@pytest.mark.parametrize("method", ["ARB", "NACF"])
+@pytest.mark.parametrize("method", ["ARB", "NACF", "NAB", "ARB2"])
 def test_train_network_all_matches_navc_tpu(runs, method):
     _, got, want = runs[method]
     assert_runs_equal(got, want)
@@ -107,7 +107,7 @@ def test_train_network_all_matches_navc_tpu(runs, method):
         assert os.path.exists(os.path.join(workdir, name)), name
 
 
-@pytest.mark.parametrize("method", ["ARB", "NACF"])
+@pytest.mark.parametrize("method", ["ARB", "NACF", "NAB", "ARB2"])
 def test_port_best_ckpt_decodes_alike_in_navc_tpu(runs, method):
     cfg = runs[method][0]
     path = os.path.join(str(runs["root"]), "port", method, "best.ckpt")

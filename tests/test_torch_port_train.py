@@ -174,7 +174,7 @@ def check_step(method, monkeypatch, **kw):
 
 
 @pytest.mark.parametrize("tie", [False, True], ids=["untied", "tied"])
-@pytest.mark.parametrize("method", ["NACF", "ARB", "NAB"])
+@pytest.mark.parametrize("method", ["NACF", "ARB", "NAB", "ARB2"])
 def test_fused_train_step_matches_navc_tpu(method, tie, monkeypatch):
     """use_pallas=True: the fused layer and the fused CE route on both
     sides, with the projection untied (tgt_word_prj) and tied (the word

@@ -9,7 +9,7 @@ a tensor on every device. Here, on the CPU, where ``jit=True`` runs the step
 as it is:
 
   * navc_tpu's jitted step and the port's with ``jit=True`` agree at p = 0
-    for NACF and ARB on the fused and the module route, at
+    for NACF, ARB, NAB and ARB2 on the fused and the module route, at
     tests/test_torch_port_train.py's tolerances (metrics 1e-4, gradients and
     parameters 1e-5);
   * ``jit=True`` and ``jit=False`` give identical metrics and parameters
@@ -67,7 +67,7 @@ from test_torch_port_train_layer import PROBS, SHAPES, TOL, _jax_ref, _case, por
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("use_pallas", [True, False], ids=["fused", "module"])
-@pytest.mark.parametrize("method", ["NACF", "ARB"])
+@pytest.mark.parametrize("method", ["NACF", "ARB", "NAB", "ARB2"])
 def test_jit_step_matches_navc_tpu(method, use_pallas, monkeypatch):
     """TPT.check_step (one step from the same flax weights, p = 0, float32,
     a valid_mask dropping one row) with the port's step made by
@@ -83,7 +83,7 @@ def test_jit_step_matches_navc_tpu(method, use_pallas, monkeypatch):
     assert made == [1]
 
 
-@pytest.mark.parametrize("method", ["NACF", "ARB"])
+@pytest.mark.parametrize("method", ["NACF", "ARB", "NAB", "ARB2"])
 def test_jit_and_eager_steps_are_identical_on_the_cpu(method):
     """3 dropout-on steps (hidden and encoder 0.3, the fused route) from the
     same weights and CPU generator: the same metrics and parameters bit for

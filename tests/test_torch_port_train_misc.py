@@ -108,7 +108,7 @@ def test_optimizer_steps_match_the_optax_chain(name):
     assert not np.allclose(tz.detach().numpy(), z0)  # decayed and updated
 
 
-@pytest.mark.parametrize("method", ["NACF", "ARB"])
+@pytest.mark.parametrize("method", ["NACF", "ARB", "NAB", "ARB2"])
 def test_module_route_step_matches_navc_tpu(method, monkeypatch):
     """use_pallas=False: every module in train mode on both sides."""
     check_step(method, monkeypatch, use_pallas=False)
