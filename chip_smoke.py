@@ -113,7 +113,30 @@ plain path), NACF's l2r and ef (with and without CT) replay their eager
 decodes, mp keeps one graph for three requests, and the trained ARB's and
 ARB2's full-prefix routes hold K1's teacher-forced log-probs within 5e-2
 of its plain version's and their beams agree >= 0.99 with the CPU beam
-through K1's plain version and through the model's own forward. It exits
+through K1's plain version and through the model's own forward. The
+switches phase: each of navc_tpu's A/B route switches (NAVC_DENSE_REFINE,
+NAVC_NO_ATTEND_KERNEL alone and with NAVC_NO_PERMUTE_KERNEL,
+NAVC_NO_TOPK_KERNEL, NAVC_NO_FUSED_TRAIN, NAVC_NO_FUSED_CE) in a fresh
+process of its own (this script with --switch NAME, the switch in its
+environment before anything is built), on the 64-video NACF mp decode, the
+64-video ARB decode or the B=64 NACF compiled step, against the default
+route run here: launches per replay (K2 gone, K1 the refinements; K6 and
+K7 gone, K8 once a step, or none; K5 gone; K9-K12 or K9/K10 gone), tokens
+against the default route's or the CPU's, the p = 0 step against the CPU
+plain path and the compiled step bit for bit the eager one, replayed ms
+beside the default's. The selfmask phase: an ARB configuration with
+decoding_type SelfMask (parallel_mlm): the p = 0 step against the CPU, the
+compiled B=64 step bit for bit the eager one (the module route: no
+kernel), a 64-video beam through K5-K7 replayed bit for bit, against the
+CPU, timed. The remat phase: the NACF step at B=2048, dropout 0.1, remat
+off and on, eager and replayed, on the fused route and (in a --switch
+process under NAVC_NO_FUSED_TRAIN) the module route: every loss and
+gradient bit for bit remat off's, launches a step (K11 and K9 twice a pass
+with remat), peak GB, ms per step. The offline phase: the native scorer
+built with the host's C++ compiler, the inference phase's captions scored
+natively and in Python (equal within 1e-10, timed), and prepare_corpora on
+an MSR-VTT-shaped annotation at its published size (10,000 videos x 20
+captions, cut only if a 1000-video run projects more than 30 s). It exits
 non-zero on any failure, without a CUDA device, and outside a checkout.
 Imports nothing of JAX or navc_tpu.
 
@@ -1605,13 +1628,26 @@ def cpu_step_check(cfg, batch, seed, what):
     return dict(loss_rel=loss_rel, worst_grad=rel[worst])
 
 
+def step_launches(cfg, routes):
+    """The kernel launches of one training step of ``cfg`` on ``routes``
+    (``TrainRoutes``): each decoder pass's K11, K12a, K12b once and the
+    reduction twice on the fused layer's route, K9 and K10 once on the fused
+    loss's; with ``cfg.remat`` the forward's K11 and K9 again in the
+    backward's recompute."""
+    passes = 2 if cfg.visual_word_generation else 1
+    kernels = (LAYER_KERNELS if routes.layer else ()) + (CE_KERNELS if routes.ce else ())
+    again = ("train_fwd", "ce_fwd") if cfg.remat else ()
+    return {k: passes * (2 if k == "train_wgrad" or k in again else 1) for k in kernels}
+
+
 def captured_step_check(cfg, batches, seed, what):
     """The compiled step (jit=True: a CUDA graph) against the eager one
     from the same weights (``seed``), batches and CPU generator state, at
     ``cfg``'s dropout: each step's loss and every gradient bit for bit, a
-    replay's launches the eager step's (each decoder pass's K11, K12a,
-    K12b, K9 and K10 once, the reduction twice), then every parameter and
-    buffer. Returns the figures."""
+    replay's launches the eager step's and ``step_launches``'s (on the
+    default routes each decoder pass's K11, K12a, K12b, K9 and K10 once,
+    the reduction twice), then every parameter and buffer. Returns the
+    figures."""
     import torch
 
     from navc_tpu_torch.models import build_model
@@ -1626,8 +1662,7 @@ def captured_step_check(cfg, batches, seed, what):
         sides[jit] = (m, make_train_step(cfg, m, st.optimizer, jit=jit))
         gens[jit] = torch.Generator().manual_seed(0)
     passes = 2 if cfg.visual_word_generation else 1
-    per_pass = len(sides[True][0].decoder.layers)
-    want = {k: passes * per_pass * (2 if k == "train_wgrad" else 1) for k in TRAIN_KERNELS}
+    want = step_launches(cfg, sides[True][1].routes)
     losses = []
     for i, batch in enumerate(batches):
         out = {}
@@ -2893,7 +2928,8 @@ def inference_phase(card):
     with the ARB teacher and ARB2 (beam 5), each with its launch counts;
     CaptionPipeline.from_checkpoints on the NACF and ARB checkpoints against
     Evaluator.decode_batch; l2r and ef on 8 videos against the CPU plain
-    path; 64-video decode times and launches per decode."""
+    path; 64-video decode times and launches per decode. Returns each
+    run's printed captions {run: {video: caption}} and the references."""
     import contextlib
     import csv
     import io
@@ -3076,6 +3112,7 @@ def inference_phase(card):
         if a < 0.99:
             die("inference: %s token agreement with the CPU plain path %.4f < 0.99"
                 % (name, a))
+    return dict(captions=captions, refs=refs)
 
 
 # the learning phase: make_flagship_synthetic at full width, the four methods
@@ -3298,6 +3335,564 @@ def trained_checks(root, corpus, feats, base, card):
     return results
 
 
+# the switches phase: navc_tpu's A/B route switches, each in a process of its
+# own started with the switch in its environment (chip_smoke.py --switch
+# NAME), against the default route run here. (name, environment, what runs)
+SWITCH_CASES = (
+    ("NAVC_DENSE_REFINE", {"NAVC_DENSE_REFINE": "1"}, "mp"),
+    ("NAVC_NO_ATTEND_KERNEL", {"NAVC_NO_ATTEND_KERNEL": "1"}, "beam"),
+    ("NAVC_NO_ATTEND_KERNEL + NAVC_NO_PERMUTE_KERNEL",
+     {"NAVC_NO_ATTEND_KERNEL": "1", "NAVC_NO_PERMUTE_KERNEL": "1"}, "beam"),
+    ("NAVC_NO_TOPK_KERNEL", {"NAVC_NO_TOPK_KERNEL": "1"}, "beam"),
+    ("NAVC_NO_FUSED_TRAIN", {"NAVC_NO_FUSED_TRAIN": "1"}, "step"),
+    ("NAVC_NO_FUSED_CE", {"NAVC_NO_FUSED_CE": "1"}, "step"),
+)
+SWITCH_NAMES = ("NAVC_DENSE_REFINE", "NAVC_NO_ATTEND_KERNEL", "NAVC_NO_PERMUTE_KERNEL",
+                "NAVC_NO_TOPK_KERNEL", "NAVC_NO_FUSED_TRAIN", "NAVC_NO_FUSED_CE",
+                "NAVC_NO_KVCACHE")
+SWITCH_ROUNDS = 10  # timed replays a route
+
+
+def switch_file(name):
+    return os.path.join(ROOT, "navc_tpu_torch", "build",
+                        "chip_smoke_switch_%s.pt" % "".join(c for c in name if c.isalnum()))
+
+
+def switch_run(kind, what, checks):
+    """One route of a switch case, in this process's environment: ``mp``
+    the NACF mp + CT decode with the ARB teacher at N_VIDEOS videos,
+    ``beam`` the ARB beam at ARB_VIDEOS, ``step`` the NACF compiled step at
+    TRAIN_B; the decodes and the step replay CUDA graphs (jit=True). With
+    ``checks``, the step's p = 0 step against the CPU plain path
+    (``cpu_step_check``) and the compiled step against the eager one
+    (``captured_step_check``), the beam's tokens against the CPU on
+    ARB_CPU videos. Returns (figures, tensors): launches of one replayed
+    decode or step, ms of a replay (median of SWITCH_ROUNDS, host clock,
+    ending in the tokens' copy or the loss's read)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from navc_tpu_torch.config import default_config
+    from navc_tpu_torch.decoding import make_ar_generator, make_nar_generator
+    from navc_tpu_torch.models import build_model
+    from navc_tpu_torch.ops import _build
+    from navc_tpu_torch.runtime.train_step import create_train_state, make_train_step
+
+    seeded = lambda s: torch.Generator().manual_seed(s)
+    figures, tensors = {}, {}
+    if kind == "step":
+        c = default_config("NACF", **OVER)
+        if checks:
+            ccfg = c.replace(batch_size=TRAIN_CPU, hidden_dropout_prob=0.0, encoder_dropout=0.0)
+            (small,) = loader_batches(ccfg, TRAIN_CPU, 1, seed=0)
+            figures["p = 0 step"] = cpu_step_check(ccfg, small, 10, what)
+        bcfg = c.replace(batch_size=TRAIN_B)
+        batches = loader_batches(bcfg, TRAIN_B, 3, seed=0)
+        if checks:
+            figures["compiled step"] = captured_step_check(bcfg, batches, 20, what)
+        m = build_model(bcfg, device="cuda", generator=seeded(20), train=True)
+        step = make_train_step(bcfg, m, create_train_state(bcfg, m).optimizer)
+        gen = seeded(0)
+        step(batches[0], gen)  # a real step, then the capture
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        loss = float(step(batches[1], gen)["total_loss"])
+        launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+        if launches != step_launches(bcfg, step.routes):
+            die("%sa replayed step launched %s, expected %s"
+                % (what, launches, step_launches(bcfg, step.routes)))
+        ms = [host_ms(lambda i=i: float(step(batches[i % 3], gen)["total_loss"]), iters=1)
+              for i in range(SWITCH_ROUNDS)]
+        figures.update(routes=step.routes._asdict(), loss=loss)
+    else:
+        beam = kind == "beam"
+        cfg = default_config("ARB" if beam else "NACF", **OVER)
+        model = build_model(cfg, device="cuda", generator=seeded(1 if beam else 0))
+        b = ARB_VIDEOS if beam else N_VIDEOS
+        rng = np.random.RandomState(31)
+        feats_np = [rng.randn(b, cfg.n_frames, d).astype(np.float32) for d in cfg.modality_dims]
+        cat = torch.as_tensor(rng.randint(0, cfg.num_category, (b, 1))).cuda()
+        feats = [torch.as_tensor(f).cuda() for f in feats_np]
+        with torch.no_grad():
+            enc = model.encode(feats)
+        if beam:
+            gen = make_ar_generator(cfg, model, jit=True)
+            run = lambda: gen(enc, cat)[0]
+        else:
+            tcfg = default_config("ARB", **OVER)
+            teacher = build_model(tcfg, device="cuda", generator=seeded(1))
+            with torch.no_grad():
+                tenc = teacher.encode(feats)
+            gen = make_nar_generator(cfg, model, teacher, jit=True)
+            run = lambda: gen(enc, cat, tenc)
+        run()  # the warm-up and the capture
+        torch.cuda.synchronize()
+        steps0 = getattr(gen, "steps_run", 0)
+        _build.reset_launches()
+        hyp = run().cpu()
+        launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+        steps = getattr(gen, "steps_run", 0) - steps0
+        ms = [host_ms(lambda: run().cpu(), iters=1) for _ in range(SWITCH_ROUNDS)]
+        tensors["hyp"] = hyp
+        if beam:
+            figures.update(steps=steps, routes=dataclasses.asdict(gen.routes))
+            if checks:
+                cpu_model = build_model(cfg, device="cpu", generator=seeded(1))
+                with torch.no_grad():
+                    cpu_enc = cpu_model.encode([torch.as_tensor(f[:ARB_CPU]) for f in feats_np])
+                cpu_hyp = make_ar_generator(cfg, cpu_model)(cpu_enc, cat[:ARB_CPU].cpu())[0]
+                figures["cpu_agreement"] = float((cpu_hyp == hyp[:ARB_CPU]).float().mean())
+    figures.update(launches=launches, ms=float(np.median(ms)))
+    return figures, tensors
+
+
+def switch_worker(name):
+    """--switch NAME: run SWITCH_CASES[NAME]'s route with the switch that the
+    parent set in this process's environment before anything was built;
+    the tensors go to ``switch_file(name)``, the figures as this process's
+    last line of standard output."""
+    sys.path.insert(0, ROOT)
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    env, kind = next((e, k) for n, e, k in SWITCH_CASES + REMAT_WORKERS if n == name)
+    got = {k: os.environ.get(k) for k in SWITCH_NAMES if os.environ.get(k)}
+    if got != env:
+        die("switch worker %s: the environment holds %s, expected %s" % (name, got, env))
+    if kind == "remat":
+        figures, tensors = remat_run("%s: " % name), {}
+    else:
+        figures, tensors = switch_run(kind, "%s: " % name, checks=True)
+    torch.save(tensors, switch_file(name))
+    print(json.dumps(dict(figures, switches=got)), flush=True)
+    return 0
+
+
+def switch_process(name, env):
+    """Run ``--switch name`` in a fresh process with ``env`` added to this
+    one's environment (every other switch taken out); its output is logged
+    here. Returns (figures, tensors)."""
+    import torch
+
+    full = {k: v for k, v in os.environ.items() if k not in SWITCH_NAMES}
+    full.update(env)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--switch", name],
+                          cwd=ROOT, env=full, capture_output=True, text=True, timeout=900)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log("  [%s] %s" % (name, line))
+    if proc.returncode != 0 or not lines:
+        die("switch worker %s exited with %d: %s" % (name, proc.returncode,
+                                                     proc.stderr.strip()[-3000:]))
+    figures = json.loads(lines[-1])
+    figures["process_s"] = time.perf_counter() - t0
+    tensors = torch.load(switch_file(name))
+    os.remove(switch_file(name))
+    return figures, tensors
+
+
+def switches_phase(card):
+    """Each of SWITCH_CASES in its own fresh process (``switch_process``),
+    against the default route run here (``switch_run`` without the
+    switch): replayed ms beside the default route's, launches of one
+    replayed decode or step, and each switch's gate. NAVC_DENSE_REFINE: K2
+    0 and K1 the refinements (PER_DECODE's K1 and K2 together), tokens
+    >= 0.99 the default route's. NAVC_NO_ATTEND_KERNEL: K6 and K7 0, K8
+    and K5 once a beam step; with NAVC_NO_PERMUTE_KERNEL also K8 0.
+    NAVC_NO_TOPK_KERNEL: K5 0, K6 and K7 once a step, tokens >= 0.99 the
+    CPU's (the CPU beam under the switch too). NAVC_NO_FUSED_TRAIN: no
+    K11, K12, reduction, K9 or K10 (navc_tpu fuses the loss only on the
+    fused layer's route); NAVC_NO_FUSED_CE: no K9 or K10, K11 and K12 as
+    before; each with the p = 0 step against the CPU plain path and the
+    compiled step bit for bit the eager one. Returns {case: figures}."""
+    import numpy as np
+
+    from navc_tpu_torch.ops.eligibility import fused_sparse_eligible
+    from navc_tpu_torch.config import default_config
+
+    if any(os.environ.get(k) for k in SWITCH_NAMES):
+        die("switches: a switch is set in this process: %s"
+            % {k: os.environ[k] for k in SWITCH_NAMES if os.environ.get(k)})
+    if not fused_sparse_eligible(default_config("NACF", **OVER)):
+        die("switches: the default NACF route takes no sparse refinement")
+    defaults = {kind: switch_run(kind, "switches: default %s: " % kind, checks=False)
+                for kind in ("mp", "beam", "step")}
+    results = {}
+    for name, env, kind in SWITCH_CASES:
+        got, tensors = switch_process(name, env)
+        base, base_tensors = defaults[kind]
+        l = got["launches"]
+        steps = got.get("steps")
+        agree = None
+        if kind == "mp":
+            expect = dict(PER_DECODE, fused_layer_qsub=0,
+                          fused_layer=PER_DECODE["fused_layer"] + PER_DECODE["fused_layer_qsub"])
+            agree = float((tensors["hyp"] == base_tensors["hyp"]).float().mean())
+            if agree < 0.99:
+                die("switches: %s: tokens agree %.4f < 0.99 with the default route's"
+                    % (name, agree))
+        elif kind == "beam":
+            no_attend = "NAVC_NO_ATTEND_KERNEL" in env
+            expect = dict(project_topk=0 if "NAVC_NO_TOPK_KERNEL" in env else steps,
+                          beam_attend_step=0 if no_attend else steps,
+                          cross_attend=0 if no_attend else steps,
+                          permute_beam_caches=steps if no_attend and
+                          "NAVC_NO_PERMUTE_KERNEL" not in env else 0)
+            agree = float((tensors["hyp"] == base_tensors["hyp"]).float().mean())
+            if "NAVC_NO_TOPK_KERNEL" in env and got["cpu_agreement"] < 0.99:
+                die("switches: %s: tokens agree %.4f < 0.99 with the CPU's"
+                    % (name, got["cpu_agreement"]))
+        else:
+            expect = {k: n for k, n in base["launches"].items()
+                      if not (k in CE_KERNELS or ("NAVC_NO_FUSED_TRAIN" in env
+                                                  and k in LAYER_KERNELS))}
+        expect = {k: n for k, n in expect.items() if n}
+        if l != expect:
+            die("switches: %s: a replay launched %s, expected %s" % (name, l, expect))
+        results[name] = dict(got, default_ms=base["ms"], default_launches=base["launches"],
+                             default_agreement=agree)
+        log("switches: %s [%s]: %s replayed %.3f ms (default route %.3f ms, host clock, "
+            "median of %d); launches %s (default %s)%s%s; fresh process %.1f s" % (
+                name, card, {"mp": "NACF mp decode of %d videos" % N_VIDEOS,
+                             "beam": "ARB decode of %d videos" % ARB_VIDEOS,
+                             "step": "NACF step at B=%d" % TRAIN_B}[kind],
+                got["ms"], base["ms"], SWITCH_ROUNDS, l, base["launches"],
+                "" if agree is None else "; tokens %.4f the default route's" % agree,
+                "; CPU agreement on %d videos %.4f" % (ARB_CPU, got["cpu_agreement"])
+                if "cpu_agreement" in got else "", got["process_s"]))
+    return results
+
+
+def selfmask_phase(card):
+    """SelfMask (the parallel-MLM AR variant, parallel_mlm on) in an ARB
+    configuration at full width, random weights: one bf16 step at p = 0 of
+    TRAIN_CPU videos against the CPU plain path (``cpu_step_check``: the
+    module route on both), the compiled step at B=TRAIN_B (dropout 0.5, 3
+    steps) bit for bit the eager one, launching no kernel (SelfMask trains
+    on the module route), and a ARB_VIDEOS-video beam decode through K5,
+    K6 and K7 (once a beam step), replayed bit for bit the eager decode,
+    >= 0.99 the CPU's on ARB_CPU videos, ms per decode both routes (median
+    of SWITCH_ROUNDS). Returns the figures."""
+    import numpy as np
+    import torch
+
+    from navc_tpu_torch import constants as C
+    from navc_tpu_torch.config import default_config
+    from navc_tpu_torch.decoding import make_ar_generator
+    from navc_tpu_torch.models import build_model
+    from navc_tpu_torch.ops import _build
+
+    c = default_config("ARB", **OVER).replace(decoding_type="SelfMask", parallel_mlm=True)
+    ccfg = c.replace(batch_size=TRAIN_CPU, hidden_dropout_prob=0.0, encoder_dropout=0.0)
+    (small,) = loader_batches(ccfg, TRAIN_CPU, 1, seed=4)
+    results = {"p = 0 step": cpu_step_check(ccfg, small, 30, "SelfMask: ")}
+    bcfg = c.replace(batch_size=TRAIN_B)
+    results["compiled step"] = captured_step_check(
+        bcfg, loader_batches(bcfg, TRAIN_B, 3, seed=4), 31, "SelfMask: ")
+    model = build_model(c, device="cuda", generator=torch.Generator().manual_seed(31))
+    rng = np.random.RandomState(37)
+    feats_np = [rng.randn(ARB_VIDEOS, c.n_frames, d).astype(np.float32) for d in c.modality_dims]
+    cat = torch.as_tensor(rng.randint(0, c.num_category, (ARB_VIDEOS, 1))).cuda()
+    with torch.no_grad():
+        enc = model.encode([torch.as_tensor(f).cuda() for f in feats_np])
+    gens = {jit: make_ar_generator(c, model, jit=jit) for jit in (False, True)}
+    out = {}
+    for jit, gen in gens.items():
+        gen(enc, cat)  # the replayed route's warm-up and capture
+        steps0 = gen.steps_run
+        _build.reset_launches()
+        out[jit] = gen(enc, cat)[0].cpu()
+        launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+        steps = gen.steps_run - steps0
+        want = dict(project_topk=steps, beam_attend_step=steps, cross_attend=steps)
+        if launches != want:
+            die("SelfMask: a %s decode launched %s, expected %s"
+                % ("replayed" if jit else "eager", launches, want))
+    if not torch.equal(out[True], out[False]):
+        die("SelfMask: the replayed beam's tokens differ from the eager beam's")
+    check_captions(out[True].numpy(), ARB_VIDEOS, c.max_len, c.vocab_size, C.EOS, C.PAD)
+    cpu_model = build_model(c, device="cpu", generator=torch.Generator().manual_seed(31))
+    with torch.no_grad():
+        cpu_enc = cpu_model.encode([torch.as_tensor(f[:ARB_CPU]) for f in feats_np])
+    cpu_hyp = make_ar_generator(c, cpu_model)(cpu_enc, cat[:ARB_CPU].cpu())[0]
+    agree = float((cpu_hyp == out[True][:ARB_CPU]).float().mean())
+    if agree < 0.99:
+        die("SelfMask: beam tokens agree %.4f < 0.99 with the CPU plain path" % agree)
+    ms = {jit: float(np.median([host_ms(lambda g=g: g(enc, cat)[0].cpu(), iters=1)
+                                for _ in range(SWITCH_ROUNDS)])) for jit, g in gens.items()}
+    results["beam"] = dict(steps=steps, launches=launches, cpu_agreement=agree,
+                           eager_ms=ms[False], replay_ms=ms[True])
+    log("SelfMask [%s]: beam of %d videos, eager %.3f ms, replayed %.3f ms per decode "
+        "(median of %d, host clock, ends in the tokens' copy), %d steps, launches %s, "
+        "replayed bit for bit the eager decode, CPU plain path agreement on %d videos %.4f"
+        % (card, ARB_VIDEOS, ms[False], ms[True], SWITCH_ROUNDS, steps, launches, ARB_CPU,
+           agree))
+    return results
+
+
+# the remat phase: cfg.remat at B=TRAIN_BENCH, dropout REMAT_P, on the fused
+# route here and on the module route in a process started with
+# NAVC_NO_FUSED_TRAIN (chip_smoke.py --switch NAME)
+REMAT_P, REMAT_STEPS, REMAT_ROUNDS = 0.1, 2, 5
+REMAT_WORKERS = (("remat, NAVC_NO_FUSED_TRAIN", {"NAVC_NO_FUSED_TRAIN": "1"}, "remat"),)
+
+
+def remat_run(what):
+    """The NACF step at B=TRAIN_BENCH, dropout REMAT_P, on this process's
+    route, remat off and on, eager and replayed, from one seed, batches and
+    CPU generator state: REMAT_STEPS steps whose losses and every gradient
+    must equal remat off's eager steps bit for bit; each one's launches a
+    step (remat: ``step_launches``, K11 and K9 twice a pass), peak GB of the
+    last eager step above what was held before it, the pool MiB of the
+    replayed step's graph, ms per step (median of REMAT_ROUNDS, host clock,
+    the loss read). Returns {"remat off" / "remat on": {route: figures}}."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from navc_tpu_torch.config import default_config
+    from navc_tpu_torch.models import build_model
+    from navc_tpu_torch.ops import _build
+    from navc_tpu_torch.runtime.train_step import (TrainRoutes, create_train_state,
+                                                   make_train_step)
+
+    base = default_config("NACF", batch_size=TRAIN_BENCH, **OVER).replace(
+        hidden_dropout_prob=REMAT_P, encoder_dropout=REMAT_P)
+    rng = np.random.RandomState(0)
+    batches = [train_batch(base, TRAIN_BENCH, rng) for _ in range(REMAT_STEPS)]
+    ref, results = None, {}
+    for remat in (False, True):
+        cfg = base.replace(remat=remat)
+        for jit in (False, True):
+            model = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0),
+                                train=True)
+            step = make_train_step(cfg, model, create_train_state(cfg, model).optimizer,
+                                   jit=jit)
+            gen = torch.Generator().manual_seed(0)
+            out = []
+            for b in batches:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+                _build.reset_launches()
+                loss = float(step(b, gen)["total_loss"])
+                torch.cuda.synchronize()
+                peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+                out.append((loss, {k: p.grad.detach().clone() for k, p in model.named_parameters()}))
+            launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+            if launches != step_launches(cfg, step.routes):
+                die("%sremat %s, %s: a step launched %s, expected %s" % (
+                    what, remat, "replayed" if jit else "eager", launches,
+                    step_launches(cfg, step.routes)))
+            if ref is None:
+                ref = out
+            for i, ((loss, grads), (want_loss, want)) in enumerate(zip(out, ref)):
+                bad = [k for k, g in grads.items() if not torch.equal(g, want[k])]
+                if loss != want_loss or bad:
+                    die("%sremat %s, %s, step %d: loss %r against %r, %d gradients differ "
+                        "from remat off's eager step (%s)" % (
+                            what, remat, "replayed" if jit else "eager", i, loss, want_loss,
+                            len(bad), bad[:3]))
+            ms = float(np.median([host_ms(lambda: float(step(batches[0], gen)["total_loss"]),
+                                          iters=1) for _ in range(REMAT_ROUNDS)]))
+            fig = dict(ms=ms, launches=launches, losses=[o[0] for o in out])
+            if jit:
+                fig["pool_mb"] = sum(c.graph.pool_bytes for c in step.jitted.graphs.values()) \
+                    / 2 ** 20
+            else:
+                fig["peak_gb"] = peak
+            results.setdefault("remat %s" % ("on" if remat else "off"), {})[
+                "replayed" if jit else "eager"] = fig
+            del model, step, out
+            gc.collect()
+            torch.cuda.empty_cache()
+    return dict(results, routes=TrainRoutes.of(base)._asdict())
+
+
+def remat_phase(card):
+    """``remat_run`` on the fused route here and on the module route in a
+    fresh process (REMAT_WORKERS); prints peak GB and ms per step of each.
+    Returns {route: figures}."""
+    results = {"fused": remat_run("remat, fused route: ")}
+    for name, env, _ in REMAT_WORKERS:
+        results["modules"], _ = switch_process(name, env)
+    for route, r in results.items():
+        off, on = r["remat off"], r["remat on"]
+        log("remat [%s]: NACF step at B=%d, dropout %.1f, %s route (%s): remat off / on: "
+            "peak GB of an eager step %.3f / %.3f, ms per step eager %.3f / %.3f, replayed "
+            "%.3f / %.3f (median of %d, host clock, the loss read), graph pool MiB %.1f / "
+            "%.1f; launches a step off %s, on %s; %d steps each bit for bit remat off's eager "
+            "steps (loss and every gradient), losses %s" % (
+                card, TRAIN_BENCH, REMAT_P, route, r["routes"], off["eager"]["peak_gb"],
+                on["eager"]["peak_gb"], off["eager"]["ms"], on["eager"]["ms"],
+                off["replayed"]["ms"], on["replayed"]["ms"], REMAT_ROUNDS,
+                off["replayed"]["pool_mb"], on["replayed"]["pool_mb"],
+                off["replayed"]["launches"], on["replayed"]["launches"], REMAT_STEPS,
+                ["%.4f" % x for x in on["replayed"]["losses"]]))
+    if not results["fused"]["routes"]["layer"] or results["modules"]["routes"]["layer"]:
+        die("remat: the routes were %s / %s" % (results["fused"]["routes"],
+                                                results["modules"]["routes"]))
+    return results
+
+
+# the offline phase: MSR-VTT's annotation at its published size (10,000
+# videos of 20 captions, split 6513 / 497 / 2990), cut only where the
+# preparation would pass PREP_LIMIT_S host seconds
+PREP_VIDEOS, PREP_CAPS, PREP_SPLIT, PREP_LIMIT_S = 10000, 20, (6513, 497, 2990), 30.0
+
+
+def msrvtt_annotation(path, n_videos, seed=0):
+    """A seeded annotation file in MSR-VTT's videodatainfo.json shape:
+    ``videos`` (id, video_id, category of 20, split in PREP_SPLIT's
+    proportions) and PREP_CAPS ``sentences`` a video (lengths 4-19 words
+    from a Zipf-like law over 20,000 words, some capitals and commas)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    n_train = n_videos * PREP_SPLIT[0] // PREP_VIDEOS
+    n_val = n_videos * PREP_SPLIT[1] // PREP_VIDEOS
+    splits = ["train"] * n_train + ["validate"] * n_val + ["test"] * (n_videos - n_train - n_val)
+    words = np.array(["w%d" % i for i in range(20000)])
+    p = 1.0 / np.arange(1, len(words) + 1)
+    n_caps = n_videos * PREP_CAPS
+    lengths = rng.randint(4, 20, n_caps)
+    flat = words[rng.choice(len(words), lengths.sum(), p=p / p.sum())]
+    cuts = np.cumsum(lengths)[:-1]
+    sentences = []
+    for i, cap in enumerate(np.split(flat, cuts)):
+        text = " ".join(cap)
+        sentences.append({"video_id": "video%d" % (i // PREP_CAPS), "sen_id": i,
+                          "caption": text.capitalize() if i % 3 == 0 else text + " ,"})
+    videos = [{"id": i, "video_id": "video%d" % i, "category": int(rng.randint(20)),
+               "split": s} for i, s in enumerate(splits)]
+    with open(path, "w") as f:
+        json.dump({"videos": videos, "sentences": sentences}, f)
+
+
+def offline_phase(card, inference):
+    """The native scorer and corpus preparation on the card's host: the
+    native library built from navc_tpu_torch/native with the host's C++
+    compiler; the inference phase's mp captions of its test split scored
+    on both routes — the native library (tokenizer, BLEU, CIDEr, ROUGE-L,
+    the legacy METEOR) and the Python scorers — equal within 1e-10, ms of
+    each (median of 3, host clock); then ``python -m
+    navc_tpu_torch.cli.prepare_corpora``'s main on ``msrvtt_annotation`` at
+    PREP_VIDEOS videos (a 1000-video run first projects the host seconds;
+    past PREP_LIMIT_S the video count is cut and the line says so), its
+    pickles read back and checked. Returns the figures."""
+    import io
+    import pickle
+    import tempfile
+
+    import numpy as np
+
+    from navc_tpu_torch.cli.prepare_corpora import main as prepare_main
+    from navc_tpu_torch.metrics import (corpus_bleu, corpus_cider, corpus_meteor,
+                                        corpus_rouge_l, ptb_tokenize)
+    from navc_tpu_torch.native import lib as native
+
+    t0 = time.perf_counter()
+    path = native.build()
+    build_s = time.perf_counter() - t0
+    caps, refs = inference["captions"]["mp"], inference["refs"]
+    vids = sorted(caps)
+    # the random-weight captions share nothing with the references (scores
+    # 0), so each video's first reference, one of its references, scores too
+    gts = {v: [r["caption"] for r in refs[v]] for v in vids}
+    sets = {"mp captions": {"res": {v: [caps[v]] for v in vids}, "gts": gts},
+            "first references": {"res": {v: gts[v][:1] for v in vids}, "gts": gts}}
+
+    def route(raw, tokenize, bleu, cider, rouge, meteor):
+        tok = {k: {v: [" ".join(tokenize(s)) for s in c[v]] for v in vids}
+               for k, c in raw.items()}
+        h, r = tok["res"], tok["gts"]
+        return tok, dict(bleu=list(bleu(h, r)), cider=cider(h, r), rouge=rouge(h, r),
+                         meteor=meteor(h, r))
+
+    routes = {"native": (native.tokenize, native.bleu_corpus, native.cider_corpus,
+                         native.rouge_corpus, native.meteor_corpus),
+              "python": (ptb_tokenize, lambda h, r: corpus_bleu(h, r)[0], corpus_cider,
+                         corpus_rouge_l, corpus_meteor)}
+    scores = {}
+    for name, raw in sets.items():
+        if not native._all_ascii(*raw.values()):
+            die("offline: the %s are not ASCII: the native route would not run" % name)
+        out = {k: route(raw, *fns) for k, fns in routes.items()}
+        if out["native"][0] != out["python"][0]:
+            die("offline: %s: the native tokenizer's captions differ from the Python "
+                "tokenizer's" % name)
+        a, b = out["native"][1], out["python"][1]
+        worst = max(float(np.max(np.abs(np.array(x, dtype=np.float64).ravel() -
+                                        np.array(y, dtype=np.float64).ravel())))
+                    for x, y in ((a["bleu"], b["bleu"]), (a["cider"][1], b["cider"][1]),
+                                 (a["rouge"][1], b["rouge"][1]),
+                                 (a["meteor"][1], b["meteor"][1]),
+                                 ([a["cider"][0], a["rouge"][0], a["meteor"][0]],
+                                  [b["cider"][0], b["rouge"][0], b["meteor"][0]])))
+        if worst > 1e-10:
+            die("offline: %s: the native scores differ from the Python scorers' by %.3e"
+                % (name, worst))
+        ms = {k: float(np.median([host_ms(lambda f=fns: route(raw, *f), iters=1)
+                                  for _ in range(3)])) for k, fns in routes.items()}
+        scores[name] = dict(ms=ms, worst=worst, cider=a["cider"][0], rouge=a["rouge"][0],
+                            bleu4=a["bleu"][3], meteor=a["meteor"][0])
+        log("offline [%s]: %d videos' %s scored on both routes: native %.3f ms, Python %.3f "
+            "ms (median of 3, host clock: tokenize, BLEU, CIDEr, ROUGE-L, legacy METEOR); "
+            "largest difference %.3e (limit 1e-10); CIDEr %.6f, ROUGE-L %.6f, Bleu_4 %.6f, "
+            "METEOR %.6f" % (card, len(vids), name, ms["native"], ms["python"], worst,
+                             a["cider"][0], a["rouge"][0], a["bleu"][3], a["meteor"][0]))
+    log("offline [%s]: native library %s (built at its first use in this run; this call "
+        "%.2f s)" % (card, os.path.basename(path), build_s))
+
+    prep = {}
+    with tempfile.TemporaryDirectory() as root:
+        def prepare(n):
+            ann = os.path.join(root, "videodatainfo_%d.json" % n)
+            msrvtt_annotation(ann, n)
+            out_dir = os.path.join(root, "MSRVTT_%d" % n)
+            said = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(said):
+                prepare_main(["--dataset", "MSRVTT", "--raw_path", ann, "--out_dir", out_dir])
+            seconds = time.perf_counter() - t0
+            with open(os.path.join(out_dir, "info_corpus.pkl"), "rb") as f:
+                info_corpus = pickle.load(f)
+            with open(os.path.join(out_dir, "refs.pkl"), "rb") as f:
+                prep_refs = pickle.load(f)
+            split = info_corpus["info"]["split"]
+            sizes = tuple(len(split[k]) for k in ("train", "validate", "test"))
+            n_train = n * PREP_SPLIT[0] // PREP_VIDEOS
+            n_val = n * PREP_SPLIT[1] // PREP_VIDEOS
+            if (sizes != (n_train, n_val, n - n_train - n_val)
+                    or len(info_corpus["captions"]) != n or len(prep_refs) != n
+                    or sum(map(len, info_corpus["captions"].values())) != n * PREP_CAPS
+                    or set(info_corpus["pos_tags"]) != set(info_corpus["captions"])):
+                die("offline: prepare_corpora on %d videos wrote splits %s, %d videos, %d refs"
+                    % (n, sizes, len(info_corpus["captions"]), len(prep_refs)))
+            return dict(videos=n, seconds=seconds, splits=sizes,
+                        vocab=len(info_corpus["info"]["itow"]),
+                        said=said.getvalue().strip().splitlines()[-1])
+
+        probe = prepare(1000)
+        projected = probe["seconds"] * PREP_VIDEOS / 1000
+        n = PREP_VIDEOS if projected <= PREP_LIMIT_S else max(
+            1000, int(PREP_VIDEOS * PREP_LIMIT_S / projected) // 100 * 100)
+        prep = prepare(n)
+    cut = "" if n == PREP_VIDEOS else (
+        "; CUT from %d videos: the 1000-video run projected %.1f s > %.0f s"
+        % (PREP_VIDEOS, projected, PREP_LIMIT_S))
+    log("offline [%s]: prepare_corpora on an MSR-VTT-shaped annotation of %d videos x %d "
+        "captions (splits %s): %.2f host seconds (the 1000-video run %.2f s)%s; %s" % (
+            card, n, PREP_CAPS, prep["splits"], prep["seconds"], probe["seconds"], cut,
+            prep["said"]))
+    return dict(build_s=build_s, scores=scores, prepare=prep, probe=probe)
+
+
 def main():
     import argparse
 
@@ -3307,9 +3902,12 @@ def main():
                     "decode, B=64 epoch and B=2048 train step are run through its own "
                     "wrappers in a second process and timed in turns with this tree's")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
+    ap.add_argument("--switch", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
         sys.exit(serve_worker(args.worker))
+    if args.switch:
+        sys.exit(switch_worker(args.switch))
     if not os.path.isdir(os.path.join(ROOT, "navc_tpu_torch", "csrc")):
         die("navc_tpu_torch/csrc not found next to chip_smoke.py: run it "
             "from a checkout of the repository")
@@ -3836,7 +4434,7 @@ def main():
 
     # -- 8. the inference entry points: translate, CaptionPipeline ------------
     t0 = time.perf_counter()
-    inference_phase(card)
+    inference = inference_phase(card)
     log("inference phase: %.1f s" % (time.perf_counter() - t0))
 
     # -- 8b. the four methods trained at full width, checks on their weights --
@@ -3844,6 +4442,27 @@ def main():
     learning_results = learning_phase(card)
     log("learning phase: %.1f s; %s" % (time.perf_counter() - t0,
                                         json.dumps(learning_results)))
+
+    # -- 8c. navc_tpu's route switches, each in a fresh process ---------------
+    t0 = time.perf_counter()
+    switch_results = switches_phase(card)
+    log("switches phase: %.1f s; %s" % (time.perf_counter() - t0, json.dumps(switch_results)))
+
+    # -- 8d. SelfMask: the p = 0 step, the compiled step, the beam -------------
+    t0 = time.perf_counter()
+    selfmask_results = selfmask_phase(card)
+    log("selfmask phase: %.1f s; %s" % (time.perf_counter() - t0,
+                                        json.dumps(selfmask_results)))
+
+    # -- 8e. cfg.remat at B=2048 on both training routes ----------------------
+    t0 = time.perf_counter()
+    remat_results = remat_phase(card)
+    log("remat phase: %.1f s; %s" % (time.perf_counter() - t0, json.dumps(remat_results)))
+
+    # -- 8f. the native scorer and corpus preparation on the card's host -------
+    t0 = time.perf_counter()
+    offline_results = offline_phase(card, inference)
+    log("offline phase: %.1f s; %s" % (time.perf_counter() - t0, json.dumps(offline_results)))
 
     # -- 9. results -----------------------------------------------------------
     def entry(name, source, replaces, rec, counts=launches):
@@ -3894,9 +4513,13 @@ def main():
              note="no path of navc_tpu reaches the unfolded form (its decodes pass "
              "static=, which selects :289); held against its plain version only"),
     ]
-    for k in kernels:  # launches on each decode of the graphs phase
+    remat_on = remat_results["fused"]["remat on"]["replayed"]["launches"]
+    for k in kernels:  # launches on each decode of the graphs phase, under each switch
         k["launches_by_path"] = {case: graph_results[case]["launches"].get(k["name"], 0)
                                  for case, *_ in GRAPH_CASES}
+        k["launches_by_switch"] = {case: switch_results[case]["launches"].get(k["name"], 0)
+                                   for case, *_ in SWITCH_CASES}
+        k["launches_remat_step"] = remat_on.get(k["name"], 0)  # NACF at B=2048, remat on
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,8 +23,12 @@ Package layout (mirrors ``navc_tpu``):
     runtime     StreamingCaptioner serving entry, .ckpt files, the train
                 step, losses, optimizer, epoch loop and evaluation,
                 reference state_dict conversion
+    data        the dataset, the loader, synthetic corpora and corpus
+                preparation (info_corpus.pkl / refs.pkl from annotations)
+    metrics     the PTB tokenizer and the COCO scorers
+    native      the C++ tokenizer and scorers (ctypes; g++ at first use)
     api         CaptionPipeline: checkpoint -> captions
-    cli         train, translate and convert entry points
+    cli         train, translate, convert and prepare_corpora entry points
 """
 
 __version__ = "0.1.0"

@@ -1,1 +1,2 @@
-"""Command-line entry points (navc_tpu_torch.cli.train)."""
+"""Command-line entry points: navc_tpu_torch.cli.train, translate, convert
+and prepare_corpora."""

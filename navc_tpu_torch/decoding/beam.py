@@ -29,7 +29,13 @@ the width of 128 (the structural terms of navc_tpu's gate), the fused
 permute + append + self-attention step (K6) and the cross-attention (K7);
 otherwise the cache permute (K8) and the plain attention of both kinds, as
 navc_tpu's XLA route computes them (bf16 softmax weights in bf16 mode). The
-dense projections stay ``torch.matmul``.
+dense projections stay ``torch.matmul``. navc_tpu's kernel switches take
+kernels off this route (``Switches``, ``plan_routes``), with navc_tpu's
+precedence (beam.py:373-402): ``NAVC_NO_ATTEND_KERNEL`` drops K6 and K7
+with it, and the step then permutes through K8 unless
+``NAVC_NO_PERMUTE_KERNEL`` is set too; ``NAVC_NO_TOPK_KERNEL`` drops K5,
+and the step projects raw logits and takes their stable top-k. A generator
+reads them when it is made.
 
 The JAX package stops its ``while_loop`` once every instance is done. Here
 the host reads that flag without stalling the card. With ``jit=True`` (the
@@ -49,6 +55,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import math
+import os
 from dataclasses import dataclass
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
@@ -113,6 +120,44 @@ class Routes:
     cross: bool = False     # K7: cross-attention (with K6, as navc_tpu)
     attend: bool = False    # K6: permute + append + self-attention
     permute: bool = False   # K8: cache permute, then plain self-attention
+
+
+@dataclass(frozen=True)
+class Switches:
+    """navc_tpu's beam kernel switches (beam.py:373-402): a non-empty
+    ``NAVC_NO_ATTEND_KERNEL``, ``NAVC_NO_PERMUTE_KERNEL`` or
+    ``NAVC_NO_TOPK_KERNEL`` in the environment takes its kernel off the
+    cached step."""
+    no_attend: bool = False
+    no_permute: bool = False
+    no_topk: bool = False
+
+    @classmethod
+    def read(cls) -> "Switches":
+        return cls(*(bool(os.environ.get("NAVC_NO_%s_KERNEL" % name))
+                     for name in ("ATTEND", "PERMUTE", "TOPK")))
+
+
+def topk_route(cfg: Config, switches: Switches) -> bool:
+    """Does the cached step project through K5 (its shape limits, the
+    kernels on, ``NAVC_NO_TOPK_KERNEL`` off)?"""
+    h = cfg.dim_hidden
+    return (fused_vocab_eligible(cfg) and cfg.beam_size <= MAX_K and h % 16 == 0
+            and h <= MAX_D and not switches.no_topk)
+
+
+def plan_routes(cfg: Config, b: int, switches: Switches) -> Routes:
+    """The kernels a KV-cached decode of ``b`` videos runs: K6 (and K7
+    with it) where its shapes fit and ``NAVC_NO_ATTEND_KERNEL`` is off,
+    else K8 unless ``NAVC_NO_PERMUTE_KERNEL`` is set; K5 by
+    ``topk_route``."""
+    h = cfg.dim_hidden
+    itemsize = 4 if cfg.compute_dtype == "float32" else 2
+    attend = (cfg.use_pallas
+              and kernel_shape_ok(cfg.beam_size, h, cfg.num_attention_heads, itemsize)
+              and beam_attend_eligible(b, h) and not switches.no_attend)
+    return Routes(topk=topk_route(cfg, switches), cross=attend, attend=attend,
+                  permute=cfg.use_pallas and not attend and not switches.no_permute)
 
 
 def _make_cached_step(cfg: Config, model, w: LayerWeights, qkv,
@@ -336,8 +381,13 @@ def make_ar_generator(cfg: Config, model, jit: bool = True, *,
     CPU the phases run eagerly. ``jit=False`` issues every step from the
     host, reading the all-done flag ``DONE_LAG`` steps late.
     ``generate.graphed`` says whether calls on the card replay graphs,
-    ``generate.steps_run`` counts the steps run and ``generate.graphs``
-    holds the captured sets.
+    ``generate.steps_run`` counts the steps run, ``generate.graphs``
+    holds the captured sets and ``generate.routes`` is the ``Routes`` of
+    the last request set up (None on the full-prefix route).
+
+    navc_tpu's switches (``NAVC_NO_KVCACHE``, ``Switches``) are read here,
+    once; flipping one later changes neither this generator's eager calls
+    nor its graphs' replays.
 
     The full-prefix route runs its layer through K1 on the card where
     ``fused_layer_eligible(cfg, causal=True)``, and the model's own forward
@@ -348,19 +398,16 @@ def make_ar_generator(cfg: Config, model, jit: bool = True, *,
     specific = max(k, cfg.topk)
     alpha = cfg.beam_alpha
     h = cfg.dim_hidden
-    nh = cfg.num_attention_heads
     use_cache = kv_cached_beam_eligible(cfg)
+    switches = Switches.read()
     cdt = torch.float32 if cfg.compute_dtype == "float32" else torch.bfloat16
-    itemsize = 4 if cdt == torch.float32 else 2
-    kernels_fit = cfg.use_pallas and kernel_shape_ok(k, h, nh, itemsize)
     weights = qkv = None
     if use_cache:
         weights = layer_weights(model.decoder.layers[0], cdt)
         qkv = (torch.cat([weights.wq_s, weights.wk_s, weights.wv_s]),
                torch.cat([weights.bq_s, weights.bk_s, weights.bv_s]))
-    use_topk = (use_cache and fused_vocab_eligible(cfg) and k <= MAX_K
-                and h % 16 == 0 and h <= MAX_D)  # K5's shape limits
-    proj = projection_weights(model) if use_topk else None
+    proj = (projection_weights(model) if use_cache and topk_route(cfg, switches)
+            else None)
     prefix_ops = (KernelOperands.of(model) if not use_cache
                   and fused_layer_eligible(cfg, causal=True) else None)
     spans = block_spans(max_len, block)
@@ -386,12 +433,9 @@ def make_ar_generator(cfg: Config, model, jit: bool = True, *,
         b = enc_output.shape[0]
         n = b * k
         cat_tiled = None if category is None else enlarge(category, k)
-        routes = Routes()
+        routes = generate.routes = None
         if use_cache:
-            routes.topk = use_topk
-            routes.attend = kernels_fit and beam_attend_eligible(b, h)
-            routes.cross = routes.attend
-            routes.permute = cfg.use_pallas and not routes.attend
+            routes = generate.routes = plan_routes(cfg, b, switches)
             cached_step = _make_cached_step(cfg, model, weights, qkv,
                                             enc_output, cat_tiled, k, routes)
         else:
@@ -528,6 +572,7 @@ def make_ar_generator(cfg: Config, model, jit: bool = True, *,
         return out
 
     generate.steps_run = 0
+    generate.routes = None
     generate.graphed = jit
     generate.graphs = jitted.graphs
     return generate

@@ -75,11 +75,12 @@ class NARContext(NamedTuple):
 
 def _predict_fn(cfg: Config, model, ops: Optional[KernelOperands], proj,
                 ctx: NARContext, canvas_len: int, enc_unique: torch.Tensor,
-                want_attentions: bool = False):
+                want_attentions: bool = False, sparse: bool = False):
     """One NAR decoder forward: tokens (N, L) -> (argmax ids, max probs)
     (reference algorithms.py:7-15, 143-167), the pad overwrite left to the
-    caller. ``predict.predict_sub`` is the sparse-query forward when the
-    kernels cover the configuration. ``want_attentions`` (the plain route)
+    caller. ``predict.predict_sub`` is the sparse-query forward on the
+    kernel route when ``sparse`` (``fused_sparse_eligible``, read when the
+    generator is made). ``want_attentions`` (the plain route)
     returns layer 0's (self, cross) attention maps third, each
     (N, n_head, L, L_k)."""
     if want_attentions:
@@ -122,7 +123,7 @@ def _predict_fn(cfg: Config, model, ops: Optional[KernelOperands], proj,
                                        ops.proj_b)
             return ids.view(n, k), maxp.view(n, k)
 
-        if fused_sparse_eligible(cfg):
+        if sparse:
             predict.predict_sub = predict_sub
         return predict
 
@@ -542,6 +543,11 @@ def make_nar_generator(cfg: Config, model, teacher_model=None,
     ``generate.blocks_run`` and ``generate.flag_reads`` count blocks and
     flag reads, and ``generate.rounds`` is the last decode's reveal rounds
     (a 0-d tensor with ``jit``, on the decode's device).
+
+    ``NAVC_DENSE_REFINE`` (ops/eligibility.py) is read here, once: mp's
+    refinements then run every canvas row through K1 instead of the
+    re-masked rows through K2. Flipping it later changes neither this
+    generator's eager calls nor its graphs' replays.
     """
     if cfg.paradigm not in ALGORITHMS:
         raise ValueError("paradigm must be one of %s" % list(ALGORITHMS))
@@ -566,6 +572,7 @@ def make_nar_generator(cfg: Config, model, teacher_model=None,
             else None)
     tops = (KernelOperands.of(teacher_model)
             if use_teacher and fused_teacher_eligible(cfg, tcfg) else None)
+    sparse = ops is not None and fused_sparse_eligible(cfg)  # NAVC_DENSE_REFINE
 
     def setup(enc_results: Dict[str, torch.Tensor], category=None,
               teacher_enc_results: Optional[Dict[str, torch.Tensor]] = None,
@@ -587,7 +594,7 @@ def make_nar_generator(cfg: Config, model, teacher_model=None,
             teacher_category=cat,
             dict_mapping=dict_mapping)
         predict = _predict_fn(cfg, model, ops, proj, ctx, run_len,
-                              enc_results["enc_output"], collect_attentions)
+                              enc_results["enc_output"], collect_attentions, sparse)
         teacher_score = None
         if ctx.teacher_enc_output is not None:
             teacher_score = _teacher_score_fn(

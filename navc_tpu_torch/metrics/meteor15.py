@@ -51,9 +51,9 @@ the content/function weighting run on the live eval path (VERDICT r3 #4):
     (.MISSING_LARGE_BLOBS), so the vendored hand-curated
     ``data/paraphrase-en.tsv`` restores the stage deterministically.
 
-A copy of navc_tpu/metrics/meteor15.py with navc_tpu's default stage setup
-and its own copy of the tables (navc_tpu_torch/metrics/data); navc_tpu's
-``NAVC_METEOR_*`` switches are not carried.
+A copy of navc_tpu/metrics/meteor15.py with its own copy of the tables
+(navc_tpu_torch/metrics/data) and navc_tpu's stage switches, read once,
+when ``default_scorer`` first builds its singleton.
 """
 
 from __future__ import annotations
@@ -444,16 +444,28 @@ def default_scorer() -> Meteor15:
     exact + stem (always), synonyms (WordNet when installed, else the
     vendored ``data/synonym-en.tsv``), phrase-level paraphrases
     (``data/paraphrase-en-expanded.tsv``, navc_tpu's default table), and
-    content/function weighting
-    (``data/function-words-en.txt``)."""
+    content/function weighting (``data/function-words-en.txt``).
+    navc_tpu's switches, read when the singleton is built:
+    ``NAVC_METEOR_BARE`` keeps exact + stem only (no synonyms, paraphrases
+    or function words), ``NAVC_METEOR_NO_WORDNET`` takes the vendored
+    synonyms even where WordNet is installed, ``NAVC_METEOR_TABLE=curated``
+    the 169-line hand-curated paraphrase core (``data/paraphrase-en.tsv``)."""
     global _DEFAULT
     if _DEFAULT is None:
-        syn = load_wordnet_synonyms()
+        if os.environ.get("NAVC_METEOR_BARE"):
+            _DEFAULT = Meteor15(synonyms=None, paraphrases=None)
+            return _DEFAULT
+        syn = None if os.environ.get("NAVC_METEOR_NO_WORDNET") else \
+            load_wordnet_synonyms()
         if syn is None:
             syn = load_synonyms_tsv(_data_path("synonym-en.tsv"))
+        table = "paraphrase-en.tsv"
+        if os.environ.get("NAVC_METEOR_TABLE", "expanded") != "curated" \
+                and os.path.exists(_data_path("paraphrase-en-expanded.tsv")):
+            table = "paraphrase-en-expanded.tsv"
         _DEFAULT = Meteor15(
             synonyms=syn,
-            paraphrases=load_paraphrases_tsv(_data_path("paraphrase-en-expanded.tsv")),
+            paraphrases=load_paraphrases_tsv(_data_path(table)),
             function_words=load_function_words(
                 _data_path("function-words-en.txt")))
     return _DEFAULT

@@ -5,19 +5,22 @@ ground-truth and predictions, run Bleu_1..4 + METEOR + ROUGE_L + CIDEr, and
 return (summary dict, per-image detail dict) in the same shapes
 (cocoeval.py:51-106).
 
-A copy of navc_tpu/metrics/scorer.py on its Python path only: navc_tpu's
-optional C++ CIDEr/ROUGE (navc_tpu/native) and the ``NAVC_METEOR_LEGACY``
-switch are not carried; METEOR is always the METEOR 1.5 model (meteor15).
+A copy of navc_tpu/metrics/scorer.py: CIDEr and ROUGE-L come from the
+native library (``native/lib.py``, built at first use; a failed build
+raises), BLEU from the Python scorer for its per-image detail, METEOR from
+the METEOR 1.5 model (``meteor15``) unless ``NAVC_METEOR_LEGACY`` is set,
+which selects the legacy two-stage METEOR in C++. A corpus that is not
+ASCII takes each scorer's Python path (navc_tpu's rule, ``native/lib.py``).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Tuple
 
+from ..native import lib as native
 from .bleu import corpus_bleu
-from .cider import corpus_cider
 from .meteor15 import corpus_meteor15
-from .rouge import corpus_rouge_l
 from .tokenizer import tokenize_corpus
 
 
@@ -39,10 +42,15 @@ class COCOScorer:
         self.eval = {}
         self.img_to_eval = {}
 
+        # BLEU from corpus_bleu: the per-image detail needs the Python pass,
+        # so summary and detail stay one implementation
         bleu_scores, bleu_per_img = corpus_bleu(res_tok, gts_tok)
-        cider, cider_per = corpus_cider(res_tok, gts_tok)
-        rouge, rouge_per = corpus_rouge_l(res_tok, gts_tok)
-        meteor, meteor_per = corpus_meteor15(res_tok, gts_tok)
+        cider, cider_per = native.cider_corpus(res_tok, gts_tok)
+        rouge, rouge_per = native.rouge_corpus(res_tok, gts_tok)
+        if os.environ.get("NAVC_METEOR_LEGACY"):
+            meteor, meteor_per = native.meteor_corpus(res_tok, gts_tok)
+        else:
+            meteor, meteor_per = corpus_meteor15(res_tok, gts_tok)
 
         for k, s in enumerate(bleu_scores):
             self._set("Bleu_%d" % (k + 1), s, ids, bleu_per_img[k])

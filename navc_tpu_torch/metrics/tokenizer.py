@@ -6,8 +6,9 @@ the reference checkout). Behavior replicated for caption-style text:
 tokenize with Penn-Treebank conventions, lowercase, and drop the standard
 caption-evaluation punctuation set.
 
-A copy of navc_tpu/metrics/tokenizer.py without its optional C++ fast path
-(navc_tpu/native is not ported): the Python rules only.
+A copy of navc_tpu/metrics/tokenizer.py: ``tokenize_corpus`` runs the C++
+tokenizer of the native library (``native/lib.py``, the same rules; a
+caption that is not ASCII through ``ptb_tokenize``).
 """
 
 from __future__ import annotations
@@ -58,7 +59,9 @@ def tokenize_corpus(captions_for_image: Dict[str, List[dict]]) -> Dict[str, List
     Same shape contract as the reference PTBTokenizer.tokenize
     (ptbtokenizer.py:28-87).
     """
+    from ..native import lib as native
+
     out: Dict[str, List[str]] = {}
     for vid, caps in captions_for_image.items():
-        out[vid] = [" ".join(ptb_tokenize(c["caption"])) for c in caps]
+        out[vid] = [" ".join(native.tokenize(c["caption"])) for c in caps]
     return out

@@ -2,8 +2,7 @@
 
 Port of navc_tpu/models/decoder.py (reference models/Decoder.py):
   * mask by decoding type — NARFormer: key-pad only; ARFormer: key-pad +
-    causal (+watch) (Decoder.py:105-124); the training-only SelfMask type is
-    not ported,
+    causal (+watch); SelfMask: key-pad + the diagonal (Decoder.py:105-124),
   * NAR input enhancement 0/1/2 (none / resampled / mean-pooled enc_output)
     added to the token embeddings (Decoder.py:130-139),
   * N stacked BertLayers (Decoder.py:150-178).
@@ -62,11 +61,11 @@ class BertDecoder(nn.Module):
         kp = M.key_pad_mask(tgt_seq, l)
         if decoding_type == "NARFormer":
             slf_attn_mask = kp
-        elif decoding_type == "ARFormer":
+        elif decoding_type == "SelfMask":
+            slf_attn_mask = M.self_mask_diag(tgt_seq)
+        else:  # ARFormer
             slf_attn_mask = kp | M.subsequent_mask(b, l, self.watch,
                                                    device=tgt_seq.device)
-        else:
-            raise ValueError("decoding_type %r is not ported" % decoding_type)
         npm = M.non_pad_mask(tgt_seq)
 
         additional_feats = None

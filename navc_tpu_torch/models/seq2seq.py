@@ -154,7 +154,11 @@ class Seq2Seq(nn.Module):
         results = self.encode(feats, train, generator)
         token_sets = (list(tgt_tokens) if isinstance(tgt_tokens, (list, tuple))
                       else [tgt_tokens])
-        if cfg.decoding_type == "ARFormer":
+        # SelfMask (the parallel-MLM AR variant) feeds tokens[1:], ARFormer
+        # shifts off the last position (reference seq2seq.py:115-120)
+        if cfg.decoding_type == "SelfMask":
+            token_sets = [t[:, 1:] for t in token_sets]
+        elif cfg.decoding_type == "ARFormer":
             token_sets = [t[:, :-1] for t in token_sets]
         outs = []
         for tokens in token_sets:

@@ -35,6 +35,14 @@ def subsequent_mask(batch: int, len_s: int, watch: int = 0,
     return m[None].expand(batch, len_s, len_s)
 
 
+def self_mask_diag(seq: torch.Tensor) -> torch.Tensor:
+    """Key-pad mask + the diagonal (reference models/Decoder.py:108-121): the
+    SelfMask decoding type, where position i may not attend to itself."""
+    l = seq.shape[1]
+    diag = torch.eye(l, dtype=torch.bool, device=seq.device)
+    return key_pad_mask(seq, l) | diag[None, :, :]
+
+
 def resample_enc_output(enc_output: torch.Tensor,
                         tgt_tokens: torch.Tensor) -> torch.Tensor:
     """NAR enhance_input == 1: position j of row i reads

@@ -36,20 +36,34 @@ batch. ``make_train_step`` returns ``step(batch, generator) -> metrics``:
     backward): the logits are never written, and the results carry each
     pass's per-row (label log-prob, argmax) as ``tgt_word_rowstats``;
     otherwise raw logits go to ``runtime.crit`` (``tgt_word_logits``);
+  * SelfMask (the parallel-MLM AR variant) takes the module route, its
+    decoder fed ``tokens[:, 1:]`` and its targets shifted by one, as
+    ARFormer's;
+  * ``cfg.remat`` (navc_tpu's ``jax.checkpoint`` of the forward) keeps
+    none of the forward's activations: the whole forward, on either route,
+    runs under ``torch.utils.checkpoint`` (non-reentrant) and again in the
+    backward, bit for bit (``_Remat``); on the fused route K11 and K9 then
+    launch twice a decoder pass;
   * metrics stay tensors on the device: the step never waits for the card.
 
-``cfg.remat`` is not read: the backward recomputes what the fused layer
-needs, and the module route keeps its activations.
+The routes (``fused_train_eligible``, ``fused_vocab_ce_eligible``, with
+navc_tpu's ``NAVC_NO_FUSED_TRAIN`` and ``NAVC_NO_FUSED_CE``) are read when
+the step is made: flipping a switch later changes neither its eager calls
+nor its graphs' replays.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import weakref
 from dataclasses import dataclass
-from typing import Any, Dict, List
+from typing import Any, Callable, Dict, List, NamedTuple
 
 import numpy as np
 import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import constants as C
 from ..config import Config
@@ -78,10 +92,25 @@ def _device(model: Seq2Seq) -> torch.device:
     return next(model.parameters()).device
 
 
+class TrainRoutes(NamedTuple):
+    """The training forward's kernels: the fused training layer (K11,
+    K12a, K12b) and, on its route, the projection fused with the loss (K9,
+    K10)."""
+    layer: bool = False
+    ce: bool = False
+
+    @classmethod
+    def of(cls, cfg: Config) -> "TrainRoutes":
+        """``cfg``'s routes under the environment's switches, now."""
+        layer = fused_train_eligible(cfg)
+        return cls(layer, layer and fused_vocab_ce_eligible(cfg))
+
+
 def _fused_train_apply(cfg: Config, model: Seq2Seq, feats, token_sets, label_sets,
-                       category, generator, seeds: List[torch.Tensor]) -> Dict:
+                       category, generator, seeds: List[torch.Tensor],
+                       use_ce: bool) -> Dict:
     """The train forward with the decoder layer as the fused training layer
-    and, where eligible, the projection fused with the loss (navc_tpu
+    and, with ``use_ce``, the projection fused with the loss (navc_tpu
     ``_fused_train_apply``)."""
     assert len(token_sets) == len(label_sets), (len(token_sets), len(label_sets))
     results = model.encode(feats, train=True, generator=generator)
@@ -89,7 +118,6 @@ def _fused_train_apply(cfg: Config, model: Seq2Seq, feats, token_sets, label_set
     causal = cfg.decoding_type == "ARFormer"
     weights = layer_train_weights(model.decoder.layers[0])
     cdt = compute_dtype(cfg)
-    use_ce = fused_vocab_ce_eligible(cfg)
     if use_ce:  # the live (V, D) parameter (+ the tied bias)
         w_prj = model.projection_weight()
         b_prj = model.tgt_word_prj_bias if model.tgt_word_prj is None else None
@@ -110,22 +138,24 @@ def _fused_train_apply(cfg: Config, model: Seq2Seq, feats, token_sets, label_set
 
 
 def _forward_results(cfg: Config, model: Seq2Seq, batch: Dict, train: bool,
-                     generator=None, seeds=None) -> Dict:
-    """Model forward + target wiring (reference misc/run.py:40-86)."""
+                     generator=None, seeds=None,
+                     routes: TrainRoutes = TrainRoutes()) -> Dict:
+    """Model forward + target wiring (reference misc/run.py:40-86); the
+    fused routes only in training."""
     feats = [batch["feats_%s" % ch] for ch in cfg.modality.lower()]
     vwg = cfg.visual_word_generation
     token_sets = [batch["tokens_1"], batch["tokens"]] if vwg else [batch["tokens"]]
     category = batch.get("category")
-    # NAR targets align with the inputs, AR targets shift by one
+    # NAR targets align with the inputs, AR (and SelfMask) targets shift by one
     start = 0 if cfg.decoding_type == "NARFormer" else 1
     if vwg:
         label_sets = [batch["labels_1"][:, start:], batch["labels"][:, start:]]
     else:
         label_sets = [batch["labels"][:, start:]]
 
-    if train and fused_train_eligible(cfg):
+    if train and routes.layer:
         results = _fused_train_apply(cfg, model, feats, token_sets, label_sets,
-                                     category, generator, seeds)
+                                     category, generator, seeds, routes.ce)
     else:
         results = model(feats, token_sets if vwg else token_sets[0], category,
                         train=train, generator=generator if train else None,
@@ -194,20 +224,75 @@ def _drop_graphs_on_reload(opt: torch.optim.Optimizer, jitted: graphs.Jitted) ->
     weakref.finalize(jitted, opt.register_load_state_dict_post_hook(hook).remove)
 
 
+class _Remat:
+    """``cfg.remat``: the training forward under ``torch.utils.checkpoint``
+    (non-reentrant), which keeps none of its activations and runs it again
+    in the backward. That recompute is the forward again, bit for bit:
+
+      * its dropout masks: the recompute draws from ``replay``, a second
+        generator on the device that each step seeds as it seeds the
+        dropout generator, in the dropout generator's place (checkpoint's
+        own ``preserve_rng_state`` covers only the default generators). The
+        forward is the first to draw after the seeding, so both streams
+        start the step at offset 0 and the recompute draws the forward's
+        masks. The swap is a Python reference: a captured step registers
+        both generators, and each replay reads both seeds. K11 reads its
+        seed from the card, the same in both runs;
+      * the BatchNorm running statistics: the forward moved them, so the
+        recompute puts them back as the forward left them."""
+
+    def __init__(self, model: Seq2Seq, gen: torch.Generator):
+        self.gen = gen
+        self.replay = torch.Generator(device=gen.device)
+        self.stats = [t for m in model.modules() if isinstance(m, nn.BatchNorm1d)
+                      for t in (m.running_mean, m.running_var)]
+
+    def seed(self, seed: int) -> None:
+        self.replay.manual_seed(seed)
+
+    @contextlib.contextmanager
+    def _recompute(self, drawing: List[torch.Generator]):
+        kept = [t.clone() for t in self.stats]
+        drawing[0] = self.replay
+        try:
+            yield
+        finally:
+            drawing[0] = self.gen
+            with torch.no_grad():
+                for t, k in zip(self.stats, kept):
+                    t.copy_(k)
+
+    def __call__(self, forward: Callable[[torch.Generator, torch.Tensor], Dict],
+                 seeds: torch.Tensor) -> Dict:
+        """``forward(generator, seeds)`` checkpointed."""
+        drawing = [self.gen]
+        return checkpoint(lambda s: forward(drawing[0], s), seeds, use_reentrant=False,
+                          preserve_rng_state=False,
+                          context_fn=lambda: (contextlib.nullcontext(),
+                                              self._recompute(drawing)))
+
+
 def make_train_step(cfg: Config, model: Seq2Seq, opt: torch.optim.Optimizer, *,
                     jit: bool = True):
     """``step(batch, generator) -> metrics``: one optimizer step on
     ``model`` (see the module docstring). The step's ``jitted`` is its
-    ``graphs.Jitted`` (None on the eager route)."""
+    ``graphs.Jitted`` (None on the eager route), ``routes`` its
+    ``TrainRoutes``."""
     n_pass = 2 if cfg.visual_word_generation else 1
     dev = _device(model)
     dropout_gen = torch.Generator(device=dev)
+    routes = TrainRoutes.of(cfg)
+    remat = _Remat(model, dropout_gen) if cfg.remat else None
+
+    def forward(generator: torch.Generator, seeds: torch.Tensor, batch) -> Dict:
+        return _forward_results(cfg, model, batch, True, generator,
+                                [seeds[i:i + 1] for i in range(1, n_pass + 1)], routes)
 
     def device_step(batch: Dict[str, torch.Tensor], seeds: torch.Tensor
                     ) -> Dict[str, torch.Tensor]:
         opt.zero_grad(set_to_none=False)
-        results = _forward_results(cfg, model, batch, True, dropout_gen,
-                                   [seeds[i:i + 1] for i in range(1, n_pass + 1)])
+        fwd = functools.partial(forward, batch=batch)
+        results = remat(fwd, seeds) if remat else fwd(dropout_gen, seeds)
         loss, metrics = compute_losses(cfg, results, batch.get("valid_mask"))
         loss.backward()
         optim.step(cfg, opt)
@@ -215,13 +300,16 @@ def make_train_step(cfg: Config, model: Seq2Seq, opt: torch.optim.Optimizer, *,
 
     jitted = None
     if jit and dev.type == "cuda":
-        jitted = graphs.Jitted(device_step, generators=(dropout_gen,), static_inputs=True)
+        gens = (dropout_gen,) + ((remat.replay,) if remat else ())
+        jitted = graphs.Jitted(device_step, generators=gens, static_inputs=True)
         _drop_graphs_on_reload(opt, jitted)
     inputs = _Inputs(dev, jitted is not None)
 
     def train_step(batch: Dict, generator: torch.Generator) -> Dict[str, torch.Tensor]:
         draws = torch.randint(0, 2 ** 31 - 1, (n_pass + 1,), generator=generator)
         dropout_gen.manual_seed(int(draws[0]))
+        if remat:
+            remat.seed(int(draws[0]))
         arrays = _batch_inputs(batch)
         arrays["_seeds"] = draws.numpy().astype(np.int32)
         staged = inputs(arrays)
@@ -229,6 +317,7 @@ def make_train_step(cfg: Config, model: Seq2Seq, opt: torch.optim.Optimizer, *,
         return (jitted or device_step)(staged, seeds)
 
     train_step.jitted = jitted
+    train_step.routes = routes
     return train_step
 
 

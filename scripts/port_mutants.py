@@ -2,9 +2,11 @@
 """Mutation check of the redesigned kernels (K11, K12a, K12b, K2, K1, K6,
 K7, K1u), of the decodes' CUDA graphs (runtime/graphs.py, the beam's
 blocks; the IF nodes of the compiled l2r and ef, csrc/graph_cond.cu, their
-counters, ef's loop condition and the lagged flag read) and of the
-captured training step (runtime/train_step.py, its seed, lr and generator)
-on a card.
+counters, ef's loop condition and the lagged flag read), of the
+captured training step (runtime/train_step.py, its seed, lr and generator),
+of navc_tpu's route switches (a switch read but its route kept) and of
+``cfg.remat``'s recompute (fresh dropout masks, running statistics moved
+twice) on a card.
 
 Each mutant is one exact edit of a file of navc_tpu_torch, made in a copy of
 the package under a temporary directory (never in the checkout); the
@@ -21,8 +23,8 @@ from the repo root on a machine with an NVIDIA card:
 
     python3 scripts/port_mutants.py [TESTS ...]
 
-where TESTS (e.g. ``graphs``, ``cond_graphs``, ``train_graphs``) keeps
-only the mutants whose tests are named so.
+where TESTS (e.g. ``graphs``, ``cond_graphs``, ``train_graphs``, ``switch``,
+``remat``) keeps only the mutants whose tests are named so.
 """
 
 import os
@@ -124,6 +126,20 @@ MUTANTS = {  # name: (file under navc_tpu_torch, text, its replacement, tests)
     "train graphs: the dropout generator not registered with the capture": (
         "runtime/graphs.py", "self.graph.register_generator_state(gen)", "pass",
         "train_graphs"),
+    "switches: NAVC_NO_ATTEND_KERNEL read but K6 kept": (
+        "decoding/beam.py", "and beam_attend_eligible(b, h) and not switches.no_attend)",
+        "and beam_attend_eligible(b, h))", "switch"),
+    "switches: NAVC_DENSE_REFINE read but the sparse steps kept": (
+        "decoding/mask_predict.py", "        if sparse:\n            predict.predict_sub",
+        "        if ops is not None:\n            predict.predict_sub", "switch"),
+    "switches: NAVC_NO_FUSED_CE read but K9 / K10 kept": (
+        "runtime/train_step.py", "return cls(layer, layer and fused_vocab_ce_eligible(cfg))",
+        "return cls(layer, layer)", "switch"),
+    "remat: the recompute draws fresh dropout masks": (
+        "runtime/train_step.py", "        drawing[0] = self.replay\n", "", "remat"),
+    "remat: the recompute moves the running statistics again": (
+        "runtime/train_step.py", "                    t.copy_(k)\n", "                    pass\n",
+        "remat"),
 }
 
 

@@ -23,8 +23,11 @@ compiled training step (``test_train_graphs_*``: the replayed NACF, ARB2
 and NAB steps bit for bit the eager ones, fresh masks per replay, the lr tensor
 followed, the card's capturable optimizer replayed against torch's CPU
 optimizer with a float lr, graphs dropped after an optimizer reload, a
-batch already on the card, the eval-loss step, no sync in an eager step)
-and K11/K12a/K12b with a device seed.
+batch already on the card, the eval-loss step, no sync in an eager step),
+K11/K12a/K12b with a device seed, navc_tpu's route switches
+(``test_switch_*``: each kernel's launches on and off its route, the
+switched decodes and steps replayed bit for bit), SelfMask's beam through
+K5-K7, and ``cfg.remat`` bit for bit remat off on both training routes.
 Run them on a machine with a card:
 
     python3 -m pytest tests/test_torch_port_cuda.py -q --noconftest
@@ -2521,3 +2524,184 @@ def test_train_kernels_take_a_device_seed(cuda, case):
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(outs, want[v])), v
 
+
+
+# ---------------------------------------------------------------------------
+# navc_tpu's route switches, SelfMask and cfg.remat on the card
+# ---------------------------------------------------------------------------
+
+ROUTE_SWITCHES = ("NAVC_DENSE_REFINE", "NAVC_NO_ATTEND_KERNEL", "NAVC_NO_PERMUTE_KERNEL",
+                  "NAVC_NO_TOPK_KERNEL", "NAVC_NO_FUSED_TRAIN", "NAVC_NO_FUSED_CE")
+
+
+def _switches(monkeypatch, *on):
+    for name in ROUTE_SWITCHES:
+        if name in on:
+            monkeypatch.setenv(name, "1")
+        else:
+            monkeypatch.delenv(name, raising=False)
+
+
+def _replayed_launches(run):
+    """The launches of one replayed call of ``run`` (after its capture) and
+    its output."""
+    run()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    out = run()
+    torch.cuda.synchronize()
+    return {k: n for k, n in _build.LAUNCHES.items() if n}, out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("on", [(), ("NAVC_DENSE_REFINE",)], ids=["default", "dense_refine"])
+def test_switch_dense_refine_launches(cuda, on, monkeypatch):
+    """NACF mp + CT at 16 videos, replayed: NAVC_DENSE_REFINE takes K2's
+    refinements onto K1 (K1 7, K2 0); tokens >= 0.99 the sparse route's."""
+    from navc_tpu_torch.decoding import make_nar_generator
+
+    cfg, model, tcfg, teacher = _serving_models("cuda")
+    feats, cat = _request_on(cfg, 16, 3)
+    with torch.no_grad():
+        enc, tenc = model.encode(feats), teacher.encode(feats)
+    _switches(monkeypatch)
+    sparse = make_nar_generator(cfg, model, teacher)(enc, cat, tenc)
+    _switches(monkeypatch, *on)
+    gen = make_nar_generator(cfg, model, teacher)
+    launches, hyp = _replayed_launches(lambda: gen(enc, cat, tenc))
+    want = {"fused_layer": 7, "project_argmax": 6, "project_gather_prob": 1} if on else \
+        {"fused_layer": 3, "fused_layer_qsub": 4, "project_argmax": 6, "project_gather_prob": 1}
+    assert launches == want, launches
+    agree = float((hyp == sparse).float().mean())
+    assert agree >= 0.99, agree
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("videos", [16, 20])
+@pytest.mark.parametrize("on", [(), ("NAVC_NO_ATTEND_KERNEL",),
+                                ("NAVC_NO_ATTEND_KERNEL", "NAVC_NO_PERMUTE_KERNEL"),
+                                ("NAVC_NO_PERMUTE_KERNEL",), ("NAVC_NO_TOPK_KERNEL",),
+                                ("NAVC_NO_ATTEND_KERNEL", "NAVC_NO_PERMUTE_KERNEL",
+                                 "NAVC_NO_TOPK_KERNEL")],
+                         ids=["default", "no_attend", "no_attend+permute", "no_permute",
+                              "no_topk", "all"])
+def test_switch_beam_launches(cuda, on, videos, monkeypatch):
+    """ARB beam at full width, replayed: each kernel launches once a beam
+    step on its route and never off it (K6 and K7 need 16 | videos); the
+    replay gives the eager decode's tokens and scores bit for bit under the
+    same switches. (Against the CPU these random-weight beams agree
+    0.946-0.981 on these requests on the default route too: they turn on
+    bf16 rounding points, ROADMAP Queue C; chip_smoke.py gates the CPU
+    agreement on its requests.)"""
+    from navc_tpu_torch.decoding import make_ar_generator
+    from navc_tpu_torch.decoding.beam import Routes
+
+    _switches(monkeypatch, *on)
+    _, _, cfg, model = _serving_models("cuda")
+    feats, cat = _request_on(cfg, videos, 4)
+    with torch.no_grad():
+        enc = model.encode(feats)
+    eager = make_ar_generator(cfg, model, jit=False)(enc, cat)
+    gen = make_ar_generator(cfg, model)
+    steps0 = gen.steps_run
+    launches, (hyp, scores) = _replayed_launches(lambda: gen(enc, cat))
+    steps = (gen.steps_run - steps0) // 2
+    attend = videos % 16 == 0 and "NAVC_NO_ATTEND_KERNEL" not in on
+    want = Routes(topk="NAVC_NO_TOPK_KERNEL" not in on, cross=attend, attend=attend,
+                  permute=not attend and "NAVC_NO_PERMUTE_KERNEL" not in on)
+    assert gen.routes == want
+    names = dict(topk="project_topk", cross="cross_attend", attend="beam_attend_step",
+                 permute="permute_beam_caches")
+    assert launches == {names[k]: steps for k, v in want.__dict__.items() if v}, launches
+    assert _same((hyp, scores), eager)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("on", [(), ("NAVC_NO_FUSED_TRAIN",), ("NAVC_NO_FUSED_CE",)],
+                         ids=["default", "no_fused_train", "no_fused_ce"])
+def test_switch_train_launches(cuda, on, monkeypatch):
+    """The NACF step at B=64, replayed bit for bit the eager one: no K11 /
+    K12 / reduction / K9 / K10 under NAVC_NO_FUSED_TRAIN, no K9 / K10 under
+    NAVC_NO_FUSED_CE, each decoder pass's launches otherwise."""
+    from navc_tpu_torch.runtime.train_step import TrainRoutes
+
+    _switches(monkeypatch, *on)
+    sides = {jit: _trainer(jit) for jit in (False, True)}
+    cfg = sides[True][0]
+    batches = [_train_batch(cfg, TRAIN_B, s) for s in range(2)]
+    gens = {jit: _gen(3) for jit in sides}
+    for i in range(3):
+        got = {}
+        for jit, (_, model, opt, step) in sides.items():
+            _build.reset_launches()
+            metrics = step(batches[i % 2], gens[jit])
+            got[jit] = ({k: v.clone() for k, v in metrics.items()},
+                        {k: v for k, v in _build.LAUNCHES.items() if v},
+                        _train_state(model, opt))
+        _assert_same(got[True][0], got[False][0], "metrics, step %d" % i)
+        _assert_same(got[True][2], got[False][2], "state, step %d" % i)
+        assert got[True][1] == got[False][1]
+    routes = sides[True][3].routes
+    assert routes == TrainRoutes(layer="NAVC_NO_FUSED_TRAIN" not in on, ce=not on)
+    layer = {"train_fwd": 2, "train_ffn_bwd": 2, "train_attn_bwd": 2, "train_wgrad": 4}
+    ce = {"ce_fwd": 2, "ce_bwd_dh": 2, "ce_bwd_dw": 2}
+    assert got[True][1] == ({} if routes == TrainRoutes() else
+                            dict(layer, **(ce if routes.ce else {})))
+
+
+@pytest.mark.cuda
+def test_selfmask_beam_replays_eager_through_k5_k7(cuda):
+    """A SelfMask ARB model (parallel_mlm) decodes through the cached beam:
+    K5, K6 and K7 once a step, replayed bit for bit the eager decode (the
+    CPU agreement is chip_smoke.py's, on its requests)."""
+    from navc_tpu_torch.decoding import make_ar_generator
+
+    over = dict(decoding_type="SelfMask", parallel_mlm=True)
+    _, _, cfg, model = _serving_models("cuda")
+    cfg = cfg.replace(**over)
+    feats, cat = _request_on(cfg, 16, 6)
+    with torch.no_grad():
+        enc = model.encode(feats)
+    eager = make_ar_generator(cfg, model, jit=False)(enc, cat)[0]
+    gen = make_ar_generator(cfg, model)
+    steps0 = gen.steps_run
+    launches, (hyp, _) = _replayed_launches(lambda: gen(enc, cat))
+    steps = (gen.steps_run - steps0) // 2
+    assert torch.equal(hyp, eager)
+    assert launches == dict(project_topk=steps, beam_attend_step=steps, cross_attend=steps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("on", [(), ("NAVC_NO_FUSED_TRAIN",)], ids=["fused", "modules"])
+def test_remat_is_bit_exact_on_the_card(cuda, on, monkeypatch):
+    """The NACF step at B=64, dropout 0.5: remat on, eager and replayed,
+    gives remat off's eager losses, gradients and state bit for bit over 3
+    steps; on the fused route K11 and K9 launch twice a decoder pass."""
+    _switches(monkeypatch, *on)
+    runs = {}
+    for remat in (False, True):
+        for jit in (False, True):
+            cfg, model, opt, step = _trainer(jit, remat=remat)
+            gen = _gen(5)
+            batches = [_train_batch(cfg, TRAIN_B, s) for s in range(2)]
+            out = []
+            for i in range(3):
+                _build.reset_launches()
+                metrics = step(batches[i % 2], gen)
+                out.append(({k: v.clone() for k, v in metrics.items()},
+                            {k: v for k, v in _build.LAUNCHES.items() if v},
+                            _train_state(model, opt)))
+            runs[remat, jit] = out
+    ref = runs[False, False]
+    for key, out in runs.items():
+        for i, (got, want) in enumerate(zip(out, ref)):
+            _assert_same(got[0], want[0], "%s metrics, step %d" % (key, i))
+            _assert_same(got[2], want[2], "%s state, step %d" % (key, i))
+    fused = not on
+    for jit in (False, True):
+        launches = runs[True, jit][-1][1]
+        assert launches.get("train_fwd", 0) == (4 if fused else 0), launches
+        assert launches.get("ce_fwd", 0) == (4 if fused else 0), launches
+        off = runs[False, jit][-1][1]
+        assert {k: n for k, n in launches.items() if k not in ("train_fwd", "ce_fwd")} == \
+            {k: n for k, n in off.items() if k not in ("train_fwd", "ce_fwd")}

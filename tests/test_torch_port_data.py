@@ -5,12 +5,13 @@ navc_tpu's, on the CPU.
     metadata, over two shuffled epochs (the same numpy RNG streams: shuffle,
     frame sampling, MLM masks, visual-word targets), for NACF and ARB, with
     and without the prefetch thread; the synthetic fixtures are equal too.
-  * ``COCOScorer``: equal to navc_tpu's Python path to 1e-12 (the port has
-    only that path), on the synthetic references and on hand-written
-    captions with synonyms, paraphrases and repeats; and to navc_tpu's
-    default path, which takes its C++ CIDEr/ROUGE where that library is
-    built, to 1e-10 (navc_tpu's own native-vs-Python tolerance,
-    tests/test_native_metrics.py).
+  * ``COCOScorer``: on the synthetic references and on hand-written
+    captions with synonyms, paraphrases and repeats, equal to navc_tpu's
+    default path, which takes its C++ tokenizer, CIDEr and ROUGE-L as the
+    port does (summaries to 1e-10, navc_tpu's own native-vs-Python
+    tolerance, tests/test_native_metrics.py; per-image detail exactly), and,
+    with the port's Python tokenizer and scorers in the native ones' place,
+    to navc_tpu's Python path to 1e-12.
   * ``to_sentence``, ``duplicate``, ``analyze_length_novel_unique``: equal.
 """
 
@@ -28,7 +29,7 @@ from navc_tpu.runtime import sentence as jax_sentence
 from navc_tpu_torch.config import default_config
 from navc_tpu_torch.data.loader import get_loader
 from navc_tpu_torch.data.synthetic import make_synthetic_corpus, make_synthetic_feats
-from navc_tpu_torch.metrics import COCOScorer
+from navc_tpu_torch.metrics import COCOScorer, corpus_cider, corpus_rouge_l, ptb_tokenize
 from navc_tpu_torch.runtime import sentence
 
 TOY = dict(vocab_size=40, dim_i=12, dim_m=10, modality="mi", max_len=10,
@@ -127,9 +128,16 @@ def test_coco_scorer_equals_navc_tpu(fixtures, source, monkeypatch):
     assert got.keys() == want.keys()
     for k in want:
         assert abs(got[k] - want[k]) <= 1e-10, (k, got[k], want[k])
+    assert got_img == want_img  # both on the native library's CIDEr and ROUGE-L
 
     import navc_tpu.native.lib as native
+    import navc_tpu_torch.native.lib as port_native
     monkeypatch.setattr(native, "available", lambda: False)  # its Python path
+    # the port's Python path: its Python tokenizer and scorers in the native ones' place
+    monkeypatch.setattr(port_native, "tokenize", ptb_tokenize)
+    monkeypatch.setattr(port_native, "cider_corpus", corpus_cider)
+    monkeypatch.setattr(port_native, "rouge_corpus", corpus_rouge_l)
+    got, got_img = COCOScorer().score(gts, res, res.keys())
     want, want_img = JaxScorer().score(gts, res, res.keys())
     for k in want:
         assert abs(got[k] - want[k]) <= 1e-12, (k, got[k], want[k])
