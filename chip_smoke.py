@@ -136,8 +136,23 @@ with remat), peak GB, ms per step. The offline phase: the native scorer
 built with the host's C++ compiler, the inference phase's captions scored
 natively and in Python (equal within 1e-10, timed), and prepare_corpora on
 an MSR-VTT-shaped annotation at its published size (10,000 videos x 20
-captions, cut only if a 1000-video run projects more than 30 s). It exits
-non-zero on any failure, without a CUDA device, and outside a checkout.
+captions, cut only if a 1000-video run projects more than 30 s). The
+parallel phase: NACF at full width, global batch 64, dropout 0, against
+the single-process step on the whole batch, each rank a fresh process of
+tests/torch_port_dist_worker.py: two ranks on the card over gloo, eager, 3
+steps (losses, each parameter's global gradient and the BatchNorm
+statistics within their gates, the ranks bit for bit alike, ms per step);
+NCCL's refusal of two ranks on one device, printed; one rank on NCCL, the
+step captured with its collectives (bit for bit its eager run, a replay's
+launches the single-process replay's, no collective issued from the host)
+and train_network_all_multihost for one epoch; cli.train.main with
+--distributed on two gloo ranks (rank 0 alone validates and writes
+best.ckpt, which then decodes here); data 1 x model 2 (each rank half of
+every TP parameter, held to the same gates). The extract phase: a seeded random ResNet-101 through
+make_backbone on 224 x 224 frames, on the card against the CPU forward
+(TF32 off), frames/s at batch 32, and two videos' features through an NACF
+encode and decode. It exits non-zero on any failure, without a CUDA
+device, and outside a checkout.
 Imports nothing of JAX or navc_tpu.
 
 Standard output ends with two JSON lines: {"kernels": [...]} and
@@ -3893,6 +3908,358 @@ def offline_phase(card, inference):
     return dict(build_s=build_s, scores=scores, prepare=prep, probe=probe)
 
 
+# the parallel phase: NACF at full width, dropout 0, global batch PAR_B; its
+# ranks are fresh processes of tests/torch_port_dist_worker.py. The gates
+# were set from PR 18's first card run of this phase, before these gates
+# were: (a)'s losses read 4.1e-6 to 1.0e-5 of the single process, its
+# BatchNorm statistics 3.2e-5
+PAR_B, PAR_STEPS, PAR_TIMED = 64, 3, 5
+PAR_OVER = dict(OVER, batch_size=PAR_B, hidden_dropout_prob=0.0, encoder_dropout=0.0)
+PAR_LOSS_TOL = 1e-4   # relative, against the single-process step
+PAR_BN_TOL = 1e-3     # BatchNorm running statistics, relative to their largest magnitude
+PAR_GRAD_TOL = 5e-2   # a parameter's global gradient, relative to its norm or to 1e-3 of
+#                       the largest parameter gradient's norm (tests/test_torch_port_cuda.py's)
+PAR_VIDEOS, PAR_CAPS = 160, 2  # the cli and loop corpora (1 epoch, 3 steps of PAR_B)
+
+
+def par_batches(cfg):
+    """NACF batches of PAR_B videos whose second half has features 3x the
+    first's: each rank's BatchNorm statistics differ from the global
+    batch's."""
+    import numpy as np
+
+    out = []
+    for s in range(PAR_STEPS + PAR_TIMED):
+        b = train_batch(cfg, PAR_B, np.random.RandomState(100 + s))
+        for ch in cfg.modality.lower():
+            b["feats_%s" % ch][PAR_B // 2:] *= 3.0
+        out.append(b)
+    return out
+
+
+def par_gaps(got, want, single_grads):
+    """A rank's steps (the worker's ``steps`` results) against the single
+    process's (``single_grads`` its gradients, ``want`` its variables after
+    the steps): (loss gaps, worst gradient gap, worst weight gap, worst
+    BatchNorm statistic gap)."""
+    import numpy as np
+
+    from torch_port_dist_worker import leaves
+
+    losses = [m["total_loss"] for m in got["metrics"]]
+    loss_gaps = [abs(a - b) / abs(b) for a, b in zip(losses, want["losses"])]
+    grad_gap = 0.0
+    for mine, ref in zip(got["grads"], single_grads):
+        mine, ref = dict(leaves(mine)), dict(leaves(ref))
+        floor = 1e-3 * max(np.linalg.norm(v) for v in ref.values())
+        grad_gap = max([grad_gap] + [float(np.linalg.norm(mine[k] - v))
+                                     / max(float(np.linalg.norm(v)), floor)
+                                     for k, v in ref.items()])
+    params = dict(leaves(got["variables"]["params"]))
+    weight_gap = max(float(np.abs(params[k] - v).max())
+                     for k, v in leaves(want["variables"]["params"]))
+    stats = dict(leaves(got["variables"].get("batch_stats", {})))
+    bn_gap = max([0.0] + [float(np.abs(stats[k] - v).max()) / max(float(np.abs(v).max()), 1.0)
+                          for k, v in leaves(want["variables"].get("batch_stats", {}))])
+    return loss_gaps, grad_gap, weight_gap, bn_gap
+
+
+def parallel_phase(card):
+    """Data and tensor parallelism at full width (NACF, d 512, V 10048,
+    global batch PAR_B, dropout 0, bf16 kernels), against the single-process
+    step on the whole batch run here; every rank a fresh process of
+    tests/torch_port_dist_worker.py: (a) 2 ranks on the card over gloo
+    (NCCL refuses two ranks on one device: probed), eager, PAR_STEPS steps:
+    losses within PAR_LOSS_TOL, each parameter's global gradient within
+    PAR_GRAD_TOL, BatchNorm statistics within PAR_BN_TOL, the ranks' weights
+    bit for bit alike after every step (the worst weight gap printed: Adam
+    moves a weight whose gradient is rounding noise by up to lr a step); (b)
+    1 rank on NCCL, the step captured (jit=True) bit for bit its eager run,
+    a replay's launches the single-process replay's with no collective
+    issued from the host, then train_network_all_multihost for one epoch;
+    (c) cli.train.main([... "--distributed"]) on 2 gloo ranks, one epoch:
+    rank 0 alone validates and writes best.ckpt, which decodes here, and
+    --resume raises; (d) data 1 x model 2 on 2 gloo ranks: each rank holds
+    half of every TP parameter, held to the gates of (a). Returns the
+    figures."""
+    import pickle
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_port_dist_worker as worker
+
+    from navc_tpu_torch.config import default_config
+    from navc_tpu_torch.data.loader import get_loader
+    from navc_tpu_torch.data.synthetic import make_synthetic_corpus, make_synthetic_feats
+    from navc_tpu_torch.models import build_model
+    from navc_tpu_torch.runtime.checkpoint import load_model_and_config
+    from navc_tpu_torch.runtime.evaluate import Evaluator, run_eval
+
+    cfg = default_config("NACF", **PAR_OVER)
+    batches = par_batches(cfg)
+    steps, timed = batches[:PAR_STEPS], batches[PAR_STEPS:]
+    model = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0),
+                        train=True)
+    single = worker.single_steps(cfg, model, steps, timed=timed)
+    want = dict(losses=[m["total_loss"] for m in single["metrics"]],
+                variables=single["variables"])
+    n_params = sum(p.numel() for p in model.parameters())
+    del model
+    res = {"single": dict(losses=want["losses"], eager_ms=float(np.median(single["ms"])),
+                          launches=single["launches"][0])}
+    root = tempfile.mkdtemp(prefix="navc_parallel_")
+    try:
+        def ranks(name, suites, world, backend, timeout=300, **inputs):
+            t0 = time.perf_counter()
+            wait = worker.start(suites, world, dict(inputs, device="cuda", backend=backend),
+                                os.path.join(root, name), timeout=timeout)
+
+            def waited():
+                outs = wait()
+                log("  [%s] %d ranks in %.1f s" % (name, world, time.perf_counter() - t0))
+                return outs
+
+            return waited
+
+        # (a) and (d), two ranks on the card over gloo, timed alone
+        outs = [o["steps"] for o in ranks("steps", "steps", 2, "gloo", steps=[
+            dict(name=name, method="NACF", over=PAR_OVER, batches=steps, timed=timed, mesh=mesh)
+            for name, mesh in (("dp", None), ("tp", {"data": 1, "model": 2}))])()]
+        dp, tp = [o["dp"] for o in outs], [o["tp"] for o in outs]
+        # (b) one rank on NCCL, alone (it times replays), then its loop
+        base = default_config("NACF", **dict(PAR_OVER, epochs=1)).replace(
+            teacher_path="", load_teacher_weights=False, with_teacher=False)
+        corpus, refs = make_synthetic_corpus(base, n_videos=PAR_VIDEOS, n_caps=PAR_CAPS,
+                                             vocab_size=base.vocab_size)
+        feats = make_synthetic_feats(base, n_videos=PAR_VIDEOS, n_total_frames=ENTRY_FRAMES)
+        (nccl,) = ranks("nccl", "nccl_step,loop", 1, "nccl",
+                        nccl_step=dict(over=PAR_OVER, batches=steps),
+                        loop=dict(root=root, corpus=corpus, refs=refs, feats=feats,
+                                  loops=[("loop", base)]))()
+        # NCCL's refusal and (c) the CLI, side by side
+        data = os.path.join(root, "data", "MSRVTT")
+        os.makedirs(data)
+        for name, obj in (("info_corpus.pkl", corpus), ("refs.pkl", refs)):
+            with open(os.path.join(data, name), "wb") as f:
+                pickle.dump(obj, f)
+        argv = ["--device", "cuda", "--dataset", "MSRVTT", "--method", "NACF", "--scope",
+                "par", "--use_pallas", "--epochs", "1", "--batch_size", str(PAR_B),
+                "--hidden_dropout_prob", "0", "--encoder_dropout", "0",
+                "--n_total_frames", str(ENTRY_FRAMES),
+                "--base_data_path", os.path.join(root, "data"),
+                "--base_checkpoint_path", os.path.join(root, "experiments")]
+        probe_wait = ranks("nccl_probe", "nccl_probe", 2, "nccl", timeout=60)
+        cli = [o["loop"] for o in ranks("cli", "loop", 2, "gloo", loop=dict(
+            root=root, corpus=corpus, refs=refs, feats=feats, loops=[], cli_argv=argv))()]
+        try:
+            probe = [o["nccl_probe"] for o in probe_wait()]
+        except subprocess.TimeoutExpired:
+            probe = [{"error": "no refusal within 60 s: killed"}] * 2
+
+        # (a)
+        if dp[1]["metrics"] != dp[0]["metrics"] or dp[1]["digests"] != dp[0]["digests"]:
+            die("parallel (a): the ranks' losses or weights differ after a step")
+        gaps, grad_gap, worst_p, worst_bn = par_gaps(dp[0], want, single["grads"])
+        if max(gaps) > PAR_LOSS_TOL or grad_gap > PAR_GRAD_TOL or worst_bn > PAR_BN_TOL:
+            die("parallel (a): loss gaps %s (limit %g), worst gradient gap %.3e (limit %g), "
+                "BatchNorm %.3e (limit %g) against the single-process step"
+                % (gaps, PAR_LOSS_TOL, grad_gap, PAR_GRAD_TOL, worst_bn, PAR_BN_TOL))
+        if dp[0]["launches"][0] != single["launches"][0]:
+            die("parallel (a): a rank's step launched %s, the single-process step %s"
+                % (dp[0]["launches"][0], single["launches"][0]))
+        losses = [m["total_loss"] for m in dp[0]["metrics"]]
+        res["gloo 2 ranks"] = dict(
+            losses=losses, loss_gaps=gaps, grad_gap=grad_gap, worst_weight_gap=worst_p,
+            bn_gap=worst_bn, ms=float(np.median(dp[0]["ms"])), launches=dp[0]["launches"][0],
+            collectives=dp[0]["collectives"][0])
+        n = nccl["nccl_step"]
+        log("parallel (a) [%s]: 2 ranks on one card over gloo, global batch %d (%d a rank), "
+            "eager: losses %s (single process %s; gaps %s, limit %g), worst gradient gap "
+            "%.3e (limit %g), BatchNorm statistics %.3e (limit %g), worst weight gap %.3e "
+            "(not gated), the ranks bit for bit alike after every step; %.2f ms a step "
+            "(median of %d, host clock) against %.2f eager and %.2f replayed in one process; "
+            "a rank's step launches %s and makes %s collectives" % (
+                card, PAR_B, PAR_B // 2, ["%.5f" % x for x in losses],
+                ["%.5f" % x for x in want["losses"]], ["%.2e" % g for g in gaps],
+                PAR_LOSS_TOL, grad_gap, PAR_GRAD_TOL, worst_bn, PAR_BN_TOL, worst_p,
+                res["gloo 2 ranks"]["ms"], PAR_TIMED, res["single"]["eager_ms"],
+                n["median ms"]["single"], dp[0]["launches"][0], dp[0]["collectives"][0]))
+        log("parallel: NCCL with two ranks on one card: %s" % "; ".join(
+            "rank %d %s" % (r, "refused (%s)" % p["error"] if p.get("refused")
+                            else p.get("error", "no refusal: %s" % p.get("result")))
+            for r, p in enumerate(probe)))
+        res["nccl two ranks on one card"] = [p.get("error", "no refusal") for p in probe]
+
+        # (b)
+        if n["backend"] != "nccl" or n["graphs"] != 1 or n["replayed"] != n["eager"]:
+            die("parallel (b): on %s, %d graphs, the captured step's losses %s, its eager "
+                "run's %s" % (n["backend"], n["graphs"], n["replayed"], n["eager"]))
+        gaps_b = [abs(a - b) / abs(b) for a, b in zip(n["replayed"], n["single"])]
+        if max(gaps_b) > PAR_LOSS_TOL:
+            die("parallel (b): loss gaps %s against the single-process step" % gaps_b)
+        if n["replayed launches"] != n["single launches"] or n["replayed host collectives"] \
+                or not n["gloo jit"].startswith("ValueError: gloo collectives cannot be"):
+            die("parallel (b): a replay launched %s (the single-process replay %s) and "
+                "issued %d collectives from the host; jit=True on gloo: %s" % (
+                    n["replayed launches"], n["single launches"],
+                    n["replayed host collectives"], n["gloo jit"]))
+        loop = nccl["loop"]["loop"]
+        if not (os.path.join(root, "loop", "best.ckpt") in loop["saved"]
+                and loop["n_eval"] == 1 and np.isfinite(loop["train_curve"]).all()
+                and loop["launches"].get("train_fwd", 0) >= 3 * 2):
+            die("parallel (b): the NCCL loop gave %s" % loop)
+        res["nccl 1 rank"] = dict(median_ms=n["median ms"], replay_launches=n["replayed launches"],
+                                  loss_gaps=gaps_b, loop_s=loop["seconds"],
+                                  loop_collectives=loop["collectives"],
+                                  loop_train_curve=loop["train_curve"])
+        log("parallel (b) [%s]: 1 rank on NCCL, the step captured: its %d steps bit for bit "
+            "its eager run's (loss gaps to the single process %s); a replay launches %s (%d "
+            "kernel launches, the single-process replay's) and issues no collective from the "
+            "host; jit=True on a gloo group raises; replayed %.2f ms a step against %.2f "
+            "single-process (median of 10, host clock); train_network_all_multihost, 1 "
+            "epoch of %d videos: %.1f s, train loss %s, test %s, launches %s, host "
+            "collectives %s (the first step's eager run and capture; the others replayed)" % (
+                card, PAR_STEPS, ["%.2e" % g for g in gaps_b], n["replayed launches"],
+                sum(n["replayed launches"].values()), n["median ms"]["replayed"],
+                n["median ms"]["single"], PAR_VIDEOS, loop["seconds"], loop["train_curve"],
+                {k: loop["test_res"][k] for k in ("Bleu_4", "METEOR", "CIDEr")},
+                loop["launches"], loop["collectives"]))
+
+        # (c)
+        if cli[0]["cli"]["train_curve"] != cli[1]["cli"]["train_curve"] or \
+                (cli[0]["cli"]["n_eval"], cli[1]["cli"]["n_eval"]) != (1, 0) or \
+                cli[1]["cli"]["test_res"] is not None or \
+                not all(c["resume"].startswith("NotImplementedError") for c in cli):
+            die("parallel (c): cli.train --distributed gave %s" % cli)
+        best = os.path.join(root, "experiments", "MSRVTT", "NACF", "par", "best.ckpt")
+        if not os.path.exists(best):
+            die("parallel (c): rank 0 wrote no best.ckpt")
+        bmodel, bcfg, _ = load_model_and_config(best, device="cuda")
+        loader = get_loader(bcfg, "test", corpus, feats)
+        loader.dataset.set_references(refs)
+        test = run_eval(bcfg, Evaluator(bcfg, bmodel), loader, loader.dataset.get_vocab())
+        if not np.isfinite(test["CIDEr"]):
+            die("parallel (c): best.ckpt scores %s here, %s in the run" % (
+                test["CIDEr"], cli[0]["cli"]["test_res"]))
+        res["cli"] = dict(train_curve=cli[0]["cli"]["train_curve"],
+                          test={k: cli[0]["cli"]["test_res"][k] for k in ("Bleu_4", "CIDEr")})
+        log("parallel (c) [%s]: cli.train.main([... --distributed]) on 2 gloo ranks, NACF 1 "
+            "epoch of %d videos: train loss %s on both ranks, validation on rank 0 only, its "
+            "best.ckpt loaded in one process decodes the test split: CIDEr %.4f (the run's "
+            "%.4f); with --resume both ranks raise" % (
+                card, PAR_VIDEOS, cli[0]["cli"]["train_curve"], test["CIDEr"],
+                cli[0]["cli"]["test_res"]["CIDEr"]))
+
+        # (d)
+        if tp[0]["metrics"] != tp[1]["metrics"] or tp[0]["digests"] != tp[1]["digests"] or \
+                tp[0]["shard_digests"] == tp[1]["shard_digests"]:
+            die("parallel (d): the ranks' losses or weights differ, or their TP slices agree")
+        for name, (shape, dim) in tp[0]["shards"].items():
+            full = tp[0]["full_shapes"][name]
+            if 2 * shape[dim] != full[dim] or \
+                    shape[:dim] + shape[dim + 1:] != full[:dim] + full[dim + 1:]:
+                die("parallel (d): %s holds %s of %s" % (name, shape, full))
+        gaps_d, grad_gap_d, worst_pd, worst_bnd = par_gaps(tp[0], want, single["grads"])
+        if len(tp[0]["shards"]) != 5 or max(gaps_d) > PAR_LOSS_TOL or \
+                grad_gap_d > PAR_GRAD_TOL or worst_bnd > PAR_BN_TOL:
+            die("parallel (d): %d TP parameters, loss gaps %s, gradient gap %.3e, BatchNorm "
+                "%.3e" % (len(tp[0]["shards"]), gaps_d, grad_gap_d, worst_bnd))
+        res["tp data 1 x model 2"] = dict(
+            losses=[m["total_loss"] for m in tp[0]["metrics"]], loss_gaps=gaps_d,
+            grad_gap=grad_gap_d, worst_weight_gap=worst_pd,
+            shards={k: v[0] for k, v in tp[0]["shards"].items()},
+            ms=float(np.median(tp[0]["ms"])), optimizer_numel=tp[0]["optimizer_numel"],
+            model_numel=n_params)
+        log("parallel (d) [%s]: data 1 x model 2 on 2 gloo ranks: TP slices %s (each rank "
+            "half of each), the optimizer over %d of the model's %d parameters a rank; "
+            "losses %s (gaps %s, limit %g), worst gradient gap %.3e (limit %g), BatchNorm "
+            "%.3e, worst weight gap %.3e; %.2f ms a step (median of %d)" % (
+                card, res["tp data 1 x model 2"]["shards"], tp[0]["optimizer_numel"],
+                n_params, ["%.5f" % x for x in res["tp data 1 x model 2"]["losses"]],
+                ["%.2e" % g for g in gaps_d], PAR_LOSS_TOL, grad_gap_d, PAR_GRAD_TOL,
+                worst_bnd, worst_pd, res["tp data 1 x model 2"]["ms"], PAR_TIMED))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    res["launches_distributed_step"] = dp[0]["launches"][0]
+    return res
+
+
+# the extract phase: ResNet-101 (random init from a seed) on 224 x 224 frames
+EXTRACT_FRAMES, EXTRACT_CPU, EXTRACT_VIDEOS, EXTRACT_PER_VIDEO = 32, 2, 2, 8
+EXTRACT_TOL = 1e-3  # max |card - CPU| over max |CPU|, TF32 off
+
+
+def extract_phase(card):
+    """models/resnet.py's ResNet-101 (init_resnet, seed 0) through
+    make_backbone on the card: EXTRACT_CPU frames against the CPU forward of
+    the same weights (TF32 off: torch.backends.cudnn.allow_tf32 False;
+    EXTRACT_TOL), frames/s at batch EXTRACT_FRAMES (host clock, numpy in and
+    out, median of 5), and EXTRACT_VIDEOS videos x EXTRACT_PER_VIDEO frames
+    of features through an NACF encode and decode (modality i, dim_i 2048,
+    random weights): frames -> features -> captions. Numpy frames: the
+    card's host may lack PIL and ffmpeg. Returns the figures."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from navc_tpu_torch.config import default_config
+    from navc_tpu_torch.decoding import make_nar_generator
+    from navc_tpu_torch.models import build_model
+    from navc_tpu_torch.models.resnet import RESNET_STAGES, init_resnet, make_backbone
+
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        die("extract: TF32 is allowed")
+    t0 = time.perf_counter()
+    cpu_model = init_resnet(torch.Generator().manual_seed(0), RESNET_STAGES[101])
+    card_model = copy.deepcopy(cpu_model)
+    backbone = make_backbone(card_model, batch_size=EXTRACT_FRAMES, device="cuda")
+    init_s = time.perf_counter() - t0
+    frames = np.random.RandomState(0).rand(EXTRACT_FRAMES, 224, 224, 3).astype(np.float32)
+    got = backbone(frames[:EXTRACT_CPU])
+    t0 = time.perf_counter()
+    want = make_backbone(cpu_model, device="cpu")(frames[:EXTRACT_CPU])
+    cpu_s = time.perf_counter() - t0
+    err = float(np.abs(got - want).max()) / float(np.abs(want).max())
+    if got.shape != (EXTRACT_CPU, 2048) or not err <= EXTRACT_TOL:
+        die("extract: ResNet-101 on the card against the CPU: shape %s, max gap %.3e of the "
+            "largest feature (limit %g)" % (got.shape, err, EXTRACT_TOL))
+    backbone(frames)  # cuDNN picks its algorithms at this batch
+    ms = [host_ms(lambda: backbone(frames), iters=1) for _ in range(5)]
+    fps = EXTRACT_FRAMES / (float(np.median(ms)) / 1e3)
+    # frames -> features -> captions
+    clip = np.random.RandomState(1).rand(EXTRACT_VIDEOS * EXTRACT_PER_VIDEO, 224, 224,
+                                         3).astype(np.float32)
+    feats = backbone(clip).reshape(EXTRACT_VIDEOS, EXTRACT_PER_VIDEO, 2048)
+    cfg = default_config("NACF", **dict(OVER, modality="i", dim_i=2048,
+                                        n_frames=EXTRACT_PER_VIDEO))
+    nacf = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    cat = torch.as_tensor(np.random.RandomState(2).randint(0, cfg.num_category,
+                                                           (EXTRACT_VIDEOS, 1))).cuda()
+    with torch.no_grad():
+        enc = nacf.encode([torch.as_tensor(feats).cuda()])
+        hyp = make_nar_generator(cfg, nacf)(enc, cat).cpu().numpy()
+    if hyp.shape != (EXTRACT_VIDEOS, cfg.max_len) or hyp.min() < 0 or \
+            hyp.max() >= cfg.vocab_size or not np.isfinite(feats).all():
+        die("extract: captions of shape %s, ids %d..%d from features finite %s" % (
+            hyp.shape, hyp.min(), hyp.max(), np.isfinite(feats).all()))
+    log("extract [%s]: ResNet-101 (random init, seed 0) through make_backbone: %d frames "
+        "224 x 224 on the card against the CPU forward of the same weights (%.1f s), TF32 "
+        "off: max gap %.3e of the largest feature (limit %g); %.1f frames/s at batch %d "
+        "(%.2f ms a batch, median of 5, host clock, numpy in and out); set-up %.1f s; %d "
+        "videos x %d frames -> (%d, %d, 2048) features -> NACF (modality i, random "
+        "weights) captions %s" % (
+            card, EXTRACT_CPU, cpu_s, err, EXTRACT_TOL, fps, EXTRACT_FRAMES,
+            float(np.median(ms)), init_s, EXTRACT_VIDEOS, EXTRACT_PER_VIDEO, EXTRACT_VIDEOS,
+            EXTRACT_PER_VIDEO, hyp[:, :10].tolist()))
+    return dict(max_rel_err=err, frames_per_s=fps, batch_ms=float(np.median(ms)),
+                cpu_s=cpu_s, captions_shape=list(hyp.shape))
+
+
 def main():
     import argparse
 
@@ -4464,6 +4831,17 @@ def main():
     offline_results = offline_phase(card, inference)
     log("offline phase: %.1f s; %s" % (time.perf_counter() - t0, json.dumps(offline_results)))
 
+    # -- 8g. data and tensor parallelism over ranks on the card ----------------
+    t0 = time.perf_counter()
+    parallel_results = parallel_phase(card)
+    log("parallel phase: %.1f s; %s" % (time.perf_counter() - t0,
+                                        json.dumps(parallel_results)))
+
+    # -- 8h. feature extraction: frames -> ResNet-101 -> NACF captions --------
+    t0 = time.perf_counter()
+    extract_results = extract_phase(card)
+    log("extract phase: %.1f s; %s" % (time.perf_counter() - t0, json.dumps(extract_results)))
+
     # -- 9. results -----------------------------------------------------------
     def entry(name, source, replaces, rec, counts=launches):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -4520,6 +4898,9 @@ def main():
         k["launches_by_switch"] = {case: switch_results[case]["launches"].get(k["name"], 0)
                                    for case, *_ in SWITCH_CASES}
         k["launches_remat_step"] = remat_on.get(k["name"], 0)  # NACF at B=2048, remat on
+        # one rank's step of the 2-rank gloo run (NACF, global batch PAR_B)
+        k["launches_distributed_step"] = parallel_results["launches_distributed_step"].get(
+            k["name"], 0)
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,9 @@ tests hold every module here against its counterpart there.
 It serves NACF and NAB (mask-predict, left-to-right or easy-first
 refinement, with the coarse-template pass and AR-teacher rescoring, and the
 per-iteration collect modes) and ARB/ARB2 (KV-cached beam search), trains
-all four methods (``cli/train.py``), and evaluates and captions from a
+all four methods (``cli/train.py``; across ranks with ``--distributed``:
+data and tensor parallelism on torch.distributed), extracts image features
+(``models/resnet.py``, ``data/pretreatment.py``), and evaluates and captions from a
 checkpoint (``cli/translate.py``, ``api.CaptionPipeline``; reference
 ``.pth.tar`` files through ``cli/convert.py``). The Pallas kernels those
 paths reach in ``navc_tpu`` are hand-written CUDA kernels here
@@ -21,10 +23,12 @@ Package layout (mirrors ``navc_tpu``):
     ops         masks, selection, kernel gates, the kernel wrappers
     decoding    length beam + mp / l2r / ef refinement, AR beam search
     runtime     StreamingCaptioner serving entry, .ckpt files, the train
-                step, losses, optimizer, epoch loop and evaluation,
-                reference state_dict conversion
-    data        the dataset, the loader, synthetic corpora and corpus
-                preparation (info_corpus.pkl / refs.pkl from annotations)
+                step, losses, optimizer, epoch loop (one rank or several)
+                and evaluation, reference state_dict conversion
+    parallel    the process group, the (data, model) rank grid, sharding
+    data        the dataset, the loader (host-sharded or not), synthetic
+                corpora, corpus preparation (info_corpus.pkl / refs.pkl
+                from annotations) and frame / feature extraction
     metrics     the PTB tokenizer and the COCO scorers
     native      the C++ tokenizer and scorers (ctypes; g++ at first use)
     api         CaptionPipeline: checkpoint -> captions

@@ -12,7 +12,12 @@ leaves (navc_tpu/runtime/checkpoint.py). ``load_flax_variables`` fills a
   * LayerNorm / BatchNorm ``scale`` becomes ``weight``,
   * BatchNorm ``batch_stats`` ``mean`` / ``var`` become ``running_mean`` /
     ``running_var``,
-  * the tied projection bias ``tgt_word_prj_bias`` is copied as is.
+  * the tied projection bias ``tgt_word_prj_bias`` is copied as is,
+  * a Conv ``kernel`` (kH, kW, in, out) becomes ``nn.Conv2d.weight``
+    (out, in, kH, kW): navc_tpu's flax ``ResNet`` fills the port's
+    (``models/resnet.py``), its ``layerS_B`` blocks ``layerS[B]`` and a
+    block's ``downsample_conv`` / ``downsample_bn`` its ``downsample[0]`` /
+    ``[1]``.
 
 Every parameter and running statistic of the model must be filled, and
 every leaf of the tree must land somewhere, or the call raises.
@@ -31,6 +36,7 @@ from torch import nn
 
 from .models.decoder import BertDecoder
 from .models.layers import LayerNorm
+from .models.resnet import Bottleneck, ResNet
 
 
 def _child(module: nn.Module, name: str) -> nn.Module:
@@ -41,6 +47,11 @@ def _child(module: nn.Module, name: str) -> nn.Module:
             return group[name]
     if isinstance(module, BertDecoder) and name.startswith("layer_"):
         return module.layers[int(name[len("layer_"):])]
+    if isinstance(module, ResNet) and name.startswith("layer") and "_" in name:
+        stage, block = name[len("layer"):].split("_")
+        return getattr(module, "layer" + stage)[int(block)]
+    if isinstance(module, Bottleneck) and name in ("downsample_conv", "downsample_bn"):
+        return module.downsample[0 if name == "downsample_conv" else 1]
     child = getattr(module, name, None)
     if not isinstance(child, nn.Module):
         raise KeyError("no port module for flax scope %r under %s"
@@ -64,8 +75,10 @@ def _leaf(tree: Dict[str, Any], key: str) -> bool:
 
 def _fill(module: nn.Module, tree: Dict[str, Any], filled: Set[int],
           where: str) -> None:
-    if _leaf(tree, "kernel"):       # Dense
-        _copy(module.weight, np.asarray(tree["kernel"]).T, filled, where)
+    if _leaf(tree, "kernel"):       # Dense, Conv
+        kernel = np.asarray(tree["kernel"])
+        _copy(module.weight, kernel.transpose(3, 2, 0, 1) if kernel.ndim == 4 else kernel.T,
+              filled, where)
         if "bias" in tree:
             _copy(module.bias, tree["bias"], filled, where)
         return

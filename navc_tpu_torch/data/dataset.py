@@ -4,7 +4,10 @@ Port of navc_tpu/data/dataset.py (reference dataloader.py): every item is
 produced as fixed-shape NumPy arrays. Randomness uses a seeded
 ``np.random.RandomState`` like the reference (dataloader.py:68), drawn in
 navc_tpu's order, so the two packages give equal items and batches.
-navc_tpu's multi-host lockstep stream is not ported (one host).
+With ``host_lockstep`` (a host-sharded loader sets it) the decisions every
+rank must take alike (the epoch permutation, the per-epoch caption choice)
+come from ``structure_random`` (seed + 0x5eed), which per-item draws never
+touch: each rank draws per item for its own shard only.
 
 Replicated semantics (reference line cites):
   * frame sampling strategies segment_random / all_random / equally_sampling
@@ -161,6 +164,12 @@ class VideoDataset:
         self.specific = specific
 
         self.random = np.random.RandomState(cfg.seed)
+        # host-sharded loading: each rank's per-item draws (frame sampling,
+        # MLM masking) advance self.random by its own shard's amounts, so
+        # what must be the same on every rank comes from a stream per-item
+        # draws never touch (navc_tpu dataset.py:160-169)
+        self.host_lockstep = False
+        self.structure_random = np.random.RandomState(cfg.seed + 0x5eed)
         self.sources = open_feature_sources(cfg, in_memory_feats)
         self.infoset = self._make_infoset()
         self._references = None
@@ -218,7 +227,8 @@ class VideoDataset:
                 cap_id_set = [0]
             else:
                 n = min(len(captions), self.n_caps_per_video)
-                cap_id_set = list(self.random.choice(len(captions), n, replace=False))
+                rng = self.structure_random if self.host_lockstep else self.random
+                cap_id_set = list(rng.choice(len(captions), n, replace=False))
 
             for cap_id in cap_id_set:
                 infoset.append({

@@ -5,8 +5,9 @@ collated into fixed-shape NumPy batches, the final partial batch padded and
 flagged by ``valid_mask``, and an optional background thread keeps a
 prefetch queue full so the step never waits on feature reads. The
 host-to-device copy is the train step's (through page-locked slots,
-non-blocking: ``runtime.graphs.PinnedSlots``); navc_tpu's multi-host
-sharding is not ported.
+non-blocking: ``runtime.graphs.PinnedSlots``). Sharded over ranks, each
+iterates a disjoint strided slice of one epoch order, wrap-padded so every
+shard has the same number of batches and the ranks' steps stay in lockstep.
 """
 
 from __future__ import annotations
@@ -49,22 +50,50 @@ def collate(items: List[Dict[str, Any]], batch_size: int) -> Dict[str, Any]:
 class BatchLoader:
     """Iterate a VideoDataset in fixed-shape batches; train mode shuffles
     the item order each epoch with the dataset's seeded RNG (the reference
-    relies on torch DataLoader shuffle, misc/run.py:95)."""
+    relies on torch DataLoader shuffle, misc/run.py:95).
+
+    With ``num_shards`` / ``shard_id`` every shard iterates a disjoint
+    strided slice of the same epoch permutation (drawn from the dataset's
+    ``structure_random``, alike on every rank), padded by wrapping so every
+    shard has exactly the same number of batches (torch DistributedSampler
+    semantics, navc_tpu loader.py:53-99).
+    """
 
     def __init__(self, dataset: VideoDataset, batch_size: int,
-                 shuffle: bool = False, prefetch: int = 0):
+                 shuffle: bool = False, prefetch: int = 0,
+                 num_shards: int = 1, shard_id: int = 0):
+        assert 0 <= shard_id < num_shards
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.prefetch = prefetch
+        self.num_shards = num_shards
+        self.shard_id = shard_id
 
     def __len__(self) -> int:
-        return (len(self.dataset) + self.batch_size - 1) // self.batch_size
+        per_shard = -(-len(self.dataset) // self.num_shards)
+        return -(-per_shard // self.batch_size)
+
+    def _order(self) -> np.ndarray:
+        n = len(self.dataset)
+        if self.shuffle:
+            # per-item draws advance dataset.random differently on every
+            # shard: the permutation comes from the lockstep stream
+            rng = (self.dataset.structure_random if self.num_shards > 1
+                   else self.dataset.random)
+            order = rng.permutation(n)
+        else:
+            order = np.arange(n)
+        if self.num_shards > 1:
+            total = -(-n // self.num_shards) * self.num_shards
+            # np.resize tiles the order as often as needed: with fewer
+            # items than shards a single wrap would leave shards unequal
+            order = np.resize(order, total)[self.shard_id::self.num_shards]
+        return order
 
     def _iter_batches(self) -> Iterator[Dict[str, Any]]:
-        n = len(self.dataset)
-        order = self.dataset.random.permutation(n) if self.shuffle else np.arange(n)
-        for start in range(0, n, self.batch_size):
+        order = self._order()
+        for start in range(0, len(order), self.batch_size):
             idx = order[start:start + self.batch_size]
             items = [self.dataset[int(i)] for i in idx]
             yield collate(items, self.batch_size)
@@ -124,14 +153,28 @@ class BatchLoader:
 
 def get_loader(cfg, mode: str, info_corpus=None, in_memory_feats=None,
                batch_size: Optional[int] = None, specific: int = -1,
-               prefetch: Optional[int] = None) -> BatchLoader:
+               prefetch: Optional[int] = None, host_shard: bool = False,
+               mesh=None) -> BatchLoader:
     """Reference misc/run.py:89-96 ``get_loader``; ``batch_size`` overrides
-    the config's, ``specific`` >= 0 keeps one category's videos."""
+    the config's, ``specific`` >= 0 keeps one category's videos.
+
+    ``host_shard=True``: shard the epoch over the 'data' coordinate of
+    ``mesh`` (a ``parallel.Mesh``; default every rank a shard of its own),
+    so the ranks of one 'model' group load the same rows; ``batch_size`` is
+    then the per-rank batch."""
     ds = VideoDataset(cfg, mode, info_corpus=info_corpus,
                       in_memory_feats=in_memory_feats, specific=specific)
+    num_shards, shard_id = 1, 0
+    if host_shard:
+        from ..parallel import distributed
+
+        num_shards, shard_id = ((mesh.data, mesh.data_index) if mesh is not None else
+                                (distributed.process_count(), distributed.process_index()))
+        ds.host_lockstep = True
     return BatchLoader(
         ds,
         batch_size=batch_size or cfg.batch_size,
         shuffle=(mode == "train"),
         prefetch=cfg.prefetch_depth if prefetch is None else prefetch,
+        num_shards=num_shards, shard_id=shard_id,
     )

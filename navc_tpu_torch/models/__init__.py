@@ -6,6 +6,7 @@
     navc_tpu.models.predictor -> navc_tpu_torch.models.predictor
     navc_tpu.models.decoder   -> navc_tpu_torch.models.decoder
     navc_tpu.models.seq2seq   -> navc_tpu_torch.models.seq2seq
+    navc_tpu.models.resnet    -> navc_tpu_torch.models.resnet (feature extraction)
 """
 
 from .seq2seq import Seq2Seq, build_model  # noqa: F401

@@ -18,9 +18,13 @@ from those log-probs, so autograd hands K10 its gradient (-w * mask / B,
 zero at PAD labels and dropped rows). The kernel's argmax may differ from
 the logits' on bf16 near-ties (word accuracy only). A
 ``valid_mask`` (B,) drops padded rows of a final partial batch and divides
-by the valid-row count. Every value stays a tensor on its device: nothing
-here waits for the card or copies from the host, so the step that calls it
-can be captured as a CUDA graph.
+by the valid-row count. Across ranks (``group``, the 'data' group) the
+denominators are the global batch's, as navc_tpu's one GSPMD array has
+them: the valid-row count is all-reduced before any division, so the ranks'
+losses sum to the global loss, and a final partial batch whose valid rows
+fall unevenly across ranks gives the single-process loss. Every value stays
+a tensor on its device: nothing here waits for the card or copies from the
+host, so the step that calls it can be captured as a CUDA graph.
 """
 
 from __future__ import annotations
@@ -31,17 +35,24 @@ import torch
 
 from .. import constants as C
 from ..config import Config
+from ..parallel.distributed import all_reduce_
 
 
 def kl_length_loss(pred_logprobs: torch.Tensor, target: torch.Tensor,
-                   valid_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """torch nn.KLDivLoss() 'mean' over all B * max_len elements."""
+                   valid_mask: Optional[torch.Tensor] = None,
+                   rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """torch nn.KLDivLoss() 'mean' over all B * max_len elements;
+    ``rows``: the batch's (valid) row count when it is not this one's
+    (the global batch's)."""
     pos = target > 0
     safe = torch.where(pos, target, torch.ones_like(target))
     pointwise = torch.where(pos, target * (torch.log(safe) - pred_logprobs),
                             torch.zeros_like(target))
     if valid_mask is not None:
         pointwise = pointwise * valid_mask[:, None]
+    if rows is not None:
+        denom = rows * target.shape[1]
+    elif valid_mask is not None:
         denom = valid_mask.sum().clamp(min=1.0) * target.shape[1]
     else:
         denom = float(target.shape[0] * target.shape[1])
@@ -60,14 +71,16 @@ def _label_logprob(lp: torch.Tensor, lab: torch.Tensor
 
 
 def compute_losses(cfg: Config, results: Dict,
-                   valid_mask: Optional[torch.Tensor] = None
+                   valid_mask: Optional[torch.Tensor] = None, group=None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The aggregate criterion (reference Criterion.get_loss,
     crit.py:156-181). ``results`` holds ``tgt_word_rowstats`` ((B, L) label
     log-probs and (B, L) argmax ids), ``tgt_word_logits`` (raw) or
     ``tgt_word_logprobs``, one per pass, ``tgt_word_labels``, and
     ``pred_length`` / ``tgt_length`` when 'length' is in ``cfg.crit``.
-    Returns (total loss, metrics), every metric a 0-d float32 tensor."""
+    Returns (total loss, metrics), every metric a 0-d float32 tensor.
+    ``group``: the process group of the global batch, whose (valid) row
+    count divides the losses."""
     metrics: Dict[str, torch.Tensor] = {}
     vwg = cfg.visual_word_generation
     from_rowstats = "tgt_word_rowstats" in results
@@ -87,10 +100,14 @@ def compute_losses(cfg: Config, results: Dict,
 
     weights = list(cfg.nv_weights) if vwg else [1.0] * len(logprob_sets)
     if valid_mask is not None:
-        batch_denom = valid_mask.sum().clamp(min=1.0)
+        batch_denom = valid_mask.sum()
     else:
         batch_denom = torch.full((), float(first.shape[0]), dtype=torch.float32,
                                  device=dev)  # a fill on the card, no host copy
+    if group is not None:  # the global batch's count, before any division
+        all_reduce_(batch_denom, group)
+    if valid_mask is not None:
+        batch_denom = batch_denom.clamp(min=1.0)
 
     lang_loss = torch.zeros((), dtype=torch.float32, device=dev)
     for i, (w, lp, lab) in enumerate(zip(weights, logprob_sets, label_sets)):
@@ -124,7 +141,7 @@ def compute_losses(cfg: Config, results: Dict,
     total = scales.get("lang", 1.0) * lang_loss
     if "length" in [c.lower() for c in cfg.crit]:
         len_loss = kl_length_loss(results["pred_length"], results["tgt_length"],
-                                  valid_mask)
+                                  valid_mask, batch_denom if group is not None else None)
         metrics["length_loss"] = len_loss.detach()
         total = total + scales.get("length", 1.0) * len_loss
     metrics["total_loss"] = total.detach()

@@ -116,19 +116,7 @@ def train_network_all(cfg: Config, workdir: Optional[str] = None,
 
     model = build_model(cfg, device=dev, generator=torch.Generator().manual_seed(cfg.seed),
                         train=True)
-    if cfg.pretrained_path:  # reference train.py:85-87
-        _require(cfg.pretrained_path, "pretrained_path")
-        load_flax_variables(model, _variables(load_checkpoint(cfg.pretrained_path)))
-
-    # teacher warm start + rescoring teacher (reference run.py:274-291)
-    teacher_model, teacher_cfg = None, None
-    if cfg.load_teacher_weights and cfg.teacher_path:
-        _require(cfg.teacher_path, "teacher_path")
-        load_satisfied_weights(model, cfg.teacher_path, verbose=verbose)
-    if cfg.with_teacher and cfg.method in ("NAB", "NACF") and cfg.teacher_path:
-        _require(cfg.teacher_path, "teacher_path")
-        teacher_model, teacher_cfg, _ = load_model_and_config(cfg.teacher_path, device=dev)
-
+    teacher_model, teacher_cfg = warm_start(cfg, model, dev, verbose)
     state = create_train_state(cfg, model)
     lr_schedule = LrSchedule.from_config(cfg)
 
@@ -191,53 +179,102 @@ def train_network_all(cfg: Config, workdir: Optional[str] = None,
         summary.add_scalars({k: v for k, v in train_info.items()
                              if isinstance(v, float)}, epoch)
 
-        if (epoch + 1) > cfg.start_eval_epoch and (epoch + 1) % cfg.save_checkpoint_every == 0:
-            res = run_eval(cfg, evaluator, vali_loader, vocab, analyze=True)
-            res["train_loss"] = train_info.get("total_loss", 0.0)
-            res["epoch"] = epoch
+        if eval_due(cfg, epoch):
+            res = validate(cfg, evaluator, vali_loader, vocab, epoch, train_info, logger)
             history.append(res)
-            logger.write(res)
             summary.add_scalars({k: v for k, v in res.items()
                                  if isinstance(v, (int, float)) and k != "epoch"}, epoch)
-
-            ckpt = {
-                "epoch": epoch + 1,
-                "step": state.step,
-                "model": model,
-                "opt_state": state.optimizer.state_dict(),
-                "lr_schedule": {"learning_rate": lr_schedule.get_lr(),
-                                "n_current_steps": lr_schedule.n_current_steps},
-                "rng_state": {"train_data": train_loader.dataset.random.get_state(),
-                              "dropout": generator.get_state()},
-                "validate_result": res,
-                "settings": cfg,
-            }
-
-            def _save_best(dst, _ckpt=ckpt):
-                # best checkpoints drop the optimizer state (eval artifacts)
-                slim = {k: v for k, v in _ckpt.items() if k not in ("opt_state", "rng_state")}
-                slim["opt_state"] = None
-                save_checkpoint(slim, os.path.dirname(dst), os.path.basename(dst))
-
-            keep, info = best_model.check(res, workdir, cfg.tolerence, _save_best)
-            ckpt["kbest"] = best_model.state_dict()
-            save_checkpoint(ckpt, workdir, "checkpoint.ckpt")
-            if verbose:
-                logger.write_text(str(info))
+            keep = save_epoch(cfg, workdir, best_model, logger, verbose, checkpoint_of(
+                cfg, model, state, lr_schedule, epoch, res,
+                opt_state=state.optimizer.state_dict(),
+                rng_state={"train_data": train_loader.dataset.random.get_state(),
+                           "dropout": generator.get_state()}))
             if not keep:
                 break
 
     out: Dict[str, Any] = {"model": model, "state": state, "history": history,
                            "best_res": best_model.best_res}
     if not cfg.no_test:
-        best_path = os.path.join(workdir, "best.ckpt")
-        if not os.path.exists(best_path) and cfg.k_best_model > 1:
-            # with k > 1 the queue writes tmp_models/model_NNNN.ckpt only
-            best_path = best_model.best_entry_path() or best_path
-        if best_path and os.path.exists(best_path):
-            bmodel, bcfg, _ = load_model_and_config(best_path, device=dev)
-            bevaluator = Evaluator(bcfg, bmodel, teacher_cfg, teacher_model)
-        else:
-            bevaluator = evaluator
-        out["test_res"] = run_eval(cfg, bevaluator, test_loader, vocab, analyze=True)
+        out["test_res"] = final_test(cfg, workdir, dev, best_model, evaluator, teacher_cfg,
+                                     teacher_model, test_loader, vocab)
     return out
+
+
+def warm_start(cfg: Config, model, dev, verbose: bool = True,
+               rescorer: bool = True) -> Tuple[Any, Any]:
+    """The pretrained and teacher warm starts into ``model`` (reference
+    train.py:85-87, run.py:274-291); returns (teacher model, its config):
+    the rescoring teacher of NAB / NACF (with ``rescorer``), else Nones."""
+    if cfg.pretrained_path:
+        _require(cfg.pretrained_path, "pretrained_path")
+        load_flax_variables(model, _variables(load_checkpoint(cfg.pretrained_path)))
+    if cfg.load_teacher_weights and cfg.teacher_path:
+        _require(cfg.teacher_path, "teacher_path")
+        load_satisfied_weights(model, cfg.teacher_path, verbose=verbose)
+    if rescorer and cfg.with_teacher and cfg.method in ("NAB", "NACF") and cfg.teacher_path:
+        _require(cfg.teacher_path, "teacher_path")
+        teacher_model, teacher_cfg, _ = load_model_and_config(cfg.teacher_path, device=dev)
+        return teacher_model, teacher_cfg
+    return None, None
+
+
+def eval_due(cfg: Config, epoch: int) -> bool:
+    """Whether ``epoch`` ends with a validation and a checkpoint."""
+    return (epoch + 1) > cfg.start_eval_epoch and (epoch + 1) % cfg.save_checkpoint_every == 0
+
+
+def validate(cfg: Config, evaluator, vali_loader, vocab, epoch: int,
+             train_info: Dict[str, float], logger: CsvLogger) -> Dict[str, Any]:
+    """The validation decode and scores of ``epoch``, written to the CSV."""
+    res = run_eval(cfg, evaluator, vali_loader, vocab, analyze=True)
+    res["train_loss"] = train_info.get("total_loss", 0.0)
+    res["epoch"] = epoch
+    logger.write(res)
+    return res
+
+
+def checkpoint_of(cfg: Config, model, state: TrainState, lr_schedule: LrSchedule,
+                  epoch: int, res: Dict[str, Any], opt_state=None,
+                  **extra) -> Dict[str, Any]:
+    """The rolling checkpoint's dict after ``epoch``."""
+    return dict({"epoch": epoch + 1,
+                 "step": state.step,
+                 "model": model,
+                 "opt_state": opt_state,
+                 "lr_schedule": {"learning_rate": lr_schedule.get_lr(),
+                                 "n_current_steps": lr_schedule.n_current_steps},
+                 "validate_result": res,
+                 "settings": cfg}, **extra)
+
+
+def save_epoch(cfg: Config, workdir: str, best_model: KBestQueue, logger: CsvLogger,
+               verbose: bool, ckpt: Dict[str, Any]) -> bool:
+    """The k-best check of ``ckpt``'s validation (its best checkpoints
+    without the optimizer and RNG states), then ``checkpoint.ckpt`` with the
+    queue's state; returns whether training goes on."""
+
+    def _save_best(dst):
+        slim = {k: v for k, v in ckpt.items() if k not in ("opt_state", "rng_state")}
+        slim["opt_state"] = None
+        save_checkpoint(slim, os.path.dirname(dst), os.path.basename(dst))
+
+    keep, info = best_model.check(ckpt["validate_result"], workdir, cfg.tolerence, _save_best)
+    ckpt["kbest"] = best_model.state_dict()
+    save_checkpoint(ckpt, workdir, "checkpoint.ckpt")
+    if verbose:
+        logger.write_text(str(info))
+    return keep
+
+
+def final_test(cfg: Config, workdir: str, dev, best_model: KBestQueue, evaluator,
+               teacher_cfg, teacher_model, test_loader, vocab) -> Dict[str, Any]:
+    """The test evaluation of the best checkpoint (reference run.py:349-356),
+    or of ``evaluator``'s model when none was written."""
+    best_path = os.path.join(workdir, "best.ckpt")
+    if not os.path.exists(best_path) and cfg.k_best_model > 1:
+        # with k > 1 the queue writes tmp_models/model_NNNN.ckpt only
+        best_path = best_model.best_entry_path() or best_path
+    if best_path and os.path.exists(best_path):
+        bmodel, bcfg, _ = load_model_and_config(best_path, device=dev)
+        evaluator = Evaluator(bcfg, bmodel, teacher_cfg, teacher_model)
+    return run_eval(cfg, evaluator, test_loader, vocab, analyze=True)

@@ -13,7 +13,10 @@ batch. ``make_train_step`` returns ``step(batch, generator) -> metrics``:
     hash-dropout seeds, one per decoder pass, which go to the device as a
     (n_pass + 1,) int32 tensor that the kernels read there. navc_tpu draws
     these from threefry, so dropout-on steps of the two packages agree in
-    distribution only;
+    distribution only. Across ranks the seeds are mixed with the rank's
+    'data' coordinate, so each shard of the global batch draws masks of its
+    own (and the ranks of one 'model' group the same ones): a distributed
+    dropout-on step agrees with a single-process one in distribution only;
   * ``jit`` (default True, navc_tpu's ``jax.jit``): on the card the step's
     device part, a function of the batch's tensors and the seed tensor
     (forward, losses, backward, clip, optimizer update), is one CUDA graph
@@ -44,7 +47,21 @@ batch. ``make_train_step`` returns ``step(batch, generator) -> metrics``:
     runs under ``torch.utils.checkpoint`` (non-reentrant) and again in the
     backward, bit for bit (``_Remat``); on the fused route K11 and K9 then
     launch twice a decoder pass;
-  * metrics stay tensors on the device: the step never waits for the card.
+  * metrics stay tensors on the device: the step never waits for the card;
+  * ``make_sharded_train_step`` (a ``parallel.ShardedParams``, whose mesh
+    names the rank's groups) makes it one rank's step over the global batch, as
+    navc_tpu's GSPMD step over a ('data', 'model') mesh: the TP slices are
+    all-gathered into the model's full weights before the forward (the
+    kernels take them as they are); BatchNorm's statistics and the losses'
+    denominators span the 'data' group (``models/fusion.py``,
+    ``runtime/crit.py``); between ``loss.backward()`` and the optimizer
+    each TP slice takes its part of the full gradient and one all-reduce
+    over 'data' sums the gradients (one flat buffer), so the value clip
+    sees the global gradient; the metrics are all-reduced too. The ranks of
+    a 'model' group compute the same rows. With ``jit`` on an NCCL group
+    the collectives are captured in the step's graph (its eager first call
+    sets the communicators up); gloo collectives cannot be captured, so
+    ``jit=True`` on a gloo group raises.
 
 The routes (``fused_train_eligible``, ``fused_vocab_ce_eligible``, with
 navc_tpu's ``NAVC_NO_FUSED_TRAIN`` and ``NAVC_NO_FUSED_CE``) are read when
@@ -58,7 +75,7 @@ import contextlib
 import functools
 import weakref
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, NamedTuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -67,10 +84,13 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import constants as C
 from ..config import Config
+from ..models.fusion import Fusion
 from ..models.seq2seq import Seq2Seq, compute_dtype
 from ..ops.eligibility import fused_train_eligible, fused_vocab_ce_eligible
 from ..ops.fused_layer_train import fused_bert_layer_train, layer_train_weights
 from ..ops.vocab_ce import vocab_ce_train
+from ..parallel import distributed as D
+from ..parallel.mesh import ShardedParams
 from . import graphs, optim
 from .crit import compute_losses
 
@@ -82,10 +102,14 @@ class TrainState:
     step: int = 0
 
 
-def create_train_state(cfg: Config, model: Seq2Seq) -> TrainState:
-    """Put ``model`` in train mode with gradients and make its optimizer."""
+def create_train_state(cfg: Config, model: Seq2Seq,
+                       params: Optional[List[nn.Parameter]] = None) -> TrainState:
+    """Put ``model`` in train mode with gradients and make its optimizer,
+    over ``params`` (default the model's; ``ShardedParams.parameters()``
+    on a rank of a TP mesh)."""
     model.train().requires_grad_(True)
-    return TrainState(model, optim.make_optimizer(cfg, model.parameters()))
+    return TrainState(model, optim.make_optimizer(
+        cfg, model.parameters() if params is None else params))
 
 
 def _device(model: Seq2Seq) -> torch.device:
@@ -272,14 +296,72 @@ class _Remat:
                                               self._recompute(drawing)))
 
 
+class _Sync:
+    """The collectives of one rank's step over the global batch."""
+
+    def __init__(self, model: Seq2Seq, sharded: ShardedParams):
+        self.sharded = sharded
+        self.group = sharded.mesh.data_group
+        for m in model.modules():  # BatchNorm over the global batch
+            if isinstance(m, Fusion):
+                m.stats_group = D.GroupRef(self.group)
+
+    def begin(self) -> None:
+        """The TP slices into the full weights; their gradients zeroed."""
+        self.sharded.gather()
+        self.sharded.zero_full_grads()
+
+    def end(self, opt: torch.optim.Optimizer, metrics: Dict[str, torch.Tensor]
+            ) -> Dict[str, torch.Tensor]:
+        """After the backward: each TP slice's part of the full gradient,
+        the gradients summed over 'data' (one flat buffer) and the metrics'
+        sums and counts (the global count is every rank's already)."""
+        self.sharded.slice_grads()
+        if self.group is None:
+            return metrics
+        params = [p for group in opt.param_groups for p in group["params"]]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        flat = torch.cat([p.grad.reshape(-1) for p in params])
+        D.all_reduce_(flat, self.group)
+        off = 0
+        for p in params:
+            p.grad.copy_(flat[off:off + p.numel()].view_as(p.grad))
+            off += p.numel()
+        keys = sorted(k for k in metrics if k != "num_samples")
+        sums = D.all_reduce_(torch.stack([metrics[k] for k in keys]), self.group)
+        return dict(zip(keys, sums.unbind()), num_samples=metrics["num_samples"])
+
+
 def make_train_step(cfg: Config, model: Seq2Seq, opt: torch.optim.Optimizer, *,
                     jit: bool = True):
     """``step(batch, generator) -> metrics``: one optimizer step on
     ``model`` (see the module docstring). The step's ``jitted`` is its
     ``graphs.Jitted`` (None on the eager route), ``routes`` its
     ``TrainRoutes``."""
+    return _make_step(cfg, model, opt, jit, None)
+
+
+def make_sharded_train_step(cfg: Config, model: Seq2Seq, opt: torch.optim.Optimizer,
+                            sharded: ShardedParams, *, jit: bool = True):
+    """``make_train_step``'s step as this rank's step over the global batch
+    on ``sharded``'s mesh (``opt`` over ``sharded.parameters()``)."""
+    return _make_step(cfg, model, opt, jit, sharded)
+
+
+def _make_step(cfg: Config, model: Seq2Seq, opt: torch.optim.Optimizer, jit: bool,
+               sharded: Optional[ShardedParams]):
     n_pass = 2 if cfg.visual_word_generation else 1
     dev = _device(model)
+    sync = None
+    if sharded is not None:
+        if jit and sharded.mesh.backend == "gloo":
+            raise ValueError("gloo collectives cannot be captured in a CUDA graph: "
+                             "make the step with jit=False")
+        sync = _Sync(model, sharded)
+    group = sync.group if sync else None
+    data_index = sharded.mesh.data_index if sharded is not None else 0
     dropout_gen = torch.Generator(device=dev)
     routes = TrainRoutes.of(cfg)
     remat = _Remat(model, dropout_gen) if cfg.remat else None
@@ -291,10 +373,14 @@ def make_train_step(cfg: Config, model: Seq2Seq, opt: torch.optim.Optimizer, *,
     def device_step(batch: Dict[str, torch.Tensor], seeds: torch.Tensor
                     ) -> Dict[str, torch.Tensor]:
         opt.zero_grad(set_to_none=False)
+        if sync:
+            sync.begin()
         fwd = functools.partial(forward, batch=batch)
         results = remat(fwd, seeds) if remat else fwd(dropout_gen, seeds)
-        loss, metrics = compute_losses(cfg, results, batch.get("valid_mask"))
+        loss, metrics = compute_losses(cfg, results, batch.get("valid_mask"), group)
         loss.backward()
+        if sync:
+            metrics = sync.end(opt, metrics)
         optim.step(cfg, opt)
         return metrics
 
@@ -307,6 +393,8 @@ def make_train_step(cfg: Config, model: Seq2Seq, opt: torch.optim.Optimizer, *,
 
     def train_step(batch: Dict, generator: torch.Generator) -> Dict[str, torch.Tensor]:
         draws = torch.randint(0, 2 ** 31 - 1, (n_pass + 1,), generator=generator)
+        if data_index:  # each shard of the global batch its own masks
+            draws = (draws + data_index * 0x2545F491) % (2 ** 31 - 1)
         dropout_gen.manual_seed(int(draws[0]))
         if remat:
             remat.seed(int(draws[0]))

@@ -4,16 +4,20 @@ K7, K1u), of the decodes' CUDA graphs (runtime/graphs.py, the beam's
 blocks; the IF nodes of the compiled l2r and ef, csrc/graph_cond.cu, their
 counters, ef's loop condition and the lagged flag read), of the
 captured training step (runtime/train_step.py, its seed, lr and generator),
-of navc_tpu's route switches (a switch read but its route kept) and of
+of navc_tpu's route switches (a switch read but its route kept), of
 ``cfg.remat``'s recompute (fresh dropout masks, running statistics moved
-twice) on a card.
+twice) and of data and tensor parallelism (the gradient all-reduce, the
+global BatchNorm statistics and loss denominator, a TP slice's gradient) on
+a card.
 
 Each mutant is one exact edit of a file of navc_tpu_torch, made in a copy of
 the package under a temporary directory (never in the checkout); the
 `cuda` tests of tests/test_torch_port_cuda.py that cover it (the
 training tests, K2's, K1's walk tests, K6's, K7's, K1u's, the graphs' or
 the captured step's) then run against the copy, one process each, at most
-JOBS (4) at once. The kernels are built once in the checkout first and each
+JOBS (4) at once; a mutant of the ``parallel`` group must also make
+chip_smoke.py's parallel phase, run alone in the copy, exit non-zero.
+The kernels are built once in the checkout first and each
 copy starts from that build, so a copy rebuilds only a source its edit
 changed. Beside the mutants, one unedited copy per group of tests (the
 control) runs the same tests under the same load: a control that does not
@@ -24,7 +28,7 @@ from the repo root on a machine with an NVIDIA card:
     python3 scripts/port_mutants.py [TESTS ...]
 
 where TESTS (e.g. ``graphs``, ``cond_graphs``, ``train_graphs``, ``switch``,
-``remat``) keeps only the mutants whose tests are named so.
+``remat``, ``parallel``) keeps only the mutants whose tests are named so.
 """
 
 import os
@@ -140,11 +144,25 @@ MUTANTS = {  # name: (file under navc_tpu_torch, text, its replacement, tests)
     "remat: the recompute moves the running statistics again": (
         "runtime/train_step.py", "                    t.copy_(k)\n", "                    pass\n",
         "remat"),
+    "parallel: the gradient all-reduce dropped": (
+        "runtime/train_step.py", "        D.all_reduce_(flat, self.group)\n", "", "parallel"),
+    "parallel: BatchNorm statistics left local": (
+        "models/fusion.py", "        sums = all_reduce(sums, group)\n", "", "parallel"),
+    "parallel: the loss denominator left local": (
+        "runtime/crit.py", "        all_reduce_(batch_denom, group)\n", "        pass\n",
+        "parallel"),
+    "parallel: a TP slice's gradient from the other rank's part": (
+        "parallel/mesh.py", "part = s.full.grad.narrow(s.dim, self.mesh.model_index * n, n)",
+        "part = s.full.grad.narrow(s.dim, (self.mesh.model - 1 - self.mesh.model_index) * n, "
+        "n)", "parallel"),
 }
 
 
 CONTROL = "control (no edit)"
 JOBS = 4  # test processes at once: the card and its host cores are shared by them all
+# groups whose mutants chip_smoke.py's phase must also catch: the phase alone,
+# in the copy
+SMOKE = {"parallel": "import chip_smoke; chip_smoke.parallel_phase('mutant check')"}
 
 
 def copy_tree(work, k, edit=None):
@@ -155,6 +173,7 @@ def copy_tree(work, k, edit=None):
                     ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copytree(os.path.join(ROOT, "tests"), os.path.join(root, "tests"),
                     ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), root)
     if edit:
         src, old, new = edit
         path = os.path.join(root, "navc_tpu_torch", src)
@@ -175,16 +194,19 @@ def main():
     work = tempfile.mkdtemp(prefix="port_mutants_")
     chosen = [(name, m) for name, m in MUTANTS.items() if not keep or m[3] in keep]
     groups = sorted({m[3] for _, m in chosen})
-    queue = [("%s: %s" % (CONTROL, g), None, g) for g in groups] + [
+    pytest = [sys.executable, "-m", "pytest", "tests/test_torch_port_cuda.py", "-q",
+              "--noconftest", "-p", "no:cacheprovider", "-k"]
+    jobs = [("%s: %s" % (CONTROL, g), None, g) for g in groups] + [
         (name, (src, old, new), tests) for name, (src, old, new, tests) in chosen]
+    queue = [(name, edit, pytest + [tests]) for name, edit, tests in jobs] + [
+        ("%s [chip_smoke.py]" % name, edit, [sys.executable, "-c", SMOKE[tests]])
+        for name, edit, tests in jobs if tests in SMOKE]
     running, tails = {}, {}
     try:
-        for k, (name, edit, tests) in enumerate(queue):
+        for k, (name, edit, cmd) in enumerate(queue):
             while len(running) >= JOBS:
                 wait_one(running, tails)
             root = copy_tree(work, k, edit)
-            cmd = [sys.executable, "-m", "pytest", "tests/test_torch_port_cuda.py", "-q",
-                   "--noconftest", "-p", "no:cacheprovider", "-k", tests]
             with open(os.path.join(root, "pytest.out"), "w") as out:
                 running[name] = subprocess.Popen(cmd, cwd=root, stdout=out,
                                                  stderr=subprocess.STDOUT,
@@ -196,9 +218,14 @@ def main():
         for name, _, _ in queue:
             tail = tails[name]
             print("%-66s %s" % (name, tail), flush=True)
-            failed = re.search(r"(\d+) (failed|error)", tail)
+            if name.endswith("[chip_smoke.py]"):  # the phase exits non-zero on a fault
+                passed = tail.startswith("exit 0:")
+                failed = not passed
+            else:
+                failed = re.search(r"(\d+) (failed|error)", tail)
+                passed = not failed and re.search(r"\d+ passed", tail)
             if name.startswith(CONTROL):
-                if failed or not re.search(r"\d+ passed", tail):
+                if not passed:
                     void.append(name)
             elif not failed:
                 survived.append(name)
@@ -220,6 +247,8 @@ def wait_one(running, tails):
                 with open(proc.out) as f:
                     out = f.read().strip()
                 tails[name] = out.splitlines()[-1] if out else "(no output)"
+                if name.endswith("[chip_smoke.py]"):
+                    tails[name] = "exit %d: %s" % (proc.returncode, tails[name][-300:])
                 del running[name]
                 return
         time.sleep(1)

@@ -27,7 +27,11 @@ batch already on the card, the eval-loss step, no sync in an eager step),
 K11/K12a/K12b with a device seed, navc_tpu's route switches
 (``test_switch_*``: each kernel's launches on and off its route, the
 switched decodes and steps replayed bit for bit), SelfMask's beam through
-K5-K7, and ``cfg.remat`` bit for bit remat off on both training routes.
+K5-K7, ``cfg.remat`` bit for bit remat off on both training routes, data
+and tensor parallelism (``test_parallel_*``: two ranks on the card over
+gloo against one process, gradient by gradient; one rank on NCCL, its
+step captured and replayed; ``jit=True`` on a gloo group refused) and the
+ResNet feature extractor against the CPU.
 Run them on a machine with a card:
 
     python3 -m pytest tests/test_torch_port_cuda.py -q --noconftest
@@ -2705,3 +2709,182 @@ def test_remat_is_bit_exact_on_the_card(cuda, on, monkeypatch):
         off = runs[False, jit][-1][1]
         assert {k: n for k, n in launches.items() if k not in ("train_fwd", "ce_fwd")} == \
             {k: n for k, n in off.items() if k not in ("train_fwd", "ce_fwd")}
+
+
+# ---------------------------------------------------------------------------
+# data and tensor parallelism on the card (test_parallel_*): ranks are fresh
+# processes of tests/torch_port_dist_worker.py; the feature extractor
+# ---------------------------------------------------------------------------
+
+PAR_B = 16
+PAR_OVER = dict(SERVE, batch_size=PAR_B, hidden_dropout_prob=0.0, encoder_dropout=0.0)
+PAR_GRAD_TOL = 5e-2  # norm-relative, per parameter (chip_smoke.py's p = 0 step gate), of
+#                     at least 1e-3 of the largest parameter gradient's norm: an attention
+#                     key bias has no gradient but rounding noise (softmax is shift-free)
+
+
+def _par_batches(cfg, n=2):
+    """NACF batches whose second half has features 3x the first's: each
+    rank's BatchNorm statistics differ from the global batch's."""
+    out = []
+    for s in range(n):
+        b = _train_batch(cfg, PAR_B, 40 + s)
+        for ch in cfg.modality.lower():
+            b["feats_%s" % ch][PAR_B // 2:] *= 3.0
+        out.append(b)
+    return out
+
+
+def _par_single(cfg, batches):
+    """The single-process eager step on the whole batches: (losses, each
+    step's gradient as {flax path: array})."""
+    import torch_port_dist_worker as worker
+
+    from navc_tpu_torch.models import build_model
+
+    model = build_model(cfg, device="cuda", generator=_gen(0), train=True)
+    out = worker.single_steps(cfg, model, batches)
+    return ([m["total_loss"] for m in out["metrics"]],
+            [dict(worker.leaves(g)) for g in out["grads"]])
+
+
+def _par_check_steps(outs, cfg, batches):
+    """The 'dp' and 'tp' cases of the ranks' ``steps`` suite against the
+    single-process step on the whole batches: the ranks' losses and weights
+    bit for bit alike; each step's loss within 1e-2, its global gradient
+    within PAR_GRAD_TOL parameter by parameter."""
+    import torch_port_dist_worker as worker
+
+    losses, grads = _par_single(cfg, batches)
+    for name in ("dp", "tp"):
+        r0, r1 = (o["steps"][name] for o in outs)
+        assert r0["metrics"] == r1["metrics"] and r0["digests"] == r1["digests"], name
+        assert len(r0["shards"]) == (5 if name == "tp" else 0)
+        for i, (m, want) in enumerate(zip(r0["metrics"], losses)):
+            assert abs(m["total_loss"] - want) <= 1e-2 * abs(want), (name, i, m, want)
+            got = dict(worker.leaves(r0["grads"][i]))
+            floor = 1e-3 * max(np.linalg.norm(ref) for ref in grads[i].values())
+            for k, ref in grads[i].items():
+                gap = np.linalg.norm(got[k] - ref)
+                assert gap <= PAR_GRAD_TOL * max(np.linalg.norm(ref), floor), (name, i, k, gap)
+
+
+def _par_cases(batches):
+    return [dict(name=name, method="NACF", over=PAR_OVER, batches=batches, mesh=mesh)
+            for name, mesh in (("dp", None), ("tp", {"data": 1, "model": 2}))]
+
+
+@pytest.mark.cuda
+def test_parallel_two_gloo_ranks_on_the_card_match_one_process(cuda, tmp_path):
+    """Two ranks on the card over gloo (NCCL refuses two ranks on one
+    device), eager, at serving width (bf16 kernels, dropout 0): data 2, and
+    data 1 x model 2, each 2 steps of a 16-video NACF batch. The ranks'
+    losses and weights bit for bit alike; each step's loss within 1e-2 of
+    the single-process step's on the whole batch, and its global gradient
+    (all-reduced; the TP slices' gathered) within PAR_GRAD_TOL of the
+    single-process gradient, parameter by parameter (of the norm, or of
+    1e-3 of the largest parameter gradient's norm): a gradient not summed
+    over the ranks, BatchNorm statistics or loss denominators of one rank's
+    rows, or a TP slice's gradient taken from the other rank's part, are
+    off by far more."""
+    import torch_port_dist_worker as worker
+
+    from navc_tpu_torch.config import default_config
+
+    cfg = default_config("NACF", **PAR_OVER)
+    batches = _par_batches(cfg)
+    wait = worker.start("steps", 2, dict(device="cuda", backend="gloo",
+                                         steps=_par_cases(batches)),
+                        str(tmp_path), timeout=600)
+    _par_check_steps(wait(), cfg, batches)
+
+
+@pytest.mark.cuda
+def test_parallel_two_nccl_ranks_on_two_cards(cuda, tmp_path):
+    """Two ranks on two cards over NCCL, at serving width: the 'dp' and
+    'tp' steps as the gloo test holds them (each 'model' and 'data' line a
+    communicator of its own); the step captured with its collectives
+    (jit=True) on both ranks, bit for bit its eager run and alike on both,
+    within 1e-2 of the single-process step on the whole batch, a replay
+    launching the single-process replay's kernels and issuing no collective
+    from the host; and train_network_all_multihost for one epoch (the step
+    captured, the early-stop flag broadcast on the card): one train loss on
+    both ranks, rank 0 alone validating and writing best.ckpt."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards (NCCL refuses two ranks on one card)")
+    import torch_port_dist_worker as worker
+
+    from navc_tpu_torch.config import default_config
+    from navc_tpu_torch.data.synthetic import make_synthetic_corpus, make_synthetic_feats
+
+    cfg = default_config("NACF", **PAR_OVER)
+    batches = _par_batches(cfg, 3)
+    loop_cfg = cfg.replace(epochs=1, teacher_path="", load_teacher_weights=False,
+                           with_teacher=False)
+    corpus, refs = make_synthetic_corpus(loop_cfg, n_videos=48, n_caps=2,
+                                         vocab_size=cfg.vocab_size)
+    feats = make_synthetic_feats(loop_cfg, n_videos=48, n_total_frames=cfg.n_total_frames)
+    outs = worker.start("steps,nccl_step,loop", 2, dict(
+        device="cuda", backend="nccl", steps=_par_cases(batches[:2]),
+        nccl_step=dict(over=PAR_OVER, batches=batches),
+        loop=dict(root=str(tmp_path), corpus=corpus, refs=refs, feats=feats,
+                  loops=[("nccl", loop_cfg)])), str(tmp_path / "ranks"), timeout=600)()
+    _par_check_steps(outs, cfg, batches[:2])
+    r0, r1 = (o["nccl_step"] for o in outs)
+    assert r0["backend"] == "nccl" and r0["graphs"] == 1
+    assert r0["replayed"] == r0["eager"] == r1["replayed"] == r1["eager"]
+    for a, b in zip(r0["replayed"], r0["single"]):
+        assert abs(a - b) <= 1e-2 * abs(b), (a, b)
+    assert r0["replayed launches"] == r0["single launches"]
+    assert r0["replayed host collectives"] == 0 == r0["single host collectives"]
+    assert r0["gloo jit"].startswith("ValueError: gloo collectives cannot be captured")
+    l0, l1 = (o["loop"]["nccl"] for o in outs)
+    assert l0["train_curve"] == l1["train_curve"] and np.isfinite(l0["train_curve"]).all()
+    assert (l0["n_eval"], l1["n_eval"]) == (1, 0) and l1["saved"] == []
+    assert str(tmp_path / "nccl" / "best.ckpt") in l0["saved"]
+
+
+@pytest.mark.cuda
+def test_parallel_one_nccl_rank_step_is_captured_and_replayed(cuda, tmp_path):
+    """One rank on NCCL, serving width: the distributed step captured
+    (jit=True; its all-reduces inside the graph) gives its eager run's
+    losses bit for bit over 3 steps, within 1e-2 of the single-process
+    step's; a replay launches what the single-process replay does and
+    issues no collective from the host (an eager step issues them); and
+    jit=True on a gloo group raises (gloo collectives cannot be captured)."""
+    import torch_port_dist_worker as worker
+
+    from navc_tpu_torch.config import default_config
+
+    cfg = default_config("NACF", **PAR_OVER)
+    batches = _par_batches(cfg, 3)
+    (out,) = worker.start("nccl_step", 1, dict(
+        device="cuda", backend="nccl", nccl_step=dict(over=PAR_OVER, batches=batches)),
+        str(tmp_path), timeout=600)()
+    got = out["nccl_step"]
+    assert got["backend"] == "nccl" and got["graphs"] == 1
+    assert got["replayed"] == got["eager"]
+    for a, b in zip(got["replayed"], got["single"]):
+        assert abs(a - b) <= 1e-2 * abs(b), (a, b)
+    assert got["replayed launches"] == got["single launches"] and \
+        got["replayed launches"].get("train_fwd") == 2
+    assert got["replayed host collectives"] == 0 == got["single host collectives"]
+    assert got["gloo jit"].startswith("ValueError: gloo collectives cannot be captured")
+
+
+@pytest.mark.cuda
+def test_resnet_on_the_card_matches_the_cpu(cuda):
+    """models/resnet.py's ResNet-50 layout (random init) at 64 x 64 through
+    make_backbone on the card (cuDNN, TF32 off) against the CPU forward of
+    the same weights: within 1e-3 of the largest feature."""
+    import copy
+
+    from navc_tpu_torch.models.resnet import RESNET_STAGES, init_resnet, make_backbone
+
+    torch.backends.cudnn.allow_tf32 = False
+    cpu_model = init_resnet(_gen(0), RESNET_STAGES[50])
+    frames = np.random.RandomState(0).rand(5, 64, 64, 3).astype(np.float32)
+    got = make_backbone(copy.deepcopy(cpu_model), batch_size=2, device="cuda")(frames)
+    want = make_backbone(cpu_model, device="cpu")(frames)
+    assert got.shape == want.shape == (5, 2048)
+    assert np.abs(got - want).max() <= 1e-3 * np.abs(want).max()

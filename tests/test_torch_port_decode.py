@@ -231,7 +231,9 @@ def test_port_imports_no_jax():
         "train = ('ops.fused_layer_train', 'runtime.train_step', 'runtime.loop',"
         " 'runtime.crit', 'runtime.optim', 'runtime.logger', 'ops.vocab_ce',"
         " 'runtime.evaluate', 'data.loader', 'metrics.scorer', 'cli.train',"
-        " 'api', 'cli.translate', 'cli.convert', 'runtime.torch_convert')\n"
+        " 'api', 'cli.translate', 'cli.convert', 'runtime.torch_convert',"
+        " 'parallel.mesh', 'parallel.distributed', 'runtime.distributed_loop',"
+        " 'models.resnet', 'data.pretreatment')\n"
         "missing = [m for m in train if 'navc_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "import builtins, os\n"
