@@ -7,7 +7,18 @@ Run from the root of a checkout on a machine with one NVIDIA card:
 
 It builds the port's CUDA kernels from navc_tpu_torch/csrc with nvcc and
 drives the two ported serving paths at full width (random weights from a
-seed). NACF: each of K1-K4 held against its plain PyTorch version at the
+seed). First, in a process of its own (this script with --scale), the scale
+phase: bench.py's NACF protocol at its batch, one decode of 8192 videos a
+call (49,152 length-beam canvases): the encodes outside the timed region,
+3 warm-up calls, 20 sequential and 20 pipelined calls (captions/s), one
+replay profiled (idle share, the largest kernels), an eager decode, 4
+requests of 8192 videos through StreamingCaptioner; launches per decode
+PER_DECODE, the replays, the eager decode and the served requests bit for
+bit alike, three 64-video slices (the first, the middle, the last) encoded
+and decoded alone >= 0.99 of the same rows, the last 8 videos >= 0.99
+against the CPU plain path, and K1-K4 timed at the decode's shapes, the
+rows of their last canvases against the plain version. NACF: each of
+K1-K4 held against its plain PyTorch version at the
 NACF main path's shapes and timed (K1 NAR and causal, and K2, also beside
 bf16 torch.matmul of their products at their shapes, `matmul_ms`, and
 given --parent the parent's K1 and K2 in turns; K1 bit for bit the same in
@@ -672,6 +683,26 @@ def check_captions(hyp, b, max_len, v, eos, pad):
     after_eos = np.cumsum(hyp == eos, axis=1) - (hyp == eos) > 0
     if np.any(hyp[after_eos] != pad):
         die("ARB: a non-PAD token follows an EOS")
+
+
+def check_nar_captions(hyp, b, cfg):
+    """(b, max_len) int32 ids in [0, V): captions of 4 to max_len - 1
+    tokens, nothing but PAD after a caption's end."""
+    import numpy as np
+
+    from navc_tpu_torch import constants as C
+
+    if hyp.shape != (b, cfg.max_len) or hyp.dtype != np.int32:
+        die("hypotheses of shape %s %s" % (hyp.shape, hyp.dtype))
+    if hyp.min() < 0 or hyp.max() >= cfg.vocab_size:
+        die("token ids out of range")
+    nonpad = hyp != C.PAD
+    length = np.where(nonpad.any(1), cfg.max_len - np.argmax(nonpad[:, ::-1], 1), 0)
+    if length.min() < 4 or length.max() > cfg.max_len - 1:
+        die("caption lengths outside [4, %d]: %s" % (cfg.max_len - 1, length))
+    tail = np.arange(cfg.max_len)[None] >= length[:, None]
+    if np.any(hyp[tail] != C.PAD):
+        die("non-PAD token after a caption's end")
 
 
 def cross_layouts(k, te, h, nh, sms, gen, instances=(16, 64, 128, 256, 512, 1024)):
@@ -3486,6 +3517,33 @@ def switch_worker(name):
     return 0
 
 
+def script_process(args, what, env=None):
+    """This script with ``args`` in a fresh process (``env``: its
+    environment, else this one's): its lines logged here as ``what``'s, its
+    last line the figures it returns (JSON), with the process's seconds
+    added; dies if it exits non-zero."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__)] + args, cwd=ROOT,
+                          env=env, capture_output=True, text=True, timeout=900)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log("  [%s] %s" % (what, line))
+    if proc.returncode != 0 or not lines:
+        die("%s worker exited with %d: %s" % (what, proc.returncode,
+                                              proc.stderr.strip()[-3000:]))
+    figures = json.loads(lines[-1])
+    figures["process_s"] = time.perf_counter() - t0
+    return figures
+
+
+def card_name():
+    """The card's name and power limit as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return (smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else
+            "nvidia-smi failed: " + smi.stderr.strip())
+
+
 def switch_process(name, env):
     """Run ``--switch name`` in a fresh process with ``env`` added to this
     one's environment (every other switch taken out); its output is logged
@@ -3494,17 +3552,7 @@ def switch_process(name, env):
 
     full = {k: v for k, v in os.environ.items() if k not in SWITCH_NAMES}
     full.update(env)
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--switch", name],
-                          cwd=ROOT, env=full, capture_output=True, text=True, timeout=900)
-    lines = proc.stdout.strip().splitlines()
-    for line in lines[:-1]:
-        log("  [%s] %s" % (name, line))
-    if proc.returncode != 0 or not lines:
-        die("switch worker %s exited with %d: %s" % (name, proc.returncode,
-                                                     proc.stderr.strip()[-3000:]))
-    figures = json.loads(lines[-1])
-    figures["process_s"] = time.perf_counter() - t0
+    figures = script_process(["--switch", name], name, full)
     tensors = torch.load(switch_file(name))
     os.remove(switch_file(name))
     return figures, tensors
@@ -3937,33 +3985,6 @@ def par_batches(cfg):
     return out
 
 
-def par_gaps(got, want, single_grads):
-    """A rank's steps (the worker's ``steps`` results) against the single
-    process's (``single_grads`` its gradients, ``want`` its variables after
-    the steps): (loss gaps, worst gradient gap, worst weight gap, worst
-    BatchNorm statistic gap)."""
-    import numpy as np
-
-    from torch_port_dist_worker import leaves
-
-    losses = [m["total_loss"] for m in got["metrics"]]
-    loss_gaps = [abs(a - b) / abs(b) for a, b in zip(losses, want["losses"])]
-    grad_gap = 0.0
-    for mine, ref in zip(got["grads"], single_grads):
-        mine, ref = dict(leaves(mine)), dict(leaves(ref))
-        floor = 1e-3 * max(np.linalg.norm(v) for v in ref.values())
-        grad_gap = max([grad_gap] + [float(np.linalg.norm(mine[k] - v))
-                                     / max(float(np.linalg.norm(v)), floor)
-                                     for k, v in ref.items()])
-    params = dict(leaves(got["variables"]["params"]))
-    weight_gap = max(float(np.abs(params[k] - v).max())
-                     for k, v in leaves(want["variables"]["params"]))
-    stats = dict(leaves(got["variables"].get("batch_stats", {})))
-    bn_gap = max([0.0] + [float(np.abs(stats[k] - v).max()) / max(float(np.abs(v).max()), 1.0)
-                          for k, v in leaves(want["variables"].get("batch_stats", {}))])
-    return loss_gaps, grad_gap, weight_gap, bn_gap
-
-
 def parallel_phase(card):
     """Data and tensor parallelism at full width (NACF, d 512, V 10048,
     global batch PAR_B, dropout 0, bf16 kernels), against the single-process
@@ -4005,8 +4026,7 @@ def parallel_phase(card):
     model = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0),
                         train=True)
     single = worker.single_steps(cfg, model, steps, timed=timed)
-    want = dict(losses=[m["total_loss"] for m in single["metrics"]],
-                variables=single["variables"])
+    want = dict(losses=[m["total_loss"] for m in single["metrics"]])
     n_params = sum(p.numel() for p in model.parameters())
     del model
     res = {"single": dict(losses=want["losses"], eager_ms=float(np.median(single["ms"])),
@@ -4063,7 +4083,7 @@ def parallel_phase(card):
         # (a)
         if dp[1]["metrics"] != dp[0]["metrics"] or dp[1]["digests"] != dp[0]["digests"]:
             die("parallel (a): the ranks' losses or weights differ after a step")
-        gaps, grad_gap, worst_p, worst_bn = par_gaps(dp[0], want, single["grads"])
+        gaps, grad_gap, worst_p, worst_bn = worker.gaps(dp[0], single)
         if max(gaps) > PAR_LOSS_TOL or grad_gap > PAR_GRAD_TOL or worst_bn > PAR_BN_TOL:
             die("parallel (a): loss gaps %s (limit %g), worst gradient gap %.3e (limit %g), "
                 "BatchNorm %.3e (limit %g) against the single-process step"
@@ -4163,7 +4183,7 @@ def parallel_phase(card):
             if 2 * shape[dim] != full[dim] or \
                     shape[:dim] + shape[dim + 1:] != full[:dim] + full[dim + 1:]:
                 die("parallel (d): %s holds %s of %s" % (name, shape, full))
-        gaps_d, grad_gap_d, worst_pd, worst_bnd = par_gaps(tp[0], want, single["grads"])
+        gaps_d, grad_gap_d, worst_pd, worst_bnd = worker.gaps(tp[0], single)
         if len(tp[0]["shards"]) != 5 or max(gaps_d) > PAR_LOSS_TOL or \
                 grad_gap_d > PAR_GRAD_TOL or worst_bnd > PAR_BN_TOL:
             die("parallel (d): %d TP parameters, loss gaps %s, gradient gap %.3e, BatchNorm "
@@ -4260,6 +4280,384 @@ def extract_phase(card):
                 cpu_s=cpu_s, captions_shape=list(hyp.shape))
 
 
+# ---------------------------------------------------------------------------
+# bench.py's NACF protocol at its own batch (bench.py:589-640): one decode of
+# SCALE_VIDEOS videos a call, in a process of its own (--scale)
+# ---------------------------------------------------------------------------
+
+SCALE_VIDEOS = 8192   # bench.py's --batch default (bench.py:718): one gen(...) call
+SCALE_WARM, SCALE_CALLS, SCALE_REQUESTS = 3, 20, 4  # bench.py's warm-ups and calls; requests
+SCALE_SLICE = 64      # videos of each request held against rows of the big decode
+SCALE_SLICES = (0, SCALE_VIDEOS // 2 - SCALE_SLICE, SCALE_VIDEOS - SCALE_SLICE)
+SCALE_TAIL = 384      # the last canvases, where the kernels' rows are checked
+
+
+def nacf_flops_per_caption(cfg, te):
+    """bench.py::decode_flops_per_caption (bench.py:93-140): the matmul
+    FLOPs of one caption of the timed decode. Per length-beam row, the CT
+    pass, the refinements (sparse steps at their query widths, the CT
+    completion dense) and the teacher's rescoring, each one layer and the
+    vocab projection; the cross K/V once per video for each model."""
+    import math
+
+    d, L, V, ffn = cfg.dim_hidden, cfg.max_len, cfg.vocab_size, cfg.intermediate_size
+
+    def fwd(q):
+        return (2 * q * d * d + 2 * 2 * L * d * d + 2 * 2 * q * L * d + 3 * 2 * q * d * d
+                + 2 * 2 * q * te * d + 2 * 2 * q * d * ffn + 2 * q * d * V)
+
+    t = cfg.iterations + (1 if cfg.use_ct else 0)
+    widths = [L] + [L if cfg.use_ct and c == 1 else max(1, int(math.floor(L * (1.0 - c / t))))
+                    for c in range(1, t)] + [L]
+    return sum(fwd(q) for q in widths) * cfg.length_beam_size + 2 * 2 * 2 * te * d * d
+
+
+def scale_kernels(cfg, model, teacher, enc):
+    """K1 (NAR and causal), K2 (K = 24) and K3 / K4 at the shapes of the
+    SCALE_VIDEOS decode (its N = videos x length beams canvases of the
+    8-aligned canvas) on random tokens, as main() takes them at N_VIDEOS:
+    device ms (CUDA events, 5 calls), the bound for this data, and the
+    rows of the last SCALE_TAIL canvases (the largest offsets) against the
+    plain version run on those canvases alone: K1 / K2 within 5e-2 (main's
+    HID_TOL), K3's ids equal where the top-2 margin > 1e-3 and its max
+    prob, K4's prob, within 1e-4 relative. Returns {kernel: figures}."""
+    import torch
+
+    from navc_tpu_torch import constants as C
+    from navc_tpu_torch.decoding.mask_predict import KernelOperands, query_index
+    from navc_tpu_torch.ops.fused_layer import (fused_layer, fused_layer_plain,
+                                                fused_layer_qsub, fused_layer_qsub_plain)
+    from navc_tpu_torch.ops.vocab_fused import (project_argmax, project_argmax_plain,
+                                                project_gather_prob,
+                                                project_gather_prob_plain)
+
+    dev = torch.device("cuda")
+    lbs, h, inter, v = (cfg.length_beam_size, cfg.dim_hidden, cfg.intermediate_size,
+                        cfg.vocab_size)
+    n, l, le, tl = enc.shape[0] * lbs, -(-cfg.max_len // 8) * 8, enc.shape[1], SCALE_TAIL
+    ops, tops = KernelOperands.of(model), KernelOperands.of(teacher)
+    g = torch.Generator().manual_seed(123)
+    lengths = torch.randint(4, cfg.max_len, (n,), generator=g)
+    tokens = torch.randint(C.NUM_SPECIAL_TOKENS, v, (n, l), generator=g)
+    tokens[torch.arange(l)[None] >= lengths[:, None]] = C.PAD
+    tokens = tokens.to(dev, torch.int32)
+    kp = tokens == C.PAD
+    cat = torch.randint(0, cfg.num_category, (n, 1), generator=g).to(dev)
+    ke, ve = ops.cross_kv(enc, lbs)
+    static = ops.static(n, l, cat, torch.repeat_interleave(enc, lbs, 0))
+    raw = ops.word16[tokens.long()]
+    lw = (ops.layer, ops.ln_scale, ops.ln_bias)
+    out = {}
+
+    def err(a, b):
+        return float((a.float() - b.float()).abs().max())
+
+    def keep(name, fn, flops, nbytes, tail_err, tol):
+        if not tail_err <= tol:
+            die("scale: %s's rows of the last %d canvases disagree with its plain version "
+                "on them alone: %.3e > %.1e" % (name, tl, tail_err, tol))
+        b_ms, b_by = bound(flops, nbytes)
+        out[name] = dict(ms=cuda_ms(fn, iters=5, warmup=1), bound_ms=b_ms, bound_by=b_by,
+                         tail_err=tail_err)
+
+    # K1, the student's dense form
+    k1 = lambda: fused_layer(raw, static, kp, ke, ve, *lw, n_head=ops.n_head,  # noqa: E731
+                             out_dtype=torch.bfloat16)
+    hid = k1()
+    real = int((~kp).sum())
+    keep("fused_layer", k1, layer_flops(real, real, n, le, h, inter),
+         layer_bytes(n, l, le, h, inter, n * l),
+         err(hid[-tl:], fused_layer_plain(raw[-tl:], static[-tl:], kp[-tl:], ke[-tl:],
+                                          ve[-tl:], *lw, n_head=ops.n_head,
+                                          out_dtype=torch.bfloat16)), 5e-2)
+    # K2 at the first sparse step's width
+    k_slots = 24
+    mask_ind = (torch.rand(n, l, generator=g) < 0.6).to(dev) & ~kp
+    mask_ind[:, 0] = True
+    qidx = query_index(mask_ind, k_slots)
+    masked = torch.where(mask_ind, C.MASK, tokens).to(torch.int32)
+    m_raw, m_kp = ops.word16[masked.long()], masked == C.PAD
+    mrow = ops.word16[C.MASK].contiguous()
+    k2 = lambda: fused_layer_qsub(qidx, mrow, m_raw, static, m_kp, ke, ve,  # noqa: E731
+                                  *lw, n_head=ops.n_head, out_dtype=torch.bfloat16)
+    keep("fused_layer_qsub", k2,
+         layer_flops(int((qidx >= 0).sum()), int((~m_kp).sum()), n, le, h, inter),
+         layer_bytes(n, l, le, h, inter, n * k_slots, extra=n * k_slots * 4),
+         err(k2()[-tl:], fused_layer_qsub_plain(
+             qidx[-tl:], mrow, m_raw[-tl:], static[-tl:], m_kp[-tl:], ke[-tl:], ve[-tl:],
+             *lw, n_head=ops.n_head, out_dtype=torch.bfloat16)), 5e-2)
+    del m_raw, m_kp, masked, qidx, mask_ind, raw, static, ke, ve
+    # K3 on the dense layer's rows
+    rows = hid.view(n * l, h)
+    ids, maxp = project_argmax(rows, ops.proj_w, ops.proj_b)
+    tail = rows[-tl * l:]
+    ids_p, maxp_p = project_argmax_plain(tail, ops.proj_w, ops.proj_b)
+    scores = tail.float() @ ops.proj_w.float().t()
+    top2 = (scores if ops.proj_b is None else scores + ops.proj_b).topk(2, dim=-1).values
+    bad = int(((ids[-tl * l:] != ids_p) & ((top2[:, 0] - top2[:, 1]) > 1e-3)).sum())
+    if bad:
+        die("scale: project_argmax: %d ids of the last %d canvases disagree with the plain "
+            "version where the top-2 margin > 1e-3" % (bad, tl))
+    del scores, top2
+    nb3 = n * l * h * 2 + v * h * 2 + n * l * 8
+    keep("project_argmax", lambda: project_argmax(rows, ops.proj_w, ops.proj_b),
+         2 * n * l * h * v, nb3, float(((maxp[-tl * l:] - maxp_p).abs() / maxp_p).max()), 1e-4)
+    del hid, rows, ids, maxp
+    # K1 causal and K4: the teacher's rescoring of the tokens
+    t_inp = torch.cat([torch.full((n, 1), C.BOS, device=dev, dtype=torch.int32),
+                       tokens[:, :-1]], 1)
+    t_raw, t_static, t_kp = tops.word16[t_inp.long()], tops.static(n, l, cat), t_inp == C.PAD
+    tke, tve = tops.cross_kv(enc, lbs)
+    tlw = (tops.layer, tops.ln_scale, tops.ln_bias)
+    k1c = lambda: fused_layer(t_raw, t_static, t_kp, tke, tve, *tlw,  # noqa: E731
+                              n_head=tops.n_head, causal=True, out_dtype=torch.bfloat16)
+    t_hid = k1c()
+    t_real = int((~t_kp).sum())
+    keep("fused_layer[causal]", k1c, layer_flops(t_real, t_real, n, le, h, inter),
+         layer_bytes(n, l, le, h, inter, n * l),
+         err(t_hid[-tl:], fused_layer_plain(t_raw[-tl:], t_static[-tl:], t_kp[-tl:],
+                                            tke[-tl:], tve[-tl:], *tlw, n_head=tops.n_head,
+                                            causal=True, out_dtype=torch.bfloat16)), 5e-2)
+    del t_raw, t_static, tke, tve
+    t_rows = t_hid.view(n * l, h)
+    targets = tokens.view(-1).contiguous()
+    prob = project_gather_prob(t_rows, tops.proj_w, targets, tops.proj_b)
+    prob_p = project_gather_prob_plain(t_rows[-tl * l:], tops.proj_w, targets[-tl * l:],
+                                       tops.proj_b)
+    ok = prob_p > 1e-30
+    keep("project_gather_prob",
+         lambda: project_gather_prob(t_rows, tops.proj_w, targets, tops.proj_b),
+         2 * n * l * h * v, nb3 + n * l * 4,
+         float(((prob[-tl * l:] - prob_p).abs() / prob_p)[ok].max()), 1e-4)
+    return out
+
+
+def scale_run(card):
+    """bench.py's NACF protocol (bench.py:589-640) on the port at
+    SCALE_VIDEOS videos a call: default_config("NACF", **OVER) with the ARB
+    teacher, random weights from seeds 0 and 1, features and categories from
+    np.random.RandomState(0) in bench.py's order. The encodes run once,
+    outside the timed region (make_encode_fn, jit=True); then SCALE_WARM
+    warm-up calls of make_nar_generator(jit=True) (the first captures),
+    SCALE_CALLS sequential calls, each ended by the hypotheses' .cpu(), and
+    SCALE_CALLS pipelined ones (all issued, then all read); one replay
+    profiled; one eager decode (jit=False); SCALE_REQUESTS requests of
+    SCALE_VIDEOS videos through StreamingCaptioner at its default depth,
+    after one that captures. Gates: launches per decode PER_DECODE; every
+    replay, the eager decode and the served requests bit for bit the first
+    call's hypotheses; each 64-video slice of SCALE_SLICES, encoded and
+    decoded alone as a request, >= 0.99 of the same rows of the big
+    decode (printed: the rows that differ, and those that still differ
+    when the slice's decode starts from the big encode's rows, and also
+    runs K3 / K4 on the big decode's vocab splits, and also takes the big
+    decode's hoisted cross K/V rows; whether the slice's own hoisted cross
+    K/V are the big decode's bit for bit); the last
+    CPU_VIDEOS videos >= 0.99 against the CPU plain path; K1-K4 at the
+    decode's shapes (``scale_kernels``). Returns the figures."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from navc_tpu_torch.config import default_config
+    from navc_tpu_torch.decoding import make_nar_generator
+    from navc_tpu_torch.decoding.length_beam import enlarge
+    from navc_tpu_torch.decoding.operands import KernelOperands
+    from navc_tpu_torch.models import build_model
+    from navc_tpu_torch.ops import _build, vocab_fused
+    from navc_tpu_torch.ops.vocab_fused import argmax_splits
+    from navc_tpu_torch.runtime.serving import StreamingCaptioner, make_encode_fn
+
+    seeded = lambda s: torch.Generator().manual_seed(s)  # noqa: E731
+    t_start = time.perf_counter()
+    cfg, tcfg = default_config("NACF", **OVER), default_config("ARB", **OVER)
+    b, lbs, l = SCALE_VIDEOS, cfg.length_beam_size, -(-cfg.max_len // 8) * 8
+    model = build_model(cfg, device="cuda", generator=seeded(0))
+    teacher = build_model(tcfg, device="cuda", generator=seeded(1))
+    rng = np.random.RandomState(0)
+    feats_np = [rng.randn(b, cfg.n_frames, d).astype(np.float32) for d in cfg.modality_dims]
+    cat_np = rng.randint(0, cfg.num_category, size=(b, 1)).astype(np.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    feats = [torch.as_tensor(f).cuda() for f in feats_np]
+    cat = torch.as_tensor(cat_np).cuda()
+    encode, tencode = make_encode_fn(cfg, model), make_encode_fn(tcfg, teacher)
+    enc, tenc = encode(feats), tencode(feats)
+    torch.cuda.synchronize()
+    fig = dict(card=card, videos=b, canvases=b * lbs, canvas_rows=b * lbs * l,
+               gflop_per_caption=nacf_flops_per_caption(cfg, enc["enc_output"].shape[1]) / 1e9)
+
+    gen = make_nar_generator(cfg, model, teacher, jit=True)
+    run = lambda: gen(enc, cat, tenc)  # noqa: E731
+    t0 = time.perf_counter()
+    hyp = run().cpu()
+    fig["first_call_s"] = time.perf_counter() - t0
+    check_nar_captions(hyp.numpy(), b, cfg)
+    for _ in range(SCALE_WARM - 1):
+        if not torch.equal(run().cpu(), hyp):
+            die("scale: a warm-up replay differs from the first call")
+    (captured,) = gen.graphs.values()
+    fig.update(capture_s=captured.graph.capture_s, pool_mib=captured.graph.pool_bytes / 2**20)
+    _build.reset_launches()
+    if not torch.equal(run().cpu(), hyp):
+        die("scale: a replay differs from the first call")
+    fig["launches"] = {k: n for k, n in _build.LAUNCHES.items() if n}
+    if fig["launches"] != PER_DECODE:
+        die("scale: a replayed decode of %d videos launched %s, expected %s (PER_DECODE, as "
+            "at %d videos)" % (b, fig["launches"], PER_DECODE, N_VIDEOS))
+    # bench.py's two protocols, in its order: sequential, then pipelined
+    t0 = time.perf_counter()
+    seq = [run().cpu() for _ in range(SCALE_CALLS)]
+    seq_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pipe = [run() for _ in range(SCALE_CALLS)]
+    pipe = [o.cpu() for o in pipe]
+    pipe_s = time.perf_counter() - t0
+    if not all(torch.equal(o, hyp) for o in seq + pipe):
+        die("scale: a timed replay's hypotheses differ from the first call's")
+    del seq, pipe
+    fig.update(captions_per_s_sequential=b * SCALE_CALLS / seq_s,
+               captions_per_s_pipelined=b * SCALE_CALLS / pipe_s,
+               ms_replayed=seq_s / SCALE_CALLS * 1e3, ms_pipelined=pipe_s / SCALE_CALLS * 1e3)
+    fig["tflop_per_s_sequential"] = (fig["captions_per_s_sequential"]
+                                     * fig["gflop_per_caption"] / 1e3)
+    prof = device_breakdown(lambda: run().cpu())
+    if prof is None:
+        die("scale: the profiler recorded no device activity in a replayed decode")
+    print_profile(prof, "replayed %d-video decode" % b)
+    window, busy, by_name, _ = prof
+    fig.update(profile_window_ms=window, profile_busy_ms=busy, idle_share=1.0 - busy / window,
+               top_kernels=[(k[:90], ms, cnt) for k, (ms, cnt) in
+                            sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]])
+    gen.graphs.clear()  # its pool goes before the eager decode's and the captioner's
+    del gen, run, captured
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    eager = make_nar_generator(cfg, model, teacher, jit=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hyp_e = eager(enc, cat, tenc).cpu()
+    fig["ms_eager"] = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(hyp_e, hyp):
+        die("scale: the replayed %d-video decode differs from the eager one in %d rows"
+            % (b, int((hyp_e != hyp).any(1).sum())))
+    del eager
+    torch.cuda.empty_cache()
+
+    cap = StreamingCaptioner(cfg, model, (tcfg, teacher))
+    req = (feats_np, cat_np)
+    t0 = time.perf_counter()
+    served = list(cap.map_stream([req]))  # first use: its encodes and decode captured
+    fig["serve_first_s"] = time.perf_counter() - t0
+    outs, per_req = cap.timed_stream([req] * SCALE_REQUESTS)
+    if not all(np.array_equal(o, hyp.numpy()) for o in served + outs):
+        die("scale: StreamingCaptioner's hypotheses differ from the generator's")
+    fig.update(serve_depth=cap.depth, serve_ms_per_request=per_req * 1e3,
+               serve_captions_per_s=b / per_req)
+    del cap, outs, served
+    gc.collect()
+    torch.cuda.empty_cache()
+    fig.update(peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+               peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9)
+
+    # row offsets across the batch: 64-video slices encoded and decoded alone
+    gen64 = make_nar_generator(cfg, model, teacher, jit=True)
+    eager64 = make_nar_generator(cfg, model, teacher, jit=False)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    fig["k3_splits"] = {str(r): list(argmax_splits(r, cfg.vocab_size, sms))
+                        for r in (b * lbs * l, SCALE_SLICE * lbs * l)}
+    # each K3 / K4 call of a slice's decode on the vocab split its call of
+    # the big decode took (rows x b / SCALE_SLICE)
+    big_splits = lambda rows, v, sms, max_per=None: argmax_splits(  # noqa: E731
+        rows * (b // SCALE_SLICE), v, sms, max_per)
+    # the decode's hoisted cross K/V (a float32 torch.matmul over videos x Te
+    # rows, ops/fused_layer.py::hoist_cross_kv) of the big encode
+    kv_ops = [(KernelOperands.of(m), e["enc_output"]) for m, e in ((model, enc),
+                                                                  (teacher, tenc))]
+    big_kv = [o.cross_kv(e, 1) for o, e in kv_ops]
+    fig["slices"] = []
+    for s0 in SCALE_SLICES:
+        part = slice(s0, s0 + SCALE_SLICE)
+        e64, t64 = encode([f[part] for f in feats]), tencode([f[part] for f in feats])
+        want = hyp[part]
+        alone = gen64(e64, cat[part], t64).cpu()
+        # the same decode on the big encode's rows, then with K3 / K4 on the
+        # big decode's vocab splits: whether a difference comes from the
+        # encode (cuBLAS picks its algorithms by the batch), K3's split plan
+        # (the max prob's sum of exponentials in another order) or elsewhere
+        big = ({k: x[part] for k, x in enc.items()}, cat[part],
+               {k: x[part] for k, x in tenc.items()})
+        sub = gen64(*big).cpu()
+        with swapped(vocab_fused, "argmax_splits", big_splits):
+            same_plan = eager64(*big).cpu()
+            # and with the big decode's hoisted cross K/V rows
+            with swapped(KernelOperands, "cross_kv", lambda ops, _, lbs: [
+                    enlarge(x[part], lbs).contiguous() for (o, _), kv in zip(kv_ops, big_kv)
+                    if torch.equal(o.layer.bk_c, ops.layer.bk_c) for x in kv]):
+                same_kv = eager64(*big).cpu()
+        row = dict(first=s0, agreement=float((alone == want).float().mean()),
+                   differing_rows=int((alone != want).any(1).sum()),
+                   encode_bit_for_bit=all(torch.equal(e64[k], enc[k][part]) for k in enc)
+                   and all(torch.equal(t64[k], tenc[k][part]) for k in tenc),
+                   rows_differing_from_the_big_encode=int((sub != want).any(1).sum()),
+                   rows_differing_on_the_big_splits=int((same_plan != want).any(1).sum()),
+                   rows_differing_also_on_the_big_cross_kv=int((same_kv != want).any(1).sum()),
+                   cross_kv_bit_for_bit=all(
+                       torch.equal(x, y[part]) for (o, e), kv in zip(kv_ops, big_kv)
+                       for x, y in zip(o.cross_kv(e[part], 1), kv)))
+        fig["slices"].append(row)
+        if row["agreement"] < 0.99:
+            die("scale: videos %d-%d decoded alone agree %.4f < 0.99 with the same rows of "
+                "the %d-video decode (%d rows differ)" % (
+                    s0, s0 + SCALE_SLICE - 1, row["agreement"], b, row["differing_rows"]))
+    del gen64, eager64, kv_ops, big_kv
+
+    # the last videos again on the CPU, plain versions
+    cpu_cap = StreamingCaptioner(
+        cfg, build_model(cfg, device="cpu", generator=seeded(0)),
+        (tcfg, build_model(tcfg, device="cpu", generator=seeded(1))), depth=0, device="cpu")
+    (cpu_hyp,) = cpu_cap.map_stream([([f[-CPU_VIDEOS:] for f in feats_np],
+                                      cat_np[-CPU_VIDEOS:])])
+    fig["cpu_agreement"] = float((cpu_hyp == hyp[-CPU_VIDEOS:].numpy()).mean())
+    if fig["cpu_agreement"] < 0.99:
+        die("scale: the last %d videos agree %.4f < 0.99 with the CPU plain path"
+            % (CPU_VIDEOS, fig["cpu_agreement"]))
+    del enc, tenc, feats
+    torch.cuda.empty_cache()
+    fig["kernels"] = scale_kernels(cfg, model, teacher, encode(
+        [torch.as_tensor(f).cuda() for f in feats_np])["enc_output"])
+    fig["seconds"] = time.perf_counter() - t_start
+    return fig
+
+
+def scale_worker():
+    """--scale: ``scale_run`` in this fresh process; the figures as its last
+    line of standard output."""
+    sys.path.insert(0, ROOT)
+    import torch
+
+    if not torch.cuda.is_available():
+        die("torch.cuda.is_available() is false: this script needs the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(json.dumps(scale_run(card_name())), flush=True)
+    return 0
+
+
+def scale_phase(card):
+    """``scale_run`` in a fresh process (this script with --scale), so no
+    graph pool of this one counts against it; its lines are logged here and
+    its figures on a line of their own ("scale [card]: {...}"). Returns the
+    figures."""
+    import torch
+
+    torch.cuda.empty_cache()
+    fig = script_process(["--scale"], "scale")
+    log("scale [%s]: %s" % (card, json.dumps(fig)))
+    return fig
+
+
 def main():
     import argparse
 
@@ -4270,9 +4668,12 @@ def main():
                     "wrappers in a second process and timed in turns with this tree's")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--switch", help=argparse.SUPPRESS)
+    ap.add_argument("--scale", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
         sys.exit(serve_worker(args.worker))
+    if args.scale:
+        sys.exit(scale_worker())
     if args.switch:
         sys.exit(switch_worker(args.switch))
     if not os.path.isdir(os.path.join(ROOT, "navc_tpu_torch", "csrc")):
@@ -4286,11 +4687,7 @@ def main():
         die("torch.cuda.is_available() is false: this script needs the card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
-        "nvidia-smi failed: " + smi.stderr.strip()
+    card = card_name()
     log(card)
     log("torch %s cuda %s python %s" % (torch.__version__, torch.version.cuda,
                                         sys.version.split()[0]))
@@ -4323,6 +4720,12 @@ def main():
             if ("registers" in line or "spill" in line or "smem" in line
                     or "Compiling entry" in line):
                 log("  ptxas %s: %s" % (name, line.strip()))
+
+    # -- 1b. bench.py's NACF protocol at its batch, in a process of its own,
+    #        before this one holds any graph pool on the card ---------------
+    t0 = time.perf_counter()
+    scale_results = scale_phase(card)
+    log("scale phase: %.1f s" % (time.perf_counter() - t0))
 
     # -- 2. models at full width, seeded random weights ---------------------
     over = OVER
@@ -4713,17 +5116,7 @@ def main():
                 % (name, launches[name], per * N_REQUESTS, per))
 
     for hyp in outs:
-        if hyp.shape != (N_VIDEOS, cfg.max_len) or hyp.dtype != np.int32:
-            die("hypotheses of shape %s %s" % (hyp.shape, hyp.dtype))
-        if hyp.min() < 0 or hyp.max() >= v:
-            die("token ids out of range")
-        nonpad = hyp != C.PAD
-        length = np.where(nonpad.any(1), cfg.max_len - np.argmax(nonpad[:, ::-1], 1), 0)
-        if length.min() < 4 or length.max() > cfg.max_len - 1:
-            die("caption lengths outside [4, %d]: %s" % (cfg.max_len - 1, length))
-        tail = np.arange(cfg.max_len)[None] >= length[:, None]
-        if np.any(hyp[tail] != C.PAD):
-            die("non-PAD token after a caption's end")
+        check_nar_captions(hyp, N_VIDEOS, cfg)
 
     # where one request's time goes on the card (not counted above)
     extra = request()
@@ -4901,6 +5294,13 @@ def main():
         # one rank's step of the 2-rank gloo run (NACF, global batch PAR_B)
         k["launches_distributed_step"] = parallel_results["launches_distributed_step"].get(
             k["name"], 0)
+        # one replayed NACF decode of SCALE_VIDEOS videos, and the kernel's time
+        # at that decode's shapes
+        k["launches_scale_decode"] = scale_results["launches"].get(k["name"], 0)
+        if k["name"] in scale_results["kernels"]:
+            k["at_scale"] = dict(scale_results["kernels"][k["name"]])
+            if k["name"] == "fused_layer":
+                k["at_scale"]["causal"] = scale_results["kernels"]["fused_layer[causal]"]
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

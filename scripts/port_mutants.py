@@ -6,9 +6,10 @@ counters, ef's loop condition and the lagged flag read), of the
 captured training step (runtime/train_step.py, its seed, lr and generator),
 of navc_tpu's route switches (a switch read but its route kept), of
 ``cfg.remat``'s recompute (fresh dropout masks, running statistics moved
-twice) and of data and tensor parallelism (the gradient all-reduce, the
-global BatchNorm statistics and loss denominator, a TP slice's gradient) on
-a card.
+twice), of data and tensor parallelism (the gradient all-reduce, the
+global BatchNorm statistics and loss denominator, a TP slice's gradient,
+the 'data' groups of a 2 x 2 mesh) and of the serving walk's 64-bit row
+offsets on a card.
 
 Each mutant is one exact edit of a file of navc_tpu_torch, made in a copy of
 the package under a temporary directory (never in the checkout); the
@@ -16,7 +17,11 @@ the package under a temporary directory (never in the checkout); the
 training tests, K2's, K1's walk tests, K6's, K7's, K1u's, the graphs' or
 the captured step's) then run against the copy, one process each, at most
 JOBS (4) at once; a mutant of the ``parallel`` group must also make
-chip_smoke.py's parallel phase, run alone in the copy, exit non-zero.
+chip_smoke.py's parallel phase, run alone in the copy, exit non-zero, and
+one of ``walk_rows_past_int32`` its scale phase (those jobs, each taking
+most of the card's memory, run one at a time with nothing beside them).
+The ``four_nccl`` mutant needs four cards: on fewer its test skips, and
+its control, passing nothing, voids the run.
 The kernels are built once in the checkout first and each
 copy starts from that build, so a copy rebuilds only a source its edit
 changed. Beside the mutants, one unedited copy per group of tests (the
@@ -28,7 +33,8 @@ from the repo root on a machine with an NVIDIA card:
     python3 scripts/port_mutants.py [TESTS ...]
 
 where TESTS (e.g. ``graphs``, ``cond_graphs``, ``train_graphs``, ``switch``,
-``remat``, ``parallel``) keeps only the mutants whose tests are named so.
+``remat``, ``parallel``, ``walk_rows_past_int32``, ``four_nccl``) keeps
+only the mutants whose tests are named so.
 """
 
 import os
@@ -155,6 +161,12 @@ MUTANTS = {  # name: (file under navc_tpu_torch, text, its replacement, tests)
         "parallel/mesh.py", "part = s.full.grad.narrow(s.dim, self.mesh.model_index * n, n)",
         "part = s.full.grad.narrow(s.dim, (self.mesh.model - 1 - self.mesh.model_index) * n, "
         "n)", "parallel"),
+    "scale: the walk epilogue's row offset truncated to 32 bits": (
+        "csrc/fused_layer.cu", "const size_t o = (size_t)r * g.cols + c;",
+        "const size_t o = (int)((size_t)r * g.cols) + c;", "walk_rows_past_int32"),
+    "mesh: each 'data' group built over the other 'model' coordinate's ranks": (
+        "parallel/mesh.py", "g = torch.distributed.new_group(grid[:, j].tolist())",
+        "g = torch.distributed.new_group(grid[:, (j + 1) % m].tolist())", "four_nccl"),
 }
 
 
@@ -162,7 +174,10 @@ CONTROL = "control (no edit)"
 JOBS = 4  # test processes at once: the card and its host cores are shared by them all
 # groups whose mutants chip_smoke.py's phase must also catch: the phase alone,
 # in the copy
-SMOKE = {"parallel": "import chip_smoke; chip_smoke.parallel_phase('mutant check')"}
+SMOKE = {"parallel": "import chip_smoke; chip_smoke.parallel_phase('mutant check')",
+         "walk_rows_past_int32": "import chip_smoke; chip_smoke.scale_phase('mutant check')"}
+# groups whose processes each take most of the card's memory: each runs alone
+ALONE = {"walk_rows_past_int32"}
 
 
 def copy_tree(work, k, edit=None):
@@ -198,13 +213,14 @@ def main():
               "--noconftest", "-p", "no:cacheprovider", "-k"]
     jobs = [("%s: %s" % (CONTROL, g), None, g) for g in groups] + [
         (name, (src, old, new), tests) for name, (src, old, new, tests) in chosen]
-    queue = [(name, edit, pytest + [tests]) for name, edit, tests in jobs] + [
-        ("%s [chip_smoke.py]" % name, edit, [sys.executable, "-c", SMOKE[tests]])
+    queue = [(name, edit, tests, pytest + [tests]) for name, edit, tests in jobs] + [
+        ("%s [chip_smoke.py]" % name, edit, tests, [sys.executable, "-c", SMOKE[tests]])
         for name, edit, tests in jobs if tests in SMOKE]
     running, tails = {}, {}
     try:
-        for k, (name, edit, cmd) in enumerate(queue):
-            while len(running) >= JOBS:
+        for k, (name, edit, tests, cmd) in enumerate(queue):
+            while running and (len(running) >= JOBS or tests in ALONE
+                               or any(p.alone for p in running.values())):
                 wait_one(running, tails)
             root = copy_tree(work, k, edit)
             with open(os.path.join(root, "pytest.out"), "w") as out:
@@ -212,10 +228,11 @@ def main():
                                                  stderr=subprocess.STDOUT,
                                                  env=dict(os.environ, PYTHONPATH=root))
                 running[name].out = out.name
+                running[name].alone = tests in ALONE
         while running:
             wait_one(running, tails)
         void, survived = [], []
-        for name, _, _ in queue:
+        for name, _, _, _ in queue:
             tail = tails[name]
             print("%-66s %s" % (name, tail), flush=True)
             if name.endswith("[chip_smoke.py]"):  # the phase exits non-zero on a fault

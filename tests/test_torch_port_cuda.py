@@ -294,6 +294,51 @@ def test_fused_layer_walk_matches_plain(cuda, case, causal):
     assert (out.float() - ref).abs().max().item() <= HID_TOL
 
 
+# K1 and K2 with more than 2^31 elements in their FFN activations: query
+# rows x FFN 2048 pass 2^31 from row 1,048,576 on (the 8192-video decode of
+# chip_smoke.py's scale phase has 1,572,864 canvas rows, 1,179,648 query
+# rows at K = 24). N = 32,800 canvases of 32 (K = 32 query slots for K2)
+# give 1,049,600 rows: the last 32 canvases lie past the mark. Their rows,
+# and those of the 32 before, against the plain version run on those 64
+# canvases alone.
+WIDE_N, WIDE_TAIL = 32800, 64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["dense", "qsub"])
+def test_fused_layer_walk_rows_past_int32_offsets(cuda, form):
+    n, l, le, h, heads, inter = WIDE_N, 32, 16, 512, 8, 2048
+    g = _gen(31)
+    w = _weights(h, inter, g, cuda)
+    cg = torch.Generator(device=cuda).manual_seed(31)
+    raw, static = (torch.randn(n, l, h, generator=cg, device=cuda).to(torch.bfloat16)
+                   for _ in range(2))
+    ke, ve = (torch.randn(n, le, h, generator=cg, device=cuda).to(torch.bfloat16)
+              for _ in range(2))
+    real = torch.randint(1, l + 1, (n,), generator=cg, device=cuda)
+    kp = torch.arange(l, device=cuda)[None] >= real[:, None]
+    lns = (1 + 0.1 * torch.randn(h, generator=g)).to(cuda)
+    lnb = (0.1 * torch.randn(h, generator=g)).to(cuda)
+    tail = slice(n - WIDE_TAIL, n)
+    args = (raw, static, kp, ke, ve, w, lns, lnb)
+    part = (raw[tail], static[tail], kp[tail], ke[tail], ve[tail], w, lns, lnb)
+    if form == "dense":
+        assert n * l * inter >= 2 ** 31
+        got = fused_layer(*args, n_head=heads, out_dtype=torch.bfloat16)[tail]
+        want = fused_layer_plain(*part, n_head=heads)
+    else:
+        k = 32
+        assert n * k * inter >= 2 ** 31
+        slots = torch.arange(k, device=cuda, dtype=torch.int32)[None]
+        qidx = torch.where(slots < real[:, None], slots, -1).to(torch.int32).contiguous()
+        mask_row = torch.randn(h, generator=g).to(cuda, torch.bfloat16)
+        got = fused_layer_qsub(qidx, mask_row, *args, n_head=heads,
+                               out_dtype=torch.bfloat16)[tail]
+        want = fused_layer_qsub_plain(qidx[tail], mask_row, *part, n_head=heads)
+    torch.cuda.synchronize()
+    assert (got.float() - want).abs().max().item() <= HID_TOL
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [DENSE_CASES[1], DENSE_CASES[3]], ids=_dense_id)
 @pytest.mark.parametrize("causal", [False, True], ids=["nar", "causal"])
@@ -2842,6 +2887,156 @@ def test_parallel_two_nccl_ranks_on_two_cards(cuda, tmp_path):
     assert l0["train_curve"] == l1["train_curve"] and np.isfinite(l0["train_curve"]).all()
     assert (l0["n_eval"], l1["n_eval"]) == (1, 0) and l1["saved"] == []
     assert str(tmp_path / "nccl" / "best.ckpt") in l0["saved"]
+
+
+PAR_LOSS_TOL, PAR_BN_TOL = 1e-4, 1e-3  # chip_smoke.py's parallel phase: losses relative,
+#                                       BatchNorm statistics of their largest magnitude
+PAR_TIMED_B = 64  # the global batch the four-rank steps are timed at
+
+
+def _par_timed_batch(cfg):
+    """A global batch of PAR_TIMED_B videos as ``_par_batches`` makes them."""
+    b = _train_batch(cfg, PAR_TIMED_B, 60)
+    for ch in cfg.modality.lower():
+        b["feats_%s" % ch][PAR_TIMED_B // 2:] *= 3.0
+    return b
+
+
+@pytest.mark.cuda
+def test_parallel_four_nccl_ranks_data2_model2(cuda, tmp_path):
+    """Four ranks on four cards over NCCL at serving width, data 2 x model
+    2: two 'data' and two 'model' groups, each an NCCL communicator, both
+    kinds in the captured step (the TP gather and the flat gradient's
+    all-reduce in one replay). The steps of a 16-video NACF batch against
+    the single-process step on the whole batch: losses within
+    PAR_LOSS_TOL, each parameter's global gradient within PAR_GRAD_TOL,
+    BatchNorm statistics within PAR_BN_TOL; the four ranks' losses and
+    weights bit for bit alike, the TP slices alike within a 'data' group
+    and not across a 'model' group. The step captured (jit=True): bit for
+    bit its eager run on every rank, its weights alike on all four and its
+    slices within each 'data' group, a replay launching the single-process
+    replay's kernels and issuing no collective from the host.
+    train_network_all_multihost on the 2 x 2 mesh for one epoch: one train
+    curve on all ranks, rank 0 alone validating and writing best.ckpt, of
+    full size. generate_sharded's NAB sweep on the 2 x 2 mesh: the tokens
+    one process gives each 'data' coordinate's rows, bit for bit, and >=
+    0.99 of the whole batch decoded at once. Then data 4 x model 1, the
+    step alone. Printed: ms a step of a rank at global B = PAR_TIMED_B on
+    both meshes beside one process's replayed step on the whole batch
+    (median of 10 replays each, in turns, host clock)."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards (one NCCL rank a card)")
+    import torch_port_dist_worker as worker
+
+    from navc_tpu_torch.config import default_config
+    from navc_tpu_torch.convert import export_flax_variables, load_flax_variables
+    from navc_tpu_torch.data.synthetic import make_synthetic_corpus, make_synthetic_feats
+    from navc_tpu_torch.decoding import make_nar_generator
+    from navc_tpu_torch.models import build_model
+    from navc_tpu_torch.parallel.mesh import Mesh, shard_batch
+    from navc_tpu_torch.runtime.checkpoint import load_model_and_config
+
+    mesh = {"data": 2, "model": 2}
+    cfg = default_config("NACF", **PAR_OVER)
+    batches, timed = _par_batches(cfg, 3), _par_timed_batch(cfg)
+    loop_cfg = cfg.replace(epochs=1, teacher_path="", load_teacher_weights=False,
+                           with_teacher=False, mesh_shape=mesh)
+    corpus, refs = make_synthetic_corpus(loop_cfg, n_videos=48, n_caps=2,
+                                         vocab_size=cfg.vocab_size)
+    feats = make_synthetic_feats(loop_cfg, n_videos=48, n_total_frames=cfg.n_total_frames)
+    ncfg = default_config("NAB", **SERVE)
+    nab = build_model(ncfg, device="cpu", generator=_gen(2))
+    rng = np.random.RandomState(11)
+    sweep_feats = [rng.randn(PAR_B, ncfg.n_frames, d).astype(np.float32)
+                   for d in ncfg.modality_dims]
+    sweep_cat = rng.randint(0, ncfg.num_category, (PAR_B, 1)).astype(np.int32)
+    # the references: the single-process step on the whole batches; the NAB
+    # sweep of each 'data' coordinate's rows and of all of them at once
+    single = worker.single_steps(cfg, build_model(cfg, device="cuda", generator=_gen(0),
+                                                  train=True), batches[:2])
+    variables = export_flax_variables(nab)
+    nab = load_flax_variables(build_model(ncfg, device="cuda"), variables)
+    cat = torch.from_numpy(sweep_cat).cuda()
+    with torch.no_grad():
+        enc = nab.encode([torch.from_numpy(f).cuda() for f in sweep_feats])
+        gen = make_nar_generator(ncfg, nab)
+        by_rows = torch.cat([gen(shard_batch(enc, Mesh(2, 1, i)),
+                                 shard_batch({"c": cat}, Mesh(2, 1, i))["c"])
+                             for i in range(2)]).cpu().numpy()
+        whole = gen(enc, cat).cpu().numpy()
+    del nab, gen, enc
+    outs = worker.start("steps,nccl_step,sweep,loop", 4, dict(
+        device="cuda", backend="nccl",
+        steps=[dict(name="tp_2x2", method="NACF", over=PAR_OVER, batches=batches[:2],
+                    mesh=mesh)],
+        nccl_step=dict(over=PAR_OVER, batches=batches, mesh=mesh, timed=timed),
+        sweep=[dict(name="nab", method="NAB", over=SERVE, mesh=mesh, variables=variables,
+                    feats=sweep_feats, category=sweep_cat)],
+        loop=dict(root=str(tmp_path), corpus=corpus, refs=refs, feats=feats,
+                  loops=[("nccl_2x2", loop_cfg)])), str(tmp_path / "ranks"), timeout=900)()
+
+    steps = [o["steps"]["tp_2x2"] for o in outs]
+    for r in steps[1:]:
+        assert r["metrics"] == steps[0]["metrics"] and r["digests"] == steps[0]["digests"]
+    assert len(steps[0]["shards"]) == 5
+    for j in range(2):  # ranks j and j + 2 hold the same slices, ranks 0 and 1 others
+        assert steps[j]["shard_digests"] == steps[j + 2]["shard_digests"]
+    assert steps[0]["shard_digests"] != steps[1]["shard_digests"]
+    loss_gaps, grad, _, bn = worker.gaps(steps[0], single)
+    loss = max(loss_gaps)
+    assert loss <= PAR_LOSS_TOL and grad <= PAR_GRAD_TOL and bn <= PAR_BN_TOL, (loss, grad, bn)
+
+    n = [o["nccl_step"] for o in outs]
+    assert all(r["backend"] == "nccl" and r["mesh"] == (2, 2) and r["graphs"] == 1 for r in n)
+    assert all(r["replayed"] == r["eager"] == n[0]["replayed"] for r in n)
+    assert len({r["digest"] for r in n}) == 1
+    assert n[0]["slice digest"] == n[2]["slice digest"] != n[1]["slice digest"] == \
+        n[3]["slice digest"]
+    for a, b in zip(n[0]["replayed"], n[0]["single"]):
+        assert abs(a - b) <= PAR_LOSS_TOL * abs(b), (a, b)
+    for r in n:
+        assert r["replayed launches"] == r["single launches"]
+        assert r["replayed host collectives"] == 0 == r["single host collectives"]
+
+    loops = [o["loop"]["nccl_2x2"] for o in outs]
+    assert all(lp["train_curve"] == loops[0]["train_curve"] for lp in loops)
+    assert np.isfinite(loops[0]["train_curve"]).all()
+    assert [lp["n_eval"] for lp in loops] == [1, 0, 0, 0]
+    assert all(lp["saved"] == [] for lp in loops[1:])
+    best = str(tmp_path / "nccl_2x2" / "best.ckpt")
+    assert best in loops[0]["saved"]
+    model, _, _ = load_model_and_config(best, device="cpu")
+    assert model.tgt_word_prj.weight.shape == (cfg.vocab_size, cfg.dim_hidden)
+    assert model.decoder.layers[0].intermediate.dense.weight.shape == \
+        (cfg.intermediate_size, cfg.dim_hidden)
+
+    for o in outs:
+        tokens = o["sweep"]["nab"]["tokens"]
+        np.testing.assert_array_equal(tokens, by_rows)
+        assert (tokens == whole).mean() >= 0.99
+
+    d4 = [o["nccl_step"] for o in worker.start("nccl_step", 4, dict(
+        device="cuda", backend="nccl", nccl_step=dict(
+            over=PAR_OVER, batches=batches, mesh={"data": 4, "model": 1}, timed=timed)),
+        str(tmp_path / "data4"), timeout=600)()]
+    assert all(r["backend"] == "nccl" and r["mesh"] == (4, 1) and r["graphs"] == 1 for r in d4)
+    assert all(r["replayed"] == r["eager"] == d4[0]["replayed"] for r in d4)
+    assert len({r["digest"] for r in d4}) == 1
+    for a, b in zip(d4[0]["replayed"], d4[0]["single"]):
+        assert abs(a - b) <= PAR_LOSS_TOL * abs(b), (a, b)
+    for r in d4:
+        assert r["replayed launches"] == r["single launches"]
+        assert r["replayed host collectives"] == 0
+    print("four NCCL ranks on %s: ms a step of a rank at global B=%d (median of 10 replays, "
+          "host clock): data 2 x model 2 %s (%d rows a rank), one process replayed %s; data 4 "
+          "x model 1 %s (%d rows a rank), one process replayed %s; loss gap %.3e, gradient "
+          "gap %.3e, BatchNorm gap %.3e" % (
+              torch.cuda.get_device_name(0), PAR_TIMED_B,
+              ["%.3f" % r["median ms"]["replayed"] for r in n],
+              n[0]["timed rows"]["replayed"], ["%.3f" % r["median ms"]["single"] for r in n],
+              ["%.3f" % r["median ms"]["replayed"] for r in d4],
+              d4[0]["timed rows"]["replayed"], ["%.3f" % r["median ms"]["single"] for r in d4],
+              loss, grad, bn))
 
 
 @pytest.mark.cuda

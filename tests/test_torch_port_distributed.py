@@ -11,6 +11,12 @@ tests/test_distributed.py drives its own:
     TP slices runs on every rank without a deadlock (navc_tpu's
     test_multihost_tensor_parallel_eval_gather), and its best.ckpt holds
     the full weights;
+  * the same on a data 2 x model 2 mesh of a 4-rank cluster started beside
+    the first (navc_tpu's tests/test_multichip.py layout): one train curve
+    on the four ranks, which is the 'data' 2 run's (the same shards of
+    each epoch; the TP slices change no loss), rank 0's best.ckpt holding
+    the single-process ``train_network_all``'s tensors at their full
+    shapes;
   * ``cli.train.main([... "--distributed"], in_memory_feats=...)``: NACF
     with the first run's ARB as teacher (warm start and rescoring), rank 0
     validating and writing best.ckpt; with ``--resume`` both ranks raise
@@ -34,6 +40,7 @@ from navc_tpu_torch.data.loader import get_loader
 from navc_tpu_torch.data.synthetic import make_learnable_synthetic
 from navc_tpu_torch.runtime.checkpoint import load_model_and_config
 from navc_tpu_torch.runtime.evaluate import Evaluator, run_eval
+from navc_tpu_torch.runtime.loop import train_network_all
 
 OVER = dict(dataset="MSVD", vocab_size=40, dim_hidden=16, num_attention_heads=2,
             intermediate_size=32, n_frames=4, n_total_frames=10, dim_i=12, dim_m=10,
@@ -67,24 +74,41 @@ def loop_runs(tmp_path_factory):
         root=root, corpus=corpus, refs=refs, feats=feats, cli_argv=cli_argv,
         loops=[("data2", cfg), ("tp_1x2", cfg.replace(mesh_shape={"data": 1, "model": 2}))])),
         os.path.join(root, "ranks"), timeout=300)
-    return dict(root=root, outs=[o["loop"] for o in wait()], corpus=corpus, refs=refs,
-                feats=feats, cli_dir=os.path.join(root, "experiments", "Youtube2Text",
-                                                  "NACF", "d"))
+    wait4 = worker.start("loop", 4, dict(device="cpu", loop=dict(
+        root=root, corpus=corpus, refs=refs, feats=feats,
+        loops=[("tp_2x2", cfg.replace(mesh_shape={"data": 2, "model": 2}))])),
+        os.path.join(root, "ranks4"), timeout=300)
+    train_network_all(cfg, os.path.join(root, "single"), info_corpus=corpus, references=refs,
+                      in_memory_feats=feats, verbose=False, device="cpu")
+    return dict(root=root, outs=[o["loop"] for o in wait()],
+                outs4=[o["loop"] for o in wait4()], corpus=corpus, refs=refs, feats=feats,
+                cli_dir=os.path.join(root, "experiments", "Youtube2Text", "NACF", "d"))
 
 
-@pytest.mark.parametrize("name", ["data2", "tp_1x2"])
+@pytest.mark.parametrize("name", ["data2", "tp_1x2", "tp_2x2"])
 def test_multihost_loop_in_lockstep_with_rank0_side_effects(loop_runs, name):
-    r0, r1 = (o[name] for o in loop_runs["outs"])
+    ranks = [o[name] for o in loop_runs["outs4" if name == "tp_2x2" else "outs"]]
+    r0 = ranks[0]
     assert len(r0["train_curve"]) == 2 and all(np.isfinite(r0["train_curve"]))
-    assert r0["train_curve"] == r1["train_curve"]  # the global loss, on both ranks
-    assert (r0["n_eval"], r1["n_eval"]) == (2, 0)
+    assert all(r["train_curve"] == r0["train_curve"] for r in ranks)  # the global loss
+    assert [r["n_eval"] for r in ranks] == [2] + [0] * (len(ranks) - 1)
     run = os.path.join(loop_runs["root"], name)
-    assert r1["saved"] == []
+    assert all(r["saved"] == [] for r in ranks[1:])
     assert r0["saved"].count(os.path.join(run, "checkpoint.ckpt")) == 2
     assert os.path.join(run, "best.ckpt") in r0["saved"]
     with open(os.path.join(run, "trainning_record.csv")) as f:
         assert [r["epoch"] for r in csv.DictReader(f)] == ["0", "1"]
-    assert "CIDEr" in r0["test_res"] and r1["test_res"] is None
+    assert "CIDEr" in r0["test_res"] and all(r["test_res"] is None for r in ranks[1:])
+    if name == "tp_2x2":
+        # the 'data' 2 run's batches: its curve, with the TP slices
+        np.testing.assert_allclose(r0["train_curve"],
+                                   loop_runs["outs"][0]["data2"]["train_curve"], rtol=1e-6)
+        model, cfg, _ = load_model_and_config(os.path.join(run, "best.ckpt"), device="cpu")
+        assert cfg.mesh_shape == {"data": 2, "model": 2}
+        single, _, _ = load_model_and_config(
+            os.path.join(loop_runs["root"], "single", "best.ckpt"), device="cpu")
+        assert {k: v.shape for k, v in model.state_dict().items()} == \
+            {k: v.shape for k, v in single.state_dict().items()}
 
 
 def test_tp_best_checkpoint_holds_full_weights_and_decodes(loop_runs):

@@ -279,17 +279,19 @@ def runs(tmp_path_factory):
     rng = np.random.RandomState(1)
     sweep_feats = [rng.randn(GLOBAL_B, cfg_nab.n_frames, d).astype(np.float32)
                    for d in (cfg_nab.dim_m, cfg_nab.dim_i)]
+    def sweep(mesh=None):
+        return dict(name="nab", method="NAB", mesh=mesh, variables=var_nab, feats=sweep_feats,
+                    over=dict(OVER, dataset="MSVD", length_beam_size=2, iterations=2))
+
     two = worker.start("steps,sweep", 2, dict(device="cpu", steps=[
         case("dp_NACF", "NACF", var_n, batches_n),
         case("dp_ARB", "ARB", var_a, batches_a),
         case("uneven", "NACF", var_n, uneven),
         case("tp_1x2", "NACF", var_n, batches_n, {"data": 1, "model": 2}),
-    ], sweep=[dict(name="nab", method="NAB",
-                   over=dict(OVER, dataset="MSVD", length_beam_size=2, iterations=2),
-                   variables=var_nab, feats=sweep_feats)]), os.path.join(root, "two"))
-    four = worker.start("steps", 4, dict(device="cpu", steps=[
-        case("tp_2x2", "NACF", var_n, batches_n, {"data": 2, "model": 2})]),
-        os.path.join(root, "four"))
+    ], sweep=[sweep()]), os.path.join(root, "two"))
+    four = worker.start("steps,sweep", 4, dict(device="cpu", steps=[
+        case("tp_2x2", "NACF", var_n, batches_n, {"data": 2, "model": 2})],
+        sweep=[sweep({"data": 2, "model": 2})]), os.path.join(root, "four"))
 
     out = {"single": {}, "navc": {}, "batches": {"NACF": batches_n, "ARB": batches_a}}
     for name, cfg, var, batches in (("NACF", cfg_n, var_n, batches_n),
@@ -380,6 +382,16 @@ def test_tensor_parallel_step_matches_single_process(runs, name, world, model):
 
 def test_sharded_nab_sweep_matches_single_process_and_navc_tpu(runs):
     for o in runs["two"]:
+        tokens = o["sweep"]["nab"]["tokens"]
+        np.testing.assert_array_equal(tokens, runs["sweep_single"])
+        np.testing.assert_array_equal(tokens, runs["sweep_navc"])
+
+
+def test_sharded_nab_sweep_on_a_2x2_mesh(runs):
+    """Data 2 x model 2 on four ranks: the ranks of a 'model' group decode
+    the same rows, the 'data' groups gather them; every rank holds the
+    whole batch's tokens, the single process's and navc_tpu's."""
+    for o in runs["four"]:
         tokens = o["sweep"]["nab"]["tokens"]
         np.testing.assert_array_equal(tokens, runs["sweep_single"])
         np.testing.assert_array_equal(tokens, runs["sweep_navc"])

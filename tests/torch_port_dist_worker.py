@@ -21,18 +21,22 @@ Suites:
     slices all-gathered into full tensors) as a flax tree; after the steps
     the weights (gathered) as a flax tree and the TP slices' shapes; then
     the case's ``timed`` batches, each step's ms on the host clock;
-  * ``sweep``: NAB's NAR decode of a global batch, each rank decoding its
-    rows (``generate_sharded``);
+  * ``sweep``: NAB's NAR decode of a global batch (and its categories,
+    when the case has them) on the case's mesh, each rank decoding its
+    'data' coordinate's rows (``generate_sharded``);
   * ``loop``: ``train_network_all_multihost`` for each of ``loops`` (name,
     config): its curve, validations, the save calls each rank made, its
     launches, host collectives and seconds; then, given ``cli_argv``,
     ``cli.train.main([... "--distributed"])``, with and without
     ``--resume``;
-  * ``nccl_step`` (the card, NCCL): the step captured (``jit=True``) and
-    eager from the same weights on the rank's rows, the single-process
-    step captured on the whole batch; a replay's launches and the
-    collectives the host issued during it; ms of replays; ``jit=True`` on a
-    gloo group;
+  * ``nccl_step`` (the card, NCCL): on its ``mesh`` (default all 'data'),
+    the step captured (``jit=True``) and eager from the same weights on the
+    rank's rows, the single-process step captured on the whole batch; a
+    digest of the captured step's weights (gathered) and one of its TP
+    slices after the steps; a replay's launches and the collectives the
+    host issued during it; ms of replays on the ``timed`` global batch
+    (default the second one), in turns with the single-process step's;
+    ``jit=True`` on a gloo group;
   * ``nccl_probe``: one all-reduce, and the error NCCL raises for it
     (two ranks on one card: "Duplicate GPU detected").
 """
@@ -215,6 +219,33 @@ def single_steps(cfg, model, batches, timed=()):
     return out
 
 
+def gaps(got, single):
+    """A rank's ``steps`` results against ``single_steps``'s on the whole
+    batches: (each step's loss gap, relative; the worst gradient gap of a
+    parameter, relative to its norm or to 1e-3 of the largest parameter
+    gradient's norm, whichever is larger; the worst weight gap after the
+    steps, absolute; the worst BatchNorm statistic gap, relative to the
+    statistic's largest magnitude or 1)."""
+    import numpy as np
+
+    loss_gaps = [abs(m["total_loss"] - w["total_loss"]) / abs(w["total_loss"])
+                 for m, w in zip(got["metrics"], single["metrics"])]
+    grad_gap = 0.0
+    for mine, ref in zip(got["grads"], single["grads"]):
+        mine, ref = dict(leaves(mine)), dict(leaves(ref))
+        floor = 1e-3 * max(np.linalg.norm(v) for v in ref.values())
+        grad_gap = max([grad_gap] + [float(np.linalg.norm(mine[k] - v))
+                                     / max(float(np.linalg.norm(v)), floor)
+                                     for k, v in ref.items()])
+    params = dict(leaves(got["variables"]["params"]))
+    weight_gap = max(float(np.abs(params[k] - v).max())
+                     for k, v in leaves(single["variables"]["params"]))
+    stats = dict(leaves(got["variables"].get("batch_stats", {})))
+    bn_gap = max([0.0] + [float(np.abs(stats[k] - v).max()) / max(float(np.abs(v).max()), 1.0)
+                          for k, v in leaves(single["variables"].get("batch_stats", {}))])
+    return loss_gaps, grad_gap, weight_gap, bn_gap
+
+
 def run_steps(case, device):
     import torch
 
@@ -272,10 +303,12 @@ def run_sweep(case, device):
     cfg = default_config(case["method"], **case["over"])
     model = load_flax_variables(build_model(cfg, device=device), case["variables"])
     feats = [torch.from_numpy(f).to(device) for f in case["feats"]]
+    cat = case.get("category")
     with torch.no_grad():
         enc = model.encode(feats)
         gen = make_nar_generator(cfg, model)
-        hyp = generate_sharded(gen, make_mesh(), enc)
+        hyp = generate_sharded(gen, make_mesh(case.get("mesh")), enc,
+                               None if cat is None else torch.from_numpy(cat).to(device))
     return {"tokens": hyp.cpu().numpy()}
 
 
@@ -332,26 +365,33 @@ def run_nccl_step(inputs):
                                                    make_sharded_train_step, make_train_step)
 
     cfg = default_config("NACF", **inputs["over"])
-    mesh = make_mesh()
+    mesh = make_mesh(inputs.get("mesh"))
 
     def trainer(jit, m):
+        """(the step, its model, its ShardedParams or None)."""
         model = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0),
                             train=True)
         if m is None:
             return make_train_step(cfg, model, create_train_state(cfg, model).optimizer,
-                                   jit=jit)
+                                   jit=jit), model, None
         sharded = shard_params(model, m)
         state = create_train_state(cfg, model, sharded.parameters())
-        return make_sharded_train_step(cfg, model, state.optimizer, sharded, jit=jit)
+        return make_sharded_train_step(cfg, model, state.optimizer, sharded,
+                                       jit=jit), model, sharded
 
-    out = {"backend": mesh.backend}
-    steps = {"eager": trainer(False, mesh), "replayed": trainer(True, mesh),
-             "single": trainer(True, None)}
+    out = {"backend": mesh.backend, "mesh": (mesh.data, mesh.model)}
+    made = {"eager": trainer(False, mesh), "replayed": trainer(True, mesh),
+            "single": trainer(True, None)}
+    steps = {name: m[0] for name, m in made.items()}
     rows = {"eager": lambda b: shard_batch(b, mesh), "replayed": lambda b: shard_batch(b, mesh),
             "single": lambda b: b}
     for name, step in steps.items():
         out[name] = [float(step(rows[name](b), torch.Generator().manual_seed(i))["total_loss"])
                      for i, b in enumerate(inputs["batches"])]
+    _, model, sharded = made["replayed"]
+    out["slice digest"] = _digest(s.shard for s in sharded.shards)
+    sharded.gather()
+    out["digest"] = _digest(t for _, t in sorted(model.state_dict().items()))
     for name in ("replayed", "single"):
         b = rows[name](inputs["batches"][0])
         _, launches, collectives = _counted(
@@ -360,11 +400,13 @@ def run_nccl_step(inputs):
         out[name + " launches"] = launches
         out[name + " host collectives"] = sum(collectives.values())
     out["graphs"] = len(steps["replayed"].jitted.graphs)
+    timed = inputs.get("timed", inputs["batches"][1])
     ms = {"replayed": [], "single": []}
     for _ in range(10):  # in turns
         for name in ms:
-            ms[name] += _timed(steps[name], [rows[name](inputs["batches"][1])], "cuda")
+            ms[name] += _timed(steps[name], [rows[name](timed)], "cuda")
     out["median ms"] = {k: float(np.median(v)) for k, v in ms.items()}
+    out["timed rows"] = {k: len(rows[k](timed)["labels"]) for k in ms}
     world = parallel.process_count()
     gloo = torch.distributed.new_group(list(range(world)), backend="gloo")
     try:
