@@ -105,9 +105,9 @@ each decode eager and replayed (tokens bit for bit equal on two
 requests, launches of a replayed decode the eager decode's and the
 case's own: PER_DECODE, mp's without CT, the beam steps or the rounds
 that ran, ef's blocks and flag reads, ms per decode on both routes in
-turns, the first call's and the capture's seconds, the graph pool's
-bytes, and both routes profiled: idle share and where it falls; the
-full-prefix routes also against the CPU on 16 videos and teacher-forced
+turns, the first call's and the capture's seconds, and both routes
+profiled: idle share and where it falls; the full-prefix routes also
+against the CPU on 16 videos and teacher-forced
 against K1's plain version, the NAB and ARB2 decodes against the CPU
 plain path). The methods phase: for NAB and ARB2, one bf16 step at p = 0
 of 16 videos against the CPU plain path and the compiled step at B=64
@@ -481,6 +481,14 @@ def host_ms(fn, iters=3):
     for _ in range(iters):
         fn()
     return (time.perf_counter() - t0) / iters * 1e3
+
+
+def timed_requests(cap, reqs):
+    """(hypotheses, mean host seconds a request) of ``reqs`` through the
+    StreamingCaptioner ``cap``, flushed at the end."""
+    t0 = time.perf_counter()
+    out = list(cap.map_stream(reqs))
+    return out, (time.perf_counter() - t0) / max(1, len(out))
 
 
 def host_us(fn, iters=50):
@@ -1047,11 +1055,11 @@ def arb_phases(cfg, model, cpu_model, record, parent):
     reqs = [request(b) for _ in range(N_REQUESTS)]
     eager_cap = StreamingCaptioner(cfg, model, depth=2, jit=False)
     list(eager_cap.map_stream([reqs[0]]))
-    eager_outs, eager_request = eager_cap.timed_stream(reqs)
+    eager_outs, eager_request = timed_requests(eager_cap, reqs)
     del eager_cap
     steps0 = cap.generate.steps_run
     _build.reset_launches()
-    outs, per_request = cap.timed_stream(reqs)
+    outs, per_request = timed_requests(cap, reqs)
     launches = {name: _build.LAUNCHES[name] for name in ARB_KERNELS}
     steps = cap.generate.steps_run - steps0
     log("ARB main path: %d requests x %d videos, %.2f ms per request (%.1f "
@@ -1590,19 +1598,19 @@ def graphs_phase(cfg, model, tcfg, teacher, cpu_teacher, card):
         results[name] = dict(
             eager_ms=float(np.median(ms[False])), replay_ms=float(np.median(ms[True])),
             first_call_s=first_s, capture_s=sum(g.capture_s for g in graphs),
-            graphs=len(graphs), pool_mb=sum(g.pool_bytes for g in graphs) / 2 ** 20,
+            graphs=len(graphs),
             launches=launches, steps=steps or None, ef=ef, cpu_agreement=agree,
             full_prefix=prefix, eager_idle=idle[False], replay_idle=idle[True])
         r = results[name]
         log("graphs: %s [%s]: eager %.3f ms, replayed %.3f ms per decode (median of %d, "
             "host clock, %sends in the tokens' copy; %.2fx); tokens bit for bit the eager "
-            "route's; first call %.3f s (warm-up + capture of %d graph(s): %.3f s), pool "
-            "%.1f MiB; launches per replayed decode %s (the eager decode's)%s%s%s; idle "
+            "route's; first call %.3f s (warm-up + capture of %d graph(s): %.3f s); "
+            "launches per replayed decode %s (the eager decode's)%s%s%s; idle "
             "share eager %s, replayed %s" % (
                 name, card, r["eager_ms"], r["replay_ms"], 2 * GRAPH_ROUNDS,
                 "a request through StreamingCaptioner at depth 0, " if served else "",
                 r["eager_ms"] / r["replay_ms"], first_s, len(graphs), r["capture_s"],
-                r["pool_mb"], launches, "; %d beam steps" % steps if steps else "",
+                launches, "; %d beam steps" % steps if steps else "",
                 "" if ef is None else "; ef: %d reveal rounds, %d blocks, %d flag reads" % (
                     ef["rounds"], ef["blocks"], ef["flag_reads"]),
                 "" if agree is None else "; CPU plain path agreement on %d videos %.4f" % (
@@ -2830,7 +2838,7 @@ def train_graphs_phase(card):
             eager_ms_all=[round(x, 3) for x in ms[False]],
             replay_ms_all=[round(x, 3) for x in ms[True]],
             first_call_s=first_s, capture_s=graph.capture_s,
-            pool_mb=graph.pool_bytes / 2 ** 20, first_call_peak_gb=first_peak,
+            first_call_peak_gb=first_peak,
             eager_peak_gb=peak[False], replay_peak_gb=peak[True], launches=launches,
             eager_idle=idle[False], replay_idle=idle[True],
             eager_epoch_idle=epoch_idle[False], replay_epoch_idle=epoch_idle[True],
@@ -2840,7 +2848,7 @@ def train_graphs_phase(card):
             "epochs of %d steps through run_train_epoch each, in turns, host clock, the "
             "epoch's metrics read at its end; %.2fx); replayed steps bit for bit the eager "
             "ones (loss and %d gradients, %d steps under a warm-up lr%s)%s; first call %.3f s "
-            "(a real step, then the capture: %.3f s), pool %.1f MiB; peak GB above what the "
+            "(a real step, then the capture: %.3f s); peak GB above what the "
             "process held: first call %.2f, eager step %.2f, replayed step %.2f; launches "
             "per replayed step %s; idle share of one profiled step eager %s, replayed %s; of "
             "one profiled epoch eager %s, replayed %s" % (
@@ -2849,7 +2857,7 @@ def train_graphs_phase(card):
                 "; then %d parameters and buffers" % params_same if params_same else "",
                 "; lr 0, one batch: two replays' losses %r, %r, each the eager step's with "
                 "the same draws" % tuple(lr0) if b == TRAIN_B else "",
-                first_s, graph.capture_s, r["pool_mb"], first_peak, peak[False], peak[True],
+                first_s, graph.capture_s, first_peak, peak[False], peak[True],
                 launches, *("%.3f" % x if x is not None else "not measured"
                             for x in (idle[False], idle[True], epoch_idle[False],
                                       epoch_idle[True]))))
@@ -3764,10 +3772,7 @@ def remat_run(what):
             ms = float(np.median([host_ms(lambda: float(step(batches[0], gen)["total_loss"]),
                                           iters=1) for _ in range(REMAT_ROUNDS)]))
             fig = dict(ms=ms, launches=launches, losses=[o[0] for o in out])
-            if jit:
-                fig["pool_mb"] = sum(c.graph.pool_bytes for c in step.jitted.graphs.values()) \
-                    / 2 ** 20
-            else:
+            if not jit:
                 fig["peak_gb"] = peak
             results.setdefault("remat %s" % ("on" if remat else "off"), {})[
                 "replayed" if jit else "eager"] = fig
@@ -3788,13 +3793,12 @@ def remat_phase(card):
         off, on = r["remat off"], r["remat on"]
         log("remat [%s]: NACF step at B=%d, dropout %.1f, %s route (%s): remat off / on: "
             "peak GB of an eager step %.3f / %.3f, ms per step eager %.3f / %.3f, replayed "
-            "%.3f / %.3f (median of %d, host clock, the loss read), graph pool MiB %.1f / "
-            "%.1f; launches a step off %s, on %s; %d steps each bit for bit remat off's eager "
+            "%.3f / %.3f (median of %d, host clock, the loss read); launches a step off "
+            "%s, on %s; %d steps each bit for bit remat off's eager "
             "steps (loss and every gradient), losses %s" % (
                 card, TRAIN_BENCH, REMAT_P, route, r["routes"], off["eager"]["peak_gb"],
                 on["eager"]["peak_gb"], off["eager"]["ms"], on["eager"]["ms"],
                 off["replayed"]["ms"], on["replayed"]["ms"], REMAT_ROUNDS,
-                off["replayed"]["pool_mb"], on["replayed"]["pool_mb"],
                 off["replayed"]["launches"], on["replayed"]["launches"], REMAT_STEPS,
                 ["%.4f" % x for x in on["replayed"]["losses"]]))
     if not results["fused"]["routes"]["layer"] or results["modules"]["routes"]["layer"]:
@@ -4497,7 +4501,7 @@ def scale_run(card):
         if not torch.equal(run().cpu(), hyp):
             die("scale: a warm-up replay differs from the first call")
     (captured,) = gen.graphs.values()
-    fig.update(capture_s=captured.graph.capture_s, pool_mib=captured.graph.pool_bytes / 2**20)
+    fig.update(capture_s=captured.graph.capture_s)
     _build.reset_launches()
     if not torch.equal(run().cpu(), hyp):
         die("scale: a replay differs from the first call")
@@ -4550,7 +4554,7 @@ def scale_run(card):
     t0 = time.perf_counter()
     served = list(cap.map_stream([req]))  # first use: its encodes and decode captured
     fig["serve_first_s"] = time.perf_counter() - t0
-    outs, per_req = cap.timed_stream([req] * SCALE_REQUESTS)
+    outs, per_req = timed_requests(cap, [req] * SCALE_REQUESTS)
     if not all(np.array_equal(o, hyp.numpy()) for o in served + outs):
         die("scale: StreamingCaptioner's hypotheses differ from the generator's")
     fig.update(serve_depth=cap.depth, serve_ms_per_request=per_req * 1e3,
@@ -5099,9 +5103,9 @@ def main():
     eager_cap = StreamingCaptioner(cfg, model, (tcfg, teacher), depth=2, jit=False)
     list(eager_cap.map_stream([warm]))  # first use: cuBLAS handles, allocator
     torch.cuda.synchronize()
-    eager_outs, eager_request = eager_cap.timed_stream(reqs)
+    eager_outs, eager_request = timed_requests(eager_cap, reqs)
     _build.reset_launches()
-    outs, per_request = cap.timed_stream(reqs)
+    outs, per_request = timed_requests(cap, reqs)
     launches = dict(_build.LAUNCHES)
     log("main path: %d requests x %d videos, %.2f ms per request (%.1f "
         "captions/s, host clock, depth 2; replayed CUDA graphs, eager route %.2f ms); "

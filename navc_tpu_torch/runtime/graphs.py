@@ -91,6 +91,7 @@ import numpy as np
 import torch
 
 from ..ops import _build
+from . import summary
 
 
 def _flatten(x, leaves: list):
@@ -217,8 +218,9 @@ def flag_reader(done: torch.Tensor, flags: Optional[torch.Tensor], j: int
     event.record()
 
     def read():
-        event.synchronize()
-        return bool(flags[j])
+        with summary.span("navc.decode.flag_wait"):
+            event.synchronize()
+            return bool(flags[j])
     return read
 
 
@@ -308,8 +310,9 @@ class BodyRuns:
 
 class Graph:
     """One captured call of ``fn()`` from ``pool``: its graph, its outputs
-    (in the pool), the launches a replay makes ({wrapper: count}), the
-    seconds the capture took and the bytes it added to the pool.
+    (in the pool), the launches a replay makes ({wrapper: count}) and the
+    seconds the capture took (the span ``navc.capture`` while a profile
+    records: one inside a serving window is a recapture).
     ``generators``: the device generators other than the default one that
     ``fn`` draws from, registered with the capture. ``regions`` holds each
     IF node's (device counter of its body's runs, the body's launches);
@@ -323,11 +326,10 @@ class Graph:
         self.regions: List[Tuple[torch.Tensor, Dict[str, int]]] = []
         self._body = None  # the bodies' stream and pool, made at the first IF node
         _body_stream(torch.cuda.current_device())  # made before any capture begins
-        with collector_off():
+        with collector_off(), summary.span("navc.capture"):
             _build.LAUNCHES.settle()  # no wait for a replay inside the capture
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
-            held = torch.cuda.memory_reserved()
             t0 = time.perf_counter()
             with _build.capture_launches() as self.launches:
                 # thread_local: a loader's producer thread (data/loader.py)
@@ -344,7 +346,6 @@ class Graph:
                     if self.regions:  # the counters' totals, at the replay's end
                         self.ran = torch.stack([c for c, _ in self.regions])
             self.capture_s = time.perf_counter() - t0
-            self.pool_bytes = torch.cuda.memory_reserved() - held
         if self.regions:
             for counter, _ in self.regions:
                 counter.zero_()
@@ -468,7 +469,7 @@ class LoopGraphs:
 class Jitted:
     """``fn`` captured and replayed per signature on the card, run as it is
     on the CPU. ``graphs`` maps each signature to its ``Captured`` (capture
-    seconds and pool bytes in ``.graph``); clearing it drops them.
+    seconds in ``.graph``); clearing it drops them.
     ``generators`` and ``static_inputs``: see the module docstring."""
 
     graphed = True  # calls on the card replay graphs
@@ -515,30 +516,38 @@ class PinnedSlots:
     """Page-locked host buffers for the calls in flight, one set per slot:
     call i's arrays go through slot i % n, whose copy to the card is
     asynchronous; the host waits for the slot's previous copy (its event)
-    before it overwrites the buffers."""
+    before it overwrites the buffers. While a profile records, the wait is
+    the span ``navc.stage.slot_wait`` and the copy into the buffers
+    ``navc.stage.copy``."""
 
     def __init__(self, n: int):
         self.slots: list = [None] * n
         self.next = 0
 
     def to_device(self, arrays: List[np.ndarray], device,
-                  out: Sequence[torch.Tensor] = ()) -> List[torch.Tensor]:
+                  out: Sequence[torch.Tensor] = (),
+                  start: Optional[torch.cuda.Event] = None) -> List[torch.Tensor]:
         """The arrays on ``device``: copied into ``out`` (tensors of their
         shapes and dtypes there, e.g. a graph's static inputs) when given,
-        else into new tensors."""
+        else into new tensors. ``start``: an event recorded just before the
+        copies to the card are queued."""
         i = self.next
         self.next = (i + 1) % len(self.slots)
         slot = self.slots[i]
         if slot is not None:
-            slot[1].synchronize()
+            with summary.span("navc.stage.slot_wait"):
+                slot[1].synchronize()
         if slot is None or [(b.shape, b.numpy().dtype) for b in slot[0]] != [
                 (a.shape, a.dtype) for a in arrays]:
             bufs = [torch.empty(a.shape, dtype=torch.from_numpy(np.empty(0, a.dtype)).dtype,
                                 pin_memory=True) for a in arrays]
         else:
             bufs = slot[0]
-        for buf, a in zip(bufs, arrays):  # torch's copy runs on the intra-op threads
-            buf.copy_(torch.from_numpy(a))
+        with summary.span("navc.stage.copy"):
+            for buf, a in zip(bufs, arrays):  # torch's copy runs on the intra-op threads
+                buf.copy_(torch.from_numpy(a))
+        if start is not None:
+            start.record()
         if out:
             res = [o.copy_(buf, non_blocking=True) for o, buf in zip(out, bufs)]
         else:

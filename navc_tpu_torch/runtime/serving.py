@@ -3,9 +3,11 @@
 Port of navc_tpu/runtime/serving.py. ``submit`` enqueues one request's
 encode + decode on the card and returns at once (CUDA launches are
 asynchronous); the host waits for request i — its ``.cpu()`` copy — only
-after requests i+1 .. i+depth are in flight, so the host's work on one
-request overlaps the card's on the next. Results still come back strictly
-in submission order. ``depth=0`` is the reference's sequential protocol
+after requests i+1 .. i+depth are queued. That copy is queued on the same
+stream behind them, so it returns once the card has run them all: the
+host's staging of the next request does not overlap the card's work
+(``navc.inflight_at_result`` below reads 0). Results still come back
+strictly in submission order. ``depth=0`` is the reference's sequential protocol
 (translate.py:149-151).
 
 NAR models decode by mask-predict (optionally with an AR teacher's
@@ -14,12 +16,24 @@ rescoring), AR models (ARB, ARB2) by beam search; a request's result is the
 card the encodes and the decode replay CUDA graphs (``jit=True``,
 ``runtime/graphs.py``), and each request's features reach the card through
 page-locked buffers, one set per request in flight, copied asynchronously.
+
+While a profile records, a request's host work lies in ``summary.span``s
+that carry its ticket: ``navc.submit`` (the root), ``navc.stage``,
+``navc.encode``, ``navc.teacher_encode``, ``navc.decode``, then
+``navc.result`` (the host waiting for its tokens) and ``navc.flush``. On the
+card it also records two CUDA events a request, one before its features'
+copy to the card and one after its decode is queued. Once its tokens are on
+the host these are complete, and the captioner counts in the record
+
+* ``navc.request_gap_s``: the device seconds between the previous request's
+  end and this one's start (the card idle, waiting for the request);
+* ``navc.inflight_at_result``: how many of the newer requests in flight had
+  not finished on the card, one count per result read.
 """
 
 from __future__ import annotations
 
 import collections
-import time
 from typing import Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -28,7 +42,7 @@ import torch
 from ..config import Config
 from ..decoding import make_ar_generator, make_nar_generator
 from ..device import resolve_device
-from . import graphs
+from . import graphs, summary
 
 
 def make_encode_fn(cfg: Config, model, jit: bool = True):
@@ -83,32 +97,63 @@ class StreamingCaptioner:
                              cfg, model, None if teacher is None else teacher[1], jit))
         self._staging = (graphs.PinnedSlots(self.depth + 1)
                          if self.device.type == "cuda" else None)
-        self._inflight = collections.deque()  # (ticket, device hyp)
+        self._inflight = collections.deque()  # (ticket, device hyp, marks)
         self._next_ticket = 0
+        self._last_end: Optional[torch.cuda.Event] = None  # the last result's end mark
 
     # -- pipeline core ----------------------------------------------------
 
     def _dispatch(self, feats, category):
+        """Stages and queues one request: (device hyp, its (start, end)
+        CUDA events, or None where none are recorded)."""
         with_cat = self.cfg.with_category and category is not None
-        if self._staging is None:
-            feats = [torch.as_tensor(f, dtype=torch.float32) for f in feats]
-            cat = torch.as_tensor(category) if with_cat else None
-        else:
-            arrays = [np.asarray(f, dtype=np.float32) for f in feats]
-            arrays += [np.asarray(category)] if with_cat else []
-            staged = self._staging.to_device(arrays, self.device)
-            feats, cat = staged[:len(feats)], (staged[-1] if with_cat else None)
-        enc = self._encode(feats)
+        marks = None
+        with summary.span("navc.stage"):
+            if self._staging is None:
+                feats = [torch.as_tensor(f, dtype=torch.float32) for f in feats]
+                cat = torch.as_tensor(category) if with_cat else None
+            else:
+                if summary.recording():
+                    marks = tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
+                arrays = [np.asarray(f, dtype=np.float32) for f in feats]
+                arrays += [np.asarray(category)] if with_cat else []
+                staged = self._staging.to_device(arrays, self.device,
+                                                 start=None if marks is None else marks[0])
+                feats, cat = staged[:len(feats)], (staged[-1] if with_cat else None)
+        with summary.span("navc.encode"):
+            enc = self._encode(feats)
         # device tensors, not synced: they stay in flight
         if self.ar:
-            hyp, _ = self.generate(enc, cat)
-            return hyp
-        tenc = None if self._teacher_encode is None else self._teacher_encode(feats)
-        return self.generate(enc, cat, tenc, self._dict_mapping)
+            with summary.span("navc.decode"):
+                hyp, _ = self.generate(enc, cat)
+        else:
+            tenc = None
+            if self._teacher_encode is not None:
+                with summary.span("navc.teacher_encode"):
+                    tenc = self._teacher_encode(feats)
+            with summary.span("navc.decode"):
+                hyp = self.generate(enc, cat, tenc, self._dict_mapping)
+        if marks is not None:
+            marks[1].record()
+        return hyp, marks
 
     @staticmethod
     def _sync(hyp: torch.Tensor) -> np.ndarray:
         return hyp.cpu().numpy()
+
+    def _complete(self) -> Tuple[int, np.ndarray]:
+        """The oldest request's (ticket, hypotheses), its marks counted."""
+        ticket, hyp, marks = self._inflight.popleft()
+        with summary.span("navc.result", ticket):
+            out = self._sync(hyp)
+        if marks is not None:
+            if self._last_end is not None:
+                summary.count("navc.request_gap_s",
+                              self._last_end.elapsed_time(marks[0]) / 1e3)
+            summary.count("navc.inflight_at_result",
+                          sum(not m[1].query() for _, _, m in self._inflight if m))
+        self._last_end = None if marks is None else marks[1]
+        return ticket, out
 
     def submit(self, feats, category=None) -> Tuple[int, List[Tuple[int, np.ndarray]]]:
         """Enqueue one request. Returns (ticket, completed): ``completed``
@@ -116,20 +161,17 @@ class StreamingCaptioner:
         ``depth`` — in submission order."""
         ticket = self._next_ticket
         self._next_ticket += 1
-        self._inflight.append((ticket, self._dispatch(feats, category)))
-        done = []
-        while len(self._inflight) > self.depth:
-            t, hyp = self._inflight.popleft()
-            done.append((t, self._sync(hyp)))
+        with summary.span("navc.submit", ticket):
+            self._inflight.append((ticket, *self._dispatch(feats, category)))
+            done = []
+            while len(self._inflight) > self.depth:
+                done.append(self._complete())
         return ticket, done
 
     def flush(self) -> List[Tuple[int, np.ndarray]]:
         """Sync every in-flight request, in submission order."""
-        done = []
-        while self._inflight:
-            t, hyp = self._inflight.popleft()
-            done.append((t, self._sync(hyp)))
-        return done
+        with summary.span("navc.flush"):
+            return [self._complete() for _ in range(len(self._inflight))]
 
     # -- conveniences ------------------------------------------------------
 
@@ -143,9 +185,3 @@ class StreamingCaptioner:
                 yield hyp
         for _, hyp in self.flush():
             yield hyp
-
-    def timed_stream(self, requests: List[tuple]) -> Tuple[List[np.ndarray], float]:
-        """(results, mean host seconds per request) of a request list."""
-        t0 = time.perf_counter()
-        out = list(self.map_stream(requests))
-        return out, (time.perf_counter() - t0) / max(1, len(out))

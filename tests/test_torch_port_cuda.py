@@ -18,7 +18,8 @@ graphs in reference cycles outliving a capture, a failed capture raising;
 replayed l2r and ef bit for bit and launch for launch the eager route's
 at 16 and 64 videos, no sync in a replayed l2r decode, ef's flags read one
 block late, ef's stall, the full-prefix beam through K1 once per step);
-NAB's and ARB2's requests through a replaying StreamingCaptioner; and the
+NAB's and ARB2's requests through a replaying StreamingCaptioner, its
+request marks and in-flight count under a profile; and the
 compiled training step (``test_train_graphs_*``: the replayed NACF, ARB2
 and NAB steps bit for bit the eager ones, fresh masks per replay, the lr tensor
 followed, the card's capturable optimizer replayed against torch's CPU
@@ -1897,6 +1898,64 @@ def test_graphs_streaming_captioner_keeps_each_request(cuda, method):
     got = dict(done)
     for t, ref in enumerate(want):
         np.testing.assert_array_equal(got[t], ref)
+
+
+@pytest.mark.cuda
+def test_request_marks_and_inflight_count_at_depth_2(cuda):
+    """Under a profile a replaying NACF captioner at depth 2 counts one
+    device gap a request after the first and one in-flight count a result.
+    With the card held busy after each decode (``torch.cuda._sleep``) and a
+    result read behind an event of its own decode, the two newer requests
+    are still running at each read (2, 2, 2, then 1 and 0 in the flush: 7
+    over 5) and the card never waits for a request; with the captioner's own
+    ``.cpu()`` read, which drains the stream, none is (0 over 5) and the
+    card waits while the host stages each next request."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from navc_tpu_torch.runtime import summary
+    from navc_tpu_torch.runtime.serving import StreamingCaptioner
+
+    cfg, model, tcfg, teacher = _serving_models("cuda")
+    reqs = []
+    for seed in range(20, 25):
+        feats, cat = _request_on(cfg, 16, seed, "cpu")
+        reqs.append(([f.numpy() for f in feats], cat.numpy()))
+    runs = {}
+    for name in ("own", "drain"):
+        cap = StreamingCaptioner(cfg, model, (tcfg, teacher), depth=2)
+        list(cap.map_stream(reqs[:1]))  # the graphs captured outside the profile
+        if name == "own":
+            decoded, generate = {}, cap.generate
+
+            def busy_after(*args, **kwargs):
+                hyp = generate(*args, **kwargs)
+                decoded[id(hyp)] = torch.cuda.Event()
+                decoded[id(hyp)].record()
+                torch.cuda._sleep(200_000_000)  # ~0.1 s of the card's clock
+                return hyp
+
+            def own_read(hyp):
+                decoded.pop(id(hyp)).synchronize()
+                return np.empty(0)
+
+            cap.generate, cap._sync = busy_after, own_read
+        summary.clear_record()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            done = []
+            for feats, cat in reqs:
+                done += cap.submit(feats, cat)[1]
+            done += cap.flush()
+        torch.cuda.synchronize()
+        assert [t for t, _ in done] == list(range(1, len(reqs) + 1))
+        runs[name] = summary.record()["counters"]
+    summary.clear_record()
+    for c in runs.values():
+        assert c["navc.request_gap_s"]["count"] == len(reqs) - 1
+        assert c["navc.inflight_at_result"]["count"] == len(reqs)
+    assert runs["own"]["navc.inflight_at_result"]["total"] == 7
+    assert 0 <= runs["own"]["navc.request_gap_s"]["total"] < 1e-3
+    assert runs["drain"]["navc.inflight_at_result"]["total"] == 0
+    assert runs["drain"]["navc.request_gap_s"]["total"] > 0
 
 
 @pytest.mark.cuda

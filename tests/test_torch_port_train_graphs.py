@@ -29,7 +29,7 @@ as it is:
     does not keep the step's graphs alive;
   * ``make_train_step`` and ``make_eval_loss_step`` keep navc_tpu's
     parameters first, ``jit`` keyword-only and True by default;
-  * ``trace`` and ``StepTimer`` behave as navc_tpu's do.
+  * ``trace`` behaves as navc_tpu's does.
 
 Run: ``python -m pytest tests/test_torch_port_train_graphs.py -q``.
 """
@@ -379,27 +379,8 @@ def test_reload_hook_drops_graphs_and_holds_the_step_weakly():
 
 
 # ---------------------------------------------------------------------------
-# trace and StepTimer
+# trace
 # ---------------------------------------------------------------------------
-
-def test_step_timer_behaves_as_navc_tpu(monkeypatch):
-    """The same clock readings give the same times, mean and count, for
-    skip 0, 1 (the default: the compile or capture step) and 3."""
-    import time
-
-    for skip in (None, 0, 1, 3):
-        timers = {}
-        for mod in (summary, jax_summary):
-            ticks = iter(np.cumsum(np.arange(1, 40) * 0.25))
-            monkeypatch.setattr(time, "perf_counter", lambda: float(next(ticks)))
-            t = mod.StepTimer() if skip is None else mod.StepTimer(skip=skip)
-            for _ in range(5):
-                with t as entered:
-                    assert entered is t
-            timers[mod] = (t.times, t.mean, t.count)
-        assert timers[summary] == timers[jax_summary], skip
-    assert timers[summary][2] == 2 and summary.StepTimer().mean == 0.0
-
 
 def test_trace_behaves_as_navc_tpu(tmp_path):
     """A falsy logdir is a no-op on both sides; a directory gets the
