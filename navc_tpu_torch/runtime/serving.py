@@ -2,13 +2,14 @@
 
 Port of navc_tpu/runtime/serving.py. ``submit`` enqueues one request's
 encode + decode on the card and returns at once (CUDA launches are
-asynchronous); the host waits for request i — its ``.cpu()`` copy — only
-after requests i+1 .. i+depth are queued. That copy is queued on the same
-stream behind them, so it returns once the card has run them all: the
-host's staging of the next request does not overlap the card's work
-(``navc.inflight_at_result`` below reads 0). Results still come back
-strictly in submission order. ``depth=0`` is the reference's sequential protocol
-(translate.py:149-151).
+asynchronous); the host waits for request i only after requests
+i+1 .. i+depth are queued. On the card each request's tokens come back
+through a copy of their own into page-locked memory, queued right behind
+its decode, with an event after it: reading request i waits for that event
+alone, not for the newer requests queued behind it, so the host stages the
+next request while the card still runs them (``navc.inflight_at_result``
+below counts them). Results come back strictly in submission order.
+``depth=0`` is the reference's sequential protocol (translate.py:149-151).
 
 NAR models decode by mask-predict (optionally with an AR teacher's
 rescoring), AR models (ARB, ARB2) by beam search; a request's result is the
@@ -22,8 +23,9 @@ that carry its ticket: ``navc.submit`` (the root), ``navc.stage``,
 ``navc.encode``, ``navc.teacher_encode``, ``navc.decode``, then
 ``navc.result`` (the host waiting for its tokens) and ``navc.flush``. On the
 card it also records two CUDA events a request, one before its features'
-copy to the card and one after its decode is queued. Once its tokens are on
-the host these are complete, and the captioner counts in the record
+copy to the card and one after its tokens' copy back is queued. Once its
+tokens are on the host these are complete, and the captioner counts in the
+record
 
 * ``navc.request_gap_s``: the device seconds between the previous request's
   end and this one's start (the card idle, waiting for the request);
@@ -97,15 +99,16 @@ class StreamingCaptioner:
                              cfg, model, None if teacher is None else teacher[1], jit))
         self._staging = (graphs.PinnedSlots(self.depth + 1)
                          if self.device.type == "cuda" else None)
-        self._inflight = collections.deque()  # (ticket, device hyp, marks)
+        self._inflight = collections.deque()  # (ticket, hyp or its host copy, marks)
         self._next_ticket = 0
         self._last_end: Optional[torch.cuda.Event] = None  # the last result's end mark
 
     # -- pipeline core ----------------------------------------------------
 
     def _dispatch(self, feats, category):
-        """Stages and queues one request: (device hyp, its (start, end)
-        CUDA events, or None where none are recorded)."""
+        """Stages and queues one request: (its hyp on the CPU, or on the card
+        (page-locked host buffer, event after the copy into it); its (start,
+        end) CUDA events, or None where none are recorded)."""
         with_cat = self.cfg.with_category and category is not None
         marks = None
         with summary.span("navc.stage"):
@@ -133,13 +136,27 @@ class StreamingCaptioner:
                     tenc = self._teacher_encode(feats)
             with summary.span("navc.decode"):
                 hyp = self.generate(enc, cat, tenc, self._dict_mapping)
-        if marks is not None:
-            marks[1].record()
+        if self._staging is not None:
+            # the tokens' own copy, behind this decode: reading them waits
+            # for the event after it (the end mark where one is taken), not
+            # for the requests queued later
+            host = torch.empty(hyp.shape, dtype=hyp.dtype, pin_memory=True)
+            host.copy_(hyp, non_blocking=True)
+            copied = torch.cuda.Event() if marks is None else marks[1]
+            copied.record()
+            hyp = (host, copied)
         return hyp, marks
 
     @staticmethod
-    def _sync(hyp: torch.Tensor) -> np.ndarray:
-        return hyp.cpu().numpy()
+    def _sync(hyp) -> np.ndarray:
+        """A request's tokens as an array the caller owns: a CPU tensor's
+        own, or a card request's copied out of its page-locked buffer (which
+        goes back to torch's pinned cache) once that copy has run."""
+        if isinstance(hyp, torch.Tensor):
+            return hyp.cpu().numpy()
+        host, copied = hyp
+        copied.synchronize()
+        return host.numpy().copy()
 
     def _complete(self) -> Tuple[int, np.ndarray]:
         """The oldest request's (ticket, hypotheses), its marks counted."""

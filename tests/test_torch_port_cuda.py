@@ -1863,11 +1863,16 @@ def test_graphs_arb_replays_eager_tokens(cuda, videos):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 2, 3])
 @pytest.mark.parametrize("method", ["nacf", "arb", "nab", "arb2"])
-def test_graphs_streaming_captioner_keeps_each_request(cuda, method):
-    """Three requests in flight through a replaying StreamingCaptioner, each
-    the eager decode's: NACF and NAB (mask-predict, no CT pass) with the ARB
-    teacher, ARB and ARB2 by beam search."""
+def test_graphs_streaming_captioner_keeps_each_request(cuda, method, depth):
+    """Six requests of different videos through a replaying
+    StreamingCaptioner at depth 1-3, each read once ``depth`` newer ones are
+    queued and each the eager decode's bit for bit once all are read: NACF
+    and NAB (mask-predict, no CT pass) with the ARB teacher, ARB and ARB2 by
+    beam search. Each request's tokens come back through a page-locked
+    buffer that later requests take again from torch's pinned cache, so
+    every result handed back owns its memory."""
     from navc_tpu_torch.decoding import make_ar_generator, make_nar_generator
     from navc_tpu_torch.runtime.serving import StreamingCaptioner
 
@@ -1878,10 +1883,11 @@ def test_graphs_streaming_captioner_keeps_each_request(cuda, method):
         cfg, model, teacher = tcfg, teacher, None
     elif method == "arb2":
         teacher = None
-    cap = StreamingCaptioner(cfg, model, None if teacher is None else (tcfg, teacher), depth=2)
+    cap = StreamingCaptioner(cfg, model, None if teacher is None else (tcfg, teacher),
+                             depth=depth)
     eager = (make_ar_generator(cfg, model, jit=False) if teacher is None
              else make_nar_generator(cfg, model, teacher, jit=False))
-    reqs = [_request_on(cfg, 16, seed, "cpu") for seed in (15, 16, 17)]
+    reqs = [_request_on(cfg, 16, seed, "cpu") for seed in range(15, 21)]
     want = []
     for feats, cat in reqs:
         f = [x.to(cuda) for x in feats]
@@ -1890,26 +1896,30 @@ def test_graphs_streaming_captioner_keeps_each_request(cuda, method):
                 () if teacher is None else (teacher.encode(f),))
         out = eager(*args)
         want.append((out[0] if teacher is None else out).cpu().numpy())
+    assert len({w.tobytes() for w in want}) == len(want)
     done = []
-    for feats, cat in reqs:
-        done += cap.submit([x.numpy() for x in feats], cat.numpy())[1]
-    assert [t for t, _ in done] == [0]  # read after requests 1 and 2 ran
+    for i, (feats, cat) in enumerate(reqs):
+        out = cap.submit([x.numpy() for x in feats], cat.numpy())[1]
+        assert [t for t, _ in out] == ([i - depth] if i >= depth else [])
+        done += out
     done += cap.flush()
-    got = dict(done)
-    for t, ref in enumerate(want):
-        np.testing.assert_array_equal(got[t], ref)
+    assert [t for t, _ in done] == list(range(len(reqs)))
+    for (_, got), ref in zip(done, want):
+        assert got.flags.owndata
+        np.testing.assert_array_equal(got, ref)
 
 
 @pytest.mark.cuda
 def test_request_marks_and_inflight_count_at_depth_2(cuda):
     """Under a profile a replaying NACF captioner at depth 2 counts one
     device gap a request after the first and one in-flight count a result.
-    With the card held busy after each decode (``torch.cuda._sleep``) and a
-    result read behind an event of its own decode, the two newer requests
-    are still running at each read (2, 2, 2, then 1 and 0 in the flush: 7
-    over 5) and the card never waits for a request; with the captioner's own
-    ``.cpu()`` read, which drains the stream, none is (0 over 5) and the
-    card waits while the host stages each next request."""
+    With the card held busy after each decode (``torch.cuda._sleep``), the
+    captioner's own read, which waits for the event behind the request's
+    own tokens' copy, finds the two newer requests still running at each
+    read (2, 2, 2, then 1 and 0 in the flush: 7 over 5), and the card never
+    waits for a request; a read that drains the card first
+    (``torch.cuda.synchronize()``) finds none (0 over 5), and the card
+    waits while the host stages each next request."""
     from torch.profiler import ProfilerActivity, profile
 
     from navc_tpu_torch.runtime import summary
@@ -1924,21 +1934,20 @@ def test_request_marks_and_inflight_count_at_depth_2(cuda):
     for name in ("own", "drain"):
         cap = StreamingCaptioner(cfg, model, (tcfg, teacher), depth=2)
         list(cap.map_stream(reqs[:1]))  # the graphs captured outside the profile
-        if name == "own":
-            decoded, generate = {}, cap.generate
+        generate, sync = cap.generate, cap._sync
 
-            def busy_after(*args, **kwargs):
-                hyp = generate(*args, **kwargs)
-                decoded[id(hyp)] = torch.cuda.Event()
-                decoded[id(hyp)].record()
-                torch.cuda._sleep(200_000_000)  # ~0.1 s of the card's clock
-                return hyp
+        def busy_after(*args, **kwargs):
+            hyp = generate(*args, **kwargs)
+            torch.cuda._sleep(200_000_000)  # ~0.1 s of the card's clock
+            return hyp
 
-            def own_read(hyp):
-                decoded.pop(id(hyp)).synchronize()
-                return np.empty(0)
+        def drain_read(hyp):
+            torch.cuda.synchronize()
+            return sync(hyp)
 
-            cap.generate, cap._sync = busy_after, own_read
+        cap.generate = busy_after
+        if name == "drain":
+            cap._sync = drain_read
         summary.clear_record()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
             done = []

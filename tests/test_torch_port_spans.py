@@ -14,7 +14,10 @@ on the CPU.
     readings;
   * ``trace(logdir)`` clears the record and writes it beside the trace;
   * ``submit`` reaches the card through the ``_dispatch`` and ``generate``
-    attributes, which a caller may wrap.
+    attributes, which a caller may wrap;
+  * at depths 0-3 a NACF and an ARB captioner hand back depth 0's tickets
+    and hypotheses in submission order, each request's once ``depth`` newer
+    ones are queued.
 
 The request marks and the in-flight count, which need CUDA events, are
 tested on the card (tests/test_torch_port_cuda.py, ``-k request_marks``).
@@ -196,3 +199,26 @@ def test_submit_calls_the_dispatch_and_generate_attributes(clean_record):
     assert calls == ["dispatch", "generate"] * len(reqs)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("depth", [0, 1, 2, 3])
+@pytest.mark.parametrize("method", ["NACF", "ARB"])
+def test_each_depth_returns_depth_0s_results_in_order(method, depth, clean_record):
+    """Requests of 3, 2, 4, 3 and 1 videos: at every depth the same tickets
+    and bit for bit the same hypotheses as a depth-0 captioner's, request i
+    read by the submit of request i + depth and the rest by ``flush``."""
+    base = _captioner(method, depth=0)
+    reqs = [_requests(base, 1, videos=v, seed=20 + i)[0] for i, v in enumerate((3, 2, 4, 3, 1))]
+    want = _serve(base, reqs)
+    cap = _captioner(method, depth=depth)
+    done = []
+    for i, (feats, cat) in enumerate(reqs):
+        ticket, out = cap.submit(feats, cat)
+        assert ticket == i
+        assert [t for t, _ in out] == ([i - depth] if i >= depth else [])
+        done += out
+    done += cap.flush()
+    assert [t for t, _ in done] == [t for t, _ in want] == list(range(len(reqs)))
+    for (_, got), (_, ref) in zip(done, want):
+        assert got.shape == ref.shape
+        np.testing.assert_array_equal(got, ref)
