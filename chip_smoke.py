@@ -17,7 +17,14 @@ PER_DECODE, the replays, the eager decode and the served requests bit for
 bit alike, three 64-video slices (the first, the middle, the last) encoded
 and decoded alone >= 0.99 of the same rows, the last 8 videos >= 0.99
 against the CPU plain path, and K1-K4 timed at the decode's shapes, the
-rows of their last canvases against the plain version. NACF: each of
+rows of their last canvases against the plain version. Then, in a process
+of its own (this script with --lm, which also runs it alone), the MLAMoE
+language model of benchmark/configs/kimi-vl-a3b-msrvtt.json at its
+published widths: K13 at its routed, shared and dense widths and K5's
+streamed walk at a beam step's 2560 x 2048 x 163,840, each against its
+plain version and timed beside it, and one 512-video request through
+StreamingCaptioner, its launches counted from zero (53 K13 a layer pass,
+one K5 a step). NACF: each of
 K1-K4 held against its plain PyTorch version at the
 NACF main path's shapes and timed (K1 NAR and causal, and K2, also beside
 bf16 torch.matmul of their products at their shapes, `matmul_ms`, and
@@ -4662,6 +4669,149 @@ def scale_phase(card):
     return fig
 
 
+LM_CONFIG = "benchmark/configs/kimi-vl-a3b-msrvtt.json"  # the benchmark's MLAMoE configuration
+LM_VIDEOS, LM_SEED = 512, 2**31 + 24  # a request of its cell, kimi-vl-a3b-msrvtt.beam-512
+# K13 at the language model's widths: a beam step's routed pairs (2560 rows x top 6, each
+# weighted), its shared experts (2 x 1408), layer 0 over a request's prefill (512 x 16 rows)
+LM_SWIGLU = ((15360, 1408, True), (2560, 2816, False), (8192, 11264, False))
+LM_TOPK = (2560, 2048, 163840, 5)  # K5's streamed walk: a step's beam rows, D, V, k
+
+
+def lm_run(card):
+    """The MLAMoE language model (Kimi-VL-A3B's, LM_CONFIG) at its published
+    widths: K13 at LM_SWIGLU and K5's streamed walk at LM_TOPK, each against
+    its plain version on the same card tensors (K13 within one bf16
+    rounding, the cuda tests' tolerance; K5's log-probs within 1e-4 and its
+    ids equal wherever a score is clear of both neighbours by 1e-3) and
+    timed beside it (K5 also beside torch.matmul); then one request of
+    LM_VIDEOS videos through StreamingCaptioner (captured prefill and
+    steps), bit for bit its first call's, with its launches counted from
+    zero: per layer pass (the prefill, each step) one K13 for layer 0's
+    dense MLP and two for each MoE layer (routed, shared), and one K5 a
+    step (their device time in the cell's requests is the benchmark's
+    traced run's: swiglu_roofline.kimi, topk_roofline.kimi). Returns the
+    figures: {"kernels": {name: record}, "decode": {...}}."""
+    import numpy as np
+    import torch
+
+    from benchmark import lm_inputs, lm_program
+    from navc_tpu_torch.ops import _build
+    from navc_tpu_torch.ops.swiglu import swiglu, swiglu_plain
+    from navc_tpu_torch.ops.vocab_fused import project_topk, project_topk_plain
+    from navc_tpu_torch.runtime.serving import StreamingCaptioner
+
+    _build.build(["vocab_fused", "swiglu"])
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cuda").manual_seed(24)
+    recs = {}
+
+    def rec(name, err, tol, ms, plain_ms, flops, nbytes, lib_ms=None):
+        b_ms, b_by = bound(flops, nbytes)
+        log("%-20s max_err %.3e (tol %.1e)  kernel_ms %.4f  plain_ms %.4f  library_ms %s  "
+            "bound_ms %.4f (%s)" % (name, err, tol, ms, plain_ms,
+                                    "null" if lib_ms is None else "%.4f" % lib_ms, b_ms, b_by))
+        if not err <= tol:
+            die("%s disagrees with its plain version: max_err %.3e > %.1e" % (name, err, tol))
+        return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=lib_ms)
+
+    # K13: max_err is the largest |kernel - plain| over rtol 2^-7 |plain| + 1e-5
+    for rows, inter, weighted in LM_SWIGLU:
+        gu = (torch.randn(rows, 2 * inter, device=dev, generator=g) * 2).to(torch.bfloat16)
+        w = torch.rand(rows, device=dev, generator=g) * 2.5 if weighted else None
+        got, want = swiglu(gu, w).float(), swiglu_plain(gu, w).float()
+        err = float(((got - want).abs() / (2 ** -7 * want.abs() + 1e-5)).max())
+        recs["swiglu[%dx%d%s]" % (rows, inter, "w" if weighted else "")] = rec(
+            "swiglu %dx%d%s" % (rows, inter, " w" if weighted else ""), err, 1.0,
+            device_ms(lambda: swiglu(gu, w)), device_ms(lambda: swiglu_plain(gu, w)),
+            rows * inter * (7 if weighted else 6),
+            rows * 2 * inter * 2 + rows * inter * 2 + (rows * 4 if weighted else 0))
+        del gu, w, got, want
+
+    # K5's streamed walk
+    rows, d, v, k = LM_TOPK
+    hid = torch.randn(rows, d, device=dev, generator=g).to(torch.bfloat16)
+    w16 = (torch.randn(v, d, device=dev, generator=g) / d ** 0.5).to(torch.bfloat16)
+    lp, ids = project_topk(hid, w16, k)
+    lp_p, ids_p = project_topk_plain(hid, w16, k)
+    srt = (hid.float() @ w16.float().t()).topk(k + 1, dim=-1).values
+    gap = torch.cat([torch.full_like(srt[:, :1], float("inf")), srt[:, :-1] - srt[:, 1:]], 1)
+    clear = (gap[:, :-1] > 1e-3) & (gap[:, 1:] > 1e-3)
+    if not torch.equal(ids[clear], ids_p[clear]) or float(clear.float().mean()) <= 0.9:
+        die("project_topk at %d x %d x %d: ids differ from the plain version where a score is "
+            "clear of its neighbours (%.3f of places clear)" % (rows, d, v,
+                                                                float(clear.float().mean())))
+    recs["project_topk"] = rec(
+        "project_topk %dx%dx%d" % (rows, d, v), float((lp - lp_p).abs().max()), 1e-4,
+        device_ms(lambda: project_topk(hid, w16, k)),
+        device_ms(lambda: project_topk_plain(hid, w16, k), iters=5),
+        2 * rows * d * v, rows * d * 2 + v * d * 2 + rows * k * 8,
+        lib_ms=device_ms(lambda: torch.matmul(hid, w16.t())))
+    del hid, w16, lp, ids, lp_p, ids_p, srt, gap, clear
+    torch.cuda.empty_cache()
+
+    # one request through StreamingCaptioner, launches counted from zero
+    with open(os.path.join(ROOT, LM_CONFIG)) as f:
+        config = json.load(f)
+    cfg = lm_program.resolve(config)
+    model = lm_program.build(cfg, "cuda")
+    lm_inputs.make_weights(config, LM_SEED, "cuda", out=model.state_dict())
+    rng = np.random.RandomState(24)
+    req = ([rng.randn(LM_VIDEOS, cfg.n_frames, dm).astype(np.float32)
+            for dm in config["modality_dims"]], None)
+    cap = StreamingCaptioner(cfg, model, depth=1, device="cuda")
+    if not cap.generate.topk_kernel:
+        die("the language model's beam does not take K5")
+    (first,) = cap.map_stream([req])
+    torch.cuda.synchronize()
+    steps0 = cap.generate.steps_run
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    (again,) = cap.map_stream([req])
+    request_ms = (time.perf_counter() - t0) * 1e3
+    launches = {key: n for key, n in _build.LAUNCHES.items() if n}
+    steps = cap.generate.steps_run - steps0
+    passes = len(model.lm.layers) + model.lm.n_moe  # K13s a pass: 1 dense + routed, shared
+    want = {"swiglu": passes * (steps + 1), "project_topk": steps}
+    log("LM request: %d videos, %d steps, %.1f ms (host clock, %.1f captions/s); launches %s "
+        "(want %s: %d K13 a pass, one K5 a step)" % (
+            LM_VIDEOS, steps, request_ms, LM_VIDEOS / request_ms * 1e3, launches, want,
+            passes))
+    if launches != want:
+        die("the language model's request launched %s, not %s" % (launches, want))
+    if not all(np.array_equal(a, b) for a, b in zip(first, again)):
+        die("the language model's captured request differs from its first call")
+    decode = dict(videos=LM_VIDEOS, steps=steps, request_ms=request_ms, launches=launches,
+                  launches_per_step={"swiglu": passes, "project_topk": 1})
+    log(card)
+    return {"kernels": recs, "decode": decode}
+
+
+def lm_worker():
+    """--lm: ``lm_run`` in this fresh process; the figures as its last line
+    of standard output."""
+    sys.path.insert(0, ROOT)
+    import torch
+
+    if not torch.cuda.is_available():
+        die("torch.cuda.is_available() is false: this script needs the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(json.dumps(lm_run(card_name())), flush=True)
+    return 0
+
+
+def lm_phase(card):
+    """``lm_run`` in a fresh process (this script with --lm): the model's
+    31.9 GB are freed with it. Returns the figures."""
+    import torch
+
+    torch.cuda.empty_cache()
+    fig = script_process(["--lm"], "lm")
+    log("lm [%s]: %s" % (card, json.dumps(fig)))
+    return fig
+
+
 def main():
     import argparse
 
@@ -4673,11 +4823,16 @@ def main():
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--switch", help=argparse.SUPPRESS)
     ap.add_argument("--scale", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--lm", action="store_true", help="only the language model's phase "
+                    "(K13, K5's streamed walk, one captured 512-video request), in this "
+                    "process; its figures as the last line")
     args = ap.parse_args()
     if args.worker:
         sys.exit(serve_worker(args.worker))
     if args.scale:
         sys.exit(scale_worker())
+    if args.lm:
+        sys.exit(lm_worker())
     if args.switch:
         sys.exit(switch_worker(args.switch))
     if not os.path.isdir(os.path.join(ROOT, "navc_tpu_torch", "csrc")):
@@ -4730,6 +4885,12 @@ def main():
     t0 = time.perf_counter()
     scale_results = scale_phase(card)
     log("scale phase: %.1f s" % (time.perf_counter() - t0))
+
+    # -- 1c. the MLAMoE language model at its published widths, in a process
+    #        of its own -----------------------------------------------------
+    t0 = time.perf_counter()
+    lm_results = lm_phase(card)
+    log("lm phase: %.1f s" % (time.perf_counter() - t0))
 
     # -- 2. models at full width, seeded random weights ---------------------
     over = OVER
@@ -5253,9 +5414,11 @@ def main():
               "navc_tpu/ops/vocab_fused.py:128", rec_k3),
         entry("project_gather_prob", "navc_tpu_torch/csrc/vocab_fused.cu",
               "navc_tpu/ops/vocab_fused.py:229", rec_k4),
-        entry("project_topk", "navc_tpu_torch/csrc/vocab_fused.cu",
-              "navc_tpu/ops/vocab_fused.py:350", arb_recs["project_topk"],
-              arb_launches),
+        dict(entry("project_topk", "navc_tpu_torch/csrc/vocab_fused.cu",
+                   "navc_tpu/ops/vocab_fused.py:350", arb_recs["project_topk"],
+                   arb_launches),
+             at_lm=dict(lm_results["kernels"]["project_topk"], shape=LM_TOPK,
+                        launches=lm_results["decode"]["launches"]["project_topk"])),
         entry("beam_attend_step", "navc_tpu_torch/csrc/beam_attend.cu",
               "navc_tpu/ops/beam_attend.py:371", arb_recs["beam_attend_step"],
               arb_launches),
@@ -5283,6 +5446,14 @@ def main():
               "navc_tpu/ops/vocab_ce.py:152", train_recs["ce_bwd_dh"], train_launches),
         entry("ce_bwd_dw", "navc_tpu_torch/csrc/vocab_ce.cu",
               "navc_tpu/ops/vocab_ce.py:152", train_recs["ce_bwd_dw"], train_launches),
+        dict(name="swiglu", route="cuda", source="navc_tpu_torch/csrc/swiglu.cu",
+             replaces="none: navc_tpu has no language model (silu(g) * u of "
+             "navc_tpu_torch/models/mla_moe.py's MLPs)",
+             launches=lm_results["decode"]["launches"]["swiglu"],
+             launches_per_step=lm_results["decode"]["launches_per_step"]["swiglu"],
+             by_shape={key: r for key, r in lm_results["kernels"].items()
+                       if key.startswith("swiglu")},
+             **lm_results["kernels"]["swiglu[%dx%dw]" % LM_SWIGLU[0][:2]]),
         dict(entry("fused_layer_unfolded", "navc_tpu_torch/csrc/fused_layer_train.cu",
                    "navc_tpu/ops/fused_layer.py:303", rec_k1u),
              note="no path of navc_tpu reaches the unfolded form (its decodes pass "

@@ -6,7 +6,9 @@ tests hold every module here against its counterpart there.
 
 It serves NACF and NAB (mask-predict, left-to-right or easy-first
 refinement, with the coarse-template pass and AR-teacher rescoring, and the
-per-iteration collect modes) and ARB/ARB2 (KV-cached beam search), trains
+per-iteration collect modes), ARB/ARB2 (KV-cached beam search) and a
+DeepSeek-V3-type MoE language model as a beam-search caption decoder
+(method ``MLAMoE``: ``models/mla_moe.py``, ``decoding/lm_beam.py``), trains
 all four methods (``cli/train.py``; across ranks with ``--distributed``:
 data and tensor parallelism on torch.distributed), extracts image features
 (``models/resnet.py``, ``data/pretreatment.py``), and evaluates and captions from a

@@ -61,6 +61,16 @@ METHODS: Dict[str, Dict[str, Any]] = {
         "visual_word_generation": True,
         "demand": ["VERB", "NOUN"],
     },
+    # a decoder-only language model (latent attention, sparse experts) that
+    # reads the encoder's outputs as its first positions; its sizes are the
+    # ``lm_*`` fields below, given by the configuration
+    "MLAMoE": {
+        "encoder": "Encoder_HighWay",
+        "decoder": "MLAMoELM",
+        "decoding_type": "ARFormer",
+        "fusion": "temporal_concat",
+        "visual_word_generation": False,
+    },
 }
 
 SUPPORTED_DATASETS = ("Youtube2Text", "MSRVTT")
@@ -110,6 +120,23 @@ class Config:
     dim_word: int = 512
     tie_weights: bool = False
     vocab_size: int = 0  # filled from the corpus before model construction
+
+    # -- the MLAMoE decoder (decoder "MLAMoELM"; DeepSeek-V3's block) -------
+    # dim_hidden, num_hidden_layers_decoder, num_attention_heads,
+    # intermediate_size (the dense layers' width), vocab_size and hidden_act
+    # ("silu") are the fields above
+    lm_kv_lora_rank: int = 0        # the latent's width (K and V come from it)
+    lm_qk_nope_head_dim: int = 0    # the query/key width without rotary positions
+    lm_qk_rope_head_dim: int = 0    # the rotary width (the key's part is shared by heads)
+    lm_v_head_dim: int = 0
+    lm_rope_theta: float = 10000.0
+    lm_rms_norm_eps: float = 1e-5
+    lm_first_k_dense_replace: int = 0  # leading layers with a dense MLP
+    lm_n_routed_experts: int = 0
+    lm_n_shared_experts: int = 0
+    lm_num_experts_per_tok: int = 0
+    lm_moe_intermediate_size: int = 0
+    lm_routed_scaling_factor: float = 1.0
 
     # -- training -----------------------------------------------------------
     learning_rate: float = 5e-4
@@ -212,8 +239,20 @@ class Config:
                  "o": self.dim_o, "t": self.dim_t}
         return [table[ch] for ch in self.modality.lower()]
 
+    @property
+    def is_lm(self) -> bool:
+        """Does the MLAMoE language model decode (``models/mla_moe.py``)?"""
+        return self.decoder == "MLAMoELM"
+
     def to_dict(self) -> Dict[str, Any]:
-        return dataclasses.asdict(self)
+        """The fields as a dict; the MLAMoE decoder's ``lm_*`` fields, which
+        navc_tpu's Config lacks, only where one differs from its default, so
+        every other configuration (and its checkpoint) is navc_tpu's dict."""
+        d = dataclasses.asdict(self)
+        if all(d[f.name] == f.default for f in dataclasses.fields(self)
+               if f.name.startswith("lm_")):
+            d = {k: v for k, v in d.items() if not k.startswith("lm_")}
+        return d
 
     def to_json(self) -> str:
         return json.dumps(self.to_dict(), indent=2, sort_keys=True)
@@ -225,6 +264,42 @@ class Config:
     def from_dict(cls, d: Dict[str, Any]) -> "Config":
         known = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in known})
+
+
+# The MLAMoE decoder's settings as a DeepSeek-V3-type config.json names them
+# (the published keys), and the Config fields they fill.
+LM_KEYS = {"hidden_size": "dim_hidden", "num_hidden_layers": "num_hidden_layers_decoder",
+           "num_attention_heads": "num_attention_heads",
+           "intermediate_size": "intermediate_size", "vocab_size": "vocab_size",
+           "hidden_act": "hidden_act", "kv_lora_rank": "lm_kv_lora_rank",
+           "qk_nope_head_dim": "lm_qk_nope_head_dim",
+           "qk_rope_head_dim": "lm_qk_rope_head_dim", "v_head_dim": "lm_v_head_dim",
+           "rope_theta": "lm_rope_theta", "rms_norm_eps": "lm_rms_norm_eps",
+           "first_k_dense_replace": "lm_first_k_dense_replace",
+           "n_routed_experts": "lm_n_routed_experts",
+           "n_shared_experts": "lm_n_shared_experts",
+           "num_experts_per_tok": "lm_num_experts_per_tok",
+           "moe_intermediate_size": "lm_moe_intermediate_size",
+           "routed_scaling_factor": "lm_routed_scaling_factor"}
+# the structure the MLAMoE decoder implements, as those keys state it
+LM_STRUCTURE = {"q_lora_rank": None, "topk_method": "noaux_tc", "scoring_func": "sigmoid",
+                "n_group": 1, "topk_group": 1, "norm_topk_prob": True, "moe_layer_freq": 1,
+                "rope_scaling": None, "attention_bias": False, "tie_word_embeddings": False,
+                "hidden_act": "silu"}
+
+
+def lm_overrides(published: Dict[str, Any]) -> Dict[str, Any]:
+    """Config fields from a DeepSeek-V3-type language model's published
+    config (its keys as config.json has them); raises where it states a
+    structure the MLAMoE decoder does not implement."""
+    bad = {k: published.get(k) for k, v in LM_STRUCTURE.items()
+           if k in published and published[k] != v}
+    if published.get("num_key_value_heads", published["num_attention_heads"]) \
+            != published["num_attention_heads"]:
+        bad["num_key_value_heads"] = published["num_key_value_heads"]
+    if bad:
+        raise ValueError("the MLAMoE decoder does not implement %s" % bad)
+    return {field: published[key] for key, field in LM_KEYS.items()}
 
 
 # ---------------------------------------------------------------------------

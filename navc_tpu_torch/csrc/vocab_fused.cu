@@ -17,13 +17,19 @@
 // for every 256 bf16 FLOPs. K9 is the same product at the training step's
 // rows (0.64 ms at B = 2048: 61440 x 512 x 10048). K5's beam step (320 x 512 x 10048) is bounded
 // alike by operations and by bytes (~0.0033 ms): at so few rows what costs
-// is filling the card and the top-k bookkeeping, not the product.
+// is filling the card and the top-k bookkeeping, not the product. The
+// MLAMoE language model's beam step (2560 x 2048 x 163840, 1.72 TFLOP, W
+// 671 MB) is bounded by operations: 1.74 ms at 989 TFLOP/s; there h (128
+// rows x 2048 = 512 KB) cannot stay in shared memory, so K5 streams it (the
+// `stream` layout below).
 //
 // One walk serves all four (argmax_kernel<MODE, K, HALF> +
 // argmax_merge_kernel<MODE, K>): a block's two consumer warpgroups take
 // 128 rows of h and one vocab split.
 // - Ring: the h rows are loaded once (resident: ceil(D/64) TMA boxes of
-//   128 x 64 bf16, 128-byte swizzle); W streams in nn.Linear's own (V, D)
+//   128 x 64 bf16, 128-byte swizzle; K5 at D > 768 keeps none and loads each
+//   D chunk's h box beside its W box into the same stage, 3 stages of 32 KB
+//   a warpgroup, the rows read again from L2 for every tile); W streams in nn.Linear's own (V, D)
 //   layout, one 128 x 64 box per stage, with full/empty mbarriers. The ring
 //   has a half per consumer warpgroup, 3 stages each (1 for D > 512, where
 //   h takes up to 192 KB); the 128 bias values of each vocab tile come by
@@ -181,23 +187,29 @@ constexpr int A_BOX = AM * AK * 2; // bytes of one h box and of one W box (AN ==
 constexpr int A_SMEM = 232448;     // shared memory a block may use on the H100
 constexpr float LOG2E = 1.4426950408889634f;
 
+constexpr int MAX_D_RESIDENT = 768;  // the widest h tile that stays in shared memory
+constexpr int MAX_D_STREAM = 8192;   // K5's streamed walk (D > 768)
+
 // W ring stages per consumer warpgroup: 3 while the h tile takes at most
-// 128 KB (D <= 512), else 1 (D <= 768: h takes up to 192 KB).
+// 128 KB (D <= 512), else 1 (D <= 768: h takes up to 192 KB). K5 at D > 768
+// (`stream`) keeps no h tile: each of its 3 stages a warpgroup holds a W box
+// and the h box of the same D chunk.
 __host__ __device__ inline int ring_half(int d) { return d <= 512 ? 3 : 1; }
 
 // Byte offsets from the 1024-aligned base of dynamic shared memory: the
-// resident h tile (nk boxes), the ring of W boxes, two bias tiles, the
-// barriers; `bytes` (at most A_SMEM) includes the alignment slack.
+// resident h tile (nk boxes; none when `stream`), the ring of W (and, when
+// `stream`, h) boxes, two bias tiles, the barriers; `bytes` (at most A_SMEM)
+// includes the alignment slack.
 struct ArgLayout {
   int nk, stages, w, bias, bars, bytes;
 };
 
-__host__ __device__ inline ArgLayout arg_layout(int d) {
+__host__ __device__ inline ArgLayout arg_layout(int d, bool stream = false) {
   ArgLayout L;
   L.nk = (d + AK - 1) / AK;
-  L.w = L.nk * A_BOX;
-  L.stages = 2 * ring_half(d);
-  L.bias = L.w + L.stages * A_BOX;
+  L.w = stream ? 0 : L.nk * A_BOX;
+  L.stages = stream ? 6 : 2 * ring_half(d);
+  L.bias = L.w + L.stages * (stream ? 2 : 1) * A_BOX;
   L.bars = L.bias + 2 * AN * 4;  // full, empty (stages each), bfull, bempty, h, go
   L.bytes = 1024 + L.bars + 256;
   return L;
@@ -331,7 +343,10 @@ struct RowHandoff {
 // empty barrier; warpgroup 1 starts its products when warpgroup 0's first
 // tile's are done. Either way the two run half a step apart and one's
 // epilogue overlaps the other's products. At the end warpgroup 1 hands its
-// row states to warpgroup 0 through shared memory.
+// row states to warpgroup 0 through shared memory. K5 at D > 768 (HALF -1,
+// `kStream`): K5's walk with no resident h, each box of the ring a W box and
+// the h box of its D chunk (the h rows come again from L2 for every tile),
+// 3 stages a warpgroup.
 template <int MODE, int K, int HALF>
 __global__ void __launch_bounds__(MODE == TOPK ? 256 : 384, 1)
 argmax_kernel(const __grid_constant__ CUtensorMap hmap, const __grid_constant__ CUtensorMap wmap,
@@ -340,10 +355,12 @@ argmax_kernel(const __grid_constant__ CUtensorMap hmap, const __grid_constant__ 
               int* __restrict__ pa, float* __restrict__ pg, int rows, int d, int v,
               int tiles_per_split) {
   constexpr bool kProducer = MODE != TOPK;
+  constexpr bool kStream = HALF < 0;
+  constexpr int SB = kStream ? 2 * A_BOX : A_BOX;  // bytes of a ring stage
   extern __shared__ unsigned char smem_raw[];
   // 128-byte swizzled TMA boxes need 1024-byte aligned shared addresses
   unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  const ArgLayout L = arg_layout(d);
+  const ArgLayout L = arg_layout(d, kStream);
   unsigned char* hs = base;
   unsigned char* ws = base + L.w;
   float* bs = reinterpret_cast<float*>(base + L.bias);
@@ -354,7 +371,7 @@ argmax_kernel(const __grid_constant__ CUtensorMap hmap, const __grid_constant__ 
   uint64_t* hbar = bempty + 2;
   uint64_t* go = hbar + 1;  // K5: warpgroup 0's first tile's products are done
 
-  const int half = HALF ? HALF : ring_half(d);
+  const int half = kStream ? 3 : HALF ? HALF : ring_half(d);
   const int tile0 = blockIdx.y * tiles_per_split;
   const int ntiles = min(tiles_per_split, (v + AN - 1) / AN - tile0);
   const int row_base = blockIdx.x * AM;
@@ -407,9 +424,10 @@ argmax_kernel(const __grid_constant__ CUtensorMap hmap, const __grid_constant__ 
   // K5: box `it` of this warpgroup (its tile it / nk, D chunk it % nk) into its stage.
   auto load_box = [&](int it) {
     const int s = wg * half + it % half;
-    mbar_expect_tx(&full[s], A_BOX);
-    tma_load_2d(ws + s * A_BOX, &wmap, &full[s], (it % L.nk) * AK,
+    mbar_expect_tx(&full[s], SB);
+    tma_load_2d(ws + s * SB, &wmap, &full[s], (it % L.nk) * AK,
                 (tile0 + wg + 2 * (it / L.nk)) * AN);
+    if (kStream) tma_load_2d(ws + s * SB + A_BOX, &hmap, &full[s], (it % L.nk) * AK, row_base);
   };
   auto load_bias = [&](int ti) {
     mbar_expect_tx(&bfull[wg], AN * 4);
@@ -428,10 +446,11 @@ argmax_kernel(const __grid_constant__ CUtensorMap hmap, const __grid_constant__ 
     }
   };
   if (!kProducer) {
-    if (threadIdx.x == 0) mbar_expect_tx(hbar, L.nk * A_BOX);
+    if (!kStream && threadIdx.x == 0) mbar_expect_tx(hbar, L.nk * A_BOX);
 #pragma unroll
-    for (int c = 0; c < (768 + AK - 1) / AK; ++c)
-      if (threadIdx.x == 0 && c < L.nk) tma_load_2d(hs + c * A_BOX, &hmap, hbar, c * AK, row_base);
+    for (int c = 0; c < (MAX_D_RESIDENT + AK - 1) / AK; ++c)
+      if (!kStream && threadIdx.x == 0 && c < L.nk)
+        tma_load_2d(hs + c * A_BOX, &hmap, hbar, c * AK, row_base);
 #pragma unroll
     for (int it = 0; it < 3; ++it)
       if (leader && it < min(half, boxes)) load_box(it);
@@ -454,7 +473,7 @@ argmax_kernel(const __grid_constant__ CUtensorMap hmap, const __grid_constant__ 
   float acc0[64], acc1[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.f;
-  if (mine > 0) mbar_wait(hbar, 0);
+  if (!kStream && mine > 0) mbar_wait(hbar, 0);
   if (!kProducer && wg == 1 && mine > 1) mbar_wait(go, 0);
   for (int ti = 0; ti < mine; ++ti) {
     const int v0 = (tile0 + wg + 2 * ti) * AN;
@@ -465,7 +484,8 @@ argmax_kernel(const __grid_constant__ CUtensorMap hmap, const __grid_constant__ 
       const int it = ti * L.nk + c, s = wg * half + it % half;
       mbar_wait(&full[s], (it / half) & 1);
       // rows 64..127 of a box start 8 KB in: 512 in the descriptor's 16-byte units
-      const uint64_t da = desc_sw128(hs + c * A_BOX), db = desc_sw128(ws + s * A_BOX);
+      const uint64_t da = desc_sw128(kStream ? ws + s * SB + A_BOX : hs + c * A_BOX),
+                     db = desc_sw128(ws + s * SB);
 #pragma unroll
       for (int k = 0; k < AK / 16; ++k) {
         wgmma_m64n128k16(acc0, da + 2 * k, db + 2 * k, c | k);
@@ -644,10 +664,12 @@ int launch_walk(const void* h, const void* w, const void* bias, const void* targ
                 void* out, void* out2, void* pm, void* ps, void* pa, void* pg, int rows, int d,
                 int v, int splits, int tiles_per_split, void* stream) {
   const int tiles = (v + AN - 1) / AN;
-  if (rows < 1 || v < 1 || d < 16 || d % 16 || d > 768 || splits < 1 || tiles_per_split < 1 ||
-      (splits - 1) * tiles_per_split >= tiles || splits * tiles_per_split < tiles)
+  const bool streamed = MODE == TOPK && d > MAX_D_RESIDENT;  // K5's h streamed with W
+  if (rows < 1 || v < 1 || d < 16 || d % 16 || d > (streamed ? MAX_D_STREAM : MAX_D_RESIDENT) ||
+      splits < 1 || tiles_per_split < 1 || (splits - 1) * tiles_per_split >= tiles ||
+      splits * tiles_per_split < tiles)
     return (int)cudaErrorInvalidValue;
-  const ArgLayout L = arg_layout(d);
+  const ArgLayout L = arg_layout(d, streamed);
   if (L.bytes > A_SMEM || (MODE == TOPK && tiles_per_split * AN > 65535))
     return (int)cudaErrorInvalidValue;  // K5's lists hold 16-bit ids within a split
   CUtensorMap hmap, wmap, bmap;
@@ -662,7 +684,7 @@ int launch_walk(const void* h, const void* w, const void* bias, const void* targ
   void (*kernel)(CUtensorMap, CUtensorMap, CUtensorMap, bool, const int*, float*, float*, int*,
                  float*, int, int, int, int);
   if constexpr (MODE == TOPK)
-    kernel = argmax_kernel<MODE, K, 0>;
+    kernel = streamed ? argmax_kernel<MODE, K, -1> : argmax_kernel<MODE, K, 0>;
   else
     kernel = ring_half(d) == 3 ? argmax_kernel<MODE, K, 3> : argmax_kernel<MODE, K, 1>;
   cudaError_t e =

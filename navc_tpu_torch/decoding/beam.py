@@ -113,6 +113,48 @@ def _append_finished(state: BeamState, eligible: torch.Tensor,
         fin_count=(state.fin_count + accept.sum(1)).to(torch.int32))
 
 
+def choose(state: BeamState, last: torch.Tensor, wp_k: torch.Tensor,
+           ids_k: torch.Tensor, slot: torch.Tensor):
+    """A cached step's choice from each beam row's k best (log-prob, id)
+    (``wp_k``, ``ids_k`` (B * K, k)): a row that ended in EOS proposes
+    nothing (its candidates -1e20, their ids 0..k-1), the others add their
+    score; the k best of each instance's K * k candidates, first best on
+    ties. Returns (their scores (B, K), their flat candidate indices (B, K),
+    their rows' beam slots (B, K) int32, their ids (B, K) int32)."""
+    b, k = last.shape
+    wp_top, ids_top = wp_k.view(b, k, k), ids_k.view(b, k, k)
+    killed = (last == C.EOS)[:, :, None]
+    ids_top = torch.where(killed, slot, ids_top)
+    cand = torch.where(killed, NEG_BIG, wp_top + state.scores[:, :, None])
+    best_scores, best_flat = top_k_stable(cand.reshape(b, k * k), k)
+    prev_k = (best_flat // k).to(torch.int32)
+    next_word = torch.gather(ids_top.reshape(b, k * k), 1, best_flat)
+    return best_scores, best_flat, prev_k, next_word
+
+
+def advance(state: BeamState, new_seqs: torch.Tensor, next_word: torch.Tensor,
+            best_scores: torch.Tensor, t: int, last_step: bool,
+            capacity_limit: int) -> BeamState:
+    """The beam state after step t: active instances take ``new_seqs`` and
+    the scores, the beams that chose EOS are collected (Beam.py:95-99), at
+    the last step an instance with none collected takes every beam
+    (Beam.py:111-116), and an instance with ``capacity_limit`` collected is
+    done."""
+    b, k = next_word.shape
+    active = ~state.done
+    st = state._replace(
+        seqs=torch.where(active[:, None, None], new_seqs, state.seqs),
+        scores=torch.where(active[:, None], best_scores, state.scores))
+    eligible = (next_word == C.EOS) & active[:, None]
+    st = _append_finished(st, eligible, best_scores, new_seqs, t, capacity_limit)
+    newly_done = st.fin_count >= capacity_limit
+    if last_step:
+        empty = (st.fin_count == 0) & active
+        st = _append_finished(st, empty[:, None].expand(b, k),
+                              best_scores, new_seqs, t, capacity_limit)
+    return st._replace(done=st.done | newly_done)
+
+
 @dataclass
 class Routes:
     """Which kernels a cached decode runs (all False on the plain route)."""
@@ -392,7 +434,16 @@ def make_ar_generator(cfg: Config, model, jit: bool = True, *,
     The full-prefix route runs its layer through K1 on the card where
     ``fused_layer_eligible(cfg, causal=True)``, and the model's own forward
     on the CPU, as navc_tpu does.
+
+    A configuration whose decoder is the MLAMoE language model
+    (``cfg.is_lm``) decodes by ``lm_beam.make_lm_generator``: the same beam
+    over a prefilled latent cache of every layer, its ``generate`` giving
+    each token's log-probability and the tokens per expert too.
     """
+    if cfg.is_lm:
+        from .lm_beam import make_lm_generator
+
+        return make_lm_generator(cfg, model, jit, block=block)
     k = cfg.beam_size
     max_len = cfg.max_len
     specific = max(k, cfg.topk)
@@ -482,14 +533,7 @@ def make_ar_generator(cfg: Config, model, jit: bool = True, *,
                     lse = torch.log(torch.exp(out - mrow).sum(-1, keepdim=True))
                     top_logit, top_idx = top_k_stable(out, k)
                     wp_k, ids_k = (top_logit - mrow) - lse, top_idx.to(torch.int32)
-                wp_top, ids_top = wp_k.view(b, k, k), ids_k.view(b, k, k)
-                killed = (last == C.EOS)[:, :, None]
-                ids_top = torch.where(killed, slot, ids_top)
-                cand = torch.where(killed, NEG_BIG,
-                                   wp_top + state.scores[:, :, None])
-                best_scores, best_flat = top_k_stable(cand.reshape(b, k * k), k)
-                prev_k = (best_flat // k).to(torch.int32)
-                next_word = torch.gather(ids_top.reshape(b, k * k), 1, best_flat)
+                best_scores, _, prev_k, next_word = choose(state, last, wp_k, ids_k, slot)
             else:
                 wp = decode_step(state.seqs.reshape(n, max_len), enc_tiled,
                                  cat_tiled, t, prefix).view(b, k, -1)
@@ -512,19 +556,8 @@ def make_ar_generator(cfg: Config, model, jit: bool = True, *,
                 state.seqs, 1, prev_k.long()[:, :, None].expand(b, k, max_len))
             at_t = torch.arange(max_len, device=dev)[None, None, :] == t
             new_seqs = torch.where(at_t, next_word[:, :, None], reordered)
-
-            active = ~state.done
-            st = state._replace(
-                seqs=torch.where(active[:, None, None], new_seqs, state.seqs),
-                scores=torch.where(active[:, None], best_scores, state.scores))
-            eligible = (next_word == C.EOS) & active[:, None]
-            st = _append_finished(st, eligible, best_scores, new_seqs, t, specific)
-            newly_done = st.fin_count >= specific
-            if t == max_len - 1:
-                empty = (st.fin_count == 0) & active
-                st = _append_finished(st, empty[:, None].expand(b, k),
-                                      best_scores, new_seqs, t, specific)
-            st = st._replace(done=st.done | newly_done)
+            st = advance(state, new_seqs, next_word, best_scores, t,
+                         t == max_len - 1, specific)
             return st, next_word, kc, vc, pk
 
         return step, (state, last, kc, vc, pk)

@@ -47,7 +47,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 SOURCES = ("vocab_fused", "fused_layer", "beam_attend", "beam_permute",
-           "fused_layer_train", "vocab_ce", "graph_cond")
+           "fused_layer_train", "vocab_ce", "graph_cond", "swiglu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -115,7 +115,7 @@ LAUNCHES = Launches({"fused_layer": 0, "fused_layer_qsub": 0,
                      "cross_attend": 0, "permute_beam_caches": 0,
                      "train_fwd": 0, "train_ffn_bwd": 0,
                      "train_attn_bwd": 0, "train_wgrad": 0,
-                     "ce_fwd": 0, "ce_bwd_dh": 0, "ce_bwd_dw": 0})
+                     "ce_fwd": 0, "ce_bwd_dh": 0, "ce_bwd_dw": 0, "swiglu": 0})
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -18,7 +18,16 @@ variable turns a route off.
 
 The beam step's kernel switches (``NAVC_NO_ATTEND_KERNEL``,
 ``NAVC_NO_PERMUTE_KERNEL``, ``NAVC_NO_TOPK_KERNEL``) are read in
-``decoding/beam.py``. The generators and steps read a switch when they are
+``decoding/beam.py``.
+
+The MLAMoE language-model decoder (``cfg.is_lm``: many layers, SiLU, latent
+attention, experts) is outside the fused-layer and KV-cached gates below
+(they hold the one-layer BERT decoder, ``num_hidden_layers_decoder == 1``);
+``make_ar_generator`` hands it to ``decoding/lm_beam.py``, which always
+decodes from its latent cache (``NAVC_NO_KVCACHE`` does not apply) and
+projects through K5 where ``fused_vocab_eligible`` holds, the compute type
+is bfloat16, D <= ``ops.vocab_fused.MAX_D_TOPK`` and
+``NAVC_NO_TOPK_KERNEL`` is off. The generators and steps read a switch when they are
 made (navc_tpu's when ``jit`` traces), so a switch flipped later does not
 change what they run, nor what their captured graphs replay.
 """

@@ -29,7 +29,8 @@ import torch
 from . import _build
 from .select import top_k_stable
 
-MAX_D = 768  # shared-memory bound of the kernels' staged tiles
+MAX_D = 768  # shared-memory bound of the kernels' resident h tile
+MAX_D_TOPK = 8192  # K5 streams h with W past MAX_D (its walk's ``stream`` layout)
 MAX_K = 8    # register lists of the top-k kernel (beam sizes 1..8)
 _ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _SIGNATURES = {"navc_project_argmax": _ARGS, "navc_project_gather_prob": _ARGS,
@@ -88,7 +89,7 @@ def project_topk_plain(h: torch.Tensor, w: torch.Tensor, k: int,
     return (top - m) - torch.log(s), ids.to(torch.int32)
 
 
-def _check(h, w, bias, targets=None):
+def _check(h, w, bias, targets=None, max_d=MAX_D):
     if h.device.type != "cuda":
         raise ValueError("the kernel takes CUDA tensors, got %s" % h.device)
     if h.dim() != 2 or w.dim() != 2 or h.shape[1] != w.shape[1]:
@@ -98,9 +99,9 @@ def _check(h, w, bias, targets=None):
         raise TypeError("h and w must be bfloat16, got %s and %s"
                         % (h.dtype, w.dtype))
     d = h.shape[1]
-    if d % 16 or d > MAX_D:
+    if d % 16 or d > max_d:
         raise ValueError("D must be a multiple of 16 and at most %d, got %d"
-                         % (MAX_D, d))
+                         % (max_d, d))
     tensors = [h, w] + [t for t in (bias, targets) if t is not None]
     for t in tensors:
         if t.device != h.device:
@@ -231,10 +232,11 @@ def project_topk(h: torch.Tensor, w: torch.Tensor, k: int,
     descending, and their ids, lowest id first among equal values; the
     logits are never written. h (R, D) bf16; w (V, D) bf16; bias (V,) f32 or
     None; 1 <= k <= min(MAX_K, V); on the card all 16-byte aligned. Returns
-    ((R, k) f32, (R, k) int32)."""
+    ((R, k) f32, (R, k) int32). D up to MAX_D keeps h's rows in shared
+    memory; wider (up to MAX_D_TOPK) streams them with W's tiles."""
     if h.device.type == "cpu":
         return project_topk_plain(h, w, k, bias)
-    _check(h, w, bias)
+    _check(h, w, bias, max_d=MAX_D_TOPK)
     if not 1 <= k <= min(MAX_K, w.shape[0]):
         raise ValueError("k must be in [1, min(%d, V)], got %d" % (MAX_K, k))
     _check_aligned(h, w, bias)

@@ -13,14 +13,19 @@ below counts them). Results come back strictly in submission order.
 
 NAR models decode by mask-predict (optionally with an AR teacher's
 rescoring), AR models (ARB, ARB2) by beam search; a request's result is the
-(B, max_len) or (B, max_len - 1) token ids of one caption per video. On the
+(B, max_len) or (B, max_len - 1) token ids of one caption per video. The
+MLAMoE language model (``cfg.is_lm``) decodes by the same beam search over
+a prefilled latent cache (``decoding/lm_beam.py``), and its result is the
+pair (token ids (B, max_len - 1), their log-probabilities, float32, the
+same shape), both copied back behind the decode as the tokens are. On the
 card the encodes and the decode replay CUDA graphs (``jit=True``,
 ``runtime/graphs.py``), and each request's features reach the card through
 page-locked buffers, one set per request in flight, copied asynchronously.
 
 While a profile records, a request's host work lies in ``summary.span``s
 that carry its ticket: ``navc.submit`` (the root), ``navc.stage``,
-``navc.encode``, ``navc.teacher_encode``, ``navc.decode``, then
+``navc.encode``, ``navc.teacher_encode``, ``navc.decode`` (the language
+model's ``navc.prefill`` inside it: the host issuing the prefill), then
 ``navc.result`` (the host waiting for its tokens) and ``navc.flush``. On the
 card it also records two CUDA events a request, one before its features'
 copy to the card and one after its tokens' copy back is queued. Once its
@@ -30,13 +35,17 @@ record
 * ``navc.request_gap_s``: the device seconds between the previous request's
   end and this one's start (the card idle, waiting for the request);
 * ``navc.inflight_at_result``: how many of the newer requests in flight had
-  not finished on the card, one count per result read.
+  not finished on the card, one count per result read;
+* ``navc.moe.expert_tokens`` (the language model, each result read while a
+  profile records): the tokens routed to each expert of each MoE layer in
+  the request's prefill and steps, an (MoE layers, experts) array, summed
+  on the card and copied back with the tokens.
 """
 
 from __future__ import annotations
 
 import collections
-from typing import Iterable, Iterator, List, Optional, Tuple
+from typing import Any, Iterable, Iterator, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +54,20 @@ from ..config import Config
 from ..decoding import make_ar_generator, make_nar_generator
 from ..device import resolve_device
 from . import graphs, summary
+
+
+class _OnHost(NamedTuple):
+    """A card request's result on its way to page-locked memory: the
+    buffer (or the language model's buffers) and the event after the copy."""
+    host: Any
+    copied: Any
+
+
+def _pinned_copy(x: torch.Tensor) -> torch.Tensor:
+    """``x``'s copy into a new page-locked buffer, queued on the stream."""
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    host.copy_(x, non_blocking=True)
+    return host
 
 
 def make_encode_fn(cfg: Config, model, jit: bool = True):
@@ -94,6 +117,7 @@ class StreamingCaptioner:
         self._dict_mapping = (None if dict_mapping is None else
                               torch.as_tensor(dict_mapping, device=self.device))
         # the decode; its ``steps_run`` counts an AR decode's beam steps
+        self._lm = self.ar and cfg.is_lm
         self.generate = (make_ar_generator(cfg, model, jit) if self.ar else
                          make_nar_generator(
                              cfg, model, None if teacher is None else teacher[1], jit))
@@ -128,7 +152,9 @@ class StreamingCaptioner:
         # device tensors, not synced: they stay in flight
         if self.ar:
             with summary.span("navc.decode"):
-                hyp, _ = self.generate(enc, cat)
+                hyp = self.generate(enc, cat)
+            # the language model's: tokens, their log-probabilities, tokens per expert
+            hyp = (hyp[0], hyp[2], hyp[3]) if self._lm else hyp[0]
         else:
             tenc = None
             if self._teacher_encode is not None:
@@ -140,29 +166,38 @@ class StreamingCaptioner:
             # the tokens' own copy, behind this decode: reading them waits
             # for the event after it (the end mark where one is taken), not
             # for the requests queued later
-            host = torch.empty(hyp.shape, dtype=hyp.dtype, pin_memory=True)
-            host.copy_(hyp, non_blocking=True)
+            host = (tuple(map(_pinned_copy, hyp)) if self._lm else _pinned_copy(hyp))
             copied = torch.cuda.Event() if marks is None else marks[1]
             copied.record()
-            hyp = (host, copied)
+            hyp = _OnHost(host, copied)
         return hyp, marks
 
     @staticmethod
     def _sync(hyp) -> np.ndarray:
         """A request's tokens as an array the caller owns: a CPU tensor's
         own, or a card request's copied out of its page-locked buffer (which
-        goes back to torch's pinned cache) once that copy has run."""
-        if isinstance(hyp, torch.Tensor):
-            return hyp.cpu().numpy()
-        host, copied = hyp
-        copied.synchronize()
-        return host.numpy().copy()
+        goes back to torch's pinned cache) once that copy has run. The
+        language model's request: (tokens, log-probabilities, tokens per
+        expert), each so."""
+        if isinstance(hyp, _OnHost):
+            hyp.copied.synchronize()
+            if isinstance(hyp.host, tuple):
+                return tuple(x.numpy().copy() for x in hyp.host)
+            return hyp.host.numpy().copy()
+        if isinstance(hyp, tuple):
+            return tuple(x.cpu().numpy() for x in hyp)
+        return hyp.cpu().numpy()
 
     def _complete(self) -> Tuple[int, np.ndarray]:
         """The oldest request's (ticket, hypotheses), its marks counted."""
         ticket, hyp, marks = self._inflight.popleft()
         with summary.span("navc.result", ticket):
             out = self._sync(hyp)
+        if self._lm:
+            tokens, logprobs, expert_tokens = out
+            if summary.recording():
+                summary.count("navc.moe.expert_tokens", expert_tokens.astype(np.int64))
+            out = (tokens, logprobs)
         if marks is not None:
             if self._last_end is not None:
                 summary.count("navc.request_gap_s",

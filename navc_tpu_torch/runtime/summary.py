@@ -108,8 +108,9 @@ def span(name: str, request: Optional[int] = None):
     return _Span(name, request)
 
 
-def count(name: str, value: float, n: int = 1) -> None:
-    """Adds ``value`` and ``n`` to the counter ``name`` of the record."""
+def count(name: str, value, n: int = 1) -> None:
+    """Adds ``value`` (a number, or an array added elementwise) and ``n`` to
+    the counter ``name`` of the record."""
     entry = _COUNTERS.setdefault(name, [0, 0.0])
     entry[0] += n
     entry[1] += value
@@ -117,10 +118,12 @@ def count(name: str, value: float, n: int = 1) -> None:
 
 def record() -> Dict[str, Dict[str, Dict[str, float]]]:
     """The record as plain data: {"spans": {name: {"count", "total_s",
-    "self_s"}}, "counters": {name: {"count", "total"}}}."""
+    "self_s"}}, "counters": {name: {"count", "total"}}} (an array counter's
+    total as nested lists)."""
     return {"spans": {k: {"count": c, "total_s": t, "self_s": s}
                       for k, (c, t, s) in _SPANS.items()},
-            "counters": {k: {"count": c, "total": t} for k, (c, t) in _COUNTERS.items()}}
+            "counters": {k: {"count": c, "total": t.tolist() if hasattr(t, "tolist") else t}
+                         for k, (c, t) in _COUNTERS.items()}}
 
 
 def clear_record() -> None:

@@ -32,7 +32,10 @@ K5-K7, ``cfg.remat`` bit for bit remat off on both training routes, data
 and tensor parallelism (``test_parallel_*``: two ranks on the card over
 gloo against one process, gradient by gradient; one rank on NCCL, its
 step captured and replayed; ``jit=True`` on a gloo group refused) and the
-ResNet feature extractor against the CPU.
+ResNet feature extractor against the CPU; and the MLAMoE language model
+(K5's streamed walk at D 2048 and V 163,840, K13, the grouped experts
+against a loop, the captured decode at Kimi-VL-A3B's published widths
+against the plain reference).
 Run them on a machine with a card:
 
     python3 -m pytest tests/test_torch_port_cuda.py -q --noconftest
@@ -3151,3 +3154,189 @@ def test_resnet_on_the_card_matches_the_cpu(cuda):
     want = make_backbone(cpu_model, device="cpu")(frames)
     assert got.shape == want.shape == (5, 2048)
     assert np.abs(got - want).max() <= 1e-3 * np.abs(want).max()
+
+
+# -- the MLAMoE language model (models/mla_moe.py, decoding/lm_beam.py) ------
+
+TOPK_STREAM_SHAPES = [  # rows, d, V, k: K5's streamed walk (D > 768)
+    (2560, 2048, 163840, 5), (130, 1024, 4099, 8), (7, 2048, 1001, 1), (300, 832, 10048, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", TOPK_STREAM_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("with_bias", [False, True], ids=["nobias", "bias"])
+def test_project_topk_streams_wide_rows(cuda, shape, with_bias):
+    """K5 past D = 768, h streamed beside W: the language model's beam step
+    (2560 x 2048 x 163,840, three or more 16-bit id splits) and ragged
+    shapes, against the plain version: log-probs within ATT_TOL, ids equal
+    at every place whose score is clear of both neighbours by 1e-3 (at
+    2560 rows of 163,840 a near tie above a place, which float32 sums in
+    another order may flip, is no rarity)."""
+    r, d, v, k = shape
+    hid, w, bias = _vocab_operands(r, d, v, _gen(r + d + v + k + with_bias), cuda,
+                                   bias_scale=0.5 if with_bias else None)
+    _check_topk_clear(hid, w, k, bias)
+
+
+def _check_topk_clear(hid, w, k, bias):
+    lp, ids = project_topk(hid, w, k, bias)
+    lp_p, ids_p = project_topk_plain(hid, w, k, bias)
+    scores = hid.float() @ w.float().t() + (0 if bias is None else bias)
+    srt = scores.topk(k + 1, dim=-1).values
+    gap = torch.cat([torch.full_like(srt[:, :1], math.inf), srt[:, :-1] - srt[:, 1:]], 1)
+    clear = (gap[:, :-1] > 1e-3) & (gap[:, 1:] > 1e-3)
+    assert clear.float().mean().item() > 0.9
+    assert torch.equal(ids[clear], ids_p[clear])
+    assert (lp - lp_p).abs().max().item() <= ATT_TOL
+    assert bool((lp[:, 1:] <= lp[:, :-1]).all())
+
+
+@pytest.mark.cuda
+def test_project_topk_arb_shape_keeps_its_walk(cuda):
+    """At the ARB cell's shape (5120 x 512 x 10048, k 5) K5 keeps its
+    resident walk: the same bits in two calls, the plain version's ids where
+    a score is clear of both neighbours."""
+    hid, w, _ = _vocab_operands(5120, 512, 10048, _gen(77), cuda)
+    a = project_topk(hid, w, 5)
+    b = project_topk(hid, w, 5)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    _check_topk_clear(hid, w, 5, None)
+
+
+def _lm_config(**extra):
+    import json
+
+    from benchmark import lm_program
+
+    with open("benchmark/configs/kimi-vl-a3b-msrvtt.json") as f:
+        config = json.load(f)
+    config.update(extra)
+    return config, lm_program
+
+
+@pytest.mark.cuda
+def test_mla_moe_grouped_experts_match_the_loop(cuda):
+    """One MoE layer's routed experts at the published widths (64 experts of
+    1408, top 6, 2560 tokens) through the grouped launches against a loop
+    over the experts with the same bf16 rounding points: within 2e-2 of
+    the output's scale (bf16 products summed in another order)."""
+    import torch.nn.functional as F
+
+    from navc_tpu_torch.models.mla_moe import Experts
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    ex = Experts(64, 2048, 1408, torch.bfloat16).to(cuda)
+    with torch.no_grad():
+        ex.gate_up.uniform_(-2048 ** -0.5, 2048 ** -0.5, generator=g)
+        ex.down.uniform_(-1408 ** -0.5, 1408 ** -0.5, generator=g)
+        x = torch.randn(2560, 2048, device=cuda, generator=g).to(torch.bfloat16)
+        idx = torch.rand(2560, 64, device=cuda, generator=g).topk(6, -1).indices
+        wt = torch.rand(2560, 6, device=cuda, generator=g)
+        got, counts = ex(x, idx, wt)
+        want = torch.zeros(2560, 2048, device=cuda)
+        for e in range(64):
+            tok, slot = (idx == e).nonzero(as_tuple=True)
+            gu = x[tok] @ ex.gate_up[e].t()
+            act = F.silu(gu[:, :1408]) * gu[:, 1408:] * wt[tok, slot, None].to(torch.bfloat16)
+            want.index_add_(0, tok, (act @ ex.down[e].t()).float())
+    assert torch.equal(counts, torch.bincount(idx.reshape(-1), minlength=64).int())
+    assert (got - want).abs().max().item() <= 2e-2 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_mla_moe_captured_decode_at_published_widths(cuda):
+    """The captured decode (prefill, 4-step blocks, K5's streamed walk) at
+    Kimi-VL-A3B's published widths on 8 videos: each served token's
+    log-probability against the plain reference's float32 teacher-forced
+    forward within the cell's logprob_err limit, the captured decode's
+    tokens bit for bit its first (eager) call's, every token among the
+    reference's 5 best within the cell's rank tolerance, and the expert
+    counter 6 x the routed tokens of each layer."""
+    import json
+
+    from benchmark import lm_check, lm_inputs
+    from navc_tpu_torch.decoding import make_ar_generator
+
+    config, lm_program = _lm_config()
+    with open("benchmark/workloads/kimi-vl-a3b-msrvtt.beam-512.json") as f:
+        check = json.load(f)["check"]
+    cfg = lm_program.resolve(config)
+    model = lm_program.build(cfg, "cuda")
+    weights = lm_inputs.make_weights(config, 2**31 + 9, "cuda", out=model.state_dict())
+    gen = make_ar_generator(cfg, model, jit=True)
+    assert gen.topk_kernel
+    g = torch.Generator(device="cuda").manual_seed(3)
+    feats = [torch.randn(8, 8, 2048, device=cuda, generator=g) for _ in range(2)]
+    first = gen(model.encode(feats))
+    tokens, _, lps, counts = gen(model.encode(feats))
+    assert torch.equal(first[0], tokens) and torch.equal(first[2], lps)
+    steps = cfg.max_len - 1
+    assert counts.sum(1).tolist() == [6 * 8 * (16 + 5 * steps)] * 26
+    ref_lp, kth, _ = lm_check.reference_readings(
+        config, weights, [f.cpu().numpy() for f in feats], np.arange(8), tokens.cpu().numpy(),
+        "cuda")
+    mask = lm_check.through_eos(tokens.cpu().numpy())
+    err = np.abs(lps.cpu().numpy() - ref_lp)[mask].mean()
+    assert err <= check["limits"]["logprob_err"], err
+    assert ((ref_lp < kth - check["rank_tolerance"]) & mask).mean() \
+        <= check["limits"]["beam_rank_violation"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["expert_dropped", "bias_ignored", "cache_slot_off_by_one"])
+def test_mla_moe_faults_fail_the_cells_check(cuda, monkeypatch, fault):
+    """Each fault of benchmark/lm_faults.py that the cell's check has to find
+    (``CHECKED``), planted in the captured decode at Kimi-VL-A3B's
+    published widths, in bfloat16, on 64 videos: the cell's own check (its
+    limits, its rank tolerance) against the plain reference's float32
+    teacher-forced forward reads above one of its limits. Prints what each
+    check reads. (lm_faults' rotary ``position_off_by_one`` moves the
+    log-probs by less than bf16 rounding does: the check cannot see it.)"""
+    import json
+
+    from benchmark import lm_check, lm_faults, lm_inputs
+    from navc_tpu_torch.decoding import make_ar_generator
+
+    assert fault in lm_faults.CHECKED
+    lm_faults.FAULTS[fault](monkeypatch.setattr)
+    config, lm_program = _lm_config()
+    with open("benchmark/workloads/kimi-vl-a3b-msrvtt.beam-512.json") as f:
+        check = json.load(f)["check"]
+    cfg = lm_program.resolve(config)
+    model = lm_program.build(cfg, "cuda")
+    weights = lm_inputs.make_weights(config, 2**31 + 9, "cuda", out=model.state_dict())
+    gen = make_ar_generator(cfg, model, jit=True)
+    g = torch.Generator(device="cuda").manual_seed(13)
+    feats = [torch.randn(64, 8, 2048, device=cuda, generator=g) for _ in range(2)]
+    tokens, _, lps, _ = gen(model.encode(feats))
+    tokens, lps = tokens.cpu().numpy(), lps.cpu().numpy()
+    del gen
+    ref_lp, kth, _ = lm_check.reference_readings(
+        config, weights, [f.cpu().numpy() for f in feats], np.arange(64), tokens, "cuda")
+    mask = lm_check.through_eos(tokens)
+    got = {"logprob_err": float(np.abs(lps - ref_lp)[mask].mean()),
+           "beam_rank_violation": float(((ref_lp < kth - check["rank_tolerance"])
+                                         & mask).mean())}
+    print("%s: %s (limits %s)" % (fault, json.dumps(got), json.dumps(check["limits"])))
+    assert any(got[n] > check["limits"][n] for n in got), got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(15360, 1408, True), (2560, 2816, False), (7, 8, True),
+                                   (8192, 11264, False)], ids=lambda s: "x".join(map(str, s)))
+def test_swiglu_matches_plain(cuda, shape):
+    """K13 at the language model's routed, shared and dense widths (and a
+    ragged tiny one) against its plain version: the same float32 arithmetic
+    (the kernel's exp is the fast one) rounded once, so within one bf16
+    rounding."""
+    from navc_tpu_torch.ops.swiglu import swiglu, swiglu_plain
+
+    rows, inter, weighted = shape
+    g = torch.Generator(device="cuda").manual_seed(rows + inter)
+    gu = (torch.randn(rows, 2 * inter, device=cuda, generator=g) * 2).to(torch.bfloat16)
+    w = torch.rand(rows, device=cuda, generator=g) * 2.5 if weighted else None
+    before = _build.LAUNCHES["swiglu"]
+    got = swiglu(gu, w)
+    assert _build.LAUNCHES["swiglu"] == before + 1
+    want = swiglu_plain(gu, w)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7, atol=1e-5)

@@ -233,7 +233,7 @@ def test_port_imports_no_jax():
         " 'runtime.evaluate', 'data.loader', 'metrics.scorer', 'cli.train',"
         " 'api', 'cli.translate', 'cli.convert', 'runtime.torch_convert',"
         " 'parallel.mesh', 'parallel.distributed', 'runtime.distributed_loop',"
-        " 'models.resnet', 'data.pretreatment')\n"
+        " 'models.resnet', 'data.pretreatment', 'models.mla_moe', 'decoding.lm_beam')\n"
         "missing = [m for m in train if 'navc_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "import builtins, os\n"
