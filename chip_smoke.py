@@ -4301,6 +4301,29 @@ SCALE_WARM, SCALE_CALLS, SCALE_REQUESTS = 3, 20, 4  # bench.py's warm-ups and ca
 SCALE_SLICE = 64      # videos of each request held against rows of the big decode
 SCALE_SLICES = (0, SCALE_VIDEOS // 2 - SCALE_SLICE, SCALE_VIDEOS - SCALE_SLICE)
 SCALE_TAIL = 384      # the last canvases, where the kernels' rows are checked
+NACF_CELL = "benchmark/configs/nacf-msrvtt.json"  # the benchmark's NACF configuration
+CELL_SEED = 3923100201  # a seed of its cell nacf-msrvtt.batch-8192, whose length mix K1 / K2 take
+
+
+def cell_lengths(seed, videos):
+    """The canvas lengths (videos x length beams, int64 on the CPU) of a
+    request of the benchmark's NACF cell for ``seed``: its student's weights
+    and its first pool of videos (benchmark/inputs.py), the encode's length
+    head, the length beam."""
+    import torch
+
+    from benchmark import inputs, program
+    from navc_tpu_torch.decoding import predict_length_beam
+
+    with open(os.path.join(ROOT, NACF_CELL)) as f:
+        entry = json.load(f)["student"]
+    cfg = program.resolve(entry)
+    model = program.build(cfg, inputs.make_weights(entry["model"], seed, "cuda"), "cuda")
+    feats, _ = inputs.make_videos(entry["model"], videos, seed, inputs.FEATURE_STREAM, "cuda")
+    with torch.no_grad():
+        pred = model.encode([torch.as_tensor(x).cuda() for x in feats])["pred_length"]
+    beam = predict_length_beam(pred, cfg.length_beam_size, cfg.length_bias, cfg.max_len)
+    return beam.reshape(-1).long().cpu()
 
 
 def nacf_flops_per_caption(cfg, te):
@@ -4326,12 +4349,17 @@ def nacf_flops_per_caption(cfg, te):
 def scale_kernels(cfg, model, teacher, enc):
     """K1 (NAR and causal), K2 (K = 24) and K3 / K4 at the shapes of the
     SCALE_VIDEOS decode (its N = videos x length beams canvases of the
-    8-aligned canvas) on random tokens, as main() takes them at N_VIDEOS:
-    device ms (CUDA events, 5 calls), the bound for this data, and the
-    rows of the last SCALE_TAIL canvases (the largest offsets) against the
-    plain version run on those canvases alone: K1 / K2 within 5e-2 (main's
-    HID_TOL), K3's ids equal where the top-2 margin > 1e-3 and its max
-    prob, K4's prob, within 1e-4 relative. Returns {kernel: figures}."""
+    8-aligned canvas) on random tokens, the canvases at the length mix of
+    the benchmark's NACF cell (``cell_lengths`` at CELL_SEED) and K2's
+    query slots the first sparse step's (floor(length x (1 - 2/6)) of each
+    canvas, at random positions): device ms (CUDA events, 5 calls), the
+    bound for this data (over the live rows), the share of the walk's rows
+    live (K1 and K2 walk only those; K1 also with every row live, its FFN
+    activations past 2^31 elements), and the rows of the last SCALE_TAIL
+    canvases (the largest offsets) against the plain version run on those
+    canvases alone: K1 / K2 within 5e-2 (main's HID_TOL), K3's ids equal
+    where the top-2 margin > 1e-3 and its max prob, K4's prob, within 1e-4
+    relative. Returns {kernel: figures}."""
     import torch
 
     from navc_tpu_torch import constants as C
@@ -4348,7 +4376,7 @@ def scale_kernels(cfg, model, teacher, enc):
     n, l, le, tl = enc.shape[0] * lbs, -(-cfg.max_len // 8) * 8, enc.shape[1], SCALE_TAIL
     ops, tops = KernelOperands.of(model), KernelOperands.of(teacher)
     g = torch.Generator().manual_seed(123)
-    lengths = torch.randint(4, cfg.max_len, (n,), generator=g)
+    lengths = cell_lengths(CELL_SEED, n // lbs)
     tokens = torch.randint(C.NUM_SPECIAL_TOKENS, v, (n, l), generator=g)
     tokens[torch.arange(l)[None] >= lengths[:, None]] = C.PAD
     tokens = tokens.to(dev, torch.int32)
@@ -4363,13 +4391,13 @@ def scale_kernels(cfg, model, teacher, enc):
     def err(a, b):
         return float((a.float() - b.float()).abs().max())
 
-    def keep(name, fn, flops, nbytes, tail_err, tol):
+    def keep(name, fn, flops, nbytes, tail_err, tol, **more):
         if not tail_err <= tol:
             die("scale: %s's rows of the last %d canvases disagree with its plain version "
                 "on them alone: %.3e > %.1e" % (name, tl, tail_err, tol))
         b_ms, b_by = bound(flops, nbytes)
         out[name] = dict(ms=cuda_ms(fn, iters=5, warmup=1), bound_ms=b_ms, bound_by=b_by,
-                         tail_err=tail_err)
+                         tail_err=tail_err, **more)
 
     # K1, the student's dense form
     k1 = lambda: fused_layer(raw, static, kp, ke, ve, *lw, n_head=ops.n_head,  # noqa: E731
@@ -4380,23 +4408,38 @@ def scale_kernels(cfg, model, teacher, enc):
          layer_bytes(n, l, le, h, inter, n * l),
          err(hid[-tl:], fused_layer_plain(raw[-tl:], static[-tl:], kp[-tl:], ke[-tl:],
                                           ve[-tl:], *lw, n_head=ops.n_head,
-                                          out_dtype=torch.bfloat16)), 5e-2)
-    # K2 at the first sparse step's width
+                                          out_dtype=torch.bfloat16)), 5e-2,
+         live_share=real / (n * l), mean_length=float(lengths.float().mean()))
+    # K1 with every canvas row live, as a walk without its plan: its FFN activations pass
+    # 2^31 elements (the walk's 64-bit row offsets)
+    full, nopad = ops.word16[torch.where(kp, C.MASK, tokens).long()], torch.zeros_like(kp)
+    k1f = lambda: fused_layer(full, static, nopad, ke, ve, *lw,  # noqa: E731
+                              n_head=ops.n_head, out_dtype=torch.bfloat16)
+    keep("fused_layer[all live]", k1f, layer_flops(n * l, n * l, n, le, h, inter),
+         layer_bytes(n, l, le, h, inter, n * l),
+         err(k1f()[-tl:], fused_layer_plain(full[-tl:], static[-tl:], nopad[-tl:], ke[-tl:],
+                                            ve[-tl:], *lw, n_head=ops.n_head,
+                                            out_dtype=torch.bfloat16)), 5e-2, live_share=1.0)
+    del full
+    # K2 at the first sparse step's width: floor(length x f32(1 - 2/6)) slots of each canvas
     k_slots = 24
-    mask_ind = (torch.rand(n, l, generator=g) < 0.6).to(dev) & ~kp
-    mask_ind[:, 0] = True
+    count = (lengths.float() * torch.tensor(1 - 2 / 6, dtype=torch.float32)).long().clamp(min=1)
+    order = torch.rand(n, l, generator=g).masked_fill(kp.cpu(), 2.0).argsort(1).argsort(1)
+    mask_ind = (order < count[:, None]).to(dev)
     qidx = query_index(mask_ind, k_slots)
     masked = torch.where(mask_ind, C.MASK, tokens).to(torch.int32)
     m_raw, m_kp = ops.word16[masked.long()], masked == C.PAD
     mrow = ops.word16[C.MASK].contiguous()
     k2 = lambda: fused_layer_qsub(qidx, mrow, m_raw, static, m_kp, ke, ve,  # noqa: E731
                                   *lw, n_head=ops.n_head, out_dtype=torch.bfloat16)
+    used = int((qidx >= 0).sum())
     keep("fused_layer_qsub", k2,
-         layer_flops(int((qidx >= 0).sum()), int((~m_kp).sum()), n, le, h, inter),
+         layer_flops(used, int((~m_kp).sum()), n, le, h, inter),
          layer_bytes(n, l, le, h, inter, n * k_slots, extra=n * k_slots * 4),
          err(k2()[-tl:], fused_layer_qsub_plain(
              qidx[-tl:], mrow, m_raw[-tl:], static[-tl:], m_kp[-tl:], ke[-tl:], ve[-tl:],
-             *lw, n_head=ops.n_head, out_dtype=torch.bfloat16)), 5e-2)
+             *lw, n_head=ops.n_head, out_dtype=torch.bfloat16)), 5e-2,
+         live_share=(int((~m_kp).sum()) + used) / (n * l + n * k_slots))
     del m_raw, m_kp, masked, qidx, mask_ind, raw, static, ke, ve
     # K3 on the dense layer's rows
     rows = hid.view(n * l, h)

@@ -36,6 +36,13 @@
 // tile; the tile's values go to shared memory and a thread sums one
 // column of one sequence in row order. No atomics: two calls give the same
 // bits.
+//
+// The training kernels launch a block per tile (rg_launch). The serving walk
+// (rg_walk, rg_launch_walk) launches a fixed grid, as many blocks as the
+// SMs hold, each walking its share of the tiles of the rows live, a count
+// an earlier launch wrote on the card: the rows past it (PAD rows, unused
+// query slots) are never scheduled, and the grid, fixed by the rows' capacity,
+// is the same in every call, so a CUDA graph captures it.
 #pragma once
 
 #include "hopper.cuh"
@@ -147,6 +154,7 @@ struct RowGemm {
   float* outf;                // the float32 residual rows (rows, cols) an epilogue
                               // reads and writes, or null
   float* part;                // per-sequence column sums (N, cols), or null
+  const int* live;            // the serving walk: the rows live (<= rows), on the card
 };
 
 // TMA maps: A of each segment (DUAL: A0, A1); B of each segment or group
@@ -157,16 +165,19 @@ struct RowMaps {
 
 namespace {
 
-// The producer thread: every chunk of the tile's K walk into the ring.
+// The producer thread: every chunk of the tile's K walk into the ring. base:
+// the chunks the block's ring took before this tile (the serving walk's
+// earlier tiles), which sets the stages and the barriers' phases.
 template <int BN, int BT, bool DUAL, int WG>
 __device__ void rg_produce(const RowMaps& m, const RowGemm& g, unsigned char* ring,
-                           uint64_t* full, uint64_t* empty, int grp, int n0, int row0) {
+                           uint64_t* full, uint64_t* empty, int grp, int n0, int row0,
+                           int base = 0) {
   using Lay = RgLayout<BN, DUAL, WG>;
   const int kc = (g.K + RG_BK - 1) / RG_BK, chunks = g.nseg * kc;
   for (int c = 0; c < chunks; ++c) {
-    const int s = c % Lay::STAGES, seg = c / kc, k0 = (c % kc) * RG_BK;
+    const int s = (base + c) % Lay::STAGES, seg = c / kc, k0 = (c % kc) * RG_BK;
     unsigned char* st = ring + s * Lay::STAGE;
-    mbar_wait(&empty[s], ((c / Lay::STAGES) & 1) ^ 1);
+    mbar_wait(&empty[s], (((base + c) / Lay::STAGES) & 1) ^ 1);
     mbar_expect_tx(&full[s], Lay::STAGE);
 #pragma unroll
     for (int p = 0; p < (DUAL ? 2 : 1); ++p) {
@@ -189,20 +200,22 @@ __device__ void rg_produce(const RowMaps& m, const RowGemm& g, unsigned char* ri
 }
 
 // Consumer warpgroup wg: acc0 (+ acc1 for DUAL) = its 64 rows of the
-// tile's products.
+// tile's products. base as rg_produce's; release: free the last chunk's
+// stage too, for a producer that goes on to another tile.
 template <int BN, int BT, bool DUAL, int WG>
 __device__ __forceinline__ void rg_consume(const RowGemm& g, const unsigned char* ring,
                                            uint64_t* full, uint64_t* empty, int wg,
-                                           float (&acc0)[BN / 2], float (&acc1)[BN / 2]) {
+                                           float (&acc0)[BN / 2], float (&acc1)[BN / 2],
+                                           int base = 0, bool release = false) {
   using Lay = RgLayout<BN, DUAL, WG>;
   const int kc = (g.K + RG_BK - 1) / RG_BK, chunks = g.nseg * kc;
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc0[i] = acc1[i] = 0.f;
   for (int c = 0; c < chunks; ++c) {
-    const int s = c % Lay::STAGES;
+    const int s = (base + c) % Lay::STAGES;
     const unsigned char* st = ring + s * Lay::STAGE;
-    mbar_wait(&full[s], (c / Lay::STAGES) & 1);
+    mbar_wait(&full[s], ((base + c) / Lay::STAGES) & 1);
     wgmma_fence();
     fence_acc(acc0);
     if constexpr (DUAL) fence_acc(acc1);
@@ -221,18 +234,35 @@ __device__ __forceinline__ void rg_consume(const RowGemm& g, const unsigned char
     wgmma_commit();
     if (c > 0) {  // the previous chunk's products are done: free its stage
       wgmma_wait<1>();
-      if (lane == 0) mbar_arrive(&empty[(c - 1) % Lay::STAGES]);
+      if (lane == 0) mbar_arrive(&empty[(base + c - 1) % Lay::STAGES]);
     }
   }
   wgmma_wait<0>();
   fence_acc(acc0);
   if constexpr (DUAL) fence_acc(acc1);
+  if (release && lane == 0) mbar_arrive(&empty[(base + chunks - 1) % Lay::STAGES]);
 }
 
 // The 1024-aligned start of a block's dynamic shared memory: 128-byte
 // swizzled TMA boxes need 1024-byte aligned shared addresses.
 __device__ __forceinline__ unsigned char* rg_ring(unsigned char* raw) {
   return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+}
+
+// The ring's full and empty barriers, made by thread 0 before the block's
+// first chunk (the caller synchronises the block after).
+template <int BN, bool DUAL, int WG>
+__device__ __forceinline__ uint64_t* rg_barriers(unsigned char* ring) {
+  using Lay = RgLayout<BN, DUAL, WG>;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + Lay::BARS);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < Lay::STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&full[Lay::STAGES + i], 4 * WG);  // empty: one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  return full;
 }
 
 // One block's tile of a product (ring from rg_ring): the producer thread
@@ -244,15 +274,8 @@ __device__ __forceinline__ bool rg_tile(const RowMaps& m, const RowGemm& g, unsi
                                         int grp, int c0, int row0, float (&acc0)[BN / 2],
                                         float (&acc1)[BN / 2]) {
   using Lay = RgLayout<BN, DUAL, WG>;
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + Lay::BARS);
+  uint64_t* full = rg_barriers<BN, DUAL, WG>(ring);
   uint64_t* empty = full + Lay::STAGES;
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < Lay::STAGES; ++i) {
-      mbar_init(&full[i], 1);
-      mbar_init(&empty[i], 4 * WG);  // one arrival per consumer warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
   __syncthreads();
   if (threadIdx.x >= 128 * WG) {
     if (threadIdx.x == 128 * WG)
@@ -263,6 +286,41 @@ __device__ __forceinline__ bool rg_tile(const RowMaps& m, const RowGemm& g, unsi
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);
   rg_consume<BN, BT, DUAL, WG>(g, ring, full, empty, wg, acc0, acc1);
   return true;
+}
+
+// The serving walk's products: the block walks the tiles t = blockIdx.x,
+// blockIdx.x + gridDim.x, ... of the *g.live rows (read on the card), tile
+// t the row tile t / (tiles * groups) and the column tile t % (tiles *
+// groups), the order of rg_launch's grid. Its ring and barriers persist
+// across its tiles: the producer streams the next tile's chunks while the
+// consumer warpgroups run epi(group, column 0, row 0, live, acc) on the last.
+// K-major B, one segment.
+template <int BN, int WG, typename Epi>
+__device__ __forceinline__ void rg_walk(const RowMaps& m, const RowGemm& g, unsigned char* ring,
+                                        Epi&& epi) {
+  using Lay = RgLayout<BN, false, WG>;
+  uint64_t* full = rg_barriers<BN, false, WG>(ring);
+  uint64_t* empty = full + Lay::STAGES;
+  __syncthreads();
+  const int live = *g.live, cols = g.tiles * g.groups, bm = WG * RG_BM;
+  const int tiles = (live + bm - 1) / bm * cols, chunks = (g.K + RG_BK - 1) / RG_BK;
+  if (threadIdx.x >= 128 * WG) {
+    if (threadIdx.x == 128 * WG)
+      for (int t = blockIdx.x, base = 0; t < tiles; t += gridDim.x, base += chunks) {
+        const int ct = t % cols;
+        rg_produce<BN, 0, false, WG>(m, g, ring, full, empty, ct / g.tiles,
+                                     (ct % g.tiles) * BN, t / cols * bm, base);
+      }
+    return;
+  }
+  // warp-uniform as the compiler can see it, which keeps the wgmmas unserialized
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);
+  float acc0[BN / 2], acc1[BN / 2];
+  for (int t = blockIdx.x, base = 0; t < tiles; t += gridDim.x, base += chunks) {
+    const int ct = t % cols;
+    rg_consume<BN, 0, false, WG>(g, ring, full, empty, wg, acc0, acc1, base, true);
+    epi(ct / g.tiles, (ct % g.tiles) * BN, t / cols * bm, live, acc0);
+  }
 }
 
 // The per-sequence column sums of a tile: stg holds the tile's 64 WG x BN
@@ -350,6 +408,34 @@ inline RgTile rg_plan(int rows, int cols, bool dual) {
   if (tiles(128, dual ? 64 : 128) >= rg_sms()) return {2, dual ? 64 : 128};
   if (!dual && tiles(64, 128) >= rg_sms()) return {1, 128};
   return {1, 64};
+}
+
+// Host: the serving walk's products (rg_walk) on tiles of 64 WG rows x BN
+// columns planned on g.rows, the capacity; KERNEL as rg_launch's, A and B
+// K-major. The grid: the blocks the SMs hold at once, or the tiles of the
+// capacity where they are fewer.
+template <auto KERNEL, int BN, int WG, typename Args>
+int rg_launch_walk(const Args& a, RowGemm g, std::initializer_list<const bf16*> A,
+                   std::initializer_list<const bf16*> B, cudaStream_t st) {
+  constexpr int BM = WG * RG_BM;
+  using Lay = RgLayout<BN, false, WG>;
+  if (g.rows == 0) return 0;
+  g.tiles = (g.cols + BN - 1) / BN;
+  RowMaps m = {};
+  if (!rg_maps(&m, g, A.begin(), B.begin(), (int)A.size(), (int)B.size(), BN, 0, 0))
+    return (int)cudaErrorInvalidValue;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, Lay::BYTES);
+  if (attr != cudaSuccess) return (int)attr;
+  static const int per_sm = [] {
+    int b = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, KERNEL, rg_threads(WG), Lay::BYTES);
+    return b > 0 ? b : 1;
+  }();
+  const long tiles = (long)((g.rows + BM - 1) / BM) * g.tiles * g.groups;
+  const long grid = tiles < (long)per_sm * rg_sms() ? tiles : (long)per_sm * rg_sms();
+  KERNEL<<<(unsigned)grid, rg_threads(WG), Lay::BYTES, st>>>(a, g, m);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace

@@ -19,12 +19,18 @@ version. No decode path of navc_tpu calls this form (its decodes pass
 ``static=``, which selects K1).
 
 K1 and K2 are one CUDA source (csrc/fused_layer.cu), the serving walk, a
-sequence of launches (a LayerNorm pass, the products on the row walk of
-csrc/row_gemm.cuh over the canvas and query rows — K1's query rows are its
-canvas rows — and two per-sequence attention launches) on scratch that the
-wrapper allocates for the call (``walk_scratch``). Each wrapper launches its kernel for CUDA tensors
-and raises if the build or the launch fails; only for CPU tensors does it
-run the plain version beside it — float32 PyTorch with the kernel's bf16
+sequence of launches over each sequence's live rows only: its plan (the
+extents, offsets and row map ``walk_plan`` mirrors), a LayerNorm pass, the
+products on the persistent row walk of csrc/row_gemm.cuh over the live
+canvas and query rows — K1's query rows are its canvas rows — and two
+per-sequence attention launches, on scratch that the wrapper allocates for
+the call (``walk_scratch``). A canvas's rows past its extent (1 + its last
+non-PAD position) and K2's slots past its query extent (1 + its last used
+slot) come out as the zero rows their multiplier makes; every call on the
+card adds its live rows and the rows a walk without the plan takes to
+``walk_rows``. Each wrapper launches its kernel for CUDA tensors and
+raises if the build or the launch fails; only for CPU tensors does it run
+the plain version beside it — float32 PyTorch with the kernel's bf16
 rounding points (bf16 matmul operands with float32 accumulation, float32
 bias, LayerNorm, softmax and residual; ``_attend_2d`` / ``_layer_body`` of
 the JAX kernel).
@@ -213,7 +219,8 @@ class _LayerArgs(ctypes.Structure):
         "raw", "stat", "lns", "lnb", "kp", "ke", "ve", "qidx", "mrow")]
         + [("w", ctypes.c_void_p * 8), ("b", ctypes.c_void_p * 8)]
         + [(name, ctypes.c_void_p) for name in ("wi", "bi", "wo2", "bo2", "out")]
-        + [("ws", ctypes.c_void_p * 6), ("g", ctypes.c_void_p), ("res", ctypes.c_void_p)]
+        + [("ws", ctypes.c_void_p * 6)]
+        + [(name, ctypes.c_void_p) for name in ("g", "res", "plan", "rows")]
         + [(name, ctypes.c_int) for name in (
             "out_bf16", "n", "L", "Le", "K", "H", "I", "n_head", "causal")]
         + [("scale", ctypes.c_float), ("eps", ctypes.c_float)])
@@ -268,14 +275,17 @@ def check_layer(raw, static, kp, ke, ve, w, ln_scale, ln_bias, n_head, out_dtype
 
 def walk_scratch(n: int, l: int, h: int, inter: int, k: Optional[int] = None
                  ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
-    """The scratch of one serving-walk call, {name: (shape, dtype)}. K1
-    (``k`` None) takes its N·L canvas rows as its query rows, flattened
-    with no sequence padding: ``rows`` holds x (then att1, att2), Q, K, V
-    and the context. K2 takes the N·Lp canvas rows (``canvas``: x, K, V)
-    and its N·K query rows (``query``: xq / att1 / att2, Q, the context).
-    Both: the FFN activations ``g`` and the float32 residual stream ``res``
-    of the query rows. Every (rows, H) slice starts 16-byte aligned, as TMA
-    needs: H is a multiple of 128."""
+    """The scratch of one serving-walk call, {name: (shape, dtype)}, each
+    row buffer sized for every row and filled from its start with the live
+    ones. K1 (``k`` None) takes its N·L canvas rows as its query rows:
+    ``rows`` holds x (then att1, att2), Q, K, V and the context. K2 takes
+    the N·Lp canvas rows (``canvas``: x, K, V) and its N·K query rows
+    (``query``: xq / att1 / att2, Q, the context). Both: the FFN
+    activations ``g`` and the float32 residual stream ``res`` of the query
+    rows, and the ``plan`` (int32): the canvas and the query row offsets,
+    N + 1 each, and the row map, a slot per query row (``walk_plan``).
+    Every (rows, H) slice starts 16-byte aligned, as TMA needs: H is a
+    multiple of 128."""
     bf = torch.bfloat16
     if k is None:
         rows = n * l
@@ -284,7 +294,8 @@ def walk_scratch(n: int, l: int, h: int, inter: int, k: Optional[int] = None
         rows = n * k
         out = {"canvas": ((3, n * (-(-l // ROW_TILE) * ROW_TILE), h), bf),
                "query": ((3, rows, h), bf)}
-    out.update(g=((rows, inter), bf), res=((rows, h), torch.float32))
+    out.update(g=((rows, inter), bf), res=((rows, h), torch.float32),
+               plan=((2 * (n + 1) + rows,), torch.int32))
     return out
 
 
@@ -294,8 +305,61 @@ def _scratch(raw, inter, k=None):
             for name, (shape, dt) in walk_scratch(n, l, h, inter, k).items()}
 
 
+def _extents(live: torch.Tensor) -> torch.Tensor:
+    """(N, L) bool -> (N,) int64: 1 + the last True position, 0 where none."""
+    if live.shape[1] == 0:
+        return torch.zeros(live.shape[0], dtype=torch.int64, device=live.device)
+    pos = torch.arange(1, live.shape[1] + 1, device=live.device)
+    return torch.where(live, pos, 0).amax(1)
+
+
+def _offsets(ext: torch.Tensor) -> torch.Tensor:
+    return torch.cat([ext.new_zeros(1), ext.cumsum(0)]).to(torch.int32)
+
+
+def walk_plan(kp: torch.Tensor, qidx: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The serving walk's plan, as its first launches make it on the card:
+    (coff, qoff, rows). coff (N + 1,) int32: the live canvas rows before
+    each sequence, a canvas's live rows those below its extent, 1 + its
+    last non-PAD position (interior PAD is live), coff[N] all of them.
+    qoff: the same of the query rows, K2's query extent 1 + the last slot
+    with qidx >= 0 (K1, qidx None: coff). rows (qoff[N],) int32: the output
+    row n * Kq + i of each live query row in order (Kq = L, or K)."""
+    ext = _extents(~kp)
+    coff = _offsets(ext)
+    if qidx is None:
+        qext, qoff, kq = ext, coff, kp.shape[1]
+    else:
+        qext = _extents(qidx >= 0)
+        qoff, kq = _offsets(qext), qidx.shape[1]
+    seq = torch.repeat_interleave(torch.arange(kp.shape[0], device=kp.device), qext)
+    first = torch.repeat_interleave(qoff[:-1].to(torch.int64), qext)
+    i = torch.arange(seq.shape[0], device=kp.device) - first
+    return coff, qoff, (seq * kq + i).to(torch.int32)
+
+
+_WALK_ROWS: Dict[torch.device, torch.Tensor] = {}
+
+
+def walk_rows(device) -> torch.Tensor:
+    """The running count of the serving walk's rows on ``device``, (2,)
+    int64: the live rows of every K1 and K2 call (canvas and query rows; K1
+    counts its rows once), then the rows the walk would take without its
+    plan (K1 N·L, K2 N·Lp + N·K). The card adds to it in each call's plan
+    launch, so a CUDA graph's replays count too; zero it before the calls
+    to be counted (make it before capturing them: a graph keeps its
+    address). The plain versions on the CPU count nothing."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device not in _WALK_ROWS:
+        _WALK_ROWS[device] = torch.zeros(2, dtype=torch.int64, device=device)
+    return _WALK_ROWS[device]
+
+
 def _launch(entry, raw, static, kp, ke, ve, w, ln_scale, ln_bias, n_head, causal,
-            ln_eps, out, qidx=None, mask_row=None, ws=(), g=None, res=None):
+            ln_eps, out, qidx=None, mask_row=None, ws=(), g=None, res=None, plan=None):
     n, l, h = raw.shape
     p = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     args = _LayerArgs(
@@ -304,7 +368,8 @@ def _launch(entry, raw, static, kp, ke, ve, w, ln_scale, ln_bias, n_head, causal
         w=(ctypes.c_void_p * 8)(*[p(getattr(w, k)) for k in MATS]),
         b=(ctypes.c_void_p * 8)(*[p(getattr(w, k)) for k in BIASES]),
         wi=p(w.wi), bi=p(w.bi), wo2=p(w.wo2), bo2=p(w.bo2), out=p(out),
-        ws=(ctypes.c_void_p * 6)(*[p(t) for t in ws]), g=p(g), res=p(res),
+        ws=(ctypes.c_void_p * 6)(*[p(t) for t in ws]), g=p(g), res=p(res), plan=p(plan),
+        rows=p(walk_rows(raw.device)),
         out_bf16=int(out.dtype == torch.bfloat16), n=n, L=l, Le=ke.shape[1],
         K=0 if qidx is None else qidx.shape[1], H=h, I=w.wi.shape[0],
         n_head=n_head, causal=int(causal),
@@ -338,7 +403,7 @@ def fused_layer(raw, static, kp, ke, ve, w: LayerWeights, ln_scale, ln_bias,
         x, k1, v1, q, c = sc["rows"].unbind(0)
         _launch("navc_fused_layer", raw, static, kp, ke, ve, w, ln_scale, ln_bias,
                 n_head, causal, ln_eps, out, ws=(x, k1, v1, None, q, c), g=sc["g"],
-                res=sc["res"])
+                res=sc["res"], plan=sc["plan"])
         _build.LAUNCHES.count("fused_layer")
     return out
 
@@ -373,7 +438,7 @@ def fused_layer_qsub(qidx, mask_row, raw, static, kp, ke, ve, w: LayerWeights,
         _launch("navc_fused_layer_qsub", raw, static, kp, ke, ve, w, ln_scale, ln_bias,
                 n_head, False, ln_eps, out, qidx=qidx, mask_row=mask_row,
                 ws=sc["canvas"].unbind(0) + sc["query"].unbind(0), g=sc["g"],
-                res=sc["res"])
+                res=sc["res"], plan=sc["plan"])
         _build.LAUNCHES.count("fused_layer_qsub")
     return out
 

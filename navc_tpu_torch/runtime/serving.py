@@ -39,7 +39,12 @@ record
 * ``navc.moe.expert_tokens`` (the language model, each result read while a
   profile records): the tokens routed to each expert of each MoE layer in
   the request's prefill and steps, an (MoE layers, experts) array, summed
-  on the card and copied back with the tokens.
+  on the card and copied back with the tokens;
+* ``navc.walk.live_rows`` (NAR models on the card, each result read while a
+  profile records): the live rows the request's decode walked in K1 and K2
+  (``ops/fused_layer.walk_rows``, zeroed before the decode and copied back
+  with the tokens) as its total, the rows a walk without its plan takes as
+  its count: the counter's mean is the share of the walk's rows computed.
 """
 
 from __future__ import annotations
@@ -53,6 +58,7 @@ import torch
 from ..config import Config
 from ..decoding import make_ar_generator, make_nar_generator
 from ..device import resolve_device
+from ..ops.fused_layer import walk_rows
 from . import graphs, summary
 
 
@@ -123,6 +129,9 @@ class StreamingCaptioner:
                              cfg, model, None if teacher is None else teacher[1], jit))
         self._staging = (graphs.PinnedSlots(self.depth + 1)
                          if self.device.type == "cuda" else None)
+        # the NAR decode's running count of walked rows, made before any capture
+        self._walk = (walk_rows(self.device)
+                      if not self.ar and self._staging is not None else None)
         self._inflight = collections.deque()  # (ticket, hyp or its host copy, marks)
         self._next_ticket = 0
         self._last_end: Optional[torch.cuda.Event] = None  # the last result's end mark
@@ -160,13 +169,18 @@ class StreamingCaptioner:
             if self._teacher_encode is not None:
                 with summary.span("navc.teacher_encode"):
                     tenc = self._teacher_encode(feats)
+            if marks is not None:
+                self._walk.zero_()
             with summary.span("navc.decode"):
                 hyp = self.generate(enc, cat, tenc, self._dict_mapping)
+            if marks is not None:
+                hyp = (hyp, self._walk)  # the count copied back with the tokens
         if self._staging is not None:
             # the tokens' own copy, behind this decode: reading them waits
             # for the event after it (the end mark where one is taken), not
             # for the requests queued later
-            host = (tuple(map(_pinned_copy, hyp)) if self._lm else _pinned_copy(hyp))
+            host = (tuple(map(_pinned_copy, hyp)) if isinstance(hyp, tuple)
+                    else _pinned_copy(hyp))
             copied = torch.cuda.Event() if marks is None else marks[1]
             copied.record()
             hyp = _OnHost(host, copied)
@@ -198,6 +212,10 @@ class StreamingCaptioner:
             if summary.recording():
                 summary.count("navc.moe.expert_tokens", expert_tokens.astype(np.int64))
             out = (tokens, logprobs)
+        elif not self.ar and marks is not None:  # a NAR decode's, with its walked rows
+            out, (live, dense) = out
+            if dense:
+                summary.count("navc.walk.live_rows", int(live), int(dense))
         if marks is not None:
             if self._last_end is not None:
                 summary.count("navc.request_gap_s",

@@ -68,8 +68,8 @@ MUTANTS = {  # name: (file under navc_tpu_torch, text, its replacement, tests)
         "csrc/fused_layer_train.cu", "SITE_FFN_DOWN, i, c + e) +\n                                   r2v[e],",
         "SITE_FFN_DOWN, i, c + e),", "train"),
     "K2: an unused slot left unzeroed": (
-        "csrc/fused_layer.cu", "npm = (a.qidx ? a.qidx[r] >= 0 : !a.kp[r])",
-        "npm = (a.qidx ? (EPI == S_OUT || a.qidx[r] >= 0) : !a.kp[r])", "qsub"),
+        "csrc/fused_layer.cu", "npm = (a.qidx ? a.qidx[q] >= 0 : !a.kp[q])",
+        "npm = (a.qidx ? (EPI == S_OUT || a.qidx[q] >= 0) : !a.kp[q])", "qsub"),
     "K2: the query LayerNorm reads raw instead of the <mask> row": (
         "csrc/fused_layer.cu", "x[j] = __bfloat162float(a.mrow[c]) +",
         "x[j] = __bfloat162float(a.raw[((size_t)n * L + max(pos, 0)) * H + c]) +", "qsub"),
@@ -77,8 +77,14 @@ MUTANTS = {  # name: (file under navc_tpu_torch, text, its replacement, tests)
         "csrc/fused_layer.cu", "return kmask_p[j] > 0.5f || (causal && j > i); });",
         "return kmask_p[j] > 0.5f || (causal && j > i + L); });", "fused_layer_walk"),
     "K1: the S_OUT multiplier fixed at 1 (PAD rows not zeroed)": (
-        "csrc/fused_layer.cu", "npm = (a.qidx ? a.qidx[r] >= 0 : !a.kp[r])",
-        "npm = (a.qidx ? a.qidx[r] >= 0 : (EPI == S_OUT || !a.kp[r]))", "fused_layer_walk"),
+        "csrc/fused_layer.cu", "npm = (a.qidx ? a.qidx[q] >= 0 : !a.kp[q])",
+        "npm = (a.qidx ? a.qidx[q] >= 0 : (EPI == S_OUT || !a.kp[q]))", "fused_layer_walk"),
+    "K1/K2: a canvas's extent one row short": (
+        "csrc/fused_layer.cu", "if (!kp[j]) e = j + 1;", "if (!kp[j]) e = j;",
+        "walk_computes"),
+    "K1/K2: the persistent walk's last row tile left out": (
+        "csrc/row_gemm.cuh", "const int tiles = (live + bm - 1) / bm * cols,",
+        "const int tiles = live / bm * cols,", "walk_computes"),
     "K6: the tpos row left out of its run's partial": (
         "csrc/beam_attend.cu", "const float e = expf(sr[p] - mx);",
         "const float e = p0 + p < tpos ? expf(sr[p] - mx) : 0.f;", "beam_attend_step"),
@@ -181,12 +187,15 @@ ALONE = {"walk_rows_past_int32"}
 
 
 def copy_tree(work, k, edit=None):
-    """A copy of the package (its kernel build included) and the tests
-    under ``work``, with ``edit`` = (file, text, replacement) made."""
+    """A copy of the package (its kernel build included), the tests,
+    chip_smoke.py and the benchmark package it reads under ``work``, with
+    ``edit`` = (file, text, replacement) made."""
     root = os.path.join(work, "m%d" % k)
     shutil.copytree(os.path.join(ROOT, "navc_tpu_torch"), os.path.join(root, "navc_tpu_torch"),
                     ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copytree(os.path.join(ROOT, "tests"), os.path.join(root, "tests"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copytree(os.path.join(ROOT, "benchmark"), os.path.join(root, "benchmark"),
                     ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy(os.path.join(ROOT, "chip_smoke.py"), root)
     if edit:

@@ -10,10 +10,13 @@ with an identity ancestry and with runs of positions that do not divide
 tpos, K7 at 5120 rows, in each head group, at Te 1 and 13 and beam 1 and
 32, K1u with a float32 output — plus the wrappers' refusals and launch
 counts, and that K1, K6, K7 and K1u give the same bits in two calls (K1u
-K11's at p = 0); and the decodes' CUDA graphs (``test_graphs_*``: replayed
-tokens bit for bit the eager route's, refilled static inputs, cloned
-outputs, launches per replay, ``refresh`` after a weight change, old
-graphs in reference cycles outliving a capture, a failed capture raising;
+K11's at p = 0); K1 and K2 walking only the live rows of canvases at
+extents 4 to 32 with interior PAD (their plan, their zero rows, each
+canvas's rows whatever the others' extents); and the decodes' CUDA
+graphs (``test_graphs_*``: replayed tokens bit for bit the eager route's,
+refilled static inputs, cloned outputs, launches per replay, ``refresh``
+after a weight change, old graphs in reference cycles outliving a
+capture, a failed capture raising;
 ``test_cond_graphs_*``: a body under an IF node skipped and counted, the
 replayed l2r and ef bit for bit and launch for launch the eager route's
 at 16 and 64 videos, no sync in a replayed l2r decode, ef's flags read one
@@ -298,14 +301,14 @@ def test_fused_layer_walk_matches_plain(cuda, case, causal):
     assert (out.float() - ref).abs().max().item() <= HID_TOL
 
 
-# K1 and K2 with more than 2^31 elements in their FFN activations: query
-# rows x FFN 2048 pass 2^31 from row 1,048,576 on (the 8192-video decode of
-# chip_smoke.py's scale phase has 1,572,864 canvas rows, 1,179,648 query
-# rows at K = 24). N = 32,800 canvases of 32 (K = 32 query slots for K2)
-# give 1,049,600 rows: the last 32 canvases lie past the mark. Their rows,
-# and those of the 32 before, against the plain version run on those 64
-# canvases alone.
-WIDE_N, WIDE_TAIL = 32800, 64
+# K1 and K2 with more than 2^31 elements in their FFN activations: live
+# query rows x FFN 2048 pass 2^31 from row 1,048,576 on (the walk computes
+# the live rows only, compacted; an 8192-video decode whose canvases are
+# all long has 1,572,864 of them). N = 32,900 canvases of 32: all but the
+# last 64 every position live (K2: 32 used slots), those 64 of random
+# length, their rows from 1,050,752 on. Their rows against the plain
+# version run on those 64 canvases alone.
+WIDE_N, WIDE_TAIL = 32900, 64
 
 
 @pytest.mark.cuda
@@ -319,20 +322,20 @@ def test_fused_layer_walk_rows_past_int32_offsets(cuda, form):
                    for _ in range(2))
     ke, ve = (torch.randn(n, le, h, generator=cg, device=cuda).to(torch.bfloat16)
               for _ in range(2))
-    real = torch.randint(1, l + 1, (n,), generator=cg, device=cuda)
+    real = torch.full((n,), l, device=cuda)
+    real[-WIDE_TAIL:] = torch.randint(1, l + 1, (WIDE_TAIL,), generator=cg, device=cuda)
     kp = torch.arange(l, device=cuda)[None] >= real[:, None]
     lns = (1 + 0.1 * torch.randn(h, generator=g)).to(cuda)
     lnb = (0.1 * torch.randn(h, generator=g)).to(cuda)
     tail = slice(n - WIDE_TAIL, n)
     args = (raw, static, kp, ke, ve, w, lns, lnb)
     part = (raw[tail], static[tail], kp[tail], ke[tail], ve[tail], w, lns, lnb)
+    assert (n - WIDE_TAIL) * l * inter >= 2 ** 31
     if form == "dense":
-        assert n * l * inter >= 2 ** 31
         got = fused_layer(*args, n_head=heads, out_dtype=torch.bfloat16)[tail]
         want = fused_layer_plain(*part, n_head=heads)
     else:
         k = 32
-        assert n * k * inter >= 2 ** 31
         slots = torch.arange(k, device=cuda, dtype=torch.int32)[None]
         qidx = torch.where(slots < real[:, None], slots, -1).to(torch.int32).contiguous()
         mask_row = torch.randn(h, generator=g).to(cuda, torch.bfloat16)
@@ -341,6 +344,119 @@ def test_fused_layer_walk_rows_past_int32_offsets(cuda, form):
         want = fused_layer_qsub_plain(qidx[tail], mask_row, *part, n_head=heads)
     torch.cuda.synchronize()
     assert (got.float() - want).abs().max().item() <= HID_TOL
+
+
+# The walk over live rows only (csrc/fused_layer.cu's plan): canvases of 32
+# whose extents are 4, 15, 16, 17, 29 and 32, half of them with interior PAD
+# below the extent, K2 with one used slot or every slot of 24 used. Live rows
+# within HID_TOL of the plain version, rows past the extent (slots past the
+# query extent) exactly zero, the card's plan the one walk_plan gives, the
+# running count of walked rows, and each canvas's rows bit for bit the same
+# whatever the extents of the canvases before it (its rows then sit at other
+# offsets of the compacted walk).
+WALK_EXTENTS = (4, 15, 16, 17, 29, 32)
+
+
+def _walk_batch(n, g, dev, h=512):
+    l, le, heads, inter = 32, 16, 8, 2048
+    w = _weights(h, inter, g, dev)
+    raw, static, _, ke, ve, lns, lnb = _layer_inputs(n, l, le, h, g, dev)
+    kp = torch.zeros(n, l, dtype=torch.bool)
+    for i in range(n):
+        e = WALK_EXTENTS[i % len(WALK_EXTENTS)]
+        kp[i, e:] = True
+        if i % 2 and e > 4:
+            kp[i, 1] = kp[i, e - 2] = True  # interior PAD
+    return w, [raw, static, kp.to(dev), ke, ve, w, lns, lnb], heads
+
+
+def _walk_slots(kp, k, g):
+    """qidx (N, K): one used slot in every third canvas, every slot used
+    where the canvas has live positions enough, else as many as it has; in
+    every third, the second slot unused (no decode makes one: its row is
+    computed and zeroed by its multiplier)."""
+    n = kp.shape[0]
+    qidx = torch.full((n, k), -1, dtype=torch.int32)
+    for i in range(n):
+        real = (~kp[i]).nonzero()[:, 0].cpu()
+        take = 1 if i % 3 == 0 else min(k, len(real))
+        pos = real[torch.randperm(len(real), generator=g)[:take]].sort().values
+        qidx[i, :take] = pos.to(torch.int32)
+        if i % 3 == 1 and take > 2:
+            qidx[i, 1] = -1  # an unused slot inside the query extent
+    return qidx.to(kp.device)
+
+
+def _walk_call(form, args, heads, qidx, mask_row):
+    from navc_tpu_torch.ops import fused_layer as FL
+
+    kept = {}
+    scratch = FL._scratch
+
+    def keep(*a, **k):
+        kept.update(scratch(*a, **k))
+        return kept
+
+    FL._scratch = keep
+    try:
+        if form == "qsub":
+            out = fused_layer_qsub(qidx, mask_row, *args, n_head=heads)
+        else:
+            out = fused_layer(*args, n_head=heads, causal=form == "causal")
+    finally:
+        FL._scratch = scratch
+    return out, kept["plan"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["nar", "causal", "qsub"])
+def test_fused_layer_walk_computes_only_live_rows(cuda, form):
+    from navc_tpu_torch.ops.fused_layer import walk_plan, walk_rows
+
+    n = 48
+    g = _gen(2025 + len(form))
+    w, args, heads = _walk_batch(n, g, cuda)
+    kp = args[2]
+    mask_row = torch.randn(512, generator=g).to(cuda, torch.bfloat16)
+    qidx = _walk_slots(kp, 24, g) if form == "qsub" else None
+    rows = walk_rows(cuda)
+    rows.zero_()
+    out, plan = _walk_call(form, args, heads, qidx, mask_row)
+    if qidx is None:
+        ref = fused_layer_plain(*args, n_head=heads, causal=form == "causal")
+    else:
+        ref = fused_layer_qsub_plain(qidx, mask_row, *args, n_head=heads)
+    torch.cuda.synchronize()
+    coff, qoff, rmap = walk_plan(kp, qidx)
+    nq = int(qoff[-1])
+    if qidx is None:
+        assert torch.equal(plan[:n + 1], coff) and torch.equal(plan[2 * (n + 1):][:nq], rmap)
+        assert rows.tolist() == [int(coff[-1]), n * 32]
+    else:
+        assert torch.equal(plan[:n + 1], coff) and torch.equal(plan[n + 1:2 * (n + 1)], qoff)
+        assert torch.equal(plan[2 * (n + 1):][:nq], rmap)
+        assert rows.tolist() == [int(coff[-1]) + nq, n * 32 + n * 24]
+    assert (out - ref).abs().max().item() <= HID_TOL
+    for i in range(n):
+        e = int(qoff[i + 1] - qoff[i])
+        assert torch.all(out[i, e:] == 0), (form, i, e)
+    if qidx is None:
+        assert torch.all(out[kp] == 0)
+    else:
+        assert torch.all(out[qidx < 0] == 0)
+    # the last 12 canvases' rows whatever the extents of the 36 before them:
+    # give those every position live (K2: every slot used), and the same again
+    changed = list(args)
+    changed[2] = kp.clone()
+    changed[2][:36] = False
+    qchanged = None
+    if qidx is not None:
+        qchanged = qidx.clone()
+        qchanged[:36] = torch.arange(24, dtype=torch.int32, device=cuda)
+    again, _ = _walk_call(form, changed, heads, qchanged, mask_row)
+    torch.cuda.synchronize()
+    assert torch.equal(again[36:], out[36:])
+    rows.zero_()
 
 
 @pytest.mark.cuda

@@ -4,7 +4,8 @@ K6 (``beam_attend_step``) splits each instance's positions [0, tpos] into
 runs, a block each, planned in Python by ``attend_runs``; K7
 (``cross_attend``) takes a block per instance and group of heads, the group
 planned by ``cross_groups``; K1 and K2 (the serving walk of ``fused_layer``
-/ ``fused_layer_qsub``) take scratch sized by ``walk_scratch`` and refuse
+/ ``fused_layer_qsub``) take scratch sized by ``walk_scratch``, walk the
+live rows their plan names (``walk_plan`` mirrors the card's) and refuse
 operands by ``check_layer``; K11 and K1u (``train_fwd``,
 ``fused_layer_unfolded``) take the forward's scratch sized by
 ``fwd_scratch``. The kernels run
@@ -14,6 +15,7 @@ decided here, in plain Python that the CPU reaches.
 
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -22,7 +24,10 @@ from navc_tpu_torch.ops.beam_attend import (RUN_MAX, STAGE_BYTES, STAGE_MAX,
                                             cross_groups, cross_stage_bytes,
                                             stage_bytes)
 from navc_tpu_torch.ops.fused_layer import (LayerWeights, check_layer,
+                                            fused_layer_plain,
+                                            fused_layer_qsub_plain, walk_plan,
                                             walk_scratch)
+from navc_tpu_torch.ops import fused_layer as fused_layer_module
 from navc_tpu_torch.ops.fused_layer_train import fwd_scratch
 
 TPOS = (0, 1, 2, 14, 15, 28, 29, 31, 63)
@@ -198,15 +203,19 @@ def test_walk_scratch_sizes_and_alignment(n, l, h, inter):
     k1 = walk_scratch(n, l, h, inter)
     rows = n * l
     assert k1 == {"rows": ((5, rows, h), torch.bfloat16), "g": ((rows, inter), torch.bfloat16),
-                  "res": ((rows, h), torch.float32)}
+                  "res": ((rows, h), torch.float32),
+                  "plan": ((2 * (n + 1) + rows,), torch.int32)}
     k = min(24, l)
     k2 = walk_scratch(n, l, h, inter, k)
     assert k2["canvas"][0] == (3, n * math.ceil(l / 16) * 16, h)
     assert k2["query"][0] == (3, n * k, h) and k2["g"][0] == (n * k, inter)
+    # the plan: the canvas and query offsets, N + 1 each, and a map slot per query row
+    assert k2["plan"] == ((2 * (n + 1) + n * k,), torch.int32)
     if (n, l, h) == (384, 32, 512):  # the NACF decode: 12288 rows, 138 MB
         total = sum(math.prod(s) * torch.empty((), dtype=dt).element_size()
                     for s, dt in k1.values())
-        assert rows == 12288 and total == 12288 * (5 * 512 * 2 + 2048 * 2 + 512 * 4)
+        assert rows == 12288 and total == (12288 * (5 * 512 * 2 + 2048 * 2 + 512 * 4)
+                                           + 4 * (2 * 385 + 12288))
     for shape, dt in list(k1.values()) + list(k2.values()):
         if len(shape) == 3 and shape[1] * shape[2] < 1 << 22:
             for t in torch.empty(shape, dtype=dt).unbind(0):
@@ -243,3 +252,136 @@ def test_check_layer_takes_the_walk_shapes_and_refuses_others():
     ops["kp"] = ops["kp"].to(torch.uint8)
     with pytest.raises(ValueError, match="kp"):
         check_layer(**ops)
+
+
+# The serving walk's plan (walk_plan, the card's first two launches): each
+# canvas's extent 1 + its last non-PAD position, K2's query extent 1 + its
+# last used slot, the exclusive offsets of both, and each live query row's
+# output row n * Kq + i. Interior PAD is live; a canvas all PAD has none.
+def _kp(rows):
+    return torch.tensor([[c == "p" for c in r] for r in rows], dtype=torch.bool)
+
+
+PLAN_CASES = {  # canvases ("." a token, "p" PAD), qidx rows or None, extents, query extents
+    "prefix": (["..pp", "....", ".ppp"], None, [2, 4, 1], None),
+    "interior PAD": (["p.p.", ".pp.", "pp.p"], None, [4, 4, 3], None),
+    "all live": (["....", "...."], None, [4, 4], None),
+    "a canvas all PAD": (["pppp", "..pp"], None, [0, 2], None),
+    "one slot": (["...p", "..pp"], [[2, -1, -1], [-1, -1, -1]], [3, 2], [1, 0]),
+    "every slot": (["....", "...p"], [[0, 1, 3], [0, 1, 2]], [4, 3], [3, 3]),
+    "interior unused slot": (["....", "...."], [[1, -1, 3], [-1, -1, -1]], [4, 4], [3, 0]),
+}
+
+
+@pytest.mark.parametrize("case", list(PLAN_CASES))
+def test_walk_plan_extents_offsets_and_map(case):
+    canvases, slots, ext, qext = PLAN_CASES[case]
+    kp = _kp(canvases)
+    qidx = None if slots is None else torch.tensor(slots, dtype=torch.int32)
+    coff, qoff, rows = walk_plan(kp, qidx)
+    assert coff.tolist() == [0] + np.cumsum(ext).tolist()
+    qext = ext if qext is None else qext
+    assert qoff.tolist() == [0] + np.cumsum(qext).tolist()
+    kq = kp.shape[1] if qidx is None else qidx.shape[1]
+    assert rows.tolist() == [n * kq + i for n, e in enumerate(qext) for i in range(e)]
+    assert coff.dtype == qoff.dtype == rows.dtype == torch.int32
+
+
+@pytest.mark.parametrize("extent", [4, 15, 16, 17, 29, 32])
+@pytest.mark.parametrize("k", [None, 1, 8, 24], ids=["k1", "k2-1", "k2-8", "k2-24"])
+def test_walk_plan_at_each_extent(extent, k):
+    """A batch of canvases of 32 whose extents are all `extent`, with
+    interior PAD below it, one a plain prefix; K2 with one used slot, or
+    every slot below the extent used, against a per-canvas count."""
+    g = torch.Generator().manual_seed(extent * 100 + (k or 0))
+    n, l = 6, 32
+    kp = torch.rand(n, l, generator=g) < 0.3
+    kp[:, extent:] = True
+    kp[:, extent - 1] = False
+    kp[0] = torch.arange(l) >= extent
+    qidx = None
+    if k is not None:
+        qidx = torch.full((n, k), -1, dtype=torch.int32)
+        for i in range(n):
+            used = 1 if i % 2 else min(k, extent)
+            qidx[i, :used] = torch.arange(used, dtype=torch.int32)
+    coff, qoff, rows = walk_plan(kp, qidx)
+    assert torch.equal(coff, torch.arange(n + 1, dtype=torch.int32) * extent)
+    want = []
+    for i in range(n):
+        e = extent if qidx is None else int((qidx[i] >= 0).sum())
+        assert int(qoff[i + 1] - qoff[i]) == e
+        want += [i * (l if qidx is None else k) + j for j in range(e)]
+    assert rows.tolist() == want
+
+
+def _cpu_layer(n, l, le, h, heads, inter, seed):
+    g = torch.Generator().manual_seed(seed)
+
+    def mat(o, i):
+        return ((torch.rand(o, i, generator=g) * 2 - 1) / math.sqrt(i)).to(torch.bfloat16)
+
+    def vec(o):
+        return torch.rand(o, generator=g) * 0.2 - 0.1
+
+    fields = {}
+    for name in ("q", "k", "v", "o"):
+        for sfx in ("s", "c"):
+            fields["w%s_%s" % (name, sfx)] = mat(h, h)
+            fields["b%s_%s" % (name, sfx)] = vec(h)
+    fields.update(wi=mat(inter, h), bi=vec(inter), wo2=mat(h, inter), bo2=vec(h))
+    raw, static = (torch.randn(n, l, h, generator=g).to(torch.bfloat16) for _ in range(2))
+    kp = torch.zeros(n, l, dtype=torch.bool)
+    for i, e in enumerate((4, 15, 16, 17, 29, 32)[:n]):
+        kp[i, e:] = True
+        if e > 4:
+            kp[i, 1] = kp[i, e - 3] = True  # interior PAD below the extent
+    ke, ve = (torch.randn(n, le, h, generator=g).to(torch.bfloat16) for _ in range(2))
+    lns, lnb = 1 + 0.1 * torch.randn(h, generator=g), 0.1 * torch.randn(h, generator=g)
+    mask_row = torch.randn(h, generator=g).to(torch.bfloat16)
+    return LayerWeights(**fields), raw, static, kp, ke, ve, lns, lnb, mask_row
+
+
+def _fixed_order_mm(x, w):
+    """``fused_layer._mm`` with each element's products summed in one order
+    whatever the row count: the CPU's BLAS picks its blocking by the rows,
+    so its bits depend on them, which the card's row walk does not."""
+    return (fused_layer_module._bf(x)[..., None, :] * w.to(torch.float32)).sum(-1)
+
+
+@pytest.mark.parametrize("form", ["nar", "causal", "qsub"])
+def test_plain_restricted_to_the_extents_equals_the_dense_plain(form, monkeypatch):
+    """The walk's premise, on the plain versions: each canvas run alone on
+    its extent (K2: its live slots) gives bit for bit the rows the dense
+    plain version gives over the whole batch, and every row past the extent
+    (slot past the query extent) of the dense output is zero: a key past
+    the extent is PAD, masked, and its exp is 0 in float32. The products
+    are summed in a fixed order (``_fixed_order_mm``)."""
+    monkeypatch.setattr(fused_layer_module, "_mm", _fixed_order_mm)
+    n, l, le, h, heads, inter = 6, 32, 5, 128, 2, 256
+    w, raw, static, kp, ke, ve, lns, lnb, mask_row = _cpu_layer(n, l, le, h, heads, inter, 7)
+    if form == "qsub":
+        g = torch.Generator().manual_seed(3)
+        k = 24
+        qidx = torch.full((n, k), -1, dtype=torch.int32)
+        for i in range(n):
+            real = (~kp[i]).nonzero()[:, 0]
+            pick = real[torch.randperm(len(real), generator=g)[:1 if i == 2 else k]]
+            qidx[i, :len(pick)] = pick.sort().values.to(torch.int32)
+        dense = fused_layer_qsub_plain(qidx, mask_row, raw, static, kp, ke, ve, w, lns, lnb,
+                                       heads)
+    else:
+        qidx = None
+        dense = fused_layer_plain(raw, static, kp, ke, ve, w, lns, lnb, heads,
+                                  causal=form == "causal")
+    coff, qoff, _ = walk_plan(kp, qidx)
+    for i in range(n):
+        e, eq = int(coff[i + 1] - coff[i]), int(qoff[i + 1] - qoff[i])
+        one = (raw[i:i + 1, :e], static[i:i + 1, :e], kp[i:i + 1, :e], ke[i:i + 1],
+               ve[i:i + 1], w, lns, lnb, heads)
+        if qidx is None:
+            alone = fused_layer_plain(*one, causal=form == "causal")
+        else:
+            alone = fused_layer_qsub_plain(qidx[i:i + 1, :eq], mask_row, *one)
+        assert torch.equal(alone[0], dense[i, :eq]), (form, i)
+        assert torch.all(dense[i, eq:] == 0)
